@@ -1,0 +1,108 @@
+"""The PT megakernel's threefry stream, bit-exact with ``bpt_tpu``.
+
+Every draw is ``bits_to_unit_float(threefry2x32(k_slot, (ray_id, bounce)))``
+with per-slot keys derived by ``fold_in`` from the render key, so an image
+is identical across runs, chunk sizes and launch shapes.  Keys are plain
+``(k1, k2)`` tuples of Python ints: ``prng_key`` and ``fold_in`` reproduce
+``jax.random.PRNGKey`` and ``jax.random.fold_in`` (threefry2x32 impl)
+without JAX.  torch has thin uint32 support, so words are int64 tensors
+holding values in [0, 2^32), masked after every add and shift.
+
+The jnp wavefront's stream (``bpt_tpu.core.rng.wave_uniforms``) is a
+different stream and is not ported yet (ROADMAP §1 item 2).
+"""
+
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+NU = 9  # uniform slots per bounce (models.pt layout)
+
+_ROT_A = (13, 15, 26, 6)
+_ROT_B = (17, 29, 16, 24)
+
+
+def _rotl(x, r):
+    return ((x << r) & MASK32) | (x >> (32 - r))
+
+
+def _rounds(x0, x1, rots):
+    for r in rots:
+        x0 = (x0 + x1) & MASK32
+        x1 = _rotl(x1, r) ^ x0
+    return x0, x1
+
+
+def threefry2x32(k1, k2, x0, x1):
+    """One threefry2x32 block (jax._src.prng._threefry2x32_lowering).
+
+    Works on Python ints and on int64 tensors holding uint32 values alike.
+    """
+    ks2 = k1 ^ k2 ^ 0x1BD11BDA
+    x0 = (x0 + k1) & MASK32
+    x1 = (x1 + k2) & MASK32
+    x0, x1 = _rounds(x0, x1, _ROT_A)
+    x0 = (x0 + k2) & MASK32
+    x1 = (x1 + ks2 + 1) & MASK32
+    x0, x1 = _rounds(x0, x1, _ROT_B)
+    x0 = (x0 + ks2) & MASK32
+    x1 = (x1 + k1 + 2) & MASK32
+    x0, x1 = _rounds(x0, x1, _ROT_A)
+    x0 = (x0 + k1) & MASK32
+    x1 = (x1 + k2 + 3) & MASK32
+    x0, x1 = _rounds(x0, x1, _ROT_B)
+    x0 = (x0 + k2) & MASK32
+    x1 = (x1 + ks2 + 4) & MASK32
+    x0, x1 = _rounds(x0, x1, _ROT_A)
+    x0 = (x0 + ks2) & MASK32
+    x1 = (x1 + k1 + 5) & MASK32
+    return x0, x1
+
+
+def bits_to_unit_float(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 words (int64 tensor) -> f32 in [0, 1): the mantissa trick."""
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return f - 1.0
+
+
+def prng_key(seed: int) -> tuple[int, int]:
+    """``jax.random.PRNGKey(seed)``: the pair (seed >> 32, seed & mask)."""
+    return ((seed >> 32) & MASK32, seed & MASK32)
+
+
+def fold_in(key: tuple[int, int], data: int) -> tuple[int, int]:
+    """``jax.random.fold_in``: one threefry block on the counter (0, data)."""
+    return threefry2x32(key[0], key[1], 0, data & MASK32)
+
+
+def subkeys(key: tuple[int, int], nu: int = NU) -> list[int]:
+    """Per-SLOT keys ``fold_in(key, s)`` flattened to [2*nu] words
+    (pt_kernel._subkeys); the bounce rides in the threefry counter."""
+    out: list[int] = []
+    for s in range(nu):
+        out.extend(fold_in(key, s))
+    return out
+
+
+def subkeys_with_raygen(key: tuple[int, int], nu: int = NU) -> list[int]:
+    """Slot keys off ``fold_in(key, 1)`` (STREAM_PT) + the two jitter keys
+    ``fold_in(fold_in(key, 0), 0|1)`` (STREAM_RAYGEN):
+    pt_kernel._subkeys_with_raygen."""
+    kg = fold_in(key, 0)
+    return subkeys(fold_in(key, 1), nu) + list(fold_in(kg, 0)) + list(fold_in(kg, 1))
+
+
+def raygen_jitter(key: tuple[int, int], ray_ids: torch.Tensor):
+    """The megakernel's stratified-jitter pair: ONE threefry call at
+    counter 0 off ``fold_in(fold_in(key, STREAM_RAYGEN=0), 0)``, both words
+    (render._raygen_jitter_host without defocus)."""
+    k = fold_in(fold_in(key, 0), 0)
+    ridu = ray_words(ray_ids)
+    b0, b1 = threefry2x32(k[0], k[1], ridu, torch.zeros_like(ridu))
+    return bits_to_unit_float(b0), bits_to_unit_float(b1)
+
+
+def ray_words(ray_ids: torch.Tensor) -> torch.Tensor:
+    """int ray ids -> int64 uint32 words (the kernels' ``astype(uint32)``)."""
+    return ray_ids.to(torch.int64) & MASK32

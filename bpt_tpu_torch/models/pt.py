@@ -1,0 +1,171 @@
+"""Unidirectional path tracer with next-event estimation — the wavefront
+form of the reference's recursive path_trace_color (src/camera.h:255-292),
+counterpart of ``bpt_tpu.models.pt``.
+
+Per bounce, the whole ray batch moves through: intersect wave -> emission
+-> delta-follow or 50/50 light/BSDF mixture sampling -> throughput update.
+No Russian roulette, hard max_depth cutoff, emission dropped on delta
+bounces (camera.h:273-275).  Randomness enters only through
+``uniforms_fn(bounce, n) -> n rows of [B]``.
+
+This wavefront is the plain version the CUDA megakernel
+(``ops/kernels/pt_kernel.py``) is held against; it is not a render route
+on the card.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from bpt_tpu_torch.core import rng
+from bpt_tpu_torch.core import vec3 as v3
+from bpt_tpu_torch.core.vec3 import Vec3
+from bpt_tpu_torch.ops import shade_soa as sh
+from bpt_tpu_torch.ops import soa
+from bpt_tpu_torch.ops.intersect import T_MIN
+from bpt_tpu_torch.scene.types import MAT_LIGHT, SceneTensors
+
+# uniform slot layout per bounce
+U_MIX = 0  # mixture_pdf 50/50 choice (pdf.h:82-86)
+U_LPICK = 1  # light triangle pick (triangle.h:187)
+U_LU = 2  # light barycentric u
+U_LV = 3  # light barycentric v
+U_B1 = 4  # bsdf dir sample
+U_B2 = 5
+U_DIEL = 6  # dielectric reflect/refract choice (material.h:109)
+U_FZ1 = 7  # metal fuzz sphere dir
+U_FZ2 = 8
+NU = rng.NU
+
+
+class PTStats(NamedTuple):
+    """Exact int64 counters (reference BvhStats, src/core/stats.h:8-16)."""
+
+    rays_traced: torch.Tensor
+    node_visits: torch.Tensor
+    aabb_hits: torch.Tensor
+    tri_tests: torch.Tensor
+    tri_hits: torch.Tensor
+
+
+def kernel_stream_uniforms_fn(key, ray_ids, dtype):
+    """The PT megakernel's in-kernel threefry stream as uniform rows:
+    per-slot subkeys, the bounce in the threefry COUNTER, and paired draws
+    — even slot s takes x0 of threefry(keys[s], (rid, bounce)), odd slot s
+    takes x1 of the s-1 call; the odd tail slot (U_FZ2) is a single draw.
+    ``key``: (k1, k2) ints; ``ray_ids``: [B] int tensor."""
+    keys = rng.subkeys(key, NU)
+    ridw = rng.ray_words(ray_ids)
+
+    def fn(bounce, n):
+        ctr = torch.full_like(ridw, int(bounce) & rng.MASK32)
+        rows = []
+        for s in range(0, n, 2):
+            b0, b1 = rng.threefry2x32(keys[2 * s], keys[2 * s + 1], ridw, ctr)
+            rows.append(rng.bits_to_unit_float(b0).to(dtype))
+            if s + 1 < NU:  # the odd tail slot is a single draw
+                rows.append(rng.bits_to_unit_float(b1).to(dtype))
+        return rows[:n]
+
+    return fn
+
+
+def array_uniforms_fn(uniforms):
+    """uniforms: [B, D, NU] — the injected-uniform path."""
+    rows_all = torch.movedim(uniforms, 0, -1)  # [D, NU, B]
+
+    def fn(bounce, n):
+        step = rows_all[bounce]
+        return [step[i] for i in range(n)]
+
+    return fn
+
+
+def path_trace_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
+                        uniforms_fn):
+    """Radiance for a batch of primary rays. origins/dirs: [B,3].
+
+    Returns (radiance [B,3], PTStats)."""
+    if scene.num_volumes:
+        raise NotImplementedError(
+            "volumes are not yet ported to bpt_tpu_torch (ROADMAP §1 item 8)")
+    B = origins.shape[0]
+    dtype = origins.dtype
+    dev = origins.device
+    o = v3.from_array(origins)
+    d = v3.from_array(dirs)
+    bg = Vec3(scene.background[0], scene.background[1], scene.background[2])
+
+    thr = Vec3(*(torch.ones(B, dtype=dtype, device=dev) for _ in range(3)))
+    rad = Vec3(*(torch.zeros(B, dtype=dtype, device=dev) for _ in range(3)))
+    alive = torch.ones(B, dtype=torch.bool, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    stats = PTStats(zero, zero, zero, zero, zero)
+
+    for b in range(max_depth):
+        u = uniforms_fn(b, NU)
+
+        h = soa.closest_hit(scene, o, d, T_MIN, torch.inf, mask=alive)
+        rec = soa.complete_hit(scene, o, d, h)
+        mtype = scene.materials.mtype[rec.mat]
+
+        miss = alive & ~rec.hit
+        rad = v3.scale_add(rad, miss, thr * bg)
+
+        live_hit = alive & rec.hit
+        emission = sh.emitted(scene, rec.mat, rec.front_face)
+        delta = sh.is_delta(mtype)
+        can_scatter = mtype != MAT_LIGHT
+
+        # non-delta lanes add emission (skip_pdf lanes drop it, camera.h:273)
+        rad = v3.scale_add(rad, live_hit & ~delta, thr * emission)
+
+        atten = sh.attenuation(scene, rec.mat, mtype)
+
+        # delta continuation (camera.h:273-275)
+        d_delta = sh.delta_scatter_dir(
+            scene, rec.mat, mtype, d, rec.normal, rec.front_face,
+            u[U_DIEL], u[U_FZ1], u[U_FZ2],
+        )
+
+        # mixture sampling (camera.h:277-289)
+        light_dir = sh.sample_light_dir(scene, rec.p, u[U_LPICK], u[U_LU], u[U_LV])
+        bsdf_dir = sh.sample_bsdf_dir(mtype, rec.normal, u[U_B1], u[U_B2])
+        pick_light = u[U_MIX] < 0.5
+        d_diff = v3.where(pick_light, light_dir, bsdf_dir)
+
+        pdf_val = 0.5 * sh.light_pdf_value(scene, rec.p, d_diff) + \
+            0.5 * sh.bsdf_pdf_value(mtype, rec.normal, d_diff)
+        scat_pdf = sh.scattering_pdf(mtype, rec.normal, d_diff)
+
+        diffuse_ok = live_hit & can_scatter & ~delta & (pdf_val > 0.0)
+        delta_ok = live_hit & can_scatter & delta
+
+        w = torch.where(pdf_val > 0.0,
+                        scat_pdf / torch.where(pdf_val > 0.0, pdf_val, 1.0), 0.0)
+        thr = v3.where(
+            delta_ok,
+            thr * atten,
+            v3.where(diffuse_ok, thr * atten * w, thr),
+        )
+
+        alive_new = delta_ok | diffuse_ok
+        o = v3.where(alive_new, rec.p, o)
+        d = v3.where(alive_new, v3.where(delta_ok, d_delta, d_diff), d)
+
+        stats = PTStats(
+            rays_traced=stats.rays_traced + alive.sum(dtype=torch.int64),
+            node_visits=stats.node_visits + h.node_visits,
+            aabb_hits=stats.aabb_hits + h.aabb_hits,
+            tri_tests=stats.tri_tests + h.tri_tests,
+            tri_hits=stats.tri_hits + h.tri_hits,
+        )
+        alive = alive_new
+
+    # depth-exhausted entry still bumps rays_traced (camera.h:256 runs before
+    # the depth<=0 check)
+    stats = stats._replace(
+        rays_traced=stats.rays_traced + alive.sum(dtype=torch.int64))
+    return v3.to_array(rad), stats

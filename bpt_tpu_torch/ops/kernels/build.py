@@ -1,0 +1,105 @@
+"""Build and load the package's CUDA kernels.
+
+``nvcc`` compiles every ``bpt_tpu_torch/csrc/*.cu`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``.  The build
+runs on first use and is cached in ``bpt_tpu_torch/build/`` (listed in
+``.gitignore``) under a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads in milliseconds.  A failed build
+raises; nothing falls back.
+
+Flags: no ``--use_fast_math``, and ``-fmad=false`` so that nvcc does not
+contract ``a*b+c`` into one rounding — the kernels then round every
+operation as the plain PyTorch versions and the JAX reference do, and the
+branch decisions fed by Möller–Trumbore agree with theirs.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# bpt_pt_megakernel(pixels, B, T, L, depth, spp_loop, sqrt_spp,
+#                   tri, mat, lgt, keys, cam, in0..in5, rid, ubuf,
+#                   out_r, out_g, out_b, counters, stream)
+_SIGNATURES = {
+    "bpt_pt_megakernel": ([_I] * 7 + [_P] * 5 + [_P] * 6 + [_P] * 2
+                          + [_P] * 4 + [_P], _I),
+    "bpt_cuda_error_string": ([_I], ctypes.c_char_p),
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels of bpt_tpu_torch "
+                           "build only where the CUDA toolkit is installed")
+    return path
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libbpt_tpu_torch_{_source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile the kernels if the cached library is missing; returns it.
+    nvcc's output (the ptxas register/spill report) goes beside it, in
+    ``library_path().with_suffix(".log")``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *map(str, sorted(CSRC.glob("*.cu")))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
+    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library, with every entry
+    point's argtypes and restype declared."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, (args, res) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = res
+        _lib = lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if code != 0:
+        msg = load_library().bpt_cuda_error_string(code).decode()
+        raise RuntimeError(f"{what} failed to launch: CUDA error {code} ({msg})")

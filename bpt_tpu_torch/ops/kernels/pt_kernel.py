@@ -1,0 +1,283 @@
+"""Fused PT megakernel: wrappers, table packing and plain versions.
+
+Counterpart of ``bpt_tpu/ops/pallas/pt_kernel.py``.  ``pt_megakernel``
+(rays in) and ``pt_megakernel_pixels`` (in-kernel raygen + spp loop) take
+the same arguments and return the same outputs as their Pallas
+counterparts, except that the key is a ``(k1, k2)`` pair of ints
+(``core.rng.prng_key``) and the counters are exact int64.
+
+Dispatch is by device: a CPU tensor takes the plain PyTorch version (the
+``models.pt`` wavefront on the same threefry stream); a CUDA tensor
+launches ``csrc/pt_megakernel.cu`` or raises.  Each wrapper counts its
+launches in ``<wrapper>.launches``; the plain versions count their calls
+in ``<plain>.calls``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bpt_tpu_torch.core import rng
+from bpt_tpu_torch.core.vec3 import Vec3
+from bpt_tpu_torch.models.camera import CameraConstants, generate_rays
+from bpt_tpu_torch.models.pt import (
+    NU,
+    array_uniforms_fn,
+    kernel_stream_uniforms_fn,
+    path_trace_radiance,
+)
+from bpt_tpu_torch.ops.kernels import build
+from bpt_tpu_torch.scene.types import SceneTensors
+
+MAX_TRIS = 512
+MAX_MATS = 16
+MAX_LIGHTS = 16
+TRI_STRIDE = 13  # v0(3) e1(3) e2(3) n(3) mat(1)
+MAT_STRIDE = 6  # mtype, albedo(3), fuzz, ior
+LGT_STRIDE = 13  # v0(3) e1(3) e2(3) n(3) area(1)
+
+
+def megakernel_reject_reason(scene: SceneTensors, integrator: str = "pt") -> str:
+    """Why the megakernel cannot render ``scene`` ('' if it can)."""
+    if integrator != "pt":
+        return (f"integrator {integrator!r} is not yet ported to "
+                "bpt_tpu_torch (ROADMAP §1 item 7)")
+    if scene.num_tris > MAX_TRIS:
+        return (f"{scene.num_tris} tris > MAX_TRIS={MAX_TRIS} (the clustered "
+                "modes are not yet ported: ROADMAP §2)")
+    if scene.num_lights > MAX_LIGHTS:
+        return f"{scene.num_lights} lights > MAX_LIGHTS={MAX_LIGHTS}"
+    m = int(scene.materials.mtype.shape[0])
+    if m > MAX_MATS:
+        return f"{m} materials > MAX_MATS={MAX_MATS}"
+    if scene.num_volumes:
+        return "scene has volumes (not yet in the CUDA kernel: ROADMAP §1 item 8)"
+    if scene.dtype != torch.float32:
+        return (f"dtype {scene.dtype} != float32 (f64 renders need the jnp "
+                "stream: ROADMAP §1 item 2)")
+    if scene.has_textures:
+        return "scene has textures (not yet ported: ROADMAP §1 item 8)"
+    return ""
+
+
+def _pack_tables(scene: SceneTensors):
+    """Padded kernel tables on the scene's device:
+    (meta i32[8], tri f32[MAX_TRIS*13], mat f32[MAX_MATS*6],
+    lgt f32[MAX_LIGHTS*13 + 3] with the background at the tail)."""
+    T = scene.num_tris
+    M = int(scene.materials.mtype.shape[0])
+    L = scene.num_lights
+    kw = dict(dtype=torch.float32, device=scene.device)
+
+    tri = torch.zeros((MAX_TRIS, TRI_STRIDE), **kw)
+    tri[:T] = torch.cat([scene.v0, scene.e1, scene.e2, scene.normal,
+                         scene.mat_id[:, None].to(scene.dtype)], dim=1).to(torch.float32)
+    mats = scene.materials
+    mat = torch.zeros((MAX_MATS, MAT_STRIDE), **kw)
+    mat[:M] = torch.stack([mats.mtype.to(torch.float32),
+                           *mats.albedo.to(torch.float32).unbind(1),
+                           mats.fuzz.to(torch.float32),
+                           mats.ior.to(torch.float32)], dim=1)
+    lgt = torch.zeros((MAX_LIGHTS, LGT_STRIDE), **kw)
+    lgt[:L] = torch.cat([scene.light_v0, scene.light_e1, scene.light_e2,
+                         scene.light_normal, scene.light_area[:, None]],
+                        dim=1).to(torch.float32)
+    lgt_tab = torch.cat([lgt.reshape(-1), scene.background.to(torch.float32)])
+    meta = torch.tensor([T, M, L, 0, 0, 0, scene.num_volumes, 0],
+                        dtype=torch.int32, device=scene.device)
+    return meta, tri.reshape(-1), mat.reshape(-1), lgt_tab
+
+
+def camera_table(cc: CameraConstants) -> torch.Tensor:
+    """CameraConstants -> [13] f32 (pixel00, du, dv, center, 1/sqrt_spp)."""
+    return torch.cat([
+        cc.pixel00.to(torch.float32), cc.du.to(torch.float32),
+        cc.dv.to(torch.float32), cc.center.to(torch.float32),
+        torch.tensor([1.0 / cc.sqrt_spp], dtype=torch.float32,
+                     device=cc.center.device),
+    ])
+
+
+# ---------------------------------------------------------------- plain
+
+
+def _counters(stats):
+    return stats.rays_traced, torch.stack(
+        [stats.node_visits, stats.aabb_hits, stats.tri_tests, stats.tri_hits])
+
+
+def _scatter_active(rad, idx, B):
+    out = torch.zeros((B, 3), dtype=rad.dtype, device=rad.device)
+    out[idx] = rad
+    return out[:, 0], out[:, 1], out[:, 2]
+
+
+def pt_megakernel_plain(scene, o: Vec3, d: Vec3, ray_ids, key, depth: int,
+                        uniforms=None):
+    """Plain version of ``pt_megakernel``: the ``models.pt`` wavefront over
+    the active lanes (ray_ids >= 0), fed the injected ``uniforms``
+    [depth*NU, B] or the kernel's threefry stream."""
+    pt_megakernel_plain.calls += 1
+    B = ray_ids.shape[0]
+    idx = torch.nonzero(ray_ids >= 0).squeeze(1)
+    origins = torch.stack([o.x, o.y, o.z], dim=-1)[idx]
+    dirs = torch.stack([d.x, d.y, d.z], dim=-1)[idx]
+    if uniforms is None:
+        ufn = kernel_stream_uniforms_fn(key, ray_ids[idx], origins.dtype)
+    else:
+        ufn = array_uniforms_fn(
+            uniforms.reshape(depth, NU, B).permute(2, 0, 1)[idx])
+    rad, stats = path_trace_radiance(scene, origins, dirs, depth, ufn)
+    return (*_scatter_active(rad, idx, B), *_counters(stats))
+
+
+pt_megakernel_plain.calls = 0
+
+
+def _camera_from_table(cam13: torch.Tensor) -> CameraConstants:
+    sqrt_cam = int(round(1.0 / float(cam13[12])))
+    zero = torch.zeros_like(cam13[0:3])
+    return CameraConstants(center=cam13[9:12], pixel00=cam13[0:3],
+                           du=cam13[3:6], dv=cam13[6:9], defocus_u=zero,
+                           defocus_v=zero, sqrt_spp=sqrt_cam)
+
+
+def pt_megakernel_pixels_plain(scene, i, j, sx, sy, ray_ids, cam13, key,
+                               depth: int, spp_loop: int = 1,
+                               sqrt_spp: int = 1):
+    """Plain version of ``pt_megakernel_pixels``: for each stratum in
+    order, the kernel's jitter stream, ``generate_rays``, the wavefront on
+    ``fold_in(key, 1)``, and the sample added to the pixel total."""
+    pt_megakernel_pixels_plain.calls += 1
+    B = ray_ids.shape[0]
+    idx = torch.nonzero(ray_ids >= 0).squeeze(1)
+    cc = _camera_from_table(cam13)
+    key_pt = rng.fold_in(key, 1)
+    iv, jv = i[idx], j[idx]
+    ids = ray_ids[idx].to(torch.int64)
+    if spp_loop == 1:
+        strata = [(ids, sx[idx], sy[idx])]
+    else:
+        spp = sqrt_spp * sqrt_spp
+        strata = [(ids * spp + s, torch.full_like(iv, float(s % sqrt_spp)),
+                   torch.full_like(iv, float(s // sqrt_spp)))
+                  for s in range(spp)]
+    total = None
+    rays = torch.zeros((), dtype=torch.int64, device=i.device)
+    extra = torch.zeros(4, dtype=torch.int64, device=i.device)
+    for rid, s_i, s_j in strata:
+        u0, u1 = rng.raygen_jitter(key, rid)
+        zero = torch.zeros_like(u0)
+        origins, dirs = generate_rays(cc, iv, jv, s_i, s_j,
+                                      torch.stack([u0, u1, zero, zero], -1))
+        rad, stats = path_trace_radiance(
+            scene, origins, dirs, depth,
+            kernel_stream_uniforms_fn(key_pt, rid, origins.dtype))
+        total = rad if total is None else total + rad
+        r, e = _counters(stats)
+        rays = rays + r
+        extra = extra + e
+    return (*_scatter_active(total, idx, B), rays, extra)
+
+
+pt_megakernel_pixels_plain.calls = 0
+
+
+# ---------------------------------------------------------------- kernel
+
+
+def _checked(t, shape, dev, what, dtype=torch.float32):
+    """The kernel takes f32 tensors of one shape on the lanes' device."""
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(f"{what}: {t.dtype} {tuple(t.shape)} on {t.device}, "
+                         f"expected {dtype} {shape} on {dev}")
+    return t.contiguous()
+
+
+def _launch(scene, ins, ray_ids, keys, depth, pixels, cam=None, ubuf=None,
+            spp_loop=1, sqrt_spp=1):
+    dev = ray_ids.device
+    reason = megakernel_reject_reason(scene)
+    if reason:
+        raise ValueError(f"pt megakernel cannot render this scene: {reason}")
+    if scene.device != dev:
+        raise ValueError(f"scene on {scene.device} but lanes on {dev}")
+    if ray_ids.dtype not in (torch.int32, torch.int64) or ray_ids.dim() != 1:
+        raise ValueError(f"ray_ids: {ray_ids.dtype} {tuple(ray_ids.shape)}, "
+                         "expected a 1-D int32 or int64 tensor")
+    B = int(ray_ids.shape[0])
+    ins = [_checked(x, (B,), dev, "lane input") for x in ins]
+    ins += [ins[0]] * (6 - len(ins))  # unused pointers in pixels mode
+    rid = ray_ids.to(torch.int32).contiguous()
+    _, tri, mat, lgt = _pack_tables(scene)
+    keys_t = torch.tensor([k - (1 << 32) if k >= (1 << 31) else k for k in keys],
+                          dtype=torch.int32, device=dev)  # uint32 bit patterns
+    cam_t = (torch.zeros(13, dtype=torch.float32, device=dev) if cam is None
+             else _checked(cam, (13,), dev, "camera table"))
+    if ubuf is not None:
+        ubuf = _checked(ubuf, (depth * NU, B), dev, "uniforms")
+    out = torch.empty((3, B), dtype=torch.float32, device=dev)
+    counters = torch.zeros(3, dtype=torch.int64, device=dev)
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.bpt_pt_megakernel(
+            int(pixels), B, scene.num_tris, scene.num_lights, int(depth),
+            int(spp_loop), int(sqrt_spp),
+            tri.data_ptr(), mat.data_ptr(), lgt.data_ptr(), keys_t.data_ptr(),
+            cam_t.data_ptr(), *(x.data_ptr() for x in ins), rid.data_ptr(),
+            None if ubuf is None else ubuf.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            counters.data_ptr(), stream)
+    build.check(code, "pt_megakernel")
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    extra = torch.stack([zero, zero, counters[1], counters[2]])
+    return out[0], out[1], out[2], counters[0], extra
+
+
+def _device_of(t) -> torch.device:
+    dev = t.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"pt megakernel runs on cpu or cuda tensors, not {dev}")
+    return dev
+
+
+def pt_megakernel(scene: SceneTensors, o: Vec3, d: Vec3, ray_ids, key,
+                  depth: int, uniforms=None):
+    """Whole PT loop from given rays.  ray_ids [B] int (negative = inactive
+    lane); uniforms: optional [depth*NU, B] f32 injected draws.
+
+    Returns (rad_x, rad_y, rad_z [B] f32, rays_traced int64,
+    extra int64[4] = (node_visits, aabb_hits, tri_tests, tri_hits))."""
+    if _device_of(ray_ids).type == "cpu":
+        return pt_megakernel_plain(scene, o, d, ray_ids, key, depth, uniforms)
+    res = _launch(scene, [o.x, o.y, o.z, d.x, d.y, d.z], ray_ids,
+                  rng.subkeys(key, NU), depth, pixels=False, ubuf=uniforms)
+    pt_megakernel.launches += 1
+    return res
+
+
+pt_megakernel.launches = 0
+
+
+def pt_megakernel_pixels(scene: SceneTensors, i, j, sx, sy, ray_ids, cam13,
+                         key, depth: int, spp_loop: int = 1,
+                         sqrt_spp: int = 1):
+    """Fully fused PT: in-kernel ray generation + trace.  i, j: [B] pixel
+    coords; sx, sy: [B] stratum (ignored when spp_loop > 1); ray_ids [B]:
+    the absolute sample id pix*spp+s when spp_loop == 1, else the PIXEL id,
+    whose strata all run in-kernel; negative = inactive.  cam13 from
+    camera_table(); key: the base render key (streams 0/1 fold inside).
+
+    Returns (rad_x, rad_y, rad_z [B], rays_traced, extra int64[4])."""
+    if _device_of(ray_ids).type == "cpu":
+        return pt_megakernel_pixels_plain(scene, i, j, sx, sy, ray_ids, cam13,
+                                          key, depth, spp_loop, sqrt_spp)
+    res = _launch(scene, [i, j, sx, sy], ray_ids,
+                  rng.subkeys_with_raygen(key, NU), depth, pixels=True,
+                  cam=cam13, spp_loop=spp_loop, sqrt_spp=sqrt_spp)
+    pt_megakernel_pixels.launches += 1
+    return res
+
+
+pt_megakernel_pixels.launches = 0

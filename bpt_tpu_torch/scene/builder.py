@@ -1,0 +1,253 @@
+"""Programmatic scene construction -> SceneTensors.
+
+Counterpart of ``bpt_tpu.scene.builder`` (the reference's
+triangle_collection helpers, src/objects/primatives/triangle.h:135-309):
+triangles accumulate host-side in float64, transforms are baked at add
+time, and ``build()`` flattens everything into tensors once, in the same
+BVH leaf order as ``bpt_tpu`` so triangle ids and sums match it exactly.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from bpt_tpu_torch.scene import bvh as bvh_mod
+from bpt_tpu_torch.scene.types import (
+    MAT_DIELECTRIC,
+    MAT_ISOTROPIC,
+    MAT_LAMBERTIAN,
+    MAT_LIGHT,
+    MAT_METAL,
+    MaterialTable,
+    SceneTensors,
+)
+
+PI = math.pi
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not yet ported to bpt_tpu_torch (ROADMAP §1 item {item})")
+
+
+@dataclass(frozen=True)
+class MaterialSpec:
+    """Host-side material description (one reference material subclass each,
+    src/materials/material.h:42-172)."""
+
+    mtype: int
+    albedo: tuple = (0.0, 0.0, 0.0)  # lambertian/metal/isotropic albedo; light emission
+    fuzz: float = 0.0
+    ior: float = 1.5
+
+    @staticmethod
+    def lambertian(albedo=(0.0, 0.0, 0.0), texture=None):
+        if texture is not None:
+            raise _not_ported("textures", "8")
+        return MaterialSpec(MAT_LAMBERTIAN, tuple(albedo))
+
+    @staticmethod
+    def metal(albedo, fuzz=0.0):
+        # fuzz clamp (material.h:71)
+        return MaterialSpec(MAT_METAL, tuple(albedo), fuzz=min(float(fuzz), 1.0))
+
+    @staticmethod
+    def dielectric(ior):
+        return MaterialSpec(MAT_DIELECTRIC, ior=float(ior))
+
+    @staticmethod
+    def diffuse_light(emission=(0.0, 0.0, 0.0), texture=None):
+        if texture is not None:
+            raise _not_ported("textures", "8")
+        return MaterialSpec(MAT_LIGHT, tuple(emission))
+
+    @staticmethod
+    def isotropic(albedo=(0.0, 0.0, 0.0), texture=None):
+        if texture is not None:
+            raise _not_ported("textures", "8")
+        return MaterialSpec(MAT_ISOTROPIC, tuple(albedo))
+
+
+def rotate_y_point(p, sin_t, cos_t):
+    """src/objects/primatives/triangle.h:243-249."""
+    return (
+        cos_t * p[0] + sin_t * p[2],
+        p[1],
+        -sin_t * p[0] + cos_t * p[2],
+    )
+
+
+def _bake_xform(p, rotate_y_degrees, translate):
+    """Bake rotate_y then translate (src/objects/hittable.h:46-120) into a
+    vertex, as add_box_triangles does (triangle.h:243-249 + offset)."""
+    p = np.asarray(p, np.float64)
+    if rotate_y_degrees != 0.0:
+        rad = rotate_y_degrees * PI / 180.0
+        p = np.array(rotate_y_point(p, math.sin(rad), math.cos(rad)))
+    t = np.asarray(translate, np.float64)
+    if t.any():
+        p = p + t
+    return p
+
+
+class SceneBuilder:
+    def __init__(self):
+        self._tris: list[tuple] = []  # (v0, v1, v2, mat_index)
+        self._materials: list[MaterialSpec] = []
+        self._mat_index: dict[int, int] = {}  # id(spec) -> index
+        self.background = (0.0, 0.0, 0.0)
+
+    # ------------------------------------------------------------ materials
+
+    def material(self, spec: MaterialSpec) -> int:
+        key = id(spec)
+        if key not in self._mat_index:
+            self._mat_index[key] = len(self._materials)
+            self._materials.append(spec)
+        return self._mat_index[key]
+
+    # ------------------------------------------------------------ geometry
+
+    def add_triangle(self, v0, v1, v2, mat: MaterialSpec,
+                     rotate_y_degrees=0.0, translate=(0, 0, 0)):
+        if rotate_y_degrees != 0.0 or any(translate):
+            v0 = _bake_xform(v0, rotate_y_degrees, translate)
+            v1 = _bake_xform(v1, rotate_y_degrees, translate)
+            v2 = _bake_xform(v2, rotate_y_degrees, translate)
+        mid = self.material(mat)
+        self._tris.append((tuple(v0), tuple(v1), tuple(v2), mid))
+
+    def add_quad(self, q, u, v, mat: MaterialSpec,
+                 rotate_y_degrees=0.0, translate=(0, 0, 0)):
+        """add_quad_triangles (triangle.h:232-241): (q, q+u, q+v) and
+        (q+u, q+u+v, q+v)."""
+        q = np.asarray(q, np.float64)
+        u = np.asarray(u, np.float64)
+        v = np.asarray(v, np.float64)
+        xf = dict(rotate_y_degrees=rotate_y_degrees, translate=translate)
+        self.add_triangle(q, q + u, q + v, mat, **xf)
+        self.add_triangle(q + u, q + u + v, q + v, mat, **xf)
+
+    def add_box(self, a, b, mat: MaterialSpec, rotate_y_degrees=0.0,
+                translate=(0, 0, 0)):
+        """add_box_triangles (triangle.h:251-309): 12 tris with baked
+        Y-rotation + translation."""
+        a = np.asarray(a, np.float64)
+        b = np.asarray(b, np.float64)
+        mn, mx = np.minimum(a, b), np.maximum(a, b)
+        v = {}
+        for ix in (0, 1):
+            for iy in (0, 1):
+                for iz in (0, 1):
+                    v[(ix, iy, iz)] = np.array([
+                        mx[0] if ix else mn[0],
+                        mx[1] if iy else mn[1],
+                        mx[2] if iz else mn[2],
+                    ])
+        faces = [
+            (v[0, 0, 1], v[1, 0, 1], v[1, 1, 1]), (v[0, 0, 1], v[1, 1, 1], v[0, 1, 1]),  # +Z
+            (v[0, 0, 0], v[0, 1, 0], v[1, 1, 0]), (v[0, 0, 0], v[1, 1, 0], v[1, 0, 0]),  # -Z
+            (v[0, 0, 0], v[0, 0, 1], v[0, 1, 1]), (v[0, 0, 0], v[0, 1, 1], v[0, 1, 0]),  # -X
+            (v[1, 0, 1], v[1, 0, 0], v[1, 1, 0]), (v[1, 0, 1], v[1, 1, 0], v[1, 1, 1]),  # +X
+            (v[0, 1, 1], v[1, 1, 1], v[1, 1, 0]), (v[0, 1, 1], v[1, 1, 0], v[0, 1, 0]),  # +Y
+            (v[0, 0, 0], v[1, 0, 0], v[1, 0, 1]), (v[0, 0, 0], v[1, 0, 1], v[0, 0, 1]),  # -Y
+        ]
+        rad = rotate_y_degrees * PI / 180.0
+        s, c = math.sin(rad), math.cos(rad)
+        t = np.asarray(translate, np.float64)
+        for p0, p1, p2 in faces:
+            if rotate_y_degrees != 0.0:
+                p0 = np.array(rotate_y_point(p0, s, c))
+                p1 = np.array(rotate_y_point(p1, s, c))
+                p2 = np.array(rotate_y_point(p2, s, c))
+            self.add_triangle(p0 + t, p1 + t, p2 + t, mat)
+
+    def add_uv_sphere(self, *args, **kwargs):
+        raise _not_ported("the UV sphere (YAML Sphere)", "11")
+
+    def add_obj(self, *args, **kwargs):
+        raise _not_ported("OBJ import", "11")
+
+    def add_volume(self, *args, **kwargs) -> int:
+        raise _not_ported("constant-density volumes", "8")
+
+    add_volume_box = add_volume
+    add_volume_sphere = add_volume
+
+    # -------------------------------------------------------------- build
+
+    @property
+    def num_tris(self) -> int:
+        return len(self._tris)
+
+    def build(self, dtype=torch.float32, device="cpu",
+              background=None) -> SceneTensors:
+        if not self._tris:
+            raise ValueError("empty scene")
+        if background is None:
+            background = self.background
+
+        verts = np.array([(t[0], t[1], t[2]) for t in self._tris], np.float64)
+        mat_id = np.array([t[3] for t in self._tris], np.int64)
+        T = verts.shape[0]
+
+        # triangle precompute (triangle.h:21-38)
+        v0 = verts[:, 0]
+        e1 = verts[:, 1] - v0
+        e2 = verts[:, 2] - v0
+        n = np.cross(e1, e2)
+        nlen = np.linalg.norm(n, axis=-1)
+        area = 0.5 * nlen
+        safe = np.where(nlen > 0, nlen, 1.0)
+        normal = n / safe[:, None]
+
+        # BVH leaf order (bpt_tpu/scene/builder.py:293-300)
+        order = bvh_mod.build_bvh(verts.min(axis=1), verts.max(axis=1))["order"]
+        v0, e1, e2 = v0[order], e1[order], e2[order]
+        normal, area, mat_id = normal[order], area[order], mat_id[order]
+
+        mats = self._materials
+        mtypes = np.array([m.mtype for m in mats], np.int64)
+
+        def ten(a, dt=dtype):
+            return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dt)
+
+        materials = MaterialTable(
+            mtype=ten(mtypes, torch.int64),
+            albedo=ten([m.albedo for m in mats]),
+            fuzz=ten([m.fuzz for m in mats]),
+            ior=ten([m.ior for m in mats]),
+        )
+
+        # lights: emissive triangles (scene_loader.h:190-202); empty ->
+        # whole world (main.cpp:67)
+        light_idx = np.nonzero(mtypes[mat_id] == MAT_LIGHT)[0]
+        lights_are_world = light_idx.size == 0
+        if lights_are_world:
+            light_idx = np.arange(T)
+
+        return SceneTensors(
+            v0=ten(v0), e1=ten(e1), e2=ten(e2),
+            normal=ten(normal), area=ten(area),
+            mat_id=ten(mat_id, torch.int64),
+            light_v0=ten(v0[light_idx]),
+            light_e1=ten(e1[light_idx]),
+            light_e2=ten(e2[light_idx]),
+            light_normal=ten(normal[light_idx]),
+            light_area=ten(area[light_idx]),
+            materials=materials,
+            background=ten(np.asarray(background, np.float64)),
+            num_tris=T,
+            num_lights=int(light_idx.size),
+            num_volumes=0,
+            # bpt_tpu's brute-force threshold; meta only, nothing here traverses a BVH
+            use_bvh=T > 256,
+            has_delta_mats=bool(np.any((mtypes == MAT_METAL)
+                                       | (mtypes == MAT_DIELECTRIC))),
+            has_iso_mats=bool(np.any(mtypes == MAT_ISOTROPIC)),
+            lights_are_world=lights_are_world,
+        )

@@ -1,0 +1,157 @@
+"""Scene tensors: the flattened triangle scene the render loop reads.
+
+Counterpart of ``bpt_tpu.scene.types.SceneArrays`` holding the fields the
+PT megakernel's tables (``_pack_tables``) and the PT estimator read, plus
+the static meta.  BVH node arrays, texture tables, the light CDF and the
+volume boundary soup are not carried: this port has no BVH traversal,
+textures, BDPT or volumes yet (ROADMAP §1 items 7-9), and the megakernel's
+brute-force sweep gives the same hits as BVH traversal.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+# Material type ids (reference classes, src/materials/material.h:42-172)
+MAT_LAMBERTIAN = 0
+MAT_METAL = 1
+MAT_DIELECTRIC = 2
+MAT_LIGHT = 3
+MAT_ISOTROPIC = 4
+
+
+@dataclass(frozen=True)
+class MaterialTable:
+    """Branchless material parameter table; ``albedo`` doubles as emission
+    for MAT_LIGHT."""
+
+    mtype: torch.Tensor  # [M] int64
+    albedo: torch.Tensor  # [M,3]
+    fuzz: torch.Tensor  # [M]  (metal)
+    ior: torch.Tensor  # [M]  (dielectric)
+
+
+@dataclass(frozen=True)
+class SceneTensors:
+    """Triangle SoA in BVH leaf order + light tables + static meta."""
+
+    # triangle SoA (src/objects/primatives/triangle.h:19-39)
+    v0: torch.Tensor  # [T,3]
+    e1: torch.Tensor  # [T,3]
+    e2: torch.Tensor  # [T,3]
+    normal: torch.Tensor  # [T,3] geometric unit normal
+    area: torch.Tensor  # [T]
+    mat_id: torch.Tensor  # [T] int64
+
+    # light triangles (emissive tris, or the whole world when none)
+    light_v0: torch.Tensor  # [L,3]
+    light_e1: torch.Tensor  # [L,3]
+    light_e2: torch.Tensor  # [L,3]
+    light_normal: torch.Tensor  # [L,3]
+    light_area: torch.Tensor  # [L]
+
+    materials: MaterialTable
+    background: torch.Tensor  # [3]
+
+    # static metadata (bpt_tpu/scene/types.py:144-164)
+    num_tris: int = 0
+    num_lights: int = 0
+    num_volumes: int = 0
+    use_bvh: bool = True
+    has_textures: bool = False
+    has_noise: bool = False
+    has_delta_mats: bool = True
+    has_iso_mats: bool = True
+    lights_are_world: bool = False
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.v0.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.v0.device
+
+
+_INT_FIELDS = {"mat_id", "materials.mtype"}
+_MATERIAL_FIELDS = [f.name for f in dataclasses.fields(MaterialTable)]
+_META_TYPES = {
+    f.name: int if f.type == "int" else bool
+    for f in dataclasses.fields(SceneTensors) if f.type in ("int", "bool")
+}
+_META_FIELDS = list(_META_TYPES)
+_TENSOR_FIELDS = [
+    f.name for f in dataclasses.fields(SceneTensors)
+    if f.name not in _META_FIELDS and f.name != "materials"
+] + ["materials." + n for n in _MATERIAL_FIELDS]
+
+
+def scene_from_numpy(d: dict, meta: dict, device="cpu",
+                     dtype=torch.float32) -> SceneTensors:
+    """Build SceneTensors from host arrays: the state carry-over from any
+    producer of the same fields (e.g. ``np.asarray`` of every field of a
+    ``bpt_tpu`` SceneArrays, materials keyed ``"materials.<field>"``).
+
+    Keys and meta entries this port does not carry are ignored; a missing
+    key raises KeyError."""
+
+    def conv(name):
+        t = torch.from_numpy(np.array(d[name]))  # a copy: inputs may be read-only
+        if name in _INT_FIELDS:
+            return t.to(device=device, dtype=torch.int64)
+        return t.to(device=device, dtype=dtype)
+
+    mats = MaterialTable(**{n: conv("materials." + n) for n in _MATERIAL_FIELDS})
+    tensors = {n: conv(n) for n in _TENSOR_FIELDS if not n.startswith("materials.")}
+    static = {n: t(meta[n]) for n, t in _META_TYPES.items() if n in meta}
+    return SceneTensors(materials=mats, **tensors, **static)
+
+
+def scene_to_numpy(scene: SceneTensors) -> tuple[dict, dict]:
+    """Inverse of scene_from_numpy: (arrays, meta)."""
+    arrays = {}
+    for n in _TENSOR_FIELDS:
+        obj = scene
+        for part in n.split("."):
+            obj = getattr(obj, part)
+        arrays[n] = obj.detach().cpu().numpy()
+    meta = {n: getattr(scene, n) for n in _META_FIELDS}
+    return arrays, meta
+
+
+@dataclass(frozen=True)
+class CameraConfig:
+    """Host-side camera config — mirror of the reference's public camera
+    fields (src/camera.h:26-41)."""
+
+    aspect_ratio: float = 1.0
+    image_width: int = 100
+    samples_per_pixel: int = 50
+    max_depth: int = 10
+    background: tuple = (0.0, 0.0, 0.0)
+    vfov: float = 90.0
+    lookfrom: tuple = (0.0, 0.0, 0.0)
+    lookat: tuple = (0.0, 0.0, -1.0)
+    vup: tuple = (0.0, 1.0, 0.0)
+    defocus_angle: float = 0.0
+    focus_dist: float = 10.0
+    file_name: str = "image.png"
+    integrator: str = "bdpt"  # reference de-facto default (camera.h:245-253)
+
+    @property
+    def image_height(self) -> int:
+        # src/camera.h:161-162
+        return max(int(self.image_width / self.aspect_ratio), 1)
+
+    @property
+    def sqrt_spp(self) -> int:
+        # src/camera.h:164 — effective spp is floor(sqrt(spp))^2
+        return max(1, int(np.sqrt(self.samples_per_pixel)))
+
+    @property
+    def effective_spp(self) -> int:
+        return self.sqrt_spp * self.sqrt_spp

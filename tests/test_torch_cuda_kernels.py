@@ -1,0 +1,108 @@
+"""The CUDA PT megakernel against its plain PyTorch version on the card.
+
+Needs an NVIDIA card with sm_90a (H100) and nvcc; elsewhere every test
+skips.  Run on the GPU machine with
+    python -m pytest -m gpu tests/test_torch_cuda_kernels.py -q
+Radiance tolerance rtol 1e-4 / atol 1e-6 on >= 99.9% of lanes: a path can
+take another branch on a one-ulp difference (the kernel's product-chain
+Schlick vs the wavefront's pow, reduction order), and from there it is
+another sample."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from bpt_tpu_torch.core import rng
+from bpt_tpu_torch.core.vec3 import Vec3
+from bpt_tpu_torch.models.camera import camera_constants
+from bpt_tpu_torch.models.pt import NU
+from bpt_tpu_torch.models.render import render
+from bpt_tpu_torch.ops.kernels import pt_kernel as pk
+from bpt_tpu_torch.scene import builder, presets
+from torch_parity import mixed_scene, rays
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True)
+def _needs_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+
+
+def _scene(which):
+    if which == "cornell":
+        return presets.cornell_box(device="cuda")
+    return mixed_scene(builder, presets, device="cuda")
+
+
+def _frac_close(got, want):
+    g = torch.stack(got[:3], 1)
+    w = torch.stack(want[:3], 1)
+    ok = ((g - w).abs() <= 1e-6 + 1e-4 * w.abs()).all(dim=1)
+    return float(ok.double().mean())
+
+
+@pytest.mark.parametrize("which", ["cornell", "mixed"])
+@pytest.mark.parametrize("injected", [True, False], ids=["buffer", "rng"])
+def test_rays_mode_matches_plain(which, injected):
+    scene = _scene(which)
+    B, depth = 8192, 6
+    o, d = (torch.from_numpy(x).cuda() for x in rays(B, 3))
+    ids = torch.arange(B, dtype=torch.int32, device="cuda")
+    ids[::13] = -1
+    u = (torch.from_numpy(np.random.default_rng(4).uniform(
+        size=(depth * NU, B)).astype(np.float32)).cuda() if injected else None)
+    ov, dv = Vec3(*o.unbind(1)), Vec3(*d.unbind(1))
+    n = pk.pt_megakernel.launches
+    got = pk.pt_megakernel(scene, ov, dv, ids, rng.prng_key(2), depth, uniforms=u)
+    want = pk.pt_megakernel_plain(scene, ov, dv, ids, rng.prng_key(2), depth, uniforms=u)
+    torch.cuda.synchronize()
+    assert pk.pt_megakernel.launches == n + 1
+    assert _frac_close(got, want) >= 0.999
+    assert all(float(c[::13].abs().max()) == 0.0 for c in got[:3])
+    assert abs(int(got[3]) - int(want[3])) <= 1e-3 * int(want[3])
+
+
+def test_pixels_mode_matches_plain_with_exact_counters():
+    scene = _scene("cornell")
+    W, S = 32, 4
+    cc = camera_constants(dataclasses.replace(presets.cornell_box_camera(),
+                                              image_width=W, samples_per_pixel=S * S),
+                          torch.float32, "cuda")
+    pix = torch.arange(W * W, device="cuda")
+    i, j = (pix % W).float(), (pix // W).float()
+    args = (scene, i, j, i * 0, j * 0, pix.int(), pk.camera_table(cc),
+            rng.prng_key(0), 10)
+    got = pk.pt_megakernel_pixels(*args, spp_loop=S * S, sqrt_spp=S)
+    want = pk.pt_megakernel_pixels_plain(*args, spp_loop=S * S, sqrt_spp=S)
+    torch.cuda.synchronize()
+    assert _frac_close(got, want) >= 0.999
+    assert int(got[3]) == int(want[3])
+    assert got[4].tolist() == want[4].tolist()
+
+
+def test_render_on_card_matches_cpu():
+    cfg = dataclasses.replace(presets.cornell_box_camera(), image_width=16,
+                              samples_per_pixel=4, max_depth=10, integrator="pt")
+    gpu = render(presets.cornell_box(device="cuda"), cfg, seed=3)
+    cpu = render(presets.cornell_box(), cfg, seed=3)
+    ok = np.isclose(gpu.framebuffer_sum, cpu.framebuffer_sum, rtol=1e-4, atol=1e-6)
+    assert ok.all(axis=-1).mean() >= 0.99
+    assert abs(gpu.stats.rays_traced - cpu.stats.rays_traced) <= 10
+
+
+def test_wrapper_rejects_what_the_kernel_cannot_take():
+    scene = _scene("cornell")
+    o = Vec3(*(torch.zeros(4, device="cuda") for _ in range(3)))
+    ids = torch.arange(5, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="expected"):
+        pk.pt_megakernel(scene, o, o, ids, rng.prng_key(0), 2)
+    o64 = Vec3(*(x.double() for x in o))
+    with pytest.raises(ValueError, match="float32"):
+        pk.pt_megakernel(scene, o64, o64, ids[:4], rng.prng_key(0), 2)
+    with pytest.raises(ValueError, match="float32"):
+        pk.pt_megakernel(presets.cornell_box(dtype=torch.float64, device="cuda"),
+                         o, o, ids[:4], rng.prng_key(0), 2)

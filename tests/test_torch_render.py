@@ -1,0 +1,178 @@
+"""The whole slice: bpt_tpu_torch's render() and CLI against bpt_tpu's
+fused PT main path (render.py:157-191 composed with the Pallas
+pt_megakernel_pixels in interpret mode), plus chunking, checkpoints, film
+and the no-JAX import rule."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bpt_tpu.models import camera as jcam
+from bpt_tpu.ops import film as jfilm
+from bpt_tpu.ops.pallas import pt_kernel as jk
+from bpt_tpu.scene import presets as jpresets
+from bpt_tpu_torch import render as cli
+from bpt_tpu_torch.models.render import render
+from bpt_tpu_torch.ops import film as tfilm
+from bpt_tpu_torch.scene import presets as tpresets
+from bpt_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from bpt_tpu_torch.utils.png import read_png
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+W, SPP, DEPTH, SEED = 8, 4, 3, 7
+
+
+def _cfg(presets, **kw):
+    return dataclasses.replace(presets.cornell_box_camera(), image_width=W,
+                               samples_per_pixel=SPP, max_depth=DEPTH,
+                               integrator="pt", **kw)
+
+
+@pytest.fixture(scope="module")
+def port_result():
+    return render(tpresets.cornell_box(), _cfg(tpresets), seed=SEED)
+
+
+def _jax_main_path():
+    """bpt_tpu's _make_step_pt_fused body for the one chunk that covers
+    the 8x8 image (chunk size min(2^18, max(1024, 64)) clipped to 64)."""
+    scene = jpresets.cornell_box(dtype=jnp.float32)
+    cc = jcam.camera_constants(_cfg(jpresets), jnp.float32)
+    npix, S = W * W, 2
+    pix = jnp.arange(npix, dtype=jnp.int32)
+    in_range = pix < npix
+    pixc = jnp.minimum(pix, npix - 1)
+    i = (pixc % W).astype(jnp.float32)
+    j = (pixc // W).astype(jnp.float32)
+    rx, ry, rz, rays, extra = jk.pt_megakernel_pixels(
+        scene, i, j, i * 0, j * 0, jnp.where(in_range, pixc, -1),
+        jk.camera_table(cc), jax.random.PRNGKey(SEED), DEPTH,
+        interpret=True, spp_loop=S * S, sqrt_spp=S)
+    rad = jnp.where(in_range[..., None], jnp.stack([rx, ry, rz], axis=-1), 0.0)
+    fb = jnp.zeros((npix, 3), jnp.float32).at[pixc].add(rad)
+    return np.asarray(fb).reshape(W, W, 3), int(rays), np.asarray(extra)
+
+
+def test_render_matches_jax_main_path(port_result):
+    fb, rays, extra = _jax_main_path()
+    np.testing.assert_allclose(port_result.framebuffer_sum, fb, rtol=1e-4, atol=1e-6)
+    s = port_result.stats
+    assert s.rays_traced == rays > 0
+    assert [s.bvh_node_visits, s.aabb_hits, s.triangle_tests, s.triangle_hits] == [
+        int(x) for x in extra]
+    assert port_result.samples_per_pixel == SPP
+    assert port_result.rgb8().shape == (W, W, 3)
+
+
+@pytest.mark.parametrize("chunk", [7, 24])
+def test_render_chunk_size_invariance(port_result, chunk):
+    r = render(tpresets.cornell_box(), _cfg(tpresets), seed=SEED, chunk_size=chunk)
+    np.testing.assert_array_equal(r.framebuffer_sum, port_result.framebuffer_sum)
+    assert dataclasses.replace(r.stats, wall_seconds=0) == dataclasses.replace(
+        port_result.stats, wall_seconds=0)
+
+
+def test_chunk_checkpoint_resume_bitwise(port_result, tmp_path):
+    path = str(tmp_path / "ck.npz")
+    snaps = []
+    render(tpresets.cornell_box(), _cfg(tpresets), seed=SEED, chunk_size=16,
+           stratum_callback=lambda st: snaps.append(st))
+    assert [s["units_done"] for s in snaps] == [1, 2, 3, 4]
+    save_checkpoint(path, snaps[1])  # interrupted after 2 of 4 chunks
+    resume = load_checkpoint(path)
+    assert resume["unit_kind"] == "chunk" and resume["chunk_size"] == 16
+    r = render(tpresets.cornell_box(), _cfg(tpresets), seed=SEED, chunk_size=16,
+               resume=resume)
+    np.testing.assert_array_equal(r.framebuffer_sum, port_result.framebuffer_sum)
+    with pytest.raises(ValueError, match="chunk_size=16"):
+        render(tpresets.cornell_box(), _cfg(tpresets), seed=SEED, chunk_size=8,
+               resume=resume)
+    with pytest.raises(ValueError, match="stratum"):
+        render(tpresets.cornell_box(), _cfg(tpresets), seed=SEED,
+               resume=dict(resume, unit_kind="stratum"))
+
+
+@pytest.mark.parametrize("spp", [1, 16])
+def test_to_rgb8_matches_jax(spp):
+    fb = np.random.default_rng(spp).normal(0.3, 0.6, (16, 16, 3)).astype(np.float32) * spp
+    fb[0, :3] = [np.nan, np.inf, -np.inf]
+    want = np.asarray(jfilm.to_rgb8(jnp.asarray(fb), spp))
+    got = tfilm.to_rgb8(torch.from_numpy(fb), spp).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_render_rejects_unported_configurations():
+    scene = tpresets.cornell_box()
+    for kw in (dict(integrator="bdpt"), dict(integrator="bdpt-mis"),
+               dict(defocus_angle=1.0)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            render(scene, dataclasses.replace(_cfg(tpresets), **kw))
+    with pytest.raises(NotImplementedError, match="float32"):
+        render(tpresets.cornell_box(dtype=torch.float64), _cfg(tpresets))
+
+
+_NO_JAX = (
+    "import sys\n"
+    "import bpt_tpu_torch\n"
+    "from bpt_tpu_torch.render import main\n"
+    "rc = main(sys.argv[1:])\n"
+    "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+    "       or m == 'bpt_tpu' or m.startswith('bpt_tpu.')]\n"
+    "assert not bad, bad\n"
+    "sys.exit(rc)\n"
+)
+
+
+def test_cli_renders_png_without_jax(tmp_path):
+    args = ["--device", "cpu", "--integrator", "pt", "--size", "8x8", "--spp", "4",
+            "--max-depth", "2", "--output", "t.png", "--output-dir", str(tmp_path),
+            "--no-progress"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX, *args], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    png = tmp_path / "t.png"
+    assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
+    want = render(tpresets.cornell_box(), dataclasses.replace(
+        tpresets.cornell_box_camera(), image_width=8, aspect_ratio=1.0,
+        samples_per_pixel=4, max_depth=2, integrator="pt"), seed=0).rgb8()
+    np.testing.assert_array_equal(read_png(str(png)), want)
+    assert "rays traced:" in proc.stderr
+
+
+def test_cli_module_entry_point(tmp_path):
+    proc = subprocess.run(
+        [sys.executable, "-m", "bpt_tpu_torch.render", "--device", "cpu",
+         "--integrator", "pt", "--size", "4x4", "--spp", "1", "--max-depth", "1",
+         "--output-dir", str(tmp_path), "--no-progress"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert (tmp_path / "cornell_box.png").exists()
+
+
+@pytest.mark.parametrize("argv", [
+    ["--integrator", "bdpt"],
+    ["--integrator", "bdpt-mis"],
+    ["scenes/cornell_smoke.yaml", "--integrator", "pt"],
+    ["--f64", "--integrator", "pt"],
+], ids=["bdpt", "bdpt-mis", "yaml", "f64"])
+def test_cli_not_ported_exits_nonzero(argv, capsys):
+    rc = cli.main(["--device", "cpu", "--size", "4x4", "--spp", "1",
+                   "--no-progress", *argv])
+    assert rc != 0
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_cli_cuda_unavailable_says_device_cpu(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the cuda default is valid here")
+    rc = cli.main(["--integrator", "pt", "--size", "4x4", "--spp", "1"])
+    assert rc != 0
+    assert "--device cpu" in capsys.readouterr().err

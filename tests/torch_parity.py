@@ -1,0 +1,48 @@
+"""Shared helpers of the tests that hold bpt_tpu_torch against bpt_tpu:
+scene carry-over from a bpt_tpu SceneArrays, one scene built the same way
+by both packages' builders, and seeded ray batches."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from bpt_tpu_torch.scene.types import scene_from_numpy
+
+
+def to_port(jscene, device="cpu", dtype=torch.float32):
+    """bpt_tpu SceneArrays -> bpt_tpu_torch SceneTensors via numpy."""
+    import jax  # here, so that the card-only tests need no JAX
+
+    arrays, meta = {}, {}
+    for f in dataclasses.fields(jscene):
+        val = getattr(jscene, f.name)
+        if f.name == "materials":
+            for mf in dataclasses.fields(val):
+                arrays["materials." + mf.name] = np.asarray(getattr(val, mf.name))
+        elif isinstance(val, jax.Array):
+            arrays[f.name] = np.asarray(val)
+        elif not dataclasses.is_dataclass(val):
+            meta[f.name] = val
+    return scene_from_numpy(arrays, meta, device=device, dtype=dtype)
+
+
+def mixed_scene(builder_mod, presets_mod, **build_kw):
+    """The cornell box plus a fuzzy metal quad, a dielectric box and an
+    isotropic quad, built by either package's builder."""
+    MS = builder_mod.MaterialSpec
+    b = presets_mod.cornell_box_builder()
+    b.add_quad((60, 20, 60), (150, 0, 0), (0, 150, 40), MS.metal((0.8, 0.85, 0.9), 0.3))
+    b.add_box((340, 0, 80), (460, 120, 200), MS.dielectric(1.5))
+    b.add_quad((100, 400, 400), (120, 0, 0), (0, 0, 100), MS.isotropic((0.6, 0.7, 0.5)))
+    return b.build(**build_kw)
+
+
+def rays(B, seed):
+    """Random rays inside the cornell box (numpy-seeded, f32)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(50, 500, (B, 3)).astype(np.float32)
+    d = rng.normal(size=(B, 3)).astype(np.float32)
+    return o, d
