@@ -8,16 +8,24 @@ is identical across runs, chunk sizes and launch shapes.  Keys are plain
 without JAX.  torch has thin uint32 support, so words are int64 tensors
 holding values in [0, 2^32), masked after every add and shift.
 
+The BDPT megakernel has a stream of its own (``subkeys_bdpt``): one key
+per (section, bounce, slot), the counter ``(ray_id, 0)``, and word x0 of
+every call.
+
 The jnp wavefront's stream (``bpt_tpu.core.rng.wave_uniforms``) is a
 different stream and is not ported yet (ROADMAP §1 item 2).
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 MASK32 = 0xFFFFFFFF
 NU = 9  # uniform slots per bounce (models.pt layout)
+BDPT_NT = 5  # BDPT trace slots per bounce (models.bdpt TU_*)
+BDPT_NLS = 5  # BDPT light-start slots (models.bdpt LS_*)
 
 _ROT_A = (13, 15, 26, 6)
 _ROT_B = (17, 29, 16, 24)
@@ -106,3 +114,81 @@ def raygen_jitter(key: tuple[int, int], ray_ids: torch.Tensor):
 def ray_words(ray_ids: torch.Tensor) -> torch.Tensor:
     """int ray ids -> int64 uint32 words (the kernels' ``astype(uint32)``)."""
     return ray_ids.to(torch.int64) & MASK32
+
+
+# ------------------------------------------------------------ BDPT stream
+
+
+def n_uniform_slots(depth: int) -> int:
+    """Uniform rows of one BDPT sample (bdpt_kernel.n_uniform_slots without
+    volumes): camera trace depth x NT, light start NLS, light trace
+    (depth-1) x NT."""
+    return depth * BDPT_NT + BDPT_NLS + max(depth - 1, 0) * BDPT_NT
+
+
+@lru_cache(maxsize=16)
+def _bdpt_keys(key: tuple[int, int], depth: int) -> tuple:
+    k_cam, k_ls, k_lt = fold_in(key, 2), fold_in(key, 3), fold_in(key, 4)
+    ks = []
+    for b in range(depth):
+        kb = fold_in(k_cam, b)
+        ks.extend(fold_in(kb, s) for s in range(BDPT_NT))
+    ks.extend(fold_in(k_ls, s) for s in range(BDPT_NLS))
+    for b in range(max(depth - 1, 0)):
+        kb = fold_in(k_lt, b)
+        ks.extend(fold_in(kb, s) for s in range(BDPT_NT))
+    return tuple(ks)
+
+
+def subkeys_bdpt(key: tuple[int, int], depth: int) -> list[int]:
+    """Per-slot keys of the BDPT kernel stream, flattened to
+    [2 * n_uniform_slots(depth)] words (bdpt_kernel._subkeys_bdpt): slot s
+    of camera bounce b is ``fold_in(fold_in(fold_in(key, 2), b), s)``, of
+    the light start ``fold_in(fold_in(key, 3), s)``, of light bounce b
+    ``fold_in(fold_in(fold_in(key, 4), b), s)``."""
+    return [w for k in _bdpt_keys(tuple(key), depth) for w in k]
+
+
+def subkeys_bdpt_raygen(key: tuple[int, int], depth: int) -> list[int]:
+    """subkeys_bdpt + the two jitter keys ``fold_in(fold_in(key, 0), 0|1)``
+    (bdpt_kernel._subkeys_bdpt_raygen)."""
+    kg = fold_in(key, 0)
+    return subkeys_bdpt(key, depth) + list(fold_in(kg, 0)) + list(fold_in(kg, 1))
+
+
+def _x0(k: tuple[int, int], ridw: torch.Tensor) -> torch.Tensor:
+    b0, _ = threefry2x32(k[0], k[1], ridw, torch.zeros_like(ridw))
+    return bits_to_unit_float(b0)
+
+
+def bdpt_raygen_jitter(key: tuple[int, int], ray_ids: torch.Tensor):
+    """BDPT's stratified-jitter pair: word x0 of TWO threefry calls at
+    counter (rid, 0), keyed ``fold_in(fold_in(key, 0), 0)`` and
+    ``fold_in(fold_in(key, 0), 1)`` (bdpt_kernel.py:994-997).  PT's
+    ``raygen_jitter`` takes both words of one call instead."""
+    kg = fold_in(key, 0)
+    ridw = ray_words(ray_ids)
+    return _x0(fold_in(kg, 0), ridw), _x0(fold_in(kg, 1), ridw)
+
+
+def bdpt_kernel_stream_uniforms_fn(key, ray_ids: torch.Tensor, depth: int, dtype):
+    """The BDPT megakernel's in-kernel stream as the wavefront's uniform
+    sources: ``(cam_fn, light_start_rows, light_fn)`` for
+    ``models.bdpt.bdpt_radiance``.  ``cam_fn(b, n)`` / ``light_fn(b, n)``
+    give n rows of [B] for trace bounce b; ``light_start_rows`` is the NLS
+    rows of the light start.  Every draw is x0 of its own threefry call
+    at counter (rid, 0)."""
+    keys = _bdpt_keys(tuple(key), depth)
+    ridw = ray_words(ray_ids)
+    nt, nls = BDPT_NT, BDPT_NLS
+
+    def rows(base, n):
+        return [_x0(keys[base + s], ridw).to(dtype) for s in range(n)]
+
+    def cam_fn(b, n):
+        return rows(b * nt, n)
+
+    def light_fn(b, n):
+        return rows(depth * nt + nls + b * nt, n)
+
+    return cam_fn, rows(depth * nt, nls), light_fn

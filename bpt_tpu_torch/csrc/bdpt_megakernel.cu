@@ -1,0 +1,757 @@
+// Fused BDPT megakernel for Hopper (sm_90a).
+//
+// Replaces the Pallas kernel of bpt_tpu/ops/pallas/bdpt_kernel.py
+// (_bdpt_kernel_impl, launched by bdpt_megakernel and
+// bdpt_megakernel_pixels).  Per lane: the camera subpath with background,
+// per-vertex emission, the light subpath from an area-sampled emitter, and
+// every (s, t) connection with a shadow any-hit, summed unweighted (bdpt,
+// the reference's estimator) or with power-heuristic MIS weights
+// (bdpt-mis); in pixels mode also raygen and every spp stratum.
+// Untextured, unclustered, volume-free scenes with <= 512 triangles, 16
+// materials and 16 lights, any depth from 1 to MAX_DEPTH = 80.
+//
+// What bounds it on the H100: FP32 throughput in the brute-force triangle
+// sweeps (one per traced bounce and one per connection candidate, so up to
+// depth^2 shadow sweeps per sample) and warp divergence (subpath lengths
+// differ per lane).  The one memory stream is the vertex records.
+//
+// Design: one thread per lane, real branches instead of masked selects,
+// the triangle / material / light tables and the slot keys in shared
+// memory as in pt_megakernel.cu.  Vertex records (14 floats; 16 with MIS)
+// live in a lane-contiguous scratch in device memory, [2][depth*stride][B],
+// allocated by the wrapper: neighbouring threads touch neighbouring words,
+// so each field access of a warp is one coalesced transaction.  Its bound
+// is 2 * depth * stride * 4 B per lane: 1,280 B at depth 10 with MIS
+// (335 MB at B = 2^18), 10,240 B at depth 80.  Every loop over vertices is
+// bounded by the lane's own subpath lengths (slots fill prefix-first), so
+// a stratum never reads a slot its lane left from an earlier stratum.  The
+// TPU kernel's tile-wide gates, tile-max loop bounds, lock-step while loop
+// and VMEM row clamp have no counterpart: per-lane bounds give the same
+// sums.  Draws are word x0 of threefry2x32 keyed per (section, bounce,
+// slot) at counter (sample id, 0).  Arithmetic follows the plain PyTorch
+// version's operation order (models/bdpt.py), so that with -fmad=false
+// every branch decision agrees with it; the previous vertex of the first
+// light-traced vertex is the emitter point, as there.  Counters are exact
+// 64-bit integers.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace bpt {
+namespace bdpt {
+
+constexpr int MAX_TRIS = 512;
+constexpr int MAX_MATS = 16;
+constexpr int MAX_LIGHTS = 16;
+constexpr int TRI_STRIDE = 13;  // v0(3) e1(3) e2(3) n(3) mat(1)
+constexpr int MAT_STRIDE = 6;   // mtype, albedo(3), fuzz, ior
+constexpr int LGT_STRIDE = 13;  // v0(3) e1(3) e2(3) n(3) area(1)
+// light-table tail: background(3), total area, per-light material ids
+constexpr int LGT_TAIL = MAX_LIGHTS * LGT_STRIDE;
+constexpr int LGT_WORDS = LGT_TAIL + 4 + MAX_LIGHTS;
+constexpr int NT = 5;   // trace slots per bounce (models.bdpt TU_*)
+constexpr int NLS = 5;  // light-start slots (models.bdpt LS_*)
+constexpr int MAX_DEPTH = 80;
+constexpr int MAX_SLOTS = MAX_DEPTH * NT + NLS + (MAX_DEPTH - 1) * NT;
+constexpr int MAX_KEYS = 2 * MAX_SLOTS + 4;
+constexpr int BLOCK = 128;
+
+enum { TU_B1 = 0, TU_B2 = 1, TU_DIEL = 2, TU_FZ1 = 3, TU_FZ2 = 4 };
+enum { LS_PICK = 0, LS_U = 1, LS_V = 2, LS_D1 = 3, LS_D2 = 4 };
+enum { M_LAM = 0, M_METAL = 1, M_DIEL = 2, M_LIGHT = 3, M_ISO = 4 };
+// vertex record fields (bdpt_kernel.py store_vtx; pfwd and rat2 with MIS)
+enum { V_PX = 0, V_PY, V_PZ, V_NX, V_NY, V_NZ, V_TR, V_TG, V_TB,
+       V_ER, V_EG, V_EB, V_MAT, V_FLAGS, V_PFWD, V_RAT2 };
+enum { F_VALID = 1, F_DELTA = 2, F_LIGHT = 4, F_MISCUT = 8 };
+
+constexpr float INV_PI_F = (float)(1.0 / 3.14159265358979323846);
+// max_t * (1 - SHADOW_EPS_REL): the connection's endpoint margin
+constexpr float SHADOW_SCALE = (float)(1.0 - 1e-4);
+
+struct Params {
+  int pixels;  // 0: rays given (o, d); 1: in-kernel raygen + spp loop
+  int mis;
+  int B, T, L, depth, sqrt_spp, nkeys;
+  const float* tri;      // [MAX_TRIS * 13]
+  const float* mat;      // [MAX_MATS * 6]
+  const float* lgt;      // [LGT_WORDS]
+  const uint32_t* keys;  // [2 * n_slots] (+4 jitter words in pixels mode)
+  const float* cam;      // [13] pixel00, du, dv, center, 1/sqrt_spp
+  // rays mode: ox, oy, oz, dx, dy, dz; pixels mode: i, j
+  const float* in[6];
+  const int* rid;     // [B] ray / pixel id; < 0 = inactive lane
+  const float* ubuf;  // optional [n_slots, B] injected uniforms
+  float* vtx;         // [2][depth * stride][B] vertex scratch
+  float* out_r;
+  float* out_g;
+  float* out_b;
+  unsigned long long* counters;  // [4] rays, shadow, tri tests, tri hits
+};
+
+struct Tables {
+  float tri[MAX_TRIS * TRI_STRIDE];
+  float mat[MAX_MATS * MAT_STRIDE];
+  float lgt[LGT_WORDS];
+  uint32_t keys[MAX_KEYS];
+};
+
+struct Counts {
+  unsigned long long rays = 0, shadow = 0, tests = 0, hits = 0;
+};
+
+// A lane's draws: the injected buffer when given, else word x0 of
+// threefry(key of the slot, (sample id, 0)).
+struct Stream {
+  const float* ubuf;
+  int B;
+  int lane;
+  const uint32_t* keys;
+  uint32_t ridu;
+
+  __device__ __forceinline__ float draw(int slot) const {
+    if (ubuf) return ubuf[(size_t)slot * B + lane];
+    uint32_t x0 = ridu, x1 = 0u;
+    threefry2x32(keys[2 * slot], keys[2 * slot + 1], x0, x1);
+    return bits_to_unit(x0);
+  }
+};
+
+// One side's vertex records of one lane.
+struct Verts {
+  float* base;
+  int B, lane, stride;
+
+  __device__ __forceinline__ float& at(int slot, int field) const {
+    return base[((size_t)slot * stride + field) * B + lane];
+  }
+};
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz;
+};
+
+// The vertex before the next one traced (models.bdpt mis_prev).
+struct Prev {
+  float px, py, pz, nx, ny, nz;
+  bool delta;
+  int mtype;
+  float pfwd;
+};
+
+__device__ __forceinline__ float remap0(float x) { return x > 0.0f ? x : 1.0f; }
+
+// shade_soa.bsdf_pdf_value: 1/(4 pi) for isotropic, else the clamped
+// cosine of the normalized direction over pi
+__device__ __forceinline__ float bsdf_pdf(int mtype, float nx, float ny,
+                                          float nz, float dx, float dy,
+                                          float dz) {
+  normalize_safe(dx, dy, dz);
+  const float cos_t = dx * nx + dy * ny + dz * nz;
+  return mtype == M_ISO ? INV_4PI_F : fmaxf(cos_t / PI_F, 0.0f);
+}
+
+// shade_soa.evaluate_bsdf: the reference's direction-free BSDF value
+__device__ __forceinline__ void eval_bsdf(int mtype, const float* m, float& r,
+                                          float& g, float& b) {
+  const float k = mtype == M_LAM ? INV_PI_F : 0.0f;
+  if (mtype == M_ISO) {
+    r = m[1] * INV_4PI_F;
+    g = m[2] * INV_4PI_F;
+    b = m[3] * INV_4PI_F;
+  } else {
+    r = m[1] * k;
+    g = m[2] * k;
+    b = m[3] * k;
+  }
+}
+
+// random_cosine_direction through the reference ONB (onb.h:4-14)
+__device__ __forceinline__ void cosine_dir(float nx, float ny, float nz,
+                                           float u1, float u2, float& x,
+                                           float& y, float& z) {
+  float wx = nx, wy = ny, wz = nz;
+  normalize_safe(wx, wy, wz);
+  const bool pick_axis = fabsf(wx) > 0.9f;
+  const float axx = pick_axis ? 0.0f : 1.0f;
+  const float axy = pick_axis ? 1.0f : 0.0f;
+  float vx = wy * 0.0f - wz * axy;
+  float vy = wz * axx - wx * 0.0f;
+  float vz = wx * axy - wy * axx;
+  normalize_safe(vx, vy, vz);
+  const float ux = wy * vz - wz * vy;
+  const float uy = wz * vx - wx * vz;
+  const float uz = wx * vy - wy * vx;
+  const float phi = TWO_PI_F * u1;
+  const float sq = sqrtf(u2);
+  const float lx = cosf(phi) * sq;
+  const float ly = sinf(phi) * sq;
+  const float lz = sqrtf(1.0f - u2);
+  x = lx * ux + ly * vx + lz * wx;
+  y = lx * uy + ly * vy + lz * wy;
+  z = lx * uz + ly * vz + lz * wz;
+}
+
+// uniform_sphere_direction
+__device__ __forceinline__ void sphere_dir(float u1, float u2, float& x,
+                                           float& y, float& z) {
+  z = 1.0f - 2.0f * u1;
+  const float r = sqrtf(fmaxf(1.0f - z * z, 0.0f));
+  const float phi = TWO_PI_F * u2;
+  x = r * cosf(phi);
+  y = r * sinf(phi);
+}
+
+// Sum_{i=lo..m} miscut[i] * prod_{q=i+1..m} rat2[q]: a row sum of
+// models.bdpt.mis_strategy_table by one backward product scan over the
+// lane's own slots (bdpt_kernel.py mis_suffix_sum).
+__device__ float suffix_sum(const Verts& v, int m, int lo) {
+  float s = 0.0f, prod = 1.0f;
+  for (int i = m; i >= 0 && i >= lo; --i) {
+    if ((int)v.at(i, V_FLAGS) & F_MISCUT) s = s + prod;
+    prod = prod * v.at(i, V_RAT2);
+  }
+  return s;
+}
+
+__device__ __forceinline__ int closest_hit(const Tables& s, int T, const Ray& r,
+                                           float& t_hit) {
+  t_hit = __int_as_float(0x7f800000);  // +inf
+  int best = -1;
+  for (int ti = 0; ti < T; ++ti) {
+    bool valid;
+    const float t = moller_trumbore(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz,
+                                    &s.tri[ti * TRI_STRIDE], valid);
+    if (valid && t >= T_MIN && t < t_hit) {  // strict: first of equal hits
+      t_hit = t;
+      best = ti;
+    }
+  }
+  return best;
+}
+
+__device__ __forceinline__ bool any_hit(const Tables& s, int T, float ox,
+                                        float oy, float oz, float dx, float dy,
+                                        float dz, float tmax) {
+  for (int ti = 0; ti < T; ++ti) {
+    bool valid;
+    const float t = moller_trumbore(ox, oy, oz, dx, dy, dz,
+                                    &s.tri[ti * TRI_STRIDE], valid);
+    if (valid && t >= T_MIN && t <= tmax) return true;
+  }
+  return false;
+}
+
+// trace_path (camera.h:325-370) for at most `steps` bounces from r with
+// throughput (tr, tg, tb), drawing from slot0 + bounce * NT.  Stores one
+// vertex per surface hit at slots off, off+1, ... and returns how many.
+__device__ int trace(const Tables& s, const Params& p, const Stream& st,
+                     const Verts& v, int steps, int slot0, int off, Ray r,
+                     float tr, float tg, float tb, bool collect_bg, float& bg_r,
+                     float& bg_g, float& bg_b, Prev pv, Counts& cnt) {
+  int n = 0;
+  for (int b = 0; b < steps; ++b) {
+    cnt.rays += 1;
+    cnt.tests += (unsigned long long)p.T;
+    float t_hit;
+    const int best = closest_hit(s, p.T, r, t_hit);
+    if (best < 0) {  // miss -> background (light-table tail)
+      if (collect_bg) {
+        bg_r = bg_r + tr * s.lgt[LGT_TAIL + 0];
+        bg_g = bg_g + tg * s.lgt[LGT_TAIL + 1];
+        bg_b = bg_b + tb * s.lgt[LGT_TAIL + 2];
+      }
+      break;
+    }
+    cnt.hits += 1;
+
+    const float* tri = &s.tri[best * TRI_STRIDE];
+    const float gnx = tri[9], gny = tri[10], gnz = tri[11];
+    const int mid = (int)tri[12];
+    const bool front = (r.dx * gnx + r.dy * gny + r.dz * gnz) < 0.0f;
+    const float nx = front ? gnx : -gnx;
+    const float ny = front ? gny : -gny;
+    const float nz = front ? gnz : -gnz;
+    const float px = r.ox + t_hit * r.dx;
+    const float py = r.oy + t_hit * r.dy;
+    const float pz = r.oz + t_hit * r.dz;
+
+    const float* m = &s.mat[mid * MAT_STRIDE];
+    const int mtype = (int)m[0];
+    const bool is_light = mtype == M_LIGHT;
+    const bool delta = mtype == M_METAL || mtype == M_DIEL;
+    const bool emit_on = is_light && front;
+    int flags = F_VALID | (delta ? F_DELTA : 0) | (is_light ? F_LIGHT : 0);
+    const int slot = off + b;
+
+    if (p.mis) {
+      // forward / reverse area pdfs (models.bdpt.trace_subpath): every
+      // scattering pdf of the material set ignores the incoming direction
+      float sx = px - pv.px, sy = py - pv.py, sz = pz - pv.pz;
+      const float dist2 = fmaxf(sx * sx + sy * sy + sz * sz, 1e-30f);
+      normalize_safe(sx, sy, sz);
+      const float cos_cur = fabsf(nx * sx + ny * sy + nz * sz);
+      const float cos_prev = fabsf(pv.nx * sx + pv.ny * sy + pv.nz * sz);
+      const float pdf_sa_f =
+          pv.delta ? 0.0f : bsdf_pdf(pv.mtype, pv.nx, pv.ny, pv.nz, sx, sy, sz);
+      const float pfwd = pdf_sa_f * cos_cur / dist2;
+      const float prev_rev =
+          delta ? 1.0f
+                : bsdf_pdf(mtype, nx, ny, nz, -sx, -sy, -sz) * cos_prev / dist2;
+      const float rat = prev_rev / remap0(pv.pfwd);
+      v.at(slot, V_PFWD) = pfwd;
+      v.at(slot, V_RAT2) = rat * rat;
+      if (!delta && !pv.delta) flags |= F_MISCUT;
+      pv = Prev{px, py, pz, nx, ny, nz, delta, mtype, pfwd};
+    }
+    v.at(slot, V_PX) = px;
+    v.at(slot, V_PY) = py;
+    v.at(slot, V_PZ) = pz;
+    v.at(slot, V_NX) = nx;
+    v.at(slot, V_NY) = ny;
+    v.at(slot, V_NZ) = nz;
+    v.at(slot, V_TR) = tr;
+    v.at(slot, V_TG) = tg;
+    v.at(slot, V_TB) = tb;
+    v.at(slot, V_ER) = emit_on ? m[1] : 0.0f;
+    v.at(slot, V_EG) = emit_on ? m[2] : 0.0f;
+    v.at(slot, V_EB) = emit_on ? m[3] : 0.0f;
+    v.at(slot, V_MAT) = (float)mid;
+    v.at(slot, V_FLAGS) = (float)flags;
+    n = b + 1;
+    if (is_light) break;  // lights do not scatter
+
+    const float alb_r = m[1], alb_g = m[2], alb_b = m[3];
+    const int u0 = slot0 + b * NT;
+    float ndx, ndy, ndz;
+    if (mtype == M_METAL) {
+      // material.h:73-83
+      const float u_f1 = st.draw(u0 + TU_FZ1);
+      const float u_f2 = st.draw(u0 + TU_FZ2);
+      const float dn = r.dx * nx + r.dy * ny + r.dz * nz;
+      float rfx = r.dx - 2.0f * dn * nx;
+      float rfy = r.dy - 2.0f * dn * ny;
+      float rfz = r.dz - 2.0f * dn * nz;
+      normalize_safe(rfx, rfy, rfz);
+      float sx, sy, sz;
+      sphere_dir(u_f1, u_f2, sx, sy, sz);
+      const float fuzz = m[4];
+      ndx = rfx + fuzz * sx;
+      ndy = rfy + fuzz * sy;
+      ndz = rfz + fuzz * sz;
+      tr = tr * alb_r;
+      tg = tg * alb_g;
+      tb = tb * alb_b;
+    } else if (mtype == M_DIEL) {
+      // material.h:96-116; attenuation 1
+      const float u_dl = st.draw(u0 + TU_DIEL);
+      const float ior = m[5];
+      const float ri = front ? 1.0f / ior : ior;
+      float udx = r.dx, udy = r.dy, udz = r.dz;
+      normalize_safe(udx, udy, udz);
+      const float cos_t = fminf(-(udx * nx + udy * ny + udz * nz), 1.0f);
+      const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+      float r0 = (1.0f - ri) / (1.0f + ri);
+      r0 = r0 * r0;
+      // powf, as torch's pow of the plain version's Schlick term
+      const float schlick = r0 + (1.0f - r0) * powf(1.0f - cos_t, 5.0f);
+      if (ri * sin_t > 1.0f || schlick > u_dl) {
+        const float udn = udx * nx + udy * ny + udz * nz;
+        ndx = udx - 2.0f * udn * nx;
+        ndy = udy - 2.0f * udn * ny;
+        ndz = udz - 2.0f * udn * nz;
+      } else {
+        const float perp_x = ri * (udx + cos_t * nx);
+        const float perp_y = ri * (udy + cos_t * ny);
+        const float perp_z = ri * (udz + cos_t * nz);
+        const float par = -sqrtf(fabsf(
+            1.0f - (perp_x * perp_x + perp_y * perp_y + perp_z * perp_z)));
+        ndx = perp_x + par * nx;
+        ndy = perp_y + par * ny;
+        ndz = perp_z + par * nz;
+      }
+    } else {
+      // bsdf-pdf sampling (camera.h:361-368)
+      const float u_b1 = st.draw(u0 + TU_B1);
+      const float u_b2 = st.draw(u0 + TU_B2);
+      const bool is_iso = mtype == M_ISO;
+      if (is_iso) {
+        sphere_dir(u_b1, u_b2, ndx, ndy, ndz);
+      } else {
+        cosine_dir(nx, ny, nz, u_b1, u_b2, ndx, ndy, ndz);
+      }
+      const float pdf_val = bsdf_pdf(mtype, nx, ny, nz, ndx, ndy, ndz);
+      float cx = ndx, cy = ndy, cz = ndz;
+      normalize_safe(cx, cy, cz);
+      const float cos_t = nx * cx + ny * cy + nz * cz;
+      float scat_pdf = 0.0f;
+      if (is_iso) {
+        scat_pdf = INV_4PI_F;
+      } else if (mtype == M_LAM) {
+        scat_pdf = cos_t < 0.0f ? 0.0f : cos_t / PI_F;
+      }
+      if (!(pdf_val > 0.0f)) break;
+      const float w = scat_pdf / pdf_val;
+      tr = tr * alb_r * w;
+      tg = tg * alb_g * w;
+      tb = tb * alb_b * w;
+    }
+    r = Ray{px, py, pz, ndx, ndy, ndz};
+  }
+  return n;
+}
+
+// bidirectional_color (camera.h:294-323) of one primary ray.
+__device__ void bdpt_sample(const Tables& s, const Params& p, const Stream& st,
+                            const Verts& cam, const Verts& lgt, Ray r0,
+                            float& out_r, float& out_g, float& out_b,
+                            Counts& cnt) {
+  const int depth = p.depth;
+  const bool mis = p.mis;
+
+  // ---- camera subpath; its previous "vertex" is the delta camera
+  float bg_r = 0.0f, bg_g = 0.0f, bg_b = 0.0f;
+  Prev pc{};
+  if (mis) {
+    float nx = r0.dx, ny = r0.dy, nz = r0.dz;
+    normalize_safe(nx, ny, nz);
+    pc = Prev{r0.ox, r0.oy, r0.oz, nx, ny, nz, true, M_LAM, 1.0f};
+  }
+  const int n_cam = trace(s, p, st, cam, depth, 0, 0, r0, 1.0f, 1.0f, 1.0f,
+                          true, bg_r, bg_g, bg_b, pc, cnt);
+
+  const float total = s.lgt[LGT_TAIL + 3];
+  const float inv_area = total > 0.0f ? 1.0f / fmaxf(total, 1e-30f) : 0.0f;
+
+  // ---- camera-vertex emission (camera.h:305-309); under MIS the (s=0, t)
+  // strategy's weight against moving the cut to any earlier vertex
+  float em_r = 0.0f, em_g = 0.0f, em_b = 0.0f;
+  for (int b = 0; b < n_cam; ++b) {
+    if ((int)cam.at(b, V_FLAGS) & F_DELTA) continue;
+    float w = 1.0f;
+    if (mis) {
+      const float r_em = inv_area / remap0(cam.at(b, V_PFWD));
+      w = 1.0f / (1.0f + r_em * r_em * suffix_sum(cam, b, 0));
+    }
+    em_r = em_r + cam.at(b, V_TR) * cam.at(b, V_ER) * w;
+    em_g = em_g + cam.at(b, V_TG) * cam.at(b, V_EG) * w;
+    em_b = em_b + cam.at(b, V_TB) * cam.at(b, V_EB) * w;
+  }
+
+  // ---- light subpath start (camera.h:372-418)
+  const int ls0 = depth * NT;
+  const float u_pick = st.draw(ls0 + LS_PICK);
+  const float u_lu = st.draw(ls0 + LS_U);
+  const float u_lv = st.draw(ls0 + LS_V);
+  const float u_d1 = st.draw(ls0 + LS_D1);
+  const float u_d2 = st.draw(ls0 + LS_D2);
+  // area CDF scan, accumulated in f32 (triangle.h:210-219); past the end
+  // the last light, like the reference's &tris.back() default
+  const float pick = u_pick * total;
+  float acc = 0.0f;
+  int lidx = -1;
+  for (int li = 0; li < p.L; ++li) {
+    acc = acc + s.lgt[li * LGT_STRIDE + 12];
+    if (lidx < 0 && pick <= acc) lidx = li;
+  }
+  if (lidx < 0) lidx = p.L - 1;
+  const float* lt = &s.lgt[lidx * LGT_STRIDE];
+  const bool flip = (u_lu + u_lv) > 1.0f;
+  const float bu = flip ? 1.0f - u_lu : u_lu;
+  const float bv = flip ? 1.0f - u_lv : u_lv;
+  const float spx = lt[0] + bu * lt[3] + bv * lt[6];
+  const float spy = lt[1] + bu * lt[4] + bv * lt[7];
+  const float spz = lt[2] + bu * lt[5] + bv * lt[8];
+  const float snx = lt[9], sny = lt[10], snz = lt[11];
+  const int smat = (int)s.lgt[LGT_TAIL + 4 + lidx];
+  const float* sm = &s.mat[smat * MAT_STRIDE];
+  const int smtype = (int)sm[0];
+  // emitter emission, front face forced
+  const float le_r = smtype == M_LIGHT ? sm[1] : 0.0f;
+  const float le_g = smtype == M_LIGHT ? sm[2] : 0.0f;
+  const float le_b = smtype == M_LIGHT ? sm[3] : 0.0f;
+  const bool path_ok =
+      total > 0.0f && (le_r * le_r + le_g * le_g + le_b * le_b) > 0.0f;
+
+  int n_light = 0;
+  if (path_ok) {
+    const float thr0 = 1.0f / fmaxf(inv_area, 1e-8f);
+    lgt.at(0, V_PX) = spx;
+    lgt.at(0, V_PY) = spy;
+    lgt.at(0, V_PZ) = spz;
+    lgt.at(0, V_NX) = snx;
+    lgt.at(0, V_NY) = sny;
+    lgt.at(0, V_NZ) = snz;
+    lgt.at(0, V_TR) = thr0;
+    lgt.at(0, V_TG) = thr0;
+    lgt.at(0, V_TB) = thr0;
+    lgt.at(0, V_ER) = le_r;
+    lgt.at(0, V_EG) = le_g;
+    lgt.at(0, V_EB) = le_b;
+    lgt.at(0, V_MAT) = (float)smat;
+    // emitter slot: pfwd = area pdf, rat2 unused, cut always connectable
+    lgt.at(0, V_FLAGS) = (float)(F_VALID | F_LIGHT | (mis ? F_MISCUT : 0));
+    if (mis) {
+      lgt.at(0, V_PFWD) = inv_area;
+      lgt.at(0, V_RAT2) = 0.0f;
+    }
+    n_light = 1;
+
+    // cosine exit (camera.h:407-415)
+    float ldx, ldy, ldz;
+    cosine_dir(snx, sny, snz, u_d1, u_d2, ldx, ldy, ldz);
+    normalize_safe(ldx, ldy, ldz);
+    const float cos_theta = fmaxf(snx * ldx + sny * ldy + snz * ldz, 0.0f);
+    if (cos_theta > 0.0f && depth > 1) {
+      const float pdf_dir = fmaxf(cos_theta / PI_F, 1e-8f);
+      const float scale = cos_theta / pdf_dir;
+      const Ray lr{spx + 0.001f * snx, spy + 0.001f * sny, spz + 0.001f * snz,
+                   ldx, ldy, ldz};
+      const Prev pl{spx, spy, spz, snx, sny, snz, false, smtype, inv_area};
+      float unused_r = 0.0f, unused_g = 0.0f, unused_b = 0.0f;
+      n_light += trace(s, p, st, lgt, depth - 1, depth * NT + NLS, 1, lr,
+                       thr0 * le_r * scale, thr0 * le_g * scale,
+                       thr0 * le_b * scale, false, unused_r, unused_g,
+                       unused_b, pl, cnt);
+    }
+  }
+
+  // ---- connections (camera.h:316-320, 440-475)
+  float cn_r = 0.0f, cn_g = 0.0f, cn_b = 0.0f;
+  for (int sc = 0; sc < n_cam; ++sc) {
+    if ((int)cam.at(sc, V_FLAGS) & F_DELTA) continue;
+    const int cmat = (int)cam.at(sc, V_MAT);
+    const float* cm = &s.mat[cmat * MAT_STRIDE];
+    const int cmt = (int)cm[0];
+    float fcr, fcg, fcb;
+    eval_bsdf(cmt, cm, fcr, fcg, fcb);
+    if (!((fcr * fcr + fcg * fcg + fcb * fcb) > 0.0f)) continue;
+    const float cfr = cam.at(sc, V_TR) * fcr;
+    const float cfg = cam.at(sc, V_TG) * fcg;
+    const float cfb = cam.at(sc, V_TB) * fcb;
+    const float cpx = cam.at(sc, V_PX), cpy = cam.at(sc, V_PY),
+                cpz = cam.at(sc, V_PZ);
+    const float cnx = cam.at(sc, V_NX), cny = cam.at(sc, V_NY),
+                cnz = cam.at(sc, V_NZ);
+    float pr = 0.0f, pg = 0.0f, pb = 0.0f;
+    for (int t = 0; t < n_light; ++t) {
+      const int lfl = (int)lgt.at(t, V_FLAGS);
+      if (lfl & F_DELTA) continue;
+      const int lmat = (int)lgt.at(t, V_MAT);
+      const float* lm = &s.mat[lmat * MAT_STRIDE];
+      const int lmt = (int)lm[0];
+      float flr, flg, flb;
+      if (lfl & F_LIGHT) {  // emitters use raw emission (camera.h:462-467)
+        flr = lgt.at(t, V_ER);
+        flg = lgt.at(t, V_EG);
+        flb = lgt.at(t, V_EB);
+      } else {
+        eval_bsdf(lmt, lm, flr, flg, flb);
+      }
+      if (!((flr * flr + flg * flg + flb * flb) > 0.0f)) continue;
+
+      const float dxx = lgt.at(t, V_PX) - cpx;
+      const float dyy = lgt.at(t, V_PY) - cpy;
+      const float dzz = lgt.at(t, V_PZ) - cpz;
+      const float dist2 = dxx * dxx + dyy * dyy + dzz * dzz;
+      if (!(dist2 > 0.0f)) continue;
+      const float dist = sqrtf(fmaxf(dist2, 1e-30f));
+      const float inv_dist = 1.0f / dist;
+      const float dux = dxx * inv_dist, duy = dyy * inv_dist,
+                  duz = dzz * inv_dist;
+      const float lnx = lgt.at(t, V_NX), lny = lgt.at(t, V_NY),
+                  lnz = lgt.at(t, V_NZ);
+      const float sgn_c = dux * cnx + duy * cny + duz * cnz;
+      const float sgn_l = lnx * -dux + lny * -duy + lnz * -duz;
+      const float cos_c = fabsf(sgn_c);
+      const float cos_l = fabsf(sgn_l);
+      if (!(cos_c > 0.0f && cos_l > 0.0f)) continue;
+      // bdpt-mis: one-sided connections, isotropic scatterers two-sided
+      if (mis && !((cmt == M_ISO || sgn_c > 0.0f) && (lmt == M_ISO || sgn_l > 0.0f)))
+        continue;
+      // visible(a, b) (camera.h:425-438) with the endpoint margin
+      const float max_t = dist - 0.001f;
+      if (!(max_t > 0.0f)) continue;
+      cnt.tests += (unsigned long long)p.T;
+      if (any_hit(s, p.T, cpx + 0.001f * dux, cpy + 0.001f * duy,
+                  cpz + 0.001f * duz, dux, duy, duz, max_t * SHADOW_SCALE))
+        continue;
+      cnt.shadow += 1;
+
+      const float g = (cos_c * cos_l) / fmaxf(dist2, 1e-30f);
+      float c_r = cfr * (lgt.at(t, V_TR) * flr) * g;
+      float c_g = cfg * (lgt.at(t, V_TG) * flg) * g;
+      float c_b = cfb * (lgt.at(t, V_TB) * flb) * g;
+      if (mis) {
+        // reverse pdfs of the two junction vertices, area measure; both
+        // are non-delta here, so a zero is genuine and not remapped
+        const float d2s = fmaxf(dist2, 1e-30f);
+        const float rev_c =
+            bsdf_pdf(lmt, lnx, lny, lnz, -dux, -duy, -duz) * cos_c / d2s;
+        const float rev_l = bsdf_pdf(cmt, cnx, cny, cnz, dux, duy, duz) * cos_l / d2s;
+        const float rc = rev_c / remap0(cam.at(sc, V_PFWD));
+        const float rl = rev_l / remap0(lgt.at(t, V_PFWD));
+        // realizability clamp: a strategy keeping i vertices on one side
+        // needs the other side <= depth, i >= k - depth, k = sc + t + 2
+        const int lo = sc + t + 2 - depth;
+        const float sum_c = rc * rc * suffix_sum(cam, sc, lo);
+        const float sum_l = rl * rl * suffix_sum(lgt, t, lo);
+        const float w = 1.0f / (1.0f + sum_c + sum_l);
+        c_r = c_r * w;
+        c_g = c_g * w;
+        c_b = c_b * w;
+      }
+      pr = pr + c_r;
+      pg = pg + c_g;
+      pb = pb + c_b;
+    }
+    cn_r = cn_r + pr;
+    cn_g = cn_g + pg;
+    cn_b = cn_b + pb;
+  }
+  out_r = (bg_r + em_r) + cn_r;
+  out_g = (bg_g + em_g) + cn_g;
+  out_b = (bg_b + em_b) + cn_b;
+}
+
+// get_ray (camera.h:199-213): BDPT's jitter is word x0 of two threefry
+// calls keyed by the two tail keys (bdpt_kernel.py:994-997)
+__device__ __forceinline__ Ray stratum_ray(const float* c, const Tables& s,
+                                           int nj, uint32_t ridu, float i,
+                                           float j, float sx, float sy) {
+  uint32_t a0 = ridu, a1 = 0u, b0 = ridu, b1 = 0u;
+  threefry2x32(s.keys[2 * nj], s.keys[2 * nj + 1], a0, a1);
+  threefry2x32(s.keys[2 * nj + 2], s.keys[2 * nj + 3], b0, b1);
+  const float u0 = bits_to_unit(a0);
+  const float u1 = bits_to_unit(b0);
+  const float recip = c[12];
+  const float offx = (sx + u0) * recip - 0.5f;
+  const float offy = (sy + u1) * recip - 0.5f;
+  const float a = i + offx;
+  const float e = j + offy;
+  return Ray{c[9], c[10], c[11],
+             c[0] + a * c[3] + e * c[6] - c[9],
+             c[1] + a * c[4] + e * c[7] - c[10],
+             c[2] + a * c[5] + e * c[8] - c[11]};
+}
+
+__global__ void __launch_bounds__(BLOCK) bdpt_megakernel(const Params p) {
+  __shared__ Tables s;
+  for (int k = threadIdx.x; k < p.T * TRI_STRIDE; k += blockDim.x) s.tri[k] = p.tri[k];
+  for (int k = threadIdx.x; k < MAX_MATS * MAT_STRIDE; k += blockDim.x) s.mat[k] = p.mat[k];
+  for (int k = threadIdx.x; k < LGT_WORDS; k += blockDim.x) s.lgt[k] = p.lgt[k];
+  for (int k = threadIdx.x; k < p.nkeys; k += blockDim.x) s.keys[k] = p.keys[k];
+  __syncthreads();
+
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  Counts cnt;
+  if (lane < p.B) {
+    const int rid = p.rid[lane];
+    float tot_r = 0.0f, tot_g = 0.0f, tot_b = 0.0f;
+    if (rid >= 0) {
+      const int stride = p.mis ? 16 : 14;
+      const Verts cam{p.vtx, p.B, lane, stride};
+      const Verts lgt{p.vtx + (size_t)p.depth * stride * p.B, p.B, lane, stride};
+      if (!p.pixels) {
+        const Stream st{p.ubuf, p.B, lane, s.keys, (uint32_t)rid};
+        const Ray r{p.in[0][lane], p.in[1][lane], p.in[2][lane],
+                    p.in[3][lane], p.in[4][lane], p.in[5][lane]};
+        bdpt_sample(s, p, st, cam, lgt, r, tot_r, tot_g, tot_b, cnt);
+      } else {
+        // rid is the pixel id: sample ids pix*spp + st walk the strata in
+        // order, each sample added to the pixel total in stratum order
+        const int nj = p.depth * NT + NLS + (p.depth - 1) * NT;
+        const int S = p.sqrt_spp;
+        const uint32_t spp = (uint32_t)(S * S);
+        for (uint32_t k = 0; k < spp; ++k) {
+          const uint32_t ridu = (uint32_t)rid * spp + k;
+          const Ray r = stratum_ray(p.cam, s, nj, ridu, p.in[0][lane],
+                                    p.in[1][lane], (float)(k % (uint32_t)S),
+                                    (float)(k / (uint32_t)S));
+          const Stream st{nullptr, p.B, lane, s.keys, ridu};
+          float sr, sg, sb;
+          bdpt_sample(s, p, st, cam, lgt, r, sr, sg, sb, cnt);
+          tot_r = tot_r + sr;
+          tot_g = tot_g + sg;
+          tot_b = tot_b + sb;
+        }
+      }
+    }
+    p.out_r[lane] = tot_r;
+    p.out_g[lane] = tot_g;
+    p.out_b[lane] = tot_b;
+  }
+
+  // exact counters: warp sums, one 64-bit atomic per warp and counter
+  for (int off = 16; off > 0; off >>= 1) {
+    cnt.rays += __shfl_down_sync(0xffffffffu, cnt.rays, off);
+    cnt.shadow += __shfl_down_sync(0xffffffffu, cnt.shadow, off);
+    cnt.tests += __shfl_down_sync(0xffffffffu, cnt.tests, off);
+    cnt.hits += __shfl_down_sync(0xffffffffu, cnt.hits, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    if (cnt.rays) atomicAdd(&p.counters[0], cnt.rays);
+    if (cnt.shadow) atomicAdd(&p.counters[1], cnt.shadow);
+    if (cnt.tests) atomicAdd(&p.counters[2], cnt.tests);
+    if (cnt.hits) atomicAdd(&p.counters[3], cnt.hits);
+  }
+}
+
+}  // namespace bdpt
+}  // namespace bpt
+
+extern "C" {
+
+// Launches the BDPT megakernel on `stream`; returns cudaGetLastError() after
+// the launch (0 = launched), or cudaErrorInvalidValue for a depth, key
+// count or table size the kernel does not take.  Device pointers only.
+int bpt_bdpt_megakernel(int pixels, int mis, int B, int T, int L, int depth,
+                        int sqrt_spp, int nkeys, const float* tri,
+                        const float* mat, const float* lgt,
+                        const uint32_t* keys, const float* cam,
+                        const float* in0, const float* in1, const float* in2,
+                        const float* in3, const float* in4, const float* in5,
+                        const int* rid, const float* ubuf, float* vtx,
+                        float* out_r, float* out_g, float* out_b,
+                        unsigned long long* counters, void* stream) {
+  using namespace bpt::bdpt;
+  if (depth < 1 || depth > MAX_DEPTH || nkeys < 0 || nkeys > MAX_KEYS ||
+      T < 0 || T > MAX_TRIS || L < 1 || L > MAX_LIGHTS || sqrt_spp < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Params p;
+  p.pixels = pixels;
+  p.mis = mis;
+  p.B = B;
+  p.T = T;
+  p.L = L;
+  p.depth = depth;
+  p.sqrt_spp = sqrt_spp;
+  p.nkeys = nkeys;
+  p.tri = tri;
+  p.mat = mat;
+  p.lgt = lgt;
+  p.keys = keys;
+  p.cam = cam;
+  p.in[0] = in0;
+  p.in[1] = in1;
+  p.in[2] = in2;
+  p.in[3] = in3;
+  p.in[4] = in4;
+  p.in[5] = in5;
+  p.rid = rid;
+  p.ubuf = ubuf;
+  p.vtx = vtx;
+  p.out_r = out_r;
+  p.out_g = out_g;
+  p.out_b = out_b;
+  p.counters = counters;
+  const int grid = (B + BLOCK - 1) / BLOCK;
+  if (grid > 0) {
+    bdpt_megakernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,0 +1,214 @@
+"""Fused BDPT megakernel: wrappers, table packing and plain versions.
+
+Counterpart of ``bpt_tpu/ops/pallas/bdpt_kernel.py``.  ``bdpt_megakernel``
+(rays in) and ``bdpt_megakernel_pixels`` (in-kernel raygen + spp loop)
+take the same arguments and return the same outputs as their Pallas
+counterparts, except that the key is a ``(k1, k2)`` pair of ints
+(``core.rng.prng_key``) and the counters are exact int64:
+``(rad_x, rad_y, rad_z, rays_traced, shadow_rays, extra[4])`` with
+``extra = (node_visits, aabb_hits, tri_tests, tri_hits)``.  ``tri_tests``
+charges T per live lane per traced bounce and T per connection that
+reaches the shadow any-hit, as the Pallas kernel counts them.
+
+Dispatch is by device: a CPU tensor takes the plain PyTorch version (the
+``models.bdpt`` wavefront on the kernel's threefry stream or on injected
+uniforms); a CUDA tensor launches ``csrc/bdpt_megakernel.cu`` or raises.
+Each wrapper counts its launches in ``<wrapper>.launches``; the plain
+versions count their calls in ``<plain>.calls``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bpt_tpu_torch.core import rng
+from bpt_tpu_torch.core.vec3 import Vec3
+from bpt_tpu_torch.models import bdpt as mb
+from bpt_tpu_torch.models.camera import generate_rays
+from bpt_tpu_torch.ops.kernels import build
+from bpt_tpu_torch.ops.kernels.pt_kernel import (
+    MAX_LIGHTS,
+    _camera_from_table,
+    _checked,
+    _device_of,
+    _lane_inputs,
+    _pack_tables,
+    _scatter_active,
+)
+from bpt_tpu_torch.scene.types import SceneTensors
+
+MAX_DEPTH = 80  # the kernel's bound on the runtime depth
+VTX_STRIDE = 14  # p(3) n(3) thr(3) emit(3) mat(1) flags(1)
+VTX_STRIDE_MIS = 16  # + pfwd, rat2
+NT, NLS = mb.NT, mb.NLS
+n_uniform_slots = rng.n_uniform_slots
+
+
+def _pack_tables_bdpt(scene: SceneTensors):
+    """The PT tables with the total light area and the per-light material
+    ids appended at the light table's tail (after the background)."""
+    meta, tri, mat, lgt = _pack_tables(scene)
+    lmat = torch.zeros(MAX_LIGHTS, dtype=torch.float32, device=scene.device)
+    lmat[:scene.num_lights] = scene.light_mat.to(torch.float32)
+    lgt = torch.cat([lgt, scene.light_total_area.to(torch.float32).reshape(1), lmat])
+    return meta, tri, mat, lgt
+
+
+def _check_depth(depth: int) -> None:
+    if not 1 <= depth <= MAX_DEPTH:
+        raise ValueError(f"BDPT depth {depth} outside 1..{MAX_DEPTH}")
+
+
+# ---------------------------------------------------------------- plain
+
+
+def _buffer_uniforms(ubuf, depth: int):
+    """Injected rows [n_uniform_slots(depth), N] -> the uniform sources of
+    models.bdpt.bdpt_radiance (the kernel's slot layout)."""
+    lt0 = depth * NT + NLS
+
+    def cam_fn(b, n):
+        return list(ubuf[b * NT:b * NT + n])
+
+    def light_fn(b, n):
+        return list(ubuf[lt0 + b * NT:lt0 + b * NT + n])
+
+    return cam_fn, list(ubuf[depth * NT:lt0]), light_fn
+
+
+def _radiance(scene, origins, dirs, depth, sources, mis):
+    rad, st = mb.bdpt_radiance(scene, origins, dirs, depth, *sources, mis=mis,
+                               count_shadow_tests=True)
+    extra = torch.stack([st.node_visits, st.aabb_hits, st.tri_tests, st.tri_hits])
+    return rad, st.rays_traced, st.shadow_rays, extra
+
+
+def bdpt_megakernel_plain(scene, o: Vec3, d: Vec3, ray_ids, key, depth: int,
+                          uniforms=None, mis: bool = False):
+    """Plain version of ``bdpt_megakernel``: the ``models.bdpt`` wavefront
+    over the active lanes (ray_ids >= 0), fed the injected ``uniforms``
+    [n_uniform_slots(depth), B] or the kernel's threefry stream."""
+    bdpt_megakernel_plain.calls += 1
+    _check_depth(depth)
+    B = ray_ids.shape[0]
+    idx = torch.nonzero(ray_ids >= 0).squeeze(1)
+    origins = torch.stack([o.x, o.y, o.z], dim=-1)[idx]
+    dirs = torch.stack([d.x, d.y, d.z], dim=-1)[idx]
+    if uniforms is None:
+        sources = rng.bdpt_kernel_stream_uniforms_fn(key, ray_ids[idx], depth,
+                                                     origins.dtype)
+    else:
+        sources = _buffer_uniforms(uniforms[:, idx], depth)
+    rad, rays, shadow, extra = _radiance(scene, origins, dirs, depth, sources, mis)
+    return (*_scatter_active(rad, idx, B), rays, shadow, extra)
+
+
+bdpt_megakernel_plain.calls = 0
+
+
+def bdpt_megakernel_pixels_plain(scene, i, j, pix_ids, cam13, key, depth: int,
+                                 sqrt_spp: int, mis: bool = False):
+    """Plain version of ``bdpt_megakernel_pixels``: for each stratum in
+    order, the kernel's jitter stream, ``generate_rays``, the wavefront on
+    the kernel's stream, and the sample added to the pixel total."""
+    bdpt_megakernel_pixels_plain.calls += 1
+    _check_depth(depth)
+    B = pix_ids.shape[0]
+    idx = torch.nonzero(pix_ids >= 0).squeeze(1)
+    cc = _camera_from_table(cam13)
+    iv, jv = i[idx], j[idx]
+    ids = pix_ids[idx].to(torch.int64)
+    spp = sqrt_spp * sqrt_spp
+    total = None
+    rays = torch.zeros((), dtype=torch.int64, device=i.device)
+    shadow = torch.zeros((), dtype=torch.int64, device=i.device)
+    extra = torch.zeros(4, dtype=torch.int64, device=i.device)
+    for s in range(spp):
+        rid = ids * spp + s
+        u0, u1 = rng.bdpt_raygen_jitter(key, rid)
+        zero = torch.zeros_like(u0)
+        origins, dirs = generate_rays(
+            cc, iv, jv, torch.full_like(iv, float(s % sqrt_spp)),
+            torch.full_like(iv, float(s // sqrt_spp)),
+            torch.stack([u0, u1, zero, zero], -1))
+        sources = rng.bdpt_kernel_stream_uniforms_fn(key, rid, depth, origins.dtype)
+        rad, r, sh, e = _radiance(scene, origins, dirs, depth, sources, mis)
+        total = rad if total is None else total + rad
+        rays, shadow, extra = rays + r, shadow + sh, extra + e
+    return (*_scatter_active(total, idx, B), rays, shadow, extra)
+
+
+bdpt_megakernel_pixels_plain.calls = 0
+
+
+# ---------------------------------------------------------------- kernel
+
+
+def _launch(scene, ins, ray_ids, keys, depth, mis, pixels, cam=None,
+            ubuf=None, sqrt_spp=1):
+    _check_depth(depth)
+    dev, B, ins, rid, keys_t, cam_t = _lane_inputs(
+        scene, "bdpt-mis" if mis else "bdpt", ins, ray_ids, keys, cam)
+    _, tri, mat, lgt = _pack_tables_bdpt(scene)
+    if ubuf is not None:
+        ubuf = _checked(ubuf, (n_uniform_slots(depth), B), dev, "uniforms")
+    stride = VTX_STRIDE_MIS if mis else VTX_STRIDE
+    vtx = torch.empty((2, depth * stride, B), dtype=torch.float32, device=dev)
+    out = torch.empty((3, B), dtype=torch.float32, device=dev)
+    counters = torch.zeros(4, dtype=torch.int64, device=dev)
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.bpt_bdpt_megakernel(
+            int(pixels), int(mis), B, scene.num_tris, scene.num_lights,
+            int(depth), int(sqrt_spp), len(keys),
+            tri.data_ptr(), mat.data_ptr(), lgt.data_ptr(), keys_t.data_ptr(),
+            cam_t.data_ptr(), *(x.data_ptr() for x in ins), rid.data_ptr(),
+            None if ubuf is None else ubuf.data_ptr(), vtx.data_ptr(),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            counters.data_ptr(), stream)
+    build.check(code, "bdpt_megakernel")
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    extra = torch.stack([zero, zero, counters[2], counters[3]])
+    return out[0], out[1], out[2], counters[0], counters[1], extra
+
+
+def bdpt_megakernel(scene: SceneTensors, o: Vec3, d: Vec3, ray_ids, key,
+                    depth: int, uniforms=None, mis: bool = False):
+    """Whole BDPT sample from given rays.  ray_ids [B] int (negative =
+    inactive lane); key: the base render key (streams 2/3/4 fold inside);
+    uniforms: optional [n_uniform_slots(depth), B] f32 injected draws;
+    ``mis``: power-heuristic weighted strategies (integrator bdpt-mis).
+
+    Returns (rad_x, rad_y, rad_z [B] f32, rays_traced, shadow_rays int64,
+    extra int64[4] = (node_visits, aabb_hits, tri_tests, tri_hits))."""
+    if _device_of(ray_ids).type == "cpu":
+        return bdpt_megakernel_plain(scene, o, d, ray_ids, key, depth,
+                                     uniforms, mis)
+    res = _launch(scene, [o.x, o.y, o.z, d.x, d.y, d.z], ray_ids,
+                  rng.subkeys_bdpt(key, depth), depth, mis, pixels=False,
+                  ubuf=uniforms)
+    bdpt_megakernel.launches += 1
+    return res
+
+
+bdpt_megakernel.launches = 0
+
+
+def bdpt_megakernel_pixels(scene: SceneTensors, i, j, pix_ids, cam13, key,
+                           depth: int, sqrt_spp: int, mis: bool = False):
+    """Fully fused BDPT: in-kernel ray generation and every stratum of each
+    pixel.  i, j: [B] pixel coords; pix_ids [B]: pixel ids, whose samples
+    are pix*spp + s (negative = inactive); cam13 from camera_table(); key:
+    the base render key.  Returns the outputs of ``bdpt_megakernel`` with
+    the radiance summed over strata."""
+    if _device_of(pix_ids).type == "cpu":
+        return bdpt_megakernel_pixels_plain(scene, i, j, pix_ids, cam13, key,
+                                            depth, sqrt_spp, mis)
+    res = _launch(scene, [i, j], pix_ids, rng.subkeys_bdpt_raygen(key, depth),
+                  depth, mis, pixels=True, cam=cam13, sqrt_spp=sqrt_spp)
+    bdpt_megakernel_pixels.launches += 1
+    return res
+
+
+bdpt_megakernel_pixels.launches = 0

@@ -1,6 +1,7 @@
 """Build and load the package's CUDA kernels.
 
-``nvcc`` compiles every ``bpt_tpu_torch/csrc/*.cu`` for ``sm_90a`` into one
+``nvcc`` compiles every ``bpt_tpu_torch/csrc/*.cu`` for ``sm_90a``, one
+process per source, all started together, and links the objects into one
 shared library with a plain C interface, loaded with ``ctypes``.  The build
 runs on first use and is cached in ``bpt_tpu_torch/build/`` (listed in
 ``.gitignore``) under a hash of the sources and flags, so an edited source
@@ -26,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas", "-v",
 ]
 
@@ -35,9 +36,14 @@ _I = ctypes.c_int
 # bpt_pt_megakernel(pixels, B, T, L, depth, spp_loop, sqrt_spp,
 #                   tri, mat, lgt, keys, cam, in0..in5, rid, ubuf,
 #                   out_r, out_g, out_b, counters, stream)
+# bpt_bdpt_megakernel(pixels, mis, B, T, L, depth, sqrt_spp, nkeys,
+#                     tri, mat, lgt, keys, cam, in0..in5, rid, ubuf, vtx,
+#                     out_r, out_g, out_b, counters, stream)
 _SIGNATURES = {
     "bpt_pt_megakernel": ([_I] * 7 + [_P] * 5 + [_P] * 6 + [_P] * 2
                           + [_P] * 4 + [_P], _I),
+    "bpt_bdpt_megakernel": ([_I] * 8 + [_P] * 5 + [_P] * 6 + [_P] * 3
+                            + [_P] * 4 + [_P], _I),
     "bpt_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -72,13 +78,23 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [f"== {src.name}\n{proc.communicate()[0]}" for src, proc in zip(sources, procs)]
+    log = "".join(logs)
+    if any(proc.returncode != 0 for proc in procs):
+        raise RuntimeError(f"nvcc failed:\n{log}")
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
     return out

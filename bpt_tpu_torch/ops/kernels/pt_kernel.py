@@ -37,11 +37,14 @@ MAT_STRIDE = 6  # mtype, albedo(3), fuzz, ior
 LGT_STRIDE = 13  # v0(3) e1(3) e2(3) n(3) area(1)
 
 
+INTEGRATORS = ("pt", "bdpt", "bdpt-mis")
+
+
 def megakernel_reject_reason(scene: SceneTensors, integrator: str = "pt") -> str:
-    """Why the megakernel cannot render ``scene`` ('' if it can)."""
-    if integrator != "pt":
-        return (f"integrator {integrator!r} is not yet ported to "
-                "bpt_tpu_torch (ROADMAP §1 item 7)")
+    """Why the PT or BDPT megakernel cannot render ``scene`` ('' if it
+    can); both take the same scenes."""
+    if integrator not in INTEGRATORS:
+        return f"unknown integrator {integrator!r} (not one of {', '.join(INTEGRATORS)})"
     if scene.num_tris > MAX_TRIS:
         return (f"{scene.num_tris} tris > MAX_TRIS={MAX_TRIS} (the clustered "
                 "modes are not yet ported: ROADMAP §2)")
@@ -194,12 +197,14 @@ def _checked(t, shape, dev, what, dtype=torch.float32):
     return t.contiguous()
 
 
-def _launch(scene, ins, ray_ids, keys, depth, pixels, cam=None, ubuf=None,
-            spp_loop=1, sqrt_spp=1):
+def _lane_inputs(scene, integrator, ins, ray_ids, keys, cam):
+    """Checks and uploads what a megakernel launch takes besides its own
+    tables: (device, B, six lane-input tensors, int32 ids, uint32 keys,
+    camera table).  Raises on what the kernels do not take."""
     dev = ray_ids.device
-    reason = megakernel_reject_reason(scene)
+    reason = megakernel_reject_reason(scene, integrator)
     if reason:
-        raise ValueError(f"pt megakernel cannot render this scene: {reason}")
+        raise ValueError(f"{integrator} megakernel cannot render this scene: {reason}")
     if scene.device != dev:
         raise ValueError(f"scene on {scene.device} but lanes on {dev}")
     if ray_ids.dtype not in (torch.int32, torch.int64) or ray_ids.dim() != 1:
@@ -209,11 +214,17 @@ def _launch(scene, ins, ray_ids, keys, depth, pixels, cam=None, ubuf=None,
     ins = [_checked(x, (B,), dev, "lane input") for x in ins]
     ins += [ins[0]] * (6 - len(ins))  # unused pointers in pixels mode
     rid = ray_ids.to(torch.int32).contiguous()
-    _, tri, mat, lgt = _pack_tables(scene)
     keys_t = torch.tensor([k - (1 << 32) if k >= (1 << 31) else k for k in keys],
                           dtype=torch.int32, device=dev)  # uint32 bit patterns
     cam_t = (torch.zeros(13, dtype=torch.float32, device=dev) if cam is None
              else _checked(cam, (13,), dev, "camera table"))
+    return dev, B, ins, rid, keys_t, cam_t
+
+
+def _launch(scene, ins, ray_ids, keys, depth, pixels, cam=None, ubuf=None,
+            spp_loop=1, sqrt_spp=1):
+    dev, B, ins, rid, keys_t, cam_t = _lane_inputs(scene, "pt", ins, ray_ids, keys, cam)
+    _, tri, mat, lgt = _pack_tables(scene)
     if ubuf is not None:
         ubuf = _checked(ubuf, (depth * NU, B), dev, "uniforms")
     out = torch.empty((3, B), dtype=torch.float32, device=dev)

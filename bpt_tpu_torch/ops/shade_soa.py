@@ -5,6 +5,8 @@ ROADMAP §1 item 8)."""
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from bpt_tpu_torch.core import vec3 as v3
@@ -123,6 +125,15 @@ def scattering_pdf(mtype, normal: Vec3, direction: Vec3):
     return torch.where(mtype == MAT_ISOTROPIC, SPHERE_PDF, out)
 
 
+def evaluate_bsdf(scene: SceneTensors, mat, mtype) -> Vec3:
+    """The reference's direction-free BSDF value (material.h:35-37, 60-63):
+    albedo/pi for lambertian, albedo/(4 pi) for isotropic, 0 otherwise."""
+    alb = albedo_value(scene, mat)
+    zero = torch.zeros_like(alb.x)
+    out = v3.where(mtype == MAT_LAMBERTIAN, alb * (1.0 / PI), Vec3(zero, zero, zero))
+    return v3.where(mtype == MAT_ISOTROPIC, alb * (1.0 / (4.0 * PI)), out)
+
+
 # ------------------------------------------------------------------ lights
 
 
@@ -165,4 +176,38 @@ def sample_light_dir(scene: SceneTensors, origin: Vec3, u_pick, u1, u2) -> Vec3:
         lv0.x + u * le1.x + v * le2.x - origin.x,
         lv0.y + u * le1.y + v * le2.y - origin.y,
         lv0.z + u * le1.z + v * le2.z - origin.z,
+    )
+
+
+class SurfaceSampleSoA(NamedTuple):
+    position: Vec3
+    normal: Vec3
+    mat: torch.Tensor
+    pdf: torch.Tensor
+    valid: torch.Tensor
+
+
+def sample_surface(scene: SceneTensors, u_pick, u1, u2) -> SurfaceSampleSoA:
+    """Area-weighted CDF emitter sampling (triangle.h:199-224): the light
+    whose inclusive area prefix first reaches ``u_pick * total``."""
+    total = scene.light_total_area
+    pick = u_pick * total
+    idx = torch.searchsorted(scene.light_cdf, pick)  # side="left"
+    idx = torch.clamp(idx, 0, scene.num_lights - 1)
+    u, v = triangle_barycentric(u1, u2)
+    lv0 = v3.gather(scene.light_v0, idx)
+    le1 = v3.gather(scene.light_e1, idx)
+    le2 = v3.gather(scene.light_e2, idx)
+    p = Vec3(
+        lv0.x + u * le1.x + v * le2.x,
+        lv0.y + u * le1.y + v * le2.y,
+        lv0.z + u * le1.z + v * le2.z,
+    )
+    inv_total = torch.where(total > 0.0, 1.0 / torch.clamp_min(total, 1e-30), 0.0)
+    return SurfaceSampleSoA(
+        position=p,
+        normal=v3.gather(scene.light_normal, idx),
+        mat=scene.light_mat[idx],
+        pdf=torch.broadcast_to(inv_total, u_pick.shape),
+        valid=torch.broadcast_to(total > 0.0, u_pick.shape),
     )

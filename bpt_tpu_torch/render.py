@@ -1,10 +1,11 @@
 """CLI entry point of the PyTorch + CUDA port.
 
 Mirrors ``python -m bpt_tpu.render``: no scene argument renders the
-built-in cornell box.  ``--device`` picks where the render runs: ``cuda``
-(the default) launches the CUDA megakernel, ``cpu`` runs its plain PyTorch
-version.  This slice renders PT only (``--integrator pt``); BDPT, YAML
-scenes and ``--f64`` exit non-zero with a "not yet ported" message.
+built-in cornell box with the preset's integrator, BDPT.  ``--device``
+picks where the render runs: ``cuda`` (the default) launches the CUDA
+megakernels, ``cpu`` runs their plain PyTorch versions.  The cornell box
+renders with pt, bdpt and bdpt-mis; YAML scenes and ``--f64`` exit
+non-zero with a "not yet ported" message.
 
 Usage:
     python -m bpt_tpu_torch.render [scene.yaml] [--spp N] [--size WxH]
@@ -105,7 +106,7 @@ def main(argv=None):
             stratum_callback=cb,
         )
     except NotImplementedError as ex:
-        print(f"{ex}; pass --integrator pt", file=sys.stderr)
+        print(ex, file=sys.stderr)
         return 1
     path = write_png(cfg.file_name, result.rgb8(), output_dir=args.output_dir)
     print(result.stats.summary(), file=sys.stderr)

@@ -229,6 +229,10 @@ class SceneBuilder:
         lights_are_world = light_idx.size == 0
         if lights_are_world:
             light_idx = np.arange(T)
+        # area CDF built as bpt_tpu builds it (a numpy cumsum in f64, then
+        # a cast to the scene dtype: bpt_tpu/scene/builder.py:335-338)
+        light_cdf = np.cumsum(area[light_idx])
+        total_area = float(light_cdf[-1])
 
         return SceneTensors(
             v0=ten(v0), e1=ten(e1), e2=ten(e2),
@@ -239,6 +243,9 @@ class SceneBuilder:
             light_e2=ten(e2[light_idx]),
             light_normal=ten(normal[light_idx]),
             light_area=ten(area[light_idx]),
+            light_cdf=ten(light_cdf),
+            light_total_area=ten(total_area),
+            light_mat=ten(mat_id[light_idx], torch.int64),
             materials=materials,
             background=ten(np.asarray(background, np.float64)),
             num_tris=T,

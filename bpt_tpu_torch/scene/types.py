@@ -1,11 +1,11 @@
 """Scene tensors: the flattened triangle scene the render loop reads.
 
 Counterpart of ``bpt_tpu.scene.types.SceneArrays`` holding the fields the
-PT megakernel's tables (``_pack_tables``) and the PT estimator read, plus
-the static meta.  BVH node arrays, texture tables, the light CDF and the
-volume boundary soup are not carried: this port has no BVH traversal,
-textures, BDPT or volumes yet (ROADMAP §1 items 7-9), and the megakernel's
-brute-force sweep gives the same hits as BVH traversal.
+PT and BDPT megakernels' tables (``_pack_tables``, ``_pack_tables_bdpt``)
+and estimators read, plus the static meta.  BVH node arrays, texture
+tables and the volume boundary soup are not carried: this port has no BVH
+traversal, textures or volumes yet (ROADMAP §1 items 8-9), and the
+megakernels' brute-force sweep gives the same hits as BVH traversal.
 """
 
 from __future__ import annotations
@@ -53,6 +53,10 @@ class SceneTensors:
     light_e2: torch.Tensor  # [L,3]
     light_normal: torch.Tensor  # [L,3]
     light_area: torch.Tensor  # [L]
+    # sample_surface's area CDF (triangle.h:199-224)
+    light_cdf: torch.Tensor  # [L] inclusive prefix sum of light areas
+    light_total_area: torch.Tensor  # [] scalar
+    light_mat: torch.Tensor  # [L] int64
 
     materials: MaterialTable
     background: torch.Tensor  # [3]
@@ -77,7 +81,7 @@ class SceneTensors:
         return self.v0.device
 
 
-_INT_FIELDS = {"mat_id", "materials.mtype"}
+_INT_FIELDS = {"mat_id", "light_mat", "materials.mtype"}
 _MATERIAL_FIELDS = [f.name for f in dataclasses.fields(MaterialTable)]
 _META_TYPES = {
     f.name: int if f.type == "int" else bool

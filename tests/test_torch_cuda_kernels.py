@@ -1,4 +1,5 @@
-"""The CUDA PT megakernel against its plain PyTorch version on the card.
+"""The CUDA PT and BDPT megakernels against their plain PyTorch versions
+on the card.
 
 Needs an NVIDIA card with sm_90a (H100) and nvcc; elsewhere every test
 skips.  Run on the GPU machine with
@@ -19,6 +20,7 @@ from bpt_tpu_torch.core.vec3 import Vec3
 from bpt_tpu_torch.models.camera import camera_constants
 from bpt_tpu_torch.models.pt import NU
 from bpt_tpu_torch.models.render import render
+from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
 from bpt_tpu_torch.ops.kernels import pt_kernel as pk
 from bpt_tpu_torch.scene import builder, presets
 from torch_parity import mixed_scene, rays
@@ -106,3 +108,92 @@ def test_wrapper_rejects_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="float32"):
         pk.pt_megakernel(presets.cornell_box(dtype=torch.float64, device="cuda"),
                          o, o, ids[:4], rng.prng_key(0), 2)
+
+
+def _counters(out):
+    return [int(out[3]), int(out[4])] + [int(x) for x in out[5]]
+
+
+@pytest.mark.parametrize("mis", [False, True], ids=["bdpt", "bdpt-mis"])
+@pytest.mark.parametrize("which", ["cornell", "mixed"])
+@pytest.mark.parametrize("injected", [True, False], ids=["buffer", "rng"])
+def test_bdpt_rays_mode_matches_plain(which, injected, mis):
+    scene = _scene(which)
+    B, depth = 8192, 6
+    o, d = (torch.from_numpy(x).cuda() for x in rays(B, 5))
+    ids = torch.arange(B, dtype=torch.int32, device="cuda")
+    ids[::13] = -1
+    u = (torch.from_numpy(np.random.default_rng(6).uniform(
+        size=(bk.n_uniform_slots(depth), B)).astype(np.float32)).cuda()
+        if injected else None)
+    ov, dv = Vec3(*o.unbind(1)), Vec3(*d.unbind(1))
+    n = bk.bdpt_megakernel.launches
+    got = bk.bdpt_megakernel(scene, ov, dv, ids, rng.prng_key(2), depth, uniforms=u, mis=mis)
+    want = bk.bdpt_megakernel_plain(scene, ov, dv, ids, rng.prng_key(2), depth,
+                                    uniforms=u, mis=mis)
+    torch.cuda.synchronize()
+    assert bk.bdpt_megakernel.launches == n + 1
+    assert _frac_close(got, want) >= 0.999
+    assert all(float(c[::13].abs().max()) == 0.0 for c in got[:3])
+    for g, w in zip(_counters(got), _counters(want)):
+        assert abs(g - w) <= 1e-3 * w
+
+
+@pytest.mark.parametrize("mis", [False, True], ids=["bdpt", "bdpt-mis"])
+def test_bdpt_pixels_mode_matches_plain_with_exact_counters(mis):
+    scene = _scene("cornell")
+    W, S = 32, 4
+    cc = camera_constants(dataclasses.replace(presets.cornell_box_camera(),
+                                              image_width=W, samples_per_pixel=S * S),
+                          torch.float32, "cuda")
+    pix = torch.arange(W * W, device="cuda")
+    i, j = (pix % W).float(), (pix // W).float()
+    args = (scene, i, j, pix.int(), pk.camera_table(cc), rng.prng_key(0), 10, S)
+    got = bk.bdpt_megakernel_pixels(*args, mis=mis)
+    want = bk.bdpt_megakernel_pixels_plain(*args, mis=mis)
+    torch.cuda.synchronize()
+    assert _frac_close(got, want) >= 0.999
+    assert _counters(got) == _counters(want)
+
+
+def test_bdpt_depth80_matches_plain():
+    """The glass north-star depth: 80 bounces a side, vertex scratch
+    2 x 80 x 16 floats a lane, on the mixed scene with bdpt-mis."""
+    scene = _scene("mixed")
+    W, S = 16, 2
+    cc = camera_constants(dataclasses.replace(presets.cornell_box_camera(),
+                                              image_width=W, samples_per_pixel=S * S),
+                          torch.float32, "cuda")
+    pix = torch.arange(W * W, device="cuda")
+    i, j = (pix % W).float(), (pix // W).float()
+    args = (scene, i, j, pix, pk.camera_table(cc), rng.prng_key(1), 80, S)
+    got = bk.bdpt_megakernel_pixels(*args, mis=True)
+    want = bk.bdpt_megakernel_pixels_plain(*args, mis=True)
+    torch.cuda.synchronize()
+    assert _frac_close(got, want) >= 0.999
+    assert _counters(got) == _counters(want)
+
+
+@pytest.mark.parametrize("integrator", ["bdpt", "bdpt-mis"])
+def test_render_bdpt_on_card_matches_cpu(integrator):
+    cfg = dataclasses.replace(presets.cornell_box_camera(), image_width=16,
+                              samples_per_pixel=4, max_depth=10, integrator=integrator)
+    gpu = render(presets.cornell_box(device="cuda"), cfg, seed=3)
+    cpu = render(presets.cornell_box(), cfg, seed=3)
+    ok = np.isclose(gpu.framebuffer_sum, cpu.framebuffer_sum, rtol=1e-4, atol=1e-5)
+    assert ok.all(axis=-1).mean() >= 0.97
+    assert abs(gpu.stats.rays_traced - cpu.stats.rays_traced) <= 10
+    assert abs(gpu.stats.shadow_rays - cpu.stats.shadow_rays) <= 0.01 * cpu.stats.shadow_rays
+
+
+def test_bdpt_wrapper_rejects_what_the_kernel_cannot_take():
+    scene = _scene("cornell")
+    o = Vec3(*(torch.zeros(4, device="cuda") for _ in range(3)))
+    ids = torch.arange(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="depth"):
+        bk.bdpt_megakernel(scene, o, o, ids, rng.prng_key(0), bk.MAX_DEPTH + 1)
+    with pytest.raises(ValueError, match="expected"):
+        bk.bdpt_megakernel(scene, o, o, torch.arange(5, device="cuda"), rng.prng_key(0), 2)
+    with pytest.raises(ValueError, match="uniforms"):
+        bk.bdpt_megakernel(scene, o, o, ids, rng.prng_key(0), 2,
+                           uniforms=torch.zeros((3, 4), device="cuda"))

@@ -235,7 +235,9 @@ def test_plain_megakernel_pixels_matches_pallas(which):
 def test_reject_reasons():
     scene = tpresets.cornell_box()
     assert tk.megakernel_reject_reason(scene) == ""
-    assert "ROADMAP" in tk.megakernel_reject_reason(scene, "bdpt")
+    assert tk.megakernel_reject_reason(scene, "bdpt") == ""
+    assert tk.megakernel_reject_reason(scene, "bdpt-mis") == ""
+    assert "unknown integrator" in tk.megakernel_reject_reason(scene, "mlt")
     assert "float32" in tk.megakernel_reject_reason(tpresets.cornell_box(dtype=torch.float64))
     b = tbuilder.SceneBuilder()
     mats = [tbuilder.MaterialSpec.lambertian((0.1 * k, 0.1, 0.1)) for k in range(17)]

@@ -1,7 +1,7 @@
 """Where the time of a bpt_tpu_torch render goes, on one NVIDIA card.
 
-Renders the cornell box with PT (default 512x512, 16 spp, depth 10,
-seed 0): one warm-up render, then ``--renders`` timed ones (their walls
+Renders the cornell box with PT, BDPT or BDPT-MIS (default PT at 512x512,
+16 spp, depth 10, seed 0): one warm-up render, then ``--renders`` timed ones (their walls
 and median), then one render under ``torch.profiler`` with CUDA activity.
 Prints the profiler's tables by device time and by host time, the
 kernel's device time, the sum of all device time, and the device time
@@ -9,8 +9,8 @@ spent before the wall clock stops as a share of the profiled render's
 wall (the device's busy share; the profiler's own host overhead
 lengthens that wall).
 
-    python tools/profile_render.py [--width 512] [--spp 16] [--depth 10]
-        [--renders 10]
+    python tools/profile_render.py [--integrator pt|bdpt|bdpt-mis]
+        [--width 512] [--spp 16] [--depth 10] [--renders 10]
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--integrator", choices=("pt", "bdpt", "bdpt-mis"), default="pt")
     ap.add_argument("--width", type=int, default=512)
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--depth", type=int, default=10)
@@ -48,11 +49,12 @@ def main(argv=None) -> int:
     scene = cornell_box(device=torch.device("cuda", 0))
     cfg = dataclasses.replace(cornell_box_camera(), image_width=args.width,
                               samples_per_pixel=args.spp, max_depth=args.depth,
-                              integrator="pt")
+                              integrator=args.integrator)
     render(scene, cfg, seed=0)  # warm-up: kernel build and load
     walls = [render(scene, cfg, seed=0).stats.wall_seconds
              for _ in range(args.renders)]
-    print(f"render walls {walls} s, median {statistics.median(walls)} s ({card})")
+    print(f"{args.integrator} render walls {walls} s, median "
+          f"{statistics.median(walls)} s ({card})")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         res = render(scene, cfg, seed=0)
@@ -65,7 +67,7 @@ def main(argv=None) -> int:
     readback = sum(e.self_device_time_total for e in events
                    if e.key.startswith("Memcpy DtoH")) / 1e3
     kernel = sum(e.self_device_time_total for e in events
-                 if "pt_megakernel" in e.key) / 1e3
+                 if "megakernel" in e.key) / 1e3
     wall = res.stats.wall_seconds * 1e3
     inside = busy - readback
     print(f"profiled render wall {wall:.3f} ms; kernel {kernel:.3f} ms; "

@@ -1,13 +1,14 @@
-"""rays_traced of bpt_tpu's fused PT kernel on the cornell box, on a CPU.
+"""Counters of bpt_tpu's fused PT or BDPT kernel on the cornell box, on a CPU.
 
-The count that chip_smoke.py holds the port's 512x512 / 16 spp / depth-10
-/ seed-0 render to.  Runs bpt_tpu's pt_megakernel_pixels in Pallas
-interpret mode over chunks of pixels (all strata in-kernel, as the
-render loop's fused path does) and sums the kernel's own counters.
-At the default configuration this takes about ten minutes on one core.
+For PT, the rays_traced that chip_smoke.py holds the port's 512x512 / 16
+spp / depth-10 / seed-0 render to.  Runs bpt_tpu's pt_megakernel_pixels
+(or bdpt_megakernel_pixels) in Pallas interpret mode over chunks of
+pixels (all strata in-kernel, as the render loop's fused path does) and
+sums the kernel's own counters.  At the default configuration PT takes
+about ten minutes on one core, BDPT longer.
 
-    python tools/pt_reference_rays.py [--width 512] [--spp 16] [--depth 10]
-        [--seed 0] [--chunk 4096]
+    python tools/pt_reference_rays.py [--integrator pt|bdpt|bdpt-mis]
+        [--width 512] [--spp 16] [--depth 10] [--seed 0] [--chunk 4096]
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--integrator", choices=("pt", "bdpt", "bdpt-mis"), default="pt")
     ap.add_argument("--width", type=int, default=512)
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--depth", type=int, default=10)
@@ -36,6 +38,7 @@ def main(argv=None):
     import numpy as np
 
     from bpt_tpu.models.camera import camera_constants
+    from bpt_tpu.ops.pallas import bdpt_kernel as bk
     from bpt_tpu.ops.pallas import pt_kernel as pk
     from bpt_tpu.scene.presets import cornell_box, cornell_box_camera
 
@@ -46,19 +49,26 @@ def main(argv=None):
     S = cfg.sqrt_spp
     W, npix = cfg.image_width, cfg.image_width * cfg.image_height
     key = jax.random.PRNGKey(args.seed)
-    rays = np.zeros(5, np.int64)  # rays, node visits, aabb hits, tri tests, tri hits
+    # rays, shadow rays, node visits, aabb hits, tri tests, tri hits
+    rays = np.zeros(6, np.int64)
     for c0 in range(0, npix, args.chunk):
         pix = np.arange(c0, min(c0 + args.chunk, npix), dtype=np.int32)
         i = jnp.asarray((pix % W).astype(np.float32))
         j = jnp.asarray((pix // W).astype(np.float32))
-        out = pk.pt_megakernel_pixels(scene, i, j, i * 0, j * 0, jnp.asarray(pix),
-                                      cam, key, args.depth, interpret=True,
-                                      spp_loop=S * S, sqrt_spp=S)
-        rays += np.array([int(out[3])] + [int(x) for x in np.asarray(out[4])])
-        print(f"pixels {c0}..{pix[-1]}: running rays_traced {rays[0]}",
-              file=sys.stderr, flush=True)
-    print(f"rays_traced {rays[0]} node_visits {rays[1]} aabb_hits {rays[2]} "
-          f"triangle_tests {rays[3]} triangle_hits {rays[4]}")
+        if args.integrator == "pt":
+            out = pk.pt_megakernel_pixels(scene, i, j, i * 0, j * 0, jnp.asarray(pix),
+                                          cam, key, args.depth, interpret=True,
+                                          spp_loop=S * S, sqrt_spp=S)
+            out = (*out[:4], 0, out[4])
+        else:
+            out = bk.bdpt_megakernel_pixels(scene, i, j, jnp.asarray(pix), cam, key,
+                                            args.depth, S, interpret=True,
+                                            mis=args.integrator == "bdpt-mis")
+        rays += np.array([int(out[3]), int(out[4])] + [int(x) for x in np.asarray(out[5])])
+        print(f"pixels {c0}..{pix[-1]}: running rays_traced {rays[0]} "
+              f"shadow_rays {rays[1]}", file=sys.stderr, flush=True)
+    print(f"rays_traced {rays[0]} shadow_rays {rays[1]} node_visits {rays[2]} "
+          f"aabb_hits {rays[3]} triangle_tests {rays[4]} triangle_hits {rays[5]}")
 
 
 if __name__ == "__main__":
