@@ -57,11 +57,12 @@ __device__ __forceinline__ float bits_to_unit(uint32_t bits) {
 }
 
 // Moller-Trumbore of ray (o, d) against the triangle (v0, e1, e2); the
-// operation order of bpt_tpu/ops/pallas/pt_kernel.py:257-270.  Returns t,
-// with valid = the reference's acceptance test minus the t interval.
-__device__ __forceinline__ float moller_trumbore(
+// operation order of bpt_tpu/ops/pallas/pt_kernel.py:257-270.  Returns t
+// and the barycentrics (u, v), with valid = the reference's acceptance
+// test minus the t interval.
+__device__ __forceinline__ float moller_trumbore_uv(
     float ox, float oy, float oz, float dx, float dy, float dz,
-    const float* tri, bool& valid) {
+    const float* tri, float& u, float& v, bool& valid) {
   const float v0x = tri[0], v0y = tri[1], v0z = tri[2];
   const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
   const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
@@ -73,15 +74,23 @@ __device__ __forceinline__ float moller_trumbore(
   const float tx = ox - v0x;
   const float ty = oy - v0y;
   const float tz = oz - v0z;
-  const float u = (tx * px + ty * py + tz * pz) * inv;
+  u = (tx * px + ty * py + tz * pz) * inv;
   const float qx = ty * e1z - tz * e1y;
   const float qy = tz * e1x - tx * e1z;
   const float qz = tx * e1y - ty * e1x;
-  const float v = (dx * qx + dy * qy + dz * qz) * inv;
+  v = (dx * qx + dy * qy + dz * qz) * inv;
   const float t = (e2x * qx + e2y * qy + e2z * qz) * inv;
   valid = (fabsf(det) >= MT_EPSILON) && (u >= 0.0f) && (u <= 1.0f) &&
           (v >= 0.0f) && (u + v <= 1.0f);
   return t;
+}
+
+// The same, when the caller needs only t.
+__device__ __forceinline__ float moller_trumbore(
+    float ox, float oy, float oz, float dx, float dy, float dz,
+    const float* tri, bool& valid) {
+  float u, v;
+  return moller_trumbore_uv(ox, oy, oz, dx, dy, dz, tri, u, v, valid);
 }
 
 // normalize with the dead-lane guard of pt_kernel._normalize_safe

@@ -1,0 +1,353 @@
+// Large-scene PT for Hopper (sm_90a): BVH closest hit and the per-bounce
+// wave kernel.
+//
+// closest_bvh replaces the Pallas kernel
+// bpt_tpu/ops/pallas/cluster_wave.py::clustered_closest_ftb_pallas (the
+// front-to-back clustered closest hit over (T_MIN, inf) with an active
+// mask): out t (inf on a miss), tri (-1 on a miss), u, v.
+// pt_wave_bounce replaces bpt_tpu/ops/pallas/pt_wave.py::_launch_bounce
+// (_bounce_kernel): one PT bounce per ray, the closest hit (its own
+// traversal, or closest_bvh's hit in paged mode) followed by make_bounce's
+// shade with kernel-stream draws keyed by (ray id, bounce).
+//
+// What bounds them on the H100: per-thread traversal divergence and the
+// dependent loads of the walk, not FP32 issue and not device-memory
+// bandwidth.  Each step of a lane's walk loads a 32-byte node whose address
+// depends on the previous step's slab test, and the lanes of a warp follow
+// different node sequences of different lengths.  The scene (32 B per node,
+// 48 B per triangle: about 3 MB + 4.4 MB for the 91k-triangle coffee
+// stand-in) stays resident in the 50 MB L2 cache.
+//
+// Design: one thread per ray.  The thread walks the threaded-DFS BVH of
+// scene/bvh.py (preorder with skip links: a box hit at an internal node
+// goes to the next node, a miss or a leaf to the skip link), so it needs no
+// stack, with the visit order, NaN slab rules and `t <= t_best` replace rule
+// of ops/soa.py::bvh_closest; kernel and plain version take the same branch
+// at every step and count the same node visits, box hits, triangle tests
+// and accepted tests.  The TPU layout (128-lane tiles, the cluster blocks
+// and their DMA double buffer, the lane roll, the per-octant order table)
+// does not carry over.  The shade is pt_shade.cuh's pt_bounce, shared with
+// the PT megakernel; the material and light tables and the slot keys sit in
+// shared memory.  Ray state is a [13, B] row-major f32 array (origin,
+// direction, throughput, radiance, alive: ops/kernels/pt_wave.py's
+// STATE_ROWS) so a warp's access to one row is coalesced.
+// Counters are exact 64-bit integers: warp sums, one atomic per warp.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "pt_shade.cuh"
+
+namespace bpt {
+
+constexpr int WAVE_BLOCK = 128;
+
+struct Bvh {
+  const float4* nodes;  // [2N]: (min xyz, max x), (max yz, skip, first*4 + count)
+  const float4* tris;   // [3T]: (v0 xyz, e1 x), (e1 yz, e2 xy), (e2 z, normal)
+  int N;
+};
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+struct TraceCounts {
+  unsigned long long nodes = 0, boxes = 0, tests = 0, hits = 0;
+};
+
+// jnp.minimum / maximum propagate NaN, and bvh_closest then reads a NaN
+// slab bound as unconstrained (-inf / +inf).
+__device__ __forceinline__ void slab_axis(float lo_b, float hi_b, float o,
+                                          float inv, float& lo, float& hi) {
+  const float t0 = (lo_b - o) * inv;
+  const float t1 = (hi_b - o) * inv;
+  const bool nan = isnan(t0) || isnan(t1);
+  lo = nan ? -inf_f() : fminf(t0, t1);
+  hi = nan ? inf_f() : fmaxf(t0, t1);
+}
+
+// Closest hit over [tmin, tmax] by the threaded DFS of soa.bvh_closest.
+// t is inf and tri -1 on a miss; u, v are the winner's barycentrics.
+__device__ __forceinline__ void bvh_closest(const Bvh& g, float ox, float oy,
+                                            float oz, float dx, float dy,
+                                            float dz, float tmin, float tmax,
+                                            float& t_out, int& tri_out,
+                                            float& u_out, float& v_out,
+                                            TraceCounts& c) {
+  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
+  float t_best = tmax, ub = 0.0f, vb = 0.0f;
+  int tri = -1;
+  int i = 0;
+  while (i < g.N) {
+    c.nodes += 1;
+    const float4 a = __ldg(&g.nodes[2 * i]);
+    const float4 b = __ldg(&g.nodes[2 * i + 1]);
+    float lox, hix, loy, hiy, loz, hiz;
+    slab_axis(a.x, a.w, ox, ix, lox, hix);
+    slab_axis(a.y, b.x, oy, iy, loy, hiy);
+    slab_axis(a.z, b.y, oz, iz, loz, hiz);
+    const float t_enter = fmaxf(fmaxf(lox, loy), fmaxf(loz, tmin));
+    const float t_exit = fminf(fminf(hix, hiy), fminf(hiz, t_best));
+    const int skip = __float_as_int(b.z);
+    if (!(t_exit > t_enter)) {
+      i = skip;
+      continue;
+    }
+    c.boxes += 1;
+    const int fc = __float_as_int(b.w);
+    const int cnt = fc & 3;
+    if (cnt == 0) {  // internal node: descend
+      i += 1;
+      continue;
+    }
+    for (int k = fc >> 2, end = (fc >> 2) + cnt; k < end; ++k) {
+      c.tests += 1;
+      const float4 p0 = __ldg(&g.tris[3 * k]);
+      const float4 p1 = __ldg(&g.tris[3 * k + 1]);
+      const float4 p2 = __ldg(&g.tris[3 * k + 2]);
+      const float tv[9] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w, p2.x};
+      float u, v;
+      bool valid;
+      const float t = moller_trumbore_uv(ox, oy, oz, dx, dy, dz, tv, u, v, valid);
+      if (valid && t >= tmin && t <= t_best) {
+        c.hits += 1;
+        t_best = t;
+        tri = k;
+        ub = u;
+        vb = v;
+      }
+    }
+    i = skip;
+  }
+  t_out = tri >= 0 ? t_best : inf_f();
+  tri_out = tri;
+  u_out = ub;
+  v_out = vb;
+}
+
+__device__ __forceinline__ void surface_of(const Bvh& g, const int* mat_id,
+                                           int tri, float& gnx, float& gny,
+                                           float& gnz, int& mat) {
+  const float4 n = __ldg(&g.tris[3 * tri + 2]);
+  gnx = n.y;
+  gny = n.z;
+  gnz = n.w;
+  mat = __ldg(&mat_id[tri]);
+}
+
+// pt_bounce's hit providers: the walk, or a hit closest_bvh computed.
+struct WalkHit {
+  Bvh g;
+  const int* mat_id;
+  TraceCounts& c;
+
+  __device__ __forceinline__ Hit operator()(float ox, float oy, float oz,
+                                            float dx, float dy, float dz) {
+    float t, u, v;
+    int tri;
+    bvh_closest(g, ox, oy, oz, dx, dy, dz, T_MIN, inf_f(), t, tri, u, v, c);
+    return Hit{tri, t};
+  }
+
+  __device__ __forceinline__ void surface(int k, float& gnx, float& gny,
+                                          float& gnz, int& mat) const {
+    surface_of(g, mat_id, k, gnx, gny, gnz, mat);
+  }
+};
+
+struct GivenHit {
+  Bvh g;
+  const int* mat_id;
+  float t;
+  int tri;
+
+  __device__ __forceinline__ Hit operator()(float, float, float, float, float,
+                                            float) {
+    return Hit{tri, t};
+  }
+
+  __device__ __forceinline__ void surface(int k, float& gnx, float& gny,
+                                          float& gnz, int& mat) const {
+    surface_of(g, mat_id, k, gnx, gny, gnz, mat);
+  }
+};
+
+// Adds a warp's sum of v to *dst with one atomic.
+__device__ __forceinline__ void warp_add(unsigned long long v,
+                                         unsigned long long* dst) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  if ((threadIdx.x & 31) == 0 && v) atomicAdd(dst, v);
+}
+
+struct ClosestParams {
+  int B;
+  Bvh g;
+  const float* o[3];
+  const float* d[3];
+  const unsigned char* active;  // [B] bool
+  float* t;
+  int* tri;
+  float* u;
+  float* v;
+  unsigned long long* counters;  // [4] node visits, box hits, tri tests, tri hits
+};
+
+__global__ void __launch_bounds__(WAVE_BLOCK) closest_bvh(const ClosestParams p) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  TraceCounts c;
+  if (lane < p.B) {
+    float t = inf_f(), u = 0.0f, v = 0.0f;
+    int tri = -1;
+    if (p.active[lane]) {
+      bvh_closest(p.g, p.o[0][lane], p.o[1][lane], p.o[2][lane], p.d[0][lane],
+                  p.d[1][lane], p.d[2][lane], T_MIN, inf_f(), t, tri, u, v, c);
+    }
+    p.t[lane] = t;
+    p.tri[lane] = tri;
+    p.u[lane] = u;
+    p.v[lane] = v;
+  }
+  warp_add(c.nodes, &p.counters[0]);
+  warp_add(c.boxes, &p.counters[1]);
+  warp_add(c.tests, &p.counters[2]);
+  warp_add(c.hits, &p.counters[3]);
+}
+
+struct WaveParams {
+  int B, L, bounce;
+  Bvh g;
+  const int* mat_id;    // [T]
+  const float* mat;     // [MAX_MATS * 6]
+  const float* lgt;     // [LGT_TAB]
+  const uint32_t* keys; // [2 * NU] slot keys
+  const float* in;      // [STATE_ROWS, B]
+  const int* rid;       // [B]
+  const float* hit_t;   // paged: [B] closest_bvh's t
+  const int* hit_tri;   // paged: [B] closest_bvh's tri
+  float* out;           // [STATE_ROWS, B]
+  unsigned long long* counters;  // [5] rays, node visits, box hits, tri tests, tri hits
+};
+
+template <bool PAGED>
+__global__ void __launch_bounds__(WAVE_BLOCK) pt_wave_bounce(const WaveParams p) {
+  __shared__ float s_mat[MAX_MATS * MAT_STRIDE];
+  __shared__ float s_lgt[LGT_TAB];
+  __shared__ uint32_t s_keys[2 * NU];
+  for (int k = threadIdx.x; k < MAX_MATS * MAT_STRIDE; k += blockDim.x) s_mat[k] = p.mat[k];
+  for (int k = threadIdx.x; k < LGT_TAB; k += blockDim.x) s_lgt[k] = p.lgt[k];
+  for (int k = threadIdx.x; k < 2 * NU; k += blockDim.x) s_keys[k] = p.keys[k];
+  __syncthreads();
+
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  TraceCounts c;
+  unsigned long long rays = 0;
+  if (lane < p.B) {
+    const size_t B = (size_t)p.B;
+    const float* in = p.in + lane;
+    PathState s{in[0], in[B], in[2 * B], in[3 * B], in[4 * B], in[5 * B],
+                in[6 * B], in[7 * B], in[8 * B], 0.0f, 0.0f, 0.0f};
+    float rr = in[9 * B], rg = in[10 * B], rb = in[11 * B];
+    bool alive = false;
+    if (in[12 * B] > 0.5f) {
+      rays = 1;
+      const Draws dr{nullptr, p.B, s_keys, (uint32_t)p.rid[lane], lane};
+      if constexpr (PAGED) {
+        GivenHit h{p.g, p.mat_id, p.hit_t[lane], p.hit_tri[lane]};
+        alive = pt_bounce(s_mat, s_lgt, p.L, dr, p.bounce, h, s);
+      } else {
+        WalkHit h{p.g, p.mat_id, c};
+        alive = pt_bounce(s_mat, s_lgt, p.L, dr, p.bounce, h, s);
+      }
+      // at most one bounce of a path adds radiance: rr + 0 elsewhere
+      rr = rr + s.ar;
+      rg = rg + s.ag;
+      rb = rb + s.ab;
+    }
+    float* out = p.out + lane;
+    out[0] = s.ox;
+    out[B] = s.oy;
+    out[2 * B] = s.oz;
+    out[3 * B] = s.dx;
+    out[4 * B] = s.dy;
+    out[5 * B] = s.dz;
+    out[6 * B] = s.tr;
+    out[7 * B] = s.tg;
+    out[8 * B] = s.tb;
+    out[9 * B] = rr;
+    out[10 * B] = rg;
+    out[11 * B] = rb;
+    out[12 * B] = alive ? 1.0f : 0.0f;
+  }
+  warp_add(rays, &p.counters[0]);
+  warp_add(c.nodes, &p.counters[1]);
+  warp_add(c.boxes, &p.counters[2]);
+  warp_add(c.tests, &p.counters[3]);
+  warp_add(c.hits, &p.counters[4]);
+}
+
+inline int grid_of(int B) { return (B + WAVE_BLOCK - 1) / WAVE_BLOCK; }
+
+}  // namespace bpt
+
+extern "C" {
+
+// Launch on `stream`; each returns cudaGetLastError() after the launch
+// (0 = launched).  All pointers are device pointers.
+int bpt_closest_bvh(int B, int N, const float* nodes, const float* tris,
+                    const float* ox, const float* oy, const float* oz,
+                    const float* dx, const float* dy, const float* dz,
+                    const unsigned char* active, float* t, int* tri, float* u,
+                    float* v, unsigned long long* counters, void* stream) {
+  bpt::ClosestParams p;
+  p.B = B;
+  p.g = bpt::Bvh{(const float4*)nodes, (const float4*)tris, N};
+  p.o[0] = ox;
+  p.o[1] = oy;
+  p.o[2] = oz;
+  p.d[0] = dx;
+  p.d[1] = dy;
+  p.d[2] = dz;
+  p.active = active;
+  p.t = t;
+  p.tri = tri;
+  p.u = u;
+  p.v = v;
+  p.counters = counters;
+  if (B > 0) {
+    bpt::closest_bvh<<<bpt::grid_of(B), bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+int bpt_pt_wave_bounce(int B, int N, int L, int bounce, const float* nodes,
+                       const float* tris, const int* mat_id, const float* mat,
+                       const float* lgt, const uint32_t* keys,
+                       const float* state_in, const int* rid,
+                       const float* hit_t, const int* hit_tri,
+                       float* state_out, unsigned long long* counters,
+                       void* stream) {
+  bpt::WaveParams p;
+  p.B = B;
+  p.L = L;
+  p.bounce = bounce;
+  p.g = bpt::Bvh{(const float4*)nodes, (const float4*)tris, N};
+  p.mat_id = mat_id;
+  p.mat = mat;
+  p.lgt = lgt;
+  p.keys = keys;
+  p.in = state_in;
+  p.rid = rid;
+  p.hit_t = hit_t;
+  p.hit_tri = hit_tri;
+  p.out = state_out;
+  p.counters = counters;
+  if (B > 0) {
+    if (hit_t) {
+      bpt::pt_wave_bounce<true><<<bpt::grid_of(B), bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
+    } else {
+      bpt::pt_wave_bounce<false><<<bpt::grid_of(B), bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -39,11 +39,17 @@ _I = ctypes.c_int
 # bpt_bdpt_megakernel(pixels, mis, B, T, L, depth, sqrt_spp, nkeys,
 #                     tri, mat, lgt, keys, cam, in0..in5, rid, ubuf, vtx,
 #                     out_r, out_g, out_b, counters, stream)
+# bpt_closest_bvh(B, N, nodes, tris, ox, oy, oz, dx, dy, dz, active,
+#                 t, tri, u, v, counters, stream)
+# bpt_pt_wave_bounce(B, N, L, bounce, nodes, tris, mat_id, mat, lgt, keys,
+#                    state_in, rid, hit_t, hit_tri, state_out, counters, stream)
 _SIGNATURES = {
     "bpt_pt_megakernel": ([_I] * 7 + [_P] * 5 + [_P] * 6 + [_P] * 2
                           + [_P] * 4 + [_P], _I),
     "bpt_bdpt_megakernel": ([_I] * 8 + [_P] * 5 + [_P] * 6 + [_P] * 3
                             + [_P] * 4 + [_P], _I),
+    "bpt_closest_bvh": ([_I] * 2 + [_P] * 2 + [_P] * 7 + [_P] * 4 + [_P] * 2, _I),
+    "bpt_pt_wave_bounce": ([_I] * 4 + [_P] * 6 + [_P] * 5 + [_P] * 2, _I),
     "bpt_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -46,15 +46,21 @@ def megakernel_reject_reason(scene: SceneTensors, integrator: str = "pt") -> str
     if integrator not in INTEGRATORS:
         return f"unknown integrator {integrator!r} (not one of {', '.join(INTEGRATORS)})"
     if scene.num_tris > MAX_TRIS:
-        return (f"{scene.num_tris} tris > MAX_TRIS={MAX_TRIS} (the clustered "
-                "modes are not yet ported: ROADMAP §2)")
+        return (f"{scene.num_tris} tris > MAX_TRIS={MAX_TRIS} (PT takes "
+                "pt_wave; BDPT needs ROADMAP §0 step 1)")
+    return shade_reject_reason(scene)
+
+
+def shade_reject_reason(scene: SceneTensors) -> str:
+    """Why the shade's tables (``pack_shade_tables``), which the
+    megakernels and the wave kernel read, cannot hold ``scene``."""
     if scene.num_lights > MAX_LIGHTS:
         return f"{scene.num_lights} lights > MAX_LIGHTS={MAX_LIGHTS}"
     m = int(scene.materials.mtype.shape[0])
     if m > MAX_MATS:
         return f"{m} materials > MAX_MATS={MAX_MATS}"
     if scene.num_volumes:
-        return "scene has volumes (not yet in the CUDA kernel: ROADMAP §1 item 8)"
+        return "scene has volumes (not yet in the CUDA kernels: ROADMAP §1 item 8)"
     if scene.dtype != torch.float32:
         return (f"dtype {scene.dtype} != float32 (f64 renders need the jnp "
                 "stream: ROADMAP §1 item 2)")
@@ -63,18 +69,13 @@ def megakernel_reject_reason(scene: SceneTensors, integrator: str = "pt") -> str
     return ""
 
 
-def _pack_tables(scene: SceneTensors):
-    """Padded kernel tables on the scene's device:
-    (meta i32[8], tri f32[MAX_TRIS*13], mat f32[MAX_MATS*6],
-    lgt f32[MAX_LIGHTS*13 + 3] with the background at the tail)."""
-    T = scene.num_tris
+def pack_shade_tables(scene: SceneTensors):
+    """The shade's padded tables on the scene's device: (mat
+    f32[MAX_MATS*6], lgt f32[MAX_LIGHTS*13 + 3] with the background at the
+    tail).  The PT megakernel and the wave kernel read both."""
     M = int(scene.materials.mtype.shape[0])
     L = scene.num_lights
     kw = dict(dtype=torch.float32, device=scene.device)
-
-    tri = torch.zeros((MAX_TRIS, TRI_STRIDE), **kw)
-    tri[:T] = torch.cat([scene.v0, scene.e1, scene.e2, scene.normal,
-                         scene.mat_id[:, None].to(scene.dtype)], dim=1).to(torch.float32)
     mats = scene.materials
     mat = torch.zeros((MAX_MATS, MAT_STRIDE), **kw)
     mat[:M] = torch.stack([mats.mtype.to(torch.float32),
@@ -85,10 +86,22 @@ def _pack_tables(scene: SceneTensors):
     lgt[:L] = torch.cat([scene.light_v0, scene.light_e1, scene.light_e2,
                          scene.light_normal, scene.light_area[:, None]],
                         dim=1).to(torch.float32)
-    lgt_tab = torch.cat([lgt.reshape(-1), scene.background.to(torch.float32)])
+    return mat.reshape(-1), torch.cat([lgt.reshape(-1), scene.background.to(torch.float32)])
+
+
+def _pack_tables(scene: SceneTensors):
+    """Padded kernel tables on the scene's device:
+    (meta i32[8], tri f32[MAX_TRIS*13], mat f32[MAX_MATS*6],
+    lgt f32[MAX_LIGHTS*13 + 3] with the background at the tail)."""
+    T = scene.num_tris
+    M = int(scene.materials.mtype.shape[0])
+    L = scene.num_lights
+    tri = torch.zeros((MAX_TRIS, TRI_STRIDE), dtype=torch.float32, device=scene.device)
+    tri[:T] = torch.cat([scene.v0, scene.e1, scene.e2, scene.normal,
+                         scene.mat_id[:, None].to(scene.dtype)], dim=1).to(torch.float32)
     meta = torch.tensor([T, M, L, 0, 0, 0, scene.num_volumes, 0],
                         dtype=torch.int32, device=scene.device)
-    return meta, tri.reshape(-1), mat.reshape(-1), lgt_tab
+    return (meta, tri.reshape(-1), *pack_shade_tables(scene))
 
 
 def camera_table(cc: CameraConstants) -> torch.Tensor:
@@ -197,6 +210,12 @@ def _checked(t, shape, dev, what, dtype=torch.float32):
     return t.contiguous()
 
 
+def key_words(keys, dev) -> torch.Tensor:
+    """uint32 key words as the int32 bit patterns the kernels read."""
+    return torch.tensor([k - (1 << 32) if k >= (1 << 31) else k for k in keys],
+                        dtype=torch.int32, device=dev)
+
+
 def _lane_inputs(scene, integrator, ins, ray_ids, keys, cam):
     """Checks and uploads what a megakernel launch takes besides its own
     tables: (device, B, six lane-input tensors, int32 ids, uint32 keys,
@@ -214,8 +233,7 @@ def _lane_inputs(scene, integrator, ins, ray_ids, keys, cam):
     ins = [_checked(x, (B,), dev, "lane input") for x in ins]
     ins += [ins[0]] * (6 - len(ins))  # unused pointers in pixels mode
     rid = ray_ids.to(torch.int32).contiguous()
-    keys_t = torch.tensor([k - (1 << 32) if k >= (1 << 31) else k for k in keys],
-                          dtype=torch.int32, device=dev)  # uint32 bit patterns
+    keys_t = key_words(keys, dev)
     cam_t = (torch.zeros(13, dtype=torch.float32, device=dev) if cam is None
              else _checked(cam, (13,), dev, "camera table"))
     return dev, B, ins, rid, keys_t, cam_t
@@ -249,7 +267,7 @@ def _launch(scene, ins, ray_ids, keys, depth, pixels, cam=None, ubuf=None,
 def _device_of(t) -> torch.device:
     dev = t.device
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"pt megakernel runs on cpu or cuda tensors, not {dev}")
+        raise ValueError(f"the kernels run on cpu or cuda tensors, not {dev}")
     return dev
 
 

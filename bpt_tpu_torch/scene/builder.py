@@ -4,7 +4,8 @@ Counterpart of ``bpt_tpu.scene.builder`` (the reference's
 triangle_collection helpers, src/objects/primatives/triangle.h:135-309):
 triangles accumulate host-side in float64, transforms are baked at add
 time, and ``build()`` flattens everything into tensors once, in the same
-BVH leaf order as ``bpt_tpu`` so triangle ids and sums match it exactly.
+BVH leaf order as ``bpt_tpu`` so triangle ids and sums match it exactly,
+with the BVH node arrays and bpt_tpu's cluster splits beside them.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from bpt_tpu_torch.scene import bvh as bvh_mod
+from bpt_tpu_torch.scene.obj import parse_obj
 from bpt_tpu_torch.scene.types import (
     MAT_DIELECTRIC,
     MAT_ISOTROPIC,
@@ -24,6 +26,7 @@ from bpt_tpu_torch.scene.types import (
     MAT_METAL,
     MaterialTable,
     SceneTensors,
+    scene_device,
 )
 
 PI = math.pi
@@ -166,11 +169,37 @@ class SceneBuilder:
                 p2 = np.array(rotate_y_point(p2, s, c))
             self.add_triangle(p0 + t, p1 + t, p2 + t, mat)
 
-    def add_uv_sphere(self, *args, **kwargs):
-        raise _not_ported("the UV sphere (YAML Sphere)", "11")
+    def add_uv_sphere(self, center, radius, mat: MaterialSpec, lat_steps=16,
+                      lon_steps=32, rotate_y_degrees=0.0, translate=(0, 0, 0)):
+        """add_uv_sphere (scene_loader.h:212-242): 16x32 tessellation, pole
+        caps emit a single triangle per quad (bpt_tpu's, without UVs:
+        textures are not ported)."""
+        center = np.asarray(center, np.float64)
+        xf = dict(rotate_y_degrees=rotate_y_degrees, translate=translate)
 
-    def add_obj(self, *args, **kwargs):
-        raise _not_ported("OBJ import", "11")
+        def pt(theta, phi):
+            st = math.sin(theta)
+            return center + radius * np.array(
+                [st * math.cos(phi), math.cos(theta), st * math.sin(phi)])
+
+        for lat in range(lat_steps):
+            th0 = PI * lat / lat_steps
+            th1 = PI * (lat + 1) / lat_steps
+            for lon in range(lon_steps):
+                ph0 = 2.0 * PI * lon / lon_steps
+                ph1 = 2.0 * PI * (lon + 1) / lon_steps
+                p00, p01 = pt(th0, ph0), pt(th0, ph1)
+                p10, p11 = pt(th1, ph0), pt(th1, ph1)
+                if lat > 0:
+                    self.add_triangle(p00, p10, p11, mat, **xf)
+                if lat < lat_steps - 1:
+                    self.add_triangle(p00, p11, p01, mat, **xf)
+
+    def add_obj(self, path, mat: MaterialSpec, rotate_y_degrees=0.0,
+                translate=(0, 0, 0)):
+        for v0, v1, v2 in parse_obj(path):
+            self.add_triangle(v0, v1, v2, mat, rotate_y_degrees=rotate_y_degrees,
+                              translate=translate)
 
     def add_volume(self, *args, **kwargs) -> int:
         raise _not_ported("constant-density volumes", "8")
@@ -184,8 +213,9 @@ class SceneBuilder:
     def num_tris(self) -> int:
         return len(self._tris)
 
-    def build(self, dtype=torch.float32, device="cpu",
+    def build(self, dtype=torch.float32, device="cuda",
               background=None) -> SceneTensors:
+        device = scene_device(device)
         if not self._tris:
             raise ValueError("empty scene")
         if background is None:
@@ -205,8 +235,9 @@ class SceneBuilder:
         safe = np.where(nlen > 0, nlen, 1.0)
         normal = n / safe[:, None]
 
-        # BVH leaf order (bpt_tpu/scene/builder.py:293-300)
-        order = bvh_mod.build_bvh(verts.min(axis=1), verts.max(axis=1))["order"]
+        # BVH and its leaf order (bpt_tpu/scene/builder.py:293-300)
+        tree = bvh_mod.build_bvh(verts.min(axis=1), verts.max(axis=1))
+        order = tree["order"]
         v0, e1, e2 = v0[order], e1[order], e2[order]
         normal, area, mat_id = normal[order], area[order], mat_id[order]
 
@@ -233,6 +264,8 @@ class SceneBuilder:
         # a cast to the scene dtype: bpt_tpu/scene/builder.py:335-338)
         light_cdf = np.cumsum(area[light_idx])
         total_area = float(light_cdf[-1])
+        use_bvh = T > 256  # bpt_tpu's brute-force threshold
+        splits = bvh_mod.cluster_splits(tree) if use_bvh else ((), ())
 
         return SceneTensors(
             v0=ten(v0), e1=ten(e1), e2=ten(e2),
@@ -246,15 +279,21 @@ class SceneBuilder:
             light_cdf=ten(light_cdf),
             light_total_area=ten(total_area),
             light_mat=ten(mat_id[light_idx], torch.int64),
+            bvh_min=ten(tree["bvh_min"]),
+            bvh_max=ten(tree["bvh_max"]),
+            bvh_skip=ten(tree["bvh_skip"], torch.int32),
+            bvh_first=ten(tree["bvh_first"], torch.int32),
+            bvh_count=ten(tree["bvh_count"], torch.int32),
             materials=materials,
             background=ten(np.asarray(background, np.float64)),
             num_tris=T,
             num_lights=int(light_idx.size),
             num_volumes=0,
-            # bpt_tpu's brute-force threshold; meta only, nothing here traverses a BVH
-            use_bvh=T > 256,
+            use_bvh=use_bvh,
             has_delta_mats=bool(np.any((mtypes == MAT_METAL)
                                        | (mtypes == MAT_DIELECTRIC))),
             has_iso_mats=bool(np.any(mtypes == MAT_ISOTROPIC)),
             lights_are_world=lights_are_world,
+            cluster_splits=splits[0],
+            super_splits=splits[1],
         )

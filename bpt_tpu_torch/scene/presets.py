@@ -49,5 +49,5 @@ def cornell_box_camera(
     )
 
 
-def cornell_box(dtype=torch.float32, device="cpu", **build_kwargs):
+def cornell_box(dtype=torch.float32, device="cuda", **build_kwargs):
     return cornell_box_builder().build(dtype=dtype, device=device, **build_kwargs)

@@ -1,11 +1,11 @@
 """Scene tensors: the flattened triangle scene the render loop reads.
 
 Counterpart of ``bpt_tpu.scene.types.SceneArrays`` holding the fields the
-PT and BDPT megakernels' tables (``_pack_tables``, ``_pack_tables_bdpt``)
-and estimators read, plus the static meta.  BVH node arrays, texture
-tables and the volume boundary soup are not carried: this port has no BVH
-traversal, textures or volumes yet (ROADMAP §1 items 8-9), and the
-megakernels' brute-force sweep gives the same hits as BVH traversal.
+PT and BDPT megakernels' tables (``_pack_tables``, ``_pack_tables_bdpt``),
+the BVH traversal (``ops.soa.bvh_closest``, ``csrc/pt_wave.cu``) and the
+estimators read, plus the static meta.  Texture tables and the volume
+boundary soup are not carried: this port has no textures or volumes yet
+(ROADMAP §1 item 8).
 """
 
 from __future__ import annotations
@@ -58,6 +58,13 @@ class SceneTensors:
     light_total_area: torch.Tensor  # [] scalar
     light_mat: torch.Tensor  # [L] int64
 
+    # threaded-DFS BVH, preorder with skip links (scene/bvh.py)
+    bvh_min: torch.Tensor  # [N,3]
+    bvh_max: torch.Tensor  # [N,3]
+    bvh_skip: torch.Tensor  # [N] int32: next node when the box is missed
+    bvh_first: torch.Tensor  # [N] int32: first triangle of a leaf
+    bvh_count: torch.Tensor  # [N] int32: leaf triangle count (0 = internal)
+
     materials: MaterialTable
     background: torch.Tensor  # [3]
 
@@ -71,6 +78,10 @@ class SceneTensors:
     has_delta_mats: bool = True
     has_iso_mats: bool = True
     lights_are_world: bool = False
+    # bpt_tpu's BVH-subtree cluster boundaries; routing reads them
+    # (ops.kernels.pt_wave.cluster_ok), nothing packs clusters
+    cluster_splits: tuple = ()
+    super_splits: tuple = ()
 
     @property
     def dtype(self) -> torch.dtype:
@@ -81,11 +92,13 @@ class SceneTensors:
         return self.v0.device
 
 
-_INT_FIELDS = {"mat_id", "light_mat", "materials.mtype"}
+_INT_FIELDS = {"mat_id": torch.int64, "light_mat": torch.int64,
+               "materials.mtype": torch.int64, "bvh_skip": torch.int32,
+               "bvh_first": torch.int32, "bvh_count": torch.int32}
 _MATERIAL_FIELDS = [f.name for f in dataclasses.fields(MaterialTable)]
 _META_TYPES = {
-    f.name: int if f.type == "int" else bool
-    for f in dataclasses.fields(SceneTensors) if f.type in ("int", "bool")
+    f.name: {"int": int, "bool": bool, "tuple": tuple}[f.type]
+    for f in dataclasses.fields(SceneTensors) if f.type in ("int", "bool", "tuple")
 }
 _META_FIELDS = list(_META_TYPES)
 _TENSOR_FIELDS = [
@@ -94,7 +107,18 @@ _TENSOR_FIELDS = [
 ] + ["materials." + n for n in _MATERIAL_FIELDS]
 
 
-def scene_from_numpy(d: dict, meta: dict, device="cpu",
+def scene_device(device) -> torch.device:
+    """The device a scene factory puts its tensors on: ``"cuda"`` unless
+    the caller asks for the CPU.  Raises where there is no card rather
+    than falling back."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: pass device='cpu' to build "
+                           "the scene for the kernels' plain PyTorch versions")
+    return dev
+
+
+def scene_from_numpy(d: dict, meta: dict, device="cuda",
                      dtype=torch.float32) -> SceneTensors:
     """Build SceneTensors from host arrays: the state carry-over from any
     producer of the same fields (e.g. ``np.asarray`` of every field of a
@@ -103,11 +127,11 @@ def scene_from_numpy(d: dict, meta: dict, device="cpu",
     Keys and meta entries this port does not carry are ignored; a missing
     key raises KeyError."""
 
+    device = scene_device(device)
+
     def conv(name):
         t = torch.from_numpy(np.array(d[name]))  # a copy: inputs may be read-only
-        if name in _INT_FIELDS:
-            return t.to(device=device, dtype=torch.int64)
-        return t.to(device=device, dtype=dtype)
+        return t.to(device=device, dtype=_INT_FIELDS.get(name, dtype))
 
     mats = MaterialTable(**{n: conv("materials." + n) for n in _MATERIAL_FIELDS})
     tensors = {n: conv(n) for n in _TENSOR_FIELDS if not n.startswith("materials.")}

@@ -37,9 +37,39 @@
    are printed beside the TPU bench's counts (BENCH_r04.json) and those of
    bpt_tpu's fused kernel on a CPU, not checked.  Writes output/chip_smoke_cornell_bdpt{,-mis}.png.
 
+4. The coffee stand-in (91,540 triangles), built from the five OBJ files
+   and three light meshes of scenes/coffee/coffee_standin.yaml through
+   SceneBuilder calls; where PyYAML is installed, also loaded through the
+   port's loader and held equal.  Prints the parse, BVH and upload seconds.
+5. closest_bvh against its plain version (ops.soa.bvh_closest) at B =
+   65,536, on the coffee camera's primary rays and on as many random rays
+   inside the scene's bounds: hit, triangle and t exact on >= 99.9% of
+   lanes, the four counters exact.  Times kernel and plain version.
+6. pt_wave against pt_wave_plain at B = 65,536 coffee rays, depth 10, in
+   both modes (the wave kernel walks the BVH; paged=True: closest_bvh, then
+   the shade-only wave kernel), rtol 1e-4 / atol 1e-6 on >= 99.9% of lanes,
+   rays_traced exact.  The paged drive is closest_bvh's path: its launches
+   are counted there, and no plain version may run in it.
+7. The main path: render() of the coffee stand-in with PT at 512x512, 16
+   spp, depth 10, seed 0 (bench.py's coffee cell) — one warm-up and three
+   timed renders.  The wave kernel's launches must be > 0 and every plain
+   version's calls 0, the image finite, not black and bitwise identical
+   across renders.  rays_traced is printed beside the TPU bench's
+   11,110,273 (BENCH_r03/r04.json), not checked against it: bpt_tpu's own
+   Pallas pt_wave counts 2.58% fewer rays than its BVH path on a pixel
+   subset (tools/coffee_reference_rays.py; PERF.md, Findings).  Checked
+   instead: the port's count on that subset (every 257th pixel, all 16
+   strata) within 0.1% of bpt_tpu's BVH path on a CPU (44,024), and the
+   whole image within 1% of the TPU count scaled by bpt_tpu's own BVH /
+   Pallas ratio on the subset.  Writes output/chip_smoke_coffee_pt.png.
+   Then times one wave-kernel launch and its plain version at the main
+   path's first bounce (B = 4,194,304).
+
 Each phase prints its seconds.  The second-to-last line is a JSON object
-describing the kernels; the last is {"ok": true, "device": {...}}.  Any
-failure exits non-zero, and so does a machine without CUDA.
+describing the kernels, each with its bound: the larger of the bytes it
+must move over 3.35 TB/s and its FP32 operations (from its counters) over
+67 TFLOP/s; the last line is {"ok": true, "device": {...}}.  Any failure
+exits non-zero, and so does a machine without CUDA.
 """
 
 from __future__ import annotations
@@ -52,6 +82,19 @@ import sys
 import time
 
 RTOL, ATOL, BDPT_ATOL, MIN_FRAC = 1e-4, 1e-6, 1e-5, 0.999
+# the H100 SXM's published peaks (on-chip-measurement guide): HBM bytes/s
+# and FP32 operations/s outside the tensor cores
+HBM_BPS, FP32_OPS = 3.35e12, 67e12
+# FP32 operations of one Möller–Trumbore test (common.cuh: 2 crosses, 4
+# dots, a reciprocal, 3 subtractions, 7 acceptance compares) and of one
+# node's slab test (pt_wave.cu: 12 for the three axes' t0/t1, 6 min/max,
+# 6 for entry and exit, 1 compare); the kernels' counters say how many ran
+MT_OPS, SLAB_OPS = 52, 25
+COFFEE_YAML = "scenes/coffee/coffee_standin.yaml"
+TPU_BENCH_COFFEE_RAYS = 11_110_273  # BENCH_r03/r04.json; printed, not checked
+# tools/coffee_reference_rays.py on a CPU, every 257th pixel x 16 strata:
+# bpt_tpu's BVH path and its Pallas pt_wave
+CPU_BVH_COFFEE_SUBSET, CPU_PALLAS_COFFEE_SUBSET = 44_024, 42_887
 EXPECTED_RAYS = 11_506_161  # bpt_tpu fused kernel, interpret mode on a CPU
 TPU_BENCH_RAYS = 11_497_620  # BENCH_r02..r04.json; printed, not checked
 # cornell 512x512 / 16 spp / d10 / seed 0: rays, shadow rays.  The TPU
@@ -137,6 +180,72 @@ def timed(fn):
     return out, start.elapsed_time(stop)
 
 
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it)."""
+    b, o = nbytes / HBM_BPS * 1e3, ops / FP32_OPS * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def coffee_builder():
+    """scenes/coffee/coffee_standin.yaml through SceneBuilder calls: its
+    materials (the loader's 0-255 autoscale), its five OBJ meshes and its
+    three light quads, in the file's order."""
+    from bpt_tpu_torch.scene.builder import MaterialSpec as MS, SceneBuilder
+    from bpt_tpu_torch.scene.loader import read_color_scaled
+
+    def rgb(c):
+        return read_color_scaled(c, (0.0, 0.0, 0.0))
+
+    b = SceneBuilder()
+    for name, mat in (("Plastic_Orange", MS.lambertian(rgb([255, 97, 3]))),
+                      ("Plastic_Black", MS.lambertian(rgb([0, 0, 0]))),
+                      ("Metal", MS.metal(rgb([170, 170, 170]), 0.1)),
+                      ("Glass", MS.dielectric(1.5)),
+                      ("Floor", MS.lambertian(rgb([147, 147, 147])))):
+        b.add_obj(f"scenes/coffee/data/{name}.obj", mat)
+    light = MS.diffuse_light((245.0, 245.0, 245.0))
+    for q in ([(-0.359309, 0.449693, -0.010809), (-0.196537, 0.449693, 0.338256),
+               (-0.196537, 0.000849009, 0.338256), (-0.359309, 0.000848979, -0.010809)],
+              [(0.320673, 0.027337, 0.228975), (0.320673, 0.476182, 0.228975),
+               (0.325221, 0.476182, -0.136419), (0.325221, 0.027337, -0.136419)],
+              [(0.230128, 0.50385, 0.267372), (-0.230128, 0.50385, 0.267372),
+               (-0.230128, 0.50385, -0.192885), (0.230128, 0.50385, -0.192885)]):
+        b.add_triangle(q[0], q[1], q[2], light)
+        b.add_triangle(q[0], q[2], q[3], light)
+    return b
+
+
+def coffee_camera():
+    """The YAML's camera at bench.py's coffee cell: 512x512, 16 spp,
+    depth 10, PT."""
+    from bpt_tpu_torch.scene.types import CameraConfig
+
+    return CameraConfig(aspect_ratio=1.0, image_width=512, samples_per_pixel=16,
+                        max_depth=10, vfov=30.0, lookfrom=(-0.02, 0.22, 0.85),
+                        lookat=(0.0, 0.16, 0.02), file_name="coffee_standin.png",
+                        integrator="pt")
+
+
+def wave_rays(cc, pix, strata, key, dev):
+    """The pt_wave render loop's primary rays for pixels ``pix`` and
+    strata 0..strata-1 (models/render.py::_render_wave): (o, d, ray ids)."""
+    import torch
+
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.core.vec3 import Vec3
+    from bpt_tpu_torch.models.camera import generate_rays
+
+    S, W = cc.sqrt_spp, cc.width
+    pixb = pix.repeat(strata)
+    s = torch.arange(strata, device=dev).repeat_interleave(pix.numel())
+    ids = pixb * (S * S) + s
+    u0, u1 = rng.raygen_jitter(key, ids)
+    z = torch.zeros_like(u0)
+    o3, d3 = generate_rays(cc, (pixb % W).float(), (pixb // W).float(), (s % S).float(),
+                           (s // S).float(), torch.stack([u0, u1, z, z], -1))
+    return Vec3(*o3.unbind(1)), Vec3(*d3.unbind(1)), ids.to(torch.int32)
+
+
 class Laps:
     """Prints the seconds since the previous lap."""
 
@@ -214,6 +323,7 @@ def main() -> int:
         torch.cuda.synchronize()
         compare(f"phase 2: pt_megakernel {mode} mode B={B} depth={depth}",
                 kout, pout, exact_counts=False)
+    pt_rays_tests = counters(kout)[3]  # RNG mode, the timed call below
     rays_ms = time_ms(lambda: pk.pt_megakernel(scene, ov, dv, ids, key, depth),
                       reps=10)
     rays_plain_ms = time_ms(lambda: pk.pt_megakernel_plain(
@@ -240,6 +350,7 @@ def main() -> int:
         frac, max_err = compare(
             f"phase 2: pt_megakernel_pixels {W}x{W} spp={S * S} depth={depth}",
             kout, pout, exact_counts=True)
+        pt_tests = counters(kout)[3]
         del kout, pout
     ms = time_ms(lambda: pk.pt_megakernel_pixels(*args, spp_loop=S * S,
                                                  sqrt_spp=S), reps=5)
@@ -272,6 +383,8 @@ def main() -> int:
                                f"{mode} mode {sc_name} B={nb} depth={depth}",
                                kout, pout, exact_counts=False, atol=BDPT_ATOL)
                 bdpt_err, bdpt_frac = max(bdpt_err, e), min(bdpt_frac, f)
+                if (sc_name, mis, mode) == ("cornell", False, "rng"):
+                    bdpt_rays_tests = counters(kout)[4]  # the timed call below
     a = (scene, ov, dv, ids, key, depth)
     bdpt_rays_ms = time_ms(lambda: bk.bdpt_megakernel(*a), reps=5)
     bdpt_rays_plain_ms = time_ms(lambda: bk.bdpt_megakernel_plain(*a), reps=2)
@@ -292,6 +405,8 @@ def main() -> int:
         f, e = compare(f"phase 2: bdpt_megakernel_pixels {name} 512x512 spp={S * S} "
                        f"depth={depth}", kout, pout, exact_counts=True, atol=BDPT_ATOL)
         bdpt_err, bdpt_frac = max(bdpt_err, e), min(bdpt_frac, f)
+        if name == "bdpt":
+            bdpt_tests = counters(kout)[4]
         del kout, pout
         bdpt_ms[name] = time_ms(lambda: bk.bdpt_megakernel_pixels(*a, mis=mis), reps=5)
         print(f"phase 2: bdpt_megakernel_pixels {name} at 512x512 x {S * S} spp, "
@@ -385,6 +500,195 @@ def main() -> int:
               f"{n_launch}, plain calls {n_plain}; wrote {path} ({card})")
         lap(f"phase 3 ({name})")
 
+    # ---- phase 4: the coffee stand-in, from its OBJ files
+    from bpt_tpu_torch.ops.kernels import pt_wave as pw
+    from bpt_tpu_torch.scene.types import scene_from_numpy, scene_to_numpy
+
+    t0 = time.monotonic()
+    cb = coffee_builder()
+    t_parse = time.monotonic() - t0
+    host = cb.build(device="cpu")
+    t_bvh = time.monotonic() - t0 - t_parse
+    coffee = scene_from_numpy(*scene_to_numpy(host), device=dev)
+    torch.cuda.synchronize()
+    t_up = time.monotonic() - t0 - t_parse - t_bvh
+    arrays, meta = scene_to_numpy(coffee)
+    try:
+        import yaml  # noqa: F401
+    except ImportError:
+        how = "SceneBuilder calls only (PyYAML is not installed here)"
+    else:
+        from bpt_tpu_torch.scene.loader import load_scene_from_yaml
+
+        loaded = load_scene_from_yaml(COFFEE_YAML, device=dev, verbose=False).scene
+        la, lm = scene_to_numpy(loaded)
+        check(lm == meta and all(np.array_equal(la[k], arrays[k]) for k in arrays),
+              "the loader's coffee scene differs from the builder's")
+        how = "SceneBuilder calls, and the YAML loader gives the same scene"
+        del loaded
+    check(coffee.num_tris == 91_540 and coffee.use_bvh, f"coffee: {coffee.num_tris} tris")
+    paged_main = not pw.cluster_ok(coffee)
+    print(f"phase 4: coffee stand-in, {coffee.num_tris} triangles, "
+          f"{int(coffee.bvh_skip.shape[0])} BVH nodes, {coffee.num_lights} light "
+          f"triangles via {how}; parse {t_parse:.3f} s, BVH and tables {t_bvh:.3f} s, "
+          f"upload {t_up:.3f} s; cluster_ok {not paged_main} (the render "
+          f"{'pages' if paged_main else 'does not page'})")
+    lap("phase 4")
+
+    # ---- phase 5: closest_bvh vs bvh_closest
+    ccc = camera_constants(coffee_camera(), torch.float32, dev)
+    B = 65536
+    o_p, d_p, ids_p = wave_rays(ccc, torch.arange(B, device=dev) * 4, 1, key, dev)
+    lo, hi = (x.cpu().numpy() for x in (coffee.bvh_min[0], coffee.bvh_max[0]))
+    o_r = Vec3(*torch.from_numpy(g.uniform(lo, hi, (B, 3)).astype(np.float32)).to(dev).unbind(1))
+    d_r = Vec3(*torch.from_numpy(g.normal(size=(B, 3)).astype(np.float32)).to(dev).unbind(1))
+    act = torch.ones(B, dtype=torch.bool, device=dev)
+    a_frac, a_err = 1.0, 0.0
+    for name, o_, d_ in (("primary", o_p, d_p), ("random", o_r, d_r)):
+        kout = pw.closest_bvh(coffee, o_, d_, act)
+        pout, a_plain_ms = timed(lambda: pw.closest_bvh_plain(coffee, o_, d_, act))
+        same = (kout[1] == pout[1]) & ((kout[0] == pout[0]) | (kout[0].isinf() & pout[0].isinf()))
+        frac = float(same.double().mean())
+        kc, pc = kout[4].tolist(), pout[4].tolist()
+        print(f"phase 5: closest_bvh {name} rays B={B}: hit, tri and t equal on "
+              f"{frac * 100:.4f}% of lanes ({int((kout[1] >= 0).sum())} hits); counters "
+              f"(node visits, box hits, tri tests, tri hits) kernel {kc} plain {pc}; "
+              f"plain {a_plain_ms:.3f} ms")
+        check(frac >= MIN_FRAC, f"closest_bvh {name}: only {frac:.5f} of lanes agree")
+        check(kc == pc, f"closest_bvh {name}: counters differ")
+        both = kout[0].isfinite() & pout[0].isfinite()
+        a_frac = min(a_frac, frac)
+        a_err = max(a_err, float((kout[0] - pout[0])[both].abs().max()))
+        if name == "primary":
+            a_counts, a_plain_primary_ms = kc, a_plain_ms
+    a_ms = time_ms(lambda: pw.closest_bvh(coffee, o_p, d_p, act), reps=10)
+    tables = pw.pack_bvh(coffee)
+    scene_bytes = sum(t.numel() * t.element_size() for t in tables)
+    a_bound, a_by = bound(B * (6 * 4 + 1 + 4 * 4) + scene_bytes,
+                          a_counts[0] * SLAB_OPS + a_counts[2] * MT_OPS)
+    print(f"phase 5: closest_bvh primary rays B={B}: kernel {a_ms:.3f} ms, plain "
+          f"{a_plain_primary_ms:.3f} ms, bound {a_bound:.4f} ms ({a_by}) ({card})")
+    lap("phase 5")
+
+    # ---- phase 6: pt_wave vs pt_wave_plain, both modes
+    key_pt = rng.fold_in(key, 1)
+    wave_args = (coffee, o_p, d_p, ids_p, key_pt, depth)
+    wplain, wave_plain_ms = timed(lambda: pw.pt_wave_plain(*wave_args))
+    wave_err, wave_frac, wave_ms = 0.0, 1.0, {}
+    for paged in (False, True):
+        pw.closest_bvh.launches = pw.pt_wave_bounce.launches = 0
+        pw.closest_bvh_plain.calls = pw.pt_wave_bounce_plain.calls = 0
+        kout = pw.pt_wave(*wave_args, paged=paged)
+        torch.cuda.synchronize()
+        a_launches, b_launches = pw.closest_bvh.launches, pw.pt_wave_bounce.launches
+        n_plain = pw.closest_bvh_plain.calls + pw.pt_wave_bounce_plain.calls
+        mode = "paged (closest_bvh + shade-only wave kernel)" if paged else "walk"
+        f, e = compare(f"phase 6: pt_wave {mode} B={B} depth={depth}", kout, wplain,
+                       exact_counts=False)
+        check(int(kout[3]) == int(wplain[3]), f"pt_wave {mode}: rays_traced differs")
+        check(b_launches == depth and a_launches == (depth if paged else 0) and not n_plain,
+              f"pt_wave {mode}: launches {a_launches} / {b_launches}, plain calls {n_plain}")
+        if paged:
+            paged_launches = a_launches
+        wave_err, wave_frac = max(wave_err, e), min(wave_frac, f)
+        wave_ms[paged] = time_ms(lambda: pw.pt_wave(*wave_args, paged=paged), reps=5)
+    print(f"phase 6: pt_wave B={B} depth={depth}: walk {wave_ms[False]:.3f} ms, paged "
+          f"{wave_ms[True]:.3f} ms, plain {wave_plain_ms:.3f} ms (one call); the paged "
+          f"drive launched closest_bvh {paged_launches} times ({card})")
+    del wplain, kout
+    lap("phase 6")
+
+    # ---- phase 7: the main path, the coffee render through pt_wave
+    cfg = coffee_camera()
+    render(coffee, cfg, seed=0)  # warm-up
+    plains = (pk.pt_megakernel_plain, pk.pt_megakernel_pixels_plain,
+              bk.bdpt_megakernel_plain, bk.bdpt_megakernel_pixels_plain,
+              pw.closest_bvh_plain, pw.pt_wave_bounce_plain, pw.pt_wave_plain)
+    for fn in plains:
+        fn.calls = 0
+    pw.closest_bvh.launches = pw.pt_wave_bounce.launches = 0
+    results = [render(coffee, cfg, seed=0) for _ in range(3)]
+    wave_launches = pw.pt_wave_bounce.launches
+    n_plain = sum(fn.calls for fn in plains)
+    check(wave_launches > 0, "coffee main path launched no wave kernel")
+    check(n_plain == 0, f"coffee main path called a plain version {n_plain} times")
+    check(pw.closest_bvh.launches == (wave_launches if paged_main else 0),
+          f"coffee main path launched closest_bvh {pw.closest_bvh.launches} times")
+    walls = [r.stats.wall_seconds for r in results]
+    wall = statistics.median(walls)
+    res = results[0]
+    st = res.stats
+    fb = res.framebuffer_sum
+    check(fb.shape == (512, 512, 3), f"coffee framebuffer shape {fb.shape}")
+    check(bool(np.isfinite(fb).all()), "coffee: non-finite framebuffer")
+    check(float(fb.mean()) > 0.0, "coffee: black image")
+    check(all(np.array_equal(r.framebuffer_sum, fb) for r in results[1:]),
+          "coffee: renders with the same seed differ")
+    # the subset of tools/coffee_reference_rays.py, through the kernels
+    sub = wave_rays(ccc, torch.arange(0, 512 * 512, 257, device=dev), 16, key, dev)
+    sub_rays = int(pw.pt_wave(coffee, *sub, key_pt, depth)[3])
+    check(abs(sub_rays - CPU_BVH_COFFEE_SUBSET) <= 1e-3 * CPU_BVH_COFFEE_SUBSET,
+          f"coffee subset rays {sub_rays} not within 0.1% of {CPU_BVH_COFFEE_SUBSET}")
+    scaled = TPU_BENCH_COFFEE_RAYS * CPU_BVH_COFFEE_SUBSET / CPU_PALLAS_COFFEE_SUBSET
+    check(abs(st.rays_traced - scaled) <= 1e-2 * scaled,
+          f"coffee rays_traced {st.rays_traced} not within 1% of {scaled:.0f}")
+    path = write_png("chip_smoke_coffee_pt.png", res.rgb8(), output_dir="output")
+    tpu_gap = (st.rays_traced - TPU_BENCH_COFFEE_RAYS) / TPU_BENCH_COFFEE_RAYS * 100
+    print(f"phase 7: render coffee 512x512 16 spp depth 10 seed 0: walls "
+          f"{[round(w, 6) for w in walls]} s, median {wall:.6f} s, "
+          f"{st.rays_traced / wall / 1e6:.3f} Mrays/s; rays_traced {st.rays_traced} "
+          f"(TPU bench {TPU_BENCH_COFFEE_RAYS}, {tpu_gap:+.4f}%; that count scaled by "
+          f"bpt_tpu's BVH / Pallas ratio {scaled:.0f}, "
+          f"{(st.rays_traced - scaled) / scaled * 100:+.4f}%); every 257th pixel: "
+          f"{sub_rays} rays (bpt_tpu's BVH path on a CPU {CPU_BVH_COFFEE_SUBSET}, "
+          f"{(sub_rays - CPU_BVH_COFFEE_SUBSET) / CPU_BVH_COFFEE_SUBSET * 100:+.4f}%; "
+          f"its Pallas pt_wave {CPU_PALLAS_COFFEE_SUBSET}); node visits "
+          f"{st.bvh_node_visits}, box hits {st.aabb_hits}, tri tests {st.triangle_tests}, "
+          f"tri hits {st.triangle_hits}; wave kernel launches {wave_launches}, plain "
+          f"calls {n_plain}; wrote {path} ({card})")
+    del results, res, fb
+
+    # the wave kernel at the main path's first bounce: 16 strata of 512^2
+    o_m, d_m, ids_m = wave_rays(ccc, torch.arange(512 * 512, device=dev), 16, key, dev)
+    Bm = int(ids_m.shape[0])
+    state = torch.empty((pw.STATE_ROWS, Bm), device=dev)
+    state[pw.OX:pw.DX + 3] = torch.stack([*o_m, *d_m])
+    state[pw.THR:pw.THR + 3] = 1.0
+    state[pw.RAD:pw.RAD + 3] = 0.0
+    state[pw.ALIVE] = 1.0
+    del o_m, d_m
+    b_out, b_counts = pw.pt_wave_bounce(coffee, state, ids_m, key_pt, 0, tables=tables)
+    b_ms = time_ms(lambda: pw.pt_wave_bounce(coffee, state, ids_m, key_pt, 0,
+                                             tables=tables), reps=5)
+    (p_out, p_counts), b_plain_ms = timed(
+        lambda: pw.pt_wave_bounce_plain(coffee, state, ids_m, key_pt, 0))
+    rows = torch.cat([b_out[pw.RAD:pw.RAD + 3], b_out[pw.ALIVE:]]).T
+    prows = torch.cat([p_out[pw.RAD:pw.RAD + 3], p_out[pw.ALIVE:]]).T
+    f, _, _ = agreement(rows, prows)
+    b_counts, p_counts = b_counts.tolist(), p_counts.tolist()
+    check(f >= MIN_FRAC and b_counts[0] == p_counts[0],
+          f"wave kernel at bounce 0: {f:.5f} of lanes agree, rays {b_counts[0]} vs {p_counts[0]}")
+    b_bound, b_by = bound(Bm * (2 * pw.STATE_ROWS * 4 + 4) + scene_bytes,
+                          b_counts[1] * SLAB_OPS + b_counts[3] * MT_OPS)
+    print(f"phase 7: wave kernel, first bounce of the main path (B={Bm}): kernel "
+          f"{b_ms:.3f} ms, plain {b_plain_ms:.3f} ms (one call), bound {b_bound:.4f} ms "
+          f"({b_by}); radiance and alive equal on {f * 100:.4f}% of lanes; counters "
+          f"(rays, node visits, box hits, tri tests, tri hits) kernel {b_counts} plain "
+          f"{p_counts} ({card})")
+    del state, b_out, p_out
+    lap("phase 7")
+
+    # lanes in (pixels: i, j, sx, sy, id; rays: o, d, id), radiance out
+    pt_tab = sum(t.numel() * t.element_size() for t in pk._pack_tables(scene))
+    bdpt_tab = sum(t.numel() * t.element_size() for t in bk._pack_tables_bdpt(scene))
+    pt_bound, pt_by = bound(512 * 512 * 32 + pt_tab, pt_tests * MT_OPS)
+    bdpt_bound, bdpt_by = bound(512 * 512 * 24 + bdpt_tab, bdpt_tests * MT_OPS)
+    pt_rays_bound = bound(B * 40 + pt_tab, pt_rays_tests * MT_OPS)
+    bdpt_rays_bound = bound(B * 40 + bdpt_tab, bdpt_rays_tests * MT_OPS)
+    print(f"bounds: pt_megakernel pixels {pt_bound:.4f} ms ({pt_by}), rays "
+          f"{pt_rays_bound[0]:.4f} ms ({pt_rays_bound[1]}); bdpt_megakernel pixels "
+          f"{bdpt_bound:.4f} ms ({bdpt_by}), rays {bdpt_rays_bound[0]:.4f} ms "
+          f"({bdpt_rays_bound[1]})")
     print(json.dumps({"kernels": [{
         "name": "pt_megakernel",
         "route": "cuda",
@@ -395,8 +699,12 @@ def main() -> int:
         "within_tol": frac,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": pt_bound,
+        "bound_by": pt_by,
+        "library_ms": None,
         "rays_mode_ms": rays_ms,
         "rays_mode_plain_ms": rays_plain_ms,
+        "rays_mode_bound_ms": pt_rays_bound[0],
     }, {
         "name": "bdpt_megakernel",
         "route": "cuda",
@@ -407,11 +715,46 @@ def main() -> int:
         "within_tol": bdpt_frac,
         "ms": bdpt_ms["bdpt"],
         "plain_ms": bdpt_plain_ms["bdpt"],
+        "bound_ms": bdpt_bound,
+        "bound_by": bdpt_by,
+        "library_ms": None,
         "mis_ms": bdpt_ms["bdpt-mis"],
         "mis_plain_ms": bdpt_plain_ms["bdpt-mis"],
         "rays_mode_ms": bdpt_rays_ms,
         "rays_mode_plain_ms": bdpt_rays_plain_ms,
+        "rays_mode_bound_ms": bdpt_rays_bound[0],
         "depth80_ms": d80_ms,
+    }, {
+        "name": "closest_bvh",
+        "route": "cuda",
+        "source": "bpt_tpu_torch/csrc/pt_wave.cu",
+        "replaces": "bpt_tpu/ops/pallas/cluster_wave.py:340",
+        "launches": paged_launches,
+        "launches_path": "pt_wave(paged=True), B=65,536, depth 10 (the coffee "
+                         "render does not page: cluster_ok holds)",
+        "max_abs_err": a_err,
+        "within_tol": a_frac,
+        "ms": a_ms,
+        "plain_ms": a_plain_primary_ms,
+        "bound_ms": a_bound,
+        "bound_by": a_by,
+        "library_ms": None,
+    }, {
+        "name": "pt_wave_bounce",
+        "route": "cuda",
+        "source": "bpt_tpu_torch/csrc/pt_wave.cu",
+        "replaces": "bpt_tpu/ops/pallas/pt_wave.py:326",
+        "launches": wave_launches,
+        "max_abs_err": wave_err,
+        "within_tol": wave_frac,
+        "ms": b_ms,
+        "plain_ms": b_plain_ms,
+        "bound_ms": b_bound,
+        "bound_by": b_by,
+        "library_ms": None,
+        "pt_wave_ms": wave_ms[False],
+        "pt_wave_paged_ms": wave_ms[True],
+        "pt_wave_plain_ms": wave_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -53,9 +53,9 @@ B, DEPTH = 128, 4
 def _scenes(which, dt):
     jdt, tdt = (jnp.float64, torch.float64) if dt == "f64" else (jnp.float32, torch.float32)
     if which == "cornell":
-        return jpresets.cornell_box(dtype=jdt), tpresets.cornell_box(dtype=tdt)
+        return jpresets.cornell_box(dtype=jdt), tpresets.cornell_box(device="cpu", dtype=tdt)
     return (mixed_scene(jbuilder, jpresets, dtype=jdt),
-            mixed_scene(tbuilder, tpresets, dtype=tdt))
+            mixed_scene(tbuilder, tpresets, device="cpu", dtype=tdt))
 
 
 def _bits(a):
@@ -299,7 +299,7 @@ def test_mis_weights_only_damp():
 
 @pytest.mark.parametrize("depth", [0, tbk.MAX_DEPTH + 1])
 def test_depth_outside_kernel_bound_raises(depth):
-    ts = tpresets.cornell_box()
+    ts = tpresets.cornell_box(device="cpu")
     o = tv3.Vec3(*(torch.zeros(4) for _ in range(3)))
     with pytest.raises(ValueError, match="depth"):
         tbk.bdpt_megakernel(ts, o, o, torch.arange(4), rng.prng_key(0), depth)

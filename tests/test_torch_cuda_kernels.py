@@ -1,5 +1,5 @@
-"""The CUDA PT and BDPT megakernels against their plain PyTorch versions
-on the card.
+"""The CUDA kernels (PT and BDPT megakernels, the BVH closest hit and the
+per-bounce wave) against their plain PyTorch versions on the card.
 
 Needs an NVIDIA card with sm_90a (H100) and nvcc; elsewhere every test
 skips.  Run on the GPU machine with
@@ -22,8 +22,9 @@ from bpt_tpu_torch.models.pt import NU
 from bpt_tpu_torch.models.render import render
 from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
 from bpt_tpu_torch.ops.kernels import pt_kernel as pk
+from bpt_tpu_torch.ops.kernels import pt_wave as pw
 from bpt_tpu_torch.scene import builder, presets
-from torch_parity import mixed_scene, rays
+from torch_parity import big_rays, big_scene, mixed_scene, rays
 
 pytestmark = pytest.mark.gpu
 
@@ -90,7 +91,7 @@ def test_render_on_card_matches_cpu():
     cfg = dataclasses.replace(presets.cornell_box_camera(), image_width=16,
                               samples_per_pixel=4, max_depth=10, integrator="pt")
     gpu = render(presets.cornell_box(device="cuda"), cfg, seed=3)
-    cpu = render(presets.cornell_box(), cfg, seed=3)
+    cpu = render(presets.cornell_box(device="cpu"), cfg, seed=3)
     ok = np.isclose(gpu.framebuffer_sum, cpu.framebuffer_sum, rtol=1e-4, atol=1e-6)
     assert ok.all(axis=-1).mean() >= 0.99
     assert abs(gpu.stats.rays_traced - cpu.stats.rays_traced) <= 10
@@ -179,7 +180,7 @@ def test_render_bdpt_on_card_matches_cpu(integrator):
     cfg = dataclasses.replace(presets.cornell_box_camera(), image_width=16,
                               samples_per_pixel=4, max_depth=10, integrator=integrator)
     gpu = render(presets.cornell_box(device="cuda"), cfg, seed=3)
-    cpu = render(presets.cornell_box(), cfg, seed=3)
+    cpu = render(presets.cornell_box(device="cpu"), cfg, seed=3)
     ok = np.isclose(gpu.framebuffer_sum, cpu.framebuffer_sum, rtol=1e-4, atol=1e-5)
     assert ok.all(axis=-1).mean() >= 0.97
     assert abs(gpu.stats.rays_traced - cpu.stats.rays_traced) <= 10
@@ -197,3 +198,66 @@ def test_bdpt_wrapper_rejects_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="uniforms"):
         bk.bdpt_megakernel(scene, o, o, ids, rng.prng_key(0), 2,
                            uniforms=torch.zeros((3, 4), device="cuda"))
+
+
+def _big_lanes(B, seed):
+    o, d = (torch.from_numpy(x).cuda() for x in big_rays(B, seed))
+    ids = torch.arange(B, dtype=torch.int32, device="cuda")
+    ids[::13] = -1
+    return Vec3(*o.unbind(1)), Vec3(*d.unbind(1)), ids
+
+
+def test_closest_bvh_matches_plain_exactly():
+    scene = big_scene(builder, device="cuda")
+    o, d, ids = _big_lanes(8192, 7)
+    active = ids >= 0
+    n = pw.closest_bvh.launches
+    got = pw.closest_bvh(scene, o, d, active)
+    want = pw.closest_bvh_plain(scene, o, d, active)
+    torch.cuda.synchronize()
+    assert pw.closest_bvh.launches == n + 1
+    assert torch.equal(got[1], want[1]) and bool((got[1] >= 0).any())
+    assert torch.equal(got[0], want[0])
+    assert got[4].tolist() == want[4].tolist()
+    assert bool((got[1][~active] == -1).all())
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["walk", "paged"])
+def test_pt_wave_matches_plain(paged):
+    scene = big_scene(builder, device="cuda")
+    o, d, ids = _big_lanes(8192, 8)
+    n = pw.pt_wave_bounce.launches
+    got = pw.pt_wave(scene, o, d, ids, rng.prng_key(4), 6, paged=paged)
+    want = pw.pt_wave_plain(scene, o, d, ids, rng.prng_key(4), 6, paged=paged)
+    torch.cuda.synchronize()
+    assert pw.pt_wave_bounce.launches == n + 6
+    assert _frac_close(got, want) >= 0.999
+    assert int(got[3]) == int(want[3])
+    for g, w in zip(got[4].tolist(), want[4].tolist()):
+        assert abs(g - w) <= 1e-3 * w
+
+
+def test_render_wave_on_card_matches_cpu():
+    cfg = dataclasses.replace(presets.cornell_box_camera(), image_width=16,
+                              samples_per_pixel=4, max_depth=6, integrator="pt",
+                              vfov=40.0, lookfrom=(0.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0))
+    n = pw.pt_wave_bounce.launches
+    gpu = render(big_scene(builder, device="cuda"), cfg, seed=3)
+    assert pw.pt_wave_bounce.launches > n
+    cpu = render(big_scene(builder, device="cpu"), cfg, seed=3)
+    ok = np.isclose(gpu.framebuffer_sum, cpu.framebuffer_sum, rtol=1e-4, atol=1e-6)
+    assert ok.all(axis=-1).mean() >= 0.99
+    assert abs(gpu.stats.rays_traced - cpu.stats.rays_traced) <= 10
+
+
+def test_wave_wrappers_reject_what_the_kernels_cannot_take():
+    scene = big_scene(builder, device="cuda")
+    o, d, ids = _big_lanes(64, 9)
+    with pytest.raises(ValueError, match="expected"):
+        pw.closest_bvh(scene, o, d, (ids >= 0)[:32])
+    state = torch.zeros((pw.STATE_ROWS, 64), device="cuda")
+    with pytest.raises(ValueError, match="expected"):
+        pw.pt_wave_bounce(scene, state, ids[:32], rng.prng_key(0), 0)
+    with pytest.raises(ValueError, match="float32"):
+        pw.pt_wave(big_scene(builder, device="cuda", dtype=torch.float64), o, d, ids,
+                   rng.prng_key(0), 2)

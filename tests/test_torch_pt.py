@@ -43,9 +43,9 @@ RTOL, ATOL = 1e-4, 1e-6
 def _scenes(which, dt):
     jdt, tdt = (jnp.float64, torch.float64) if dt == "f64" else (jnp.float32, torch.float32)
     if which == "cornell":
-        return jpresets.cornell_box(dtype=jdt), tpresets.cornell_box(dtype=tdt)
+        return jpresets.cornell_box(dtype=jdt), tpresets.cornell_box(device="cpu", dtype=tdt)
     return (mixed_scene(jbuilder, jpresets, dtype=jdt),
-            mixed_scene(tbuilder, tpresets, dtype=tdt))
+            mixed_scene(tbuilder, tpresets, device="cpu", dtype=tdt))
 
 
 def _vec(a, lib):
@@ -233,15 +233,15 @@ def test_plain_megakernel_pixels_matches_pallas(which):
 
 
 def test_reject_reasons():
-    scene = tpresets.cornell_box()
+    scene = tpresets.cornell_box(device="cpu")
     assert tk.megakernel_reject_reason(scene) == ""
     assert tk.megakernel_reject_reason(scene, "bdpt") == ""
     assert tk.megakernel_reject_reason(scene, "bdpt-mis") == ""
     assert "unknown integrator" in tk.megakernel_reject_reason(scene, "mlt")
-    assert "float32" in tk.megakernel_reject_reason(tpresets.cornell_box(dtype=torch.float64))
+    assert "float32" in tk.megakernel_reject_reason(tpresets.cornell_box(device="cpu", dtype=torch.float64))
     b = tbuilder.SceneBuilder()
     mats = [tbuilder.MaterialSpec.lambertian((0.1 * k, 0.1, 0.1)) for k in range(17)]
     for k, m in enumerate(mats):
         b.add_triangle((k, 0, 0), (k + 1, 0, 0), (k, 1, 0), m)
     b.add_triangle((0, 5, 0), (1, 5, 0), (0, 5, 1), tbuilder.MaterialSpec.diffuse_light((1, 1, 1)))
-    assert "MAX_MATS" in tk.megakernel_reject_reason(b.build())
+    assert "MAX_MATS" in tk.megakernel_reject_reason(b.build(device="cpu"))

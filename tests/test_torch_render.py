@@ -44,7 +44,7 @@ def _cfg(presets, integrator="pt", **kw):
 
 @pytest.fixture(scope="module")
 def port_result():
-    return render(tpresets.cornell_box(), _cfg(tpresets), seed=SEED)
+    return render(tpresets.cornell_box(device="cpu"), _cfg(tpresets), seed=SEED)
 
 
 def _jax_main_path():
@@ -99,13 +99,13 @@ def _jax_main_path_bdpt(mis):
 
 @pytest.fixture(scope="module")
 def port_bdpt():
-    return render(tpresets.cornell_box(), _cfg(tpresets, "bdpt"), seed=SEED)
+    return render(tpresets.cornell_box(device="cpu"), _cfg(tpresets, "bdpt"), seed=SEED)
 
 
 @pytest.mark.parametrize("integrator", ["bdpt", "bdpt-mis"])
 def test_render_bdpt_matches_jax_main_path(integrator, port_bdpt):
     res = (port_bdpt if integrator == "bdpt" else
-           render(tpresets.cornell_box(), _cfg(tpresets, integrator), seed=SEED))
+           render(tpresets.cornell_box(device="cpu"), _cfg(tpresets, integrator), seed=SEED))
     fb, rays, shadow, extra = _jax_main_path_bdpt(integrator == "bdpt-mis")
     ok = np.isclose(res.framebuffer_sum, fb, rtol=1e-4, atol=1e-5).all(-1)
     assert ok.mean() >= 0.9, np.argwhere(~ok)
@@ -119,7 +119,7 @@ def test_render_bdpt_matches_jax_main_path(integrator, port_bdpt):
 
 @pytest.mark.parametrize("chunk", [7, 24])
 def test_render_bdpt_chunk_size_invariance(port_bdpt, chunk):
-    r = render(tpresets.cornell_box(), _cfg(tpresets, "bdpt"), seed=SEED, chunk_size=chunk)
+    r = render(tpresets.cornell_box(device="cpu"), _cfg(tpresets, "bdpt"), seed=SEED, chunk_size=chunk)
     np.testing.assert_array_equal(r.framebuffer_sum, port_bdpt.framebuffer_sum)
     assert dataclasses.replace(r.stats, wall_seconds=0) == dataclasses.replace(
         port_bdpt.stats, wall_seconds=0)
@@ -127,7 +127,7 @@ def test_render_bdpt_chunk_size_invariance(port_bdpt, chunk):
 
 @pytest.mark.parametrize("chunk", [7, 24])
 def test_render_chunk_size_invariance(port_result, chunk):
-    r = render(tpresets.cornell_box(), _cfg(tpresets), seed=SEED, chunk_size=chunk)
+    r = render(tpresets.cornell_box(device="cpu"), _cfg(tpresets), seed=SEED, chunk_size=chunk)
     np.testing.assert_array_equal(r.framebuffer_sum, port_result.framebuffer_sum)
     assert dataclasses.replace(r.stats, wall_seconds=0) == dataclasses.replace(
         port_result.stats, wall_seconds=0)
@@ -136,20 +136,20 @@ def test_render_chunk_size_invariance(port_result, chunk):
 def test_chunk_checkpoint_resume_bitwise(port_result, tmp_path):
     path = str(tmp_path / "ck.npz")
     snaps = []
-    render(tpresets.cornell_box(), _cfg(tpresets), seed=SEED, chunk_size=16,
+    render(tpresets.cornell_box(device="cpu"), _cfg(tpresets), seed=SEED, chunk_size=16,
            stratum_callback=lambda st: snaps.append(st))
     assert [s["units_done"] for s in snaps] == [1, 2, 3, 4]
     save_checkpoint(path, snaps[1])  # interrupted after 2 of 4 chunks
     resume = load_checkpoint(path)
     assert resume["unit_kind"] == "chunk" and resume["chunk_size"] == 16
-    r = render(tpresets.cornell_box(), _cfg(tpresets), seed=SEED, chunk_size=16,
+    r = render(tpresets.cornell_box(device="cpu"), _cfg(tpresets), seed=SEED, chunk_size=16,
                resume=resume)
     np.testing.assert_array_equal(r.framebuffer_sum, port_result.framebuffer_sum)
     with pytest.raises(ValueError, match="chunk_size=16"):
-        render(tpresets.cornell_box(), _cfg(tpresets), seed=SEED, chunk_size=8,
+        render(tpresets.cornell_box(device="cpu"), _cfg(tpresets), seed=SEED, chunk_size=8,
                resume=resume)
     with pytest.raises(ValueError, match="stratum"):
-        render(tpresets.cornell_box(), _cfg(tpresets), seed=SEED,
+        render(tpresets.cornell_box(device="cpu"), _cfg(tpresets), seed=SEED,
                resume=dict(resume, unit_kind="stratum"))
 
 
@@ -163,14 +163,14 @@ def test_to_rgb8_matches_jax(spp):
 
 
 def test_render_rejects_unported_configurations():
-    scene = tpresets.cornell_box()
+    scene = tpresets.cornell_box(device="cpu")
     for integrator in ("pt", "bdpt", "bdpt-mis"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             render(scene, _cfg(tpresets, integrator, defocus_angle=1.0))
     with pytest.raises(NotImplementedError, match="outside 1..80"):
         render(scene, _cfg(tpresets, "bdpt", max_depth=81))
     with pytest.raises(NotImplementedError, match="float32"):
-        render(tpresets.cornell_box(dtype=torch.float64), _cfg(tpresets))
+        render(tpresets.cornell_box(device="cpu", dtype=torch.float64), _cfg(tpresets))
 
 
 _NO_JAX = (
@@ -185,21 +185,56 @@ _NO_JAX = (
 )
 
 
-def test_cli_renders_png_without_jax(tmp_path):
-    args = ["--device", "cpu", "--integrator", "pt", "--size", "8x8", "--spp", "4",
+@pytest.mark.parametrize("scene", ["cornell", "coffee"])
+def test_cli_renders_png_without_jax(tmp_path, scene):
+    """The cornell box at 8x8 / 4 spp / depth 2, and the 91,540-triangle
+    coffee stand-in from its YAML at 8x8 / 1 spp / depth 2 (pt_wave)."""
+    spp = "4" if scene == "cornell" else "1"
+    args = ["--device", "cpu", "--integrator", "pt", "--size", "8x8", "--spp", spp,
             "--max-depth", "2", "--output", "t.png", "--output-dir", str(tmp_path),
             "--no-progress"]
+    if scene == "coffee":
+        args.insert(0, os.path.join(ROOT, "scenes", "coffee", "coffee_standin.yaml"))
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", _NO_JAX, *args], cwd=tmp_path,
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     png = tmp_path / "t.png"
     assert png.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
-    want = render(tpresets.cornell_box(), dataclasses.replace(
-        tpresets.cornell_box_camera(), image_width=8, aspect_ratio=1.0,
-        samples_per_pixel=4, max_depth=2, integrator="pt"), seed=0).rgb8()
+    size = dict(image_width=8, aspect_ratio=1.0, samples_per_pixel=int(spp), max_depth=2,
+                integrator="pt")
+    if scene == "cornell":
+        sc, cam = tpresets.cornell_box(device="cpu"), tpresets.cornell_box_camera()
+    else:
+        from bpt_tpu_torch.scene.loader import load_scene_from_yaml
+
+        loaded = load_scene_from_yaml(args[0], device="cpu", verbose=False)
+        sc, cam = loaded.scene, loaded.camera
+        assert "Triangles: 91540" in proc.stdout
+        assert "nodes built:     91543" in proc.stderr
+    want = render(sc, dataclasses.replace(cam, **size), seed=0).rgb8()
     np.testing.assert_array_equal(read_png(str(png)), want)
+    assert want.any()
     assert "rays traced:" in proc.stderr
+
+
+def test_port_never_imports_jax_or_bpt_tpu():
+    """No module of bpt_tpu_torch, and not chip_smoke.py, imports JAX or
+    bpt_tpu, at the top or inside a function."""
+    import ast
+    import glob
+
+    files = glob.glob(os.path.join(ROOT, "bpt_tpu_torch", "**", "*.py"), recursive=True)
+    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert len(files) > 20
+    for path in files:
+        tree = ast.parse(open(path).read())
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "bpt_tpu"), (path, name)
 
 
 def test_cli_module_entry_point(tmp_path):
@@ -220,7 +255,7 @@ def test_cli_default_renders_bdpt_without_jax(tmp_path):
     proc = subprocess.run([sys.executable, "-c", _NO_JAX, *args], cwd=tmp_path,
                           env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    want = render(tpresets.cornell_box(), dataclasses.replace(
+    want = render(tpresets.cornell_box(device="cpu"), dataclasses.replace(
         tpresets.cornell_box_camera(), image_width=8, aspect_ratio=1.0,
         samples_per_pixel=4, max_depth=3), seed=0)
     np.testing.assert_array_equal(read_png(str(tmp_path / "cornell_box.png")), want.rgb8())

@@ -39,37 +39,37 @@ def _assert_scene_equal(port, jscene):
 @pytest.mark.parametrize("dt", ["f32", "f64"])
 def test_cornell_box_equals_bpt_tpu(dt):
     jdt, tdt = DT[dt]
-    _assert_scene_equal(tpresets.cornell_box(dtype=tdt),
+    _assert_scene_equal(tpresets.cornell_box(device="cpu", dtype=tdt),
                         jpresets.cornell_box(dtype=jdt))
 
 
 @pytest.mark.parametrize("dt", ["f32", "f64"])
 def test_mixed_material_scene_equals_bpt_tpu(dt):
     jdt, tdt = DT[dt]
-    port = mixed_scene(tbuilder, tpresets, dtype=tdt)
+    port = mixed_scene(tbuilder, tpresets, device="cpu", dtype=tdt)
     assert port.has_delta_mats and port.has_iso_mats
     _assert_scene_equal(port, mixed_scene(jbuilder, jpresets, dtype=jdt))
 
 
 def test_scene_from_numpy_roundtrip():
-    scene = mixed_scene(tbuilder, tpresets)
+    scene = mixed_scene(tbuilder, tpresets, device="cpu")
     arrays, meta = scene_to_numpy(scene)
-    back = scene_from_numpy(arrays, meta)
+    back = scene_from_numpy(arrays, meta, device="cpu")
     a2, m2 = scene_to_numpy(back)
     assert m2 == meta
     for name in arrays:
         np.testing.assert_array_equal(a2[name], arrays[name], err_msg=name)
     with pytest.raises(KeyError):
-        scene_from_numpy({k: v for k, v in arrays.items() if k != "v0"}, meta)
+        scene_from_numpy({k: v for k, v in arrays.items() if k != "v0"}, meta, device="cpu")
 
 
 @pytest.mark.parametrize("which", ["cornell", "mixed"])
 def test_pack_tables_equal(which):
     if which == "cornell":
-        js, ts = jpresets.cornell_box(), tpresets.cornell_box()
+        js, ts = jpresets.cornell_box(), tpresets.cornell_box(device="cpu")
     else:
         js = mixed_scene(jbuilder, jpresets)
-        ts = mixed_scene(tbuilder, tpresets)
+        ts = mixed_scene(tbuilder, tpresets, device="cpu")
     assert tk.megakernel_reject_reason(ts) == jk.megakernel_reject_reason(js) == ""
     for w, g in zip(jk._pack_tables(js), tk._pack_tables(ts)):
         np.testing.assert_array_equal(np.asarray(w), g.numpy())
@@ -106,14 +106,14 @@ def test_generate_rays_matches(defocus):
     np.testing.assert_allclose(dt_.numpy(), np.asarray(dj), rtol=1e-12, atol=1e-9)
 
 
-@pytest.mark.parametrize("feature", ["texture", "obj", "uv_sphere", "volume"])
+@pytest.mark.parametrize("feature", ["texture", "light_texture", "iso_texture", "volume"])
 def test_unported_builder_features_raise(feature):
     b = tbuilder.SceneBuilder()
     MS = tbuilder.MaterialSpec
     calls = {
         "texture": lambda: MS.lambertian((0.5, 0.5, 0.5), texture=object()),
-        "obj": lambda: b.add_obj("assets/x.obj", MS.lambertian()),
-        "uv_sphere": lambda: b.add_uv_sphere((0, 0, 0), 1.0, MS.lambertian()),
+        "light_texture": lambda: MS.diffuse_light((1, 1, 1), texture=object()),
+        "iso_texture": lambda: MS.isotropic((0.5, 0.5, 0.5), texture=object()),
         "volume": lambda: b.add_volume_box((0, 0, 0), (1, 1, 1), 0.01),
     }
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,6 +1,6 @@
 """Shared helpers of the tests that hold bpt_tpu_torch against bpt_tpu:
-scene carry-over from a bpt_tpu SceneArrays, one scene built the same way
-by both packages' builders, and seeded ray batches."""
+scene carry-over from a bpt_tpu SceneArrays, scenes built the same way by
+both packages' builders, and seeded ray batches."""
 
 from __future__ import annotations
 
@@ -45,4 +45,26 @@ def rays(B, seed):
     rng = np.random.default_rng(seed)
     o = rng.uniform(50, 500, (B, 3)).astype(np.float32)
     d = rng.normal(size=(B, 3)).astype(np.float32)
+    return o, d
+
+
+def big_scene(builder_mod, **build_kw):
+    """A metal UV sphere on a floor under a quad light: 964 triangles, over
+    the fused kernels' 512 (tests/test_pallas_kernels.py::_big_scene)."""
+    MS = builder_mod.MaterialSpec
+    b = builder_mod.SceneBuilder()
+    b.add_uv_sphere((0, 1, 0), 1.0, MS.metal((0.8, 0.8, 0.8), 0.05))
+    b.add_quad((-10, 0, -10), (20, 0, 0), (0, 0, 20), MS.lambertian((0.6, 0.6, 0.6)))
+    b.add_quad((-2, 6, -2), (4, 0, 0), (0, 0, 4), MS.diffuse_light((10, 10, 10)))
+    return b.build(**build_kw)
+
+
+def big_rays(B, seed):
+    """Random rays around the big scene's sphere (numpy-seeded, f32), a
+    few with zero direction components (the slab test's NaN terms)."""
+    rng = np.random.default_rng(seed)
+    o = (rng.uniform(-3, 3, (B, 3)) * [1, 0.5, 1] + [0, 2.5, 0]).astype(np.float32)
+    d = rng.normal(size=(B, 3)).astype(np.float32)
+    d[:8, 0] = 0.0
+    o[:4, 0] = 0.0
     return o, d

@@ -1,16 +1,20 @@
 """Where the time of a bpt_tpu_torch render goes, on one NVIDIA card.
 
-Renders the cornell box with PT, BDPT or BDPT-MIS (default PT at 512x512,
-16 spp, depth 10, seed 0): one warm-up render, then ``--renders`` timed ones (their walls
-and median), then one render under ``torch.profiler`` with CUDA activity.
-Prints the profiler's tables by device time and by host time, the
-kernel's device time, the sum of all device time, and the device time
-spent before the wall clock stops as a share of the profiled render's
-wall (the device's busy share; the profiler's own host overhead
-lengthens that wall).
+Renders the cornell box with PT, BDPT or BDPT-MIS, or the coffee stand-in
+(scenes/coffee/coffee_standin.yaml, 91,540 triangles: PT through pt_wave)
+— default PT at 512x512, 16 spp, depth 10, seed 0: one warm-up render,
+then ``--renders`` timed ones (their walls and median), then one render
+under ``torch.profiler`` with CUDA activity.  Prints the profiler's tables
+by device time and by host time, the device time of the CUDA kernels and
+(coffee) of the sorts, the gathers and everything else (raygen, sort keys,
+small ops), the sum of all device time, and the device time spent before
+the wall clock stops as a share of the profiled render's wall (the
+device's busy share; the profiler's own host overhead lengthens that
+wall).  The coffee scene needs PyYAML.
 
-    python tools/profile_render.py [--integrator pt|bdpt|bdpt-mis]
-        [--width 512] [--spp 16] [--depth 10] [--renders 10]
+    python tools/profile_render.py [--scene cornell|coffee]
+        [--integrator pt|bdpt|bdpt-mis] [--width 512] [--spp 16]
+        [--depth 10] [--renders 10]
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--scene", choices=("cornell", "coffee"), default="cornell")
     ap.add_argument("--integrator", choices=("pt", "bdpt", "bdpt-mis"), default="pt")
     ap.add_argument("--width", type=int, default=512)
     ap.add_argument("--spp", type=int, default=16)
@@ -35,6 +40,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from bpt_tpu_torch.models.render import render
@@ -46,14 +52,23 @@ def main(argv=None) -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    scene = cornell_box(device=torch.device("cuda", 0))
-    cfg = dataclasses.replace(cornell_box_camera(), image_width=args.width,
+    dev = torch.device("cuda", 0)
+    if args.scene == "coffee":
+        from bpt_tpu_torch.scene.loader import load_scene_from_yaml
+
+        loaded = load_scene_from_yaml(os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "..", "scenes", "coffee",
+            "coffee_standin.yaml"), device=dev)
+        scene, cam = loaded.scene, loaded.camera
+    else:
+        scene, cam = cornell_box(device=dev), cornell_box_camera()
+    cfg = dataclasses.replace(cam, image_width=args.width, aspect_ratio=1.0,
                               samples_per_pixel=args.spp, max_depth=args.depth,
                               integrator=args.integrator)
     render(scene, cfg, seed=0)  # warm-up: kernel build and load
     walls = [render(scene, cfg, seed=0).stats.wall_seconds
              for _ in range(args.renders)]
-    print(f"{args.integrator} render walls {walls} s, median "
+    print(f"{args.scene} {args.integrator} render walls {walls} s, median "
           f"{statistics.median(walls)} s ({card})")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -61,19 +76,30 @@ def main(argv=None) -> int:
     events = prof.key_averages()
     print(events.table(sort_by="self_device_time_total", row_limit=15))
     print(events.table(sort_by="self_cpu_time_total", row_limit=15))
-    # device_time fields are in microseconds.  render() reads its results
-    # back (the only device-to-host copies) after it stops the wall clock
+    # device_time fields are in microseconds.  Only the device's own
+    # events count: a host op (aten::index) also reports the time of the
+    # kernels it launched.  render() reads its results back (the only
+    # device-to-host copies) after it stops the wall clock
+    events = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events) / 1e3
     readback = sum(e.self_device_time_total for e in events
                    if e.key.startswith("Memcpy DtoH")) / 1e3
-    kernel = sum(e.self_device_time_total for e in events
-                 if "megakernel" in e.key) / 1e3
+    groups = {"kernel": ("megakernel", "pt_wave_bounce", "closest_bvh"),
+              "sort": ("Radix", "radix", "sort"), "gather": ("index", "gather")}
+    dev_ms = {name: 0.0 for name in (*groups, "other")}
+    for e in events:
+        if e.self_device_time_total <= 0 or e.key.startswith("Memcpy DtoH"):
+            continue
+        name = next((n for n, keys in groups.items() if any(k in e.key for k in keys)),
+                    "other")
+        dev_ms[name] += e.self_device_time_total / 1e3
     wall = res.stats.wall_seconds * 1e3
     inside = busy - readback
-    print(f"profiled render wall {wall:.3f} ms; kernel {kernel:.3f} ms; "
-          f"device time {busy:.3f} ms, of it {readback:.3f} ms read-back after "
-          f"the wall; device busy {inside / wall * 100:.1f}% of the wall "
-          f"({card})")
+    shares = ", ".join(f"{n} {v:.3f} ms ({v / inside * 100:.1f}%)" for n, v in dev_ms.items())
+    print(f"profiled render wall {wall:.3f} ms; device time before the read-back "
+          f"{inside:.3f} ms: {shares}; {readback:.3f} ms read-back after the wall; "
+          f"device busy {inside / wall * 100:.1f}% of the wall; rays_traced "
+          f"{res.stats.rays_traced} ({card})")
     return 0
 
 
