@@ -82,7 +82,7 @@ import sys
 import time
 
 RTOL, ATOL, BDPT_ATOL, MIN_FRAC = 1e-4, 1e-6, 1e-5, 0.999
-# the H100 SXM's published peaks (on-chip-measurement guide): HBM bytes/s
+# the H100 SXM's published peaks: HBM bytes/s
 # and FP32 operations/s outside the tensor cores
 HBM_BPS, FP32_OPS = 3.35e12, 67e12
 # FP32 operations of one Möller–Trumbore test (common.cuh: 2 crosses, 4
