@@ -105,17 +105,10 @@ def _stream(dev):
 # ---------------------------------------------------------- closest hit
 
 
-def _walk(scene, o: Vec3, d: Vec3, active) -> soa.HitSoA:
-    """soa.bvh_closest over (T_MIN, inf) for the active lanes; the others
-    are misses that count nothing (they visit the root once and miss it)."""
-    h = soa.bvh_closest(scene, o, d, T_MIN, torch.where(active, torch.inf, 0.0))
-    return h._replace(node_visits=h.node_visits - (~active).sum(dtype=torch.int64))
-
-
 def closest_bvh_plain(scene, o: Vec3, d: Vec3, active):
     """Plain version of ``closest_bvh``."""
     closest_bvh_plain.calls += 1
-    h = _walk(scene, o, d, active)
+    h = soa.bvh_closest(scene, o, d, T_MIN, torch.inf, active)
     tri = torch.where(h.hit, h.tri, -1).to(torch.int32)
     return h.t, tri, h.u, h.v, torch.stack(
         [h.node_visits, h.aabb_hits, h.tri_tests, h.tri_hits])
@@ -165,12 +158,12 @@ closest_bvh.launches = 0
 
 def pt_wave_bounce_plain(scene, state, rid, key, bounce: int, hits=None):
     """Plain version of ``pt_wave_bounce``: ``models.pt.pt_bounce`` on the
-    kernel stream, over ``_walk``'s hits or the given ones."""
+    kernel stream, over ``ops.soa.bvh_closest``'s hits or the given ones."""
     pt_wave_bounce_plain.calls += 1
     o, d, thr = (Vec3(*state[k:k + 3]) for k in (OX, DX, THR))
     alive = state[ALIVE] > 0.5
     if hits is None:
-        h = _walk(scene, o, d, alive)
+        h = soa.bvh_closest(scene, o, d, T_MIN, torch.inf, alive)
         walk = [h.node_visits, h.aabb_hits, h.tri_tests, h.tri_hits]
     else:
         t, tri = hits

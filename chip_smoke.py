@@ -48,8 +48,7 @@
 6. pt_wave against pt_wave_plain at B = 65,536 coffee rays, depth 10, in
    both modes (the wave kernel walks the BVH; paged=True: closest_bvh, then
    the shade-only wave kernel), rtol 1e-4 / atol 1e-6 on >= 99.9% of lanes,
-   rays_traced exact.  The paged drive is closest_bvh's path: its launches
-   are counted there, and no plain version may run in it.
+   rays_traced and the four walk counters exact.
 7. The main path: render() of the coffee stand-in with PT at 512x512, 16
    spp, depth 10, seed 0 (bench.py's coffee cell) — one warm-up and three
    timed renders.  The wave kernel's launches must be > 0 and every plain
@@ -62,8 +61,14 @@
    strata) within 0.1% of bpt_tpu's BVH path on a CPU (44,024), and the
    whole image within 1% of the TPU count scaled by bpt_tpu's own BVH /
    Pallas ratio on the subset.  Writes output/chip_smoke_coffee_pt.png.
-   Then times one wave-kernel launch and its plain version at the main
-   path's first bounce (B = 4,194,304).
+   Then closest_bvh's path: the same render loop with paging forced
+   (render() does not page this scene), its launches counted there, no
+   plain version called, the image bitwise equal to render()'s and every
+   counter equal.  Last, one wave-kernel launch against its plain version
+   at the main path's first bounce (B = 4,194,304): all 13 state rows
+   (origin, direction and throughput on the lanes that stay alive) within
+   rtol 1e-4 / atol 1e-6 on >= 99.9% of lanes, all five counters exact;
+   both timed.
 
 Each phase prints its seconds.  The second-to-last line is a JSON object
 describing the kernels, each with its bound: the larger of the bytes it
@@ -584,17 +589,13 @@ def main() -> int:
         n_plain = pw.closest_bvh_plain.calls + pw.pt_wave_bounce_plain.calls
         mode = "paged (closest_bvh + shade-only wave kernel)" if paged else "walk"
         f, e = compare(f"phase 6: pt_wave {mode} B={B} depth={depth}", kout, wplain,
-                       exact_counts=False)
-        check(int(kout[3]) == int(wplain[3]), f"pt_wave {mode}: rays_traced differs")
+                       exact_counts=True)
         check(b_launches == depth and a_launches == (depth if paged else 0) and not n_plain,
               f"pt_wave {mode}: launches {a_launches} / {b_launches}, plain calls {n_plain}")
-        if paged:
-            paged_launches = a_launches
         wave_err, wave_frac = max(wave_err, e), min(wave_frac, f)
         wave_ms[paged] = time_ms(lambda: pw.pt_wave(*wave_args, paged=paged), reps=5)
     print(f"phase 6: pt_wave B={B} depth={depth}: walk {wave_ms[False]:.3f} ms, paged "
-          f"{wave_ms[True]:.3f} ms, plain {wave_plain_ms:.3f} ms (one call); the paged "
-          f"drive launched closest_bvh {paged_launches} times ({card})")
+          f"{wave_ms[True]:.3f} ms, plain {wave_plain_ms:.3f} ms (one call) ({card})")
     del wplain, kout
     lap("phase 6")
 
@@ -646,7 +647,35 @@ def main() -> int:
           f"{st.bvh_node_visits}, box hits {st.aabb_hits}, tri tests {st.triangle_tests}, "
           f"tri hits {st.triangle_hits}; wave kernel launches {wave_launches}, plain "
           f"calls {n_plain}; wrote {path} ({card})")
-    del results, res, fb
+
+    # closest_bvh's path: the same render loop with paging forced (the
+    # coffee scene passes cluster_ok, so render() itself does not page)
+    from bpt_tpu_torch.models.render import _render_wave
+
+    cc_r = camera_constants(cfg, torch.float32, dev)
+    for fn in plains:
+        fn.calls = 0
+    pw.closest_bvh.launches = pw.pt_wave_bounce.launches = 0
+    fb_paged = torch.zeros((512 * 512, 3), device=dev)
+    (p_rays, p_extra), paged_render_ms = timed(
+        lambda: _render_wave(coffee, cfg, cc_r, 0, fb_paged, 0, None, None, paged=True))
+    paged_launches = pw.closest_bvh.launches
+    n_plain = sum(fn.calls for fn in plains)
+    check(paged_launches > 0 and paged_launches == pw.pt_wave_bounce.launches,
+          f"paged render: closest_bvh {paged_launches} launches, wave kernel "
+          f"{pw.pt_wave_bounce.launches}")
+    check(n_plain == 0, f"paged render called a plain version {n_plain} times")
+    p_counts = [int(p_rays), *p_extra.tolist()]
+    w_counts = [st.rays_traced, st.bvh_node_visits, st.aabb_hits, st.triangle_tests,
+                st.triangle_hits]
+    check(p_counts == w_counts, f"paged render counters {p_counts}, unpaged {w_counts}")
+    check(np.array_equal(fb_paged.cpu().numpy().reshape(512, 512, 3), fb),
+          "paged render's image differs from render()'s")
+    print(f"phase 7: the same render paged (closest_bvh, then the shade-only wave "
+          f"kernel): {paged_render_ms:.3f} ms; image bitwise equal to render()'s and "
+          f"counters (rays, node visits, box hits, tri tests, tri hits) {p_counts} "
+          f"equal; closest_bvh launches {paged_launches}, plain calls {n_plain} ({card})")
+    del results, res, fb, fb_paged
 
     # the wave kernel at the main path's first bounce: 16 strata of 512^2
     o_m, d_m, ids_m = wave_rays(ccc, torch.arange(512 * 512, device=dev), 16, key, dev)
@@ -662,20 +691,28 @@ def main() -> int:
                                              tables=tables), reps=5)
     (p_out, p_counts), b_plain_ms = timed(
         lambda: pw.pt_wave_bounce_plain(coffee, state, ids_m, key_pt, 0))
-    rows = torch.cat([b_out[pw.RAD:pw.RAD + 3], b_out[pw.ALIVE:]]).T
-    prows = torch.cat([p_out[pw.RAD:pw.RAD + 3], p_out[pw.ALIVE:]]).T
-    f, _, _ = agreement(rows, prows)
+    # every state row; a dead lane's origin, direction and throughput are
+    # never read again, so those rows count on the lanes the plain version
+    # keeps alive (a lane alive on one side only fails on the alive row)
+    live = p_out[pw.ALIVE] > 0.5
+    rows, prows = (torch.cat([torch.where(live, x[:pw.RAD], 0.0), x[pw.RAD:]]).T
+                   for x in (b_out, p_out))
+    f, e, worst = agreement(rows, prows)
     b_counts, p_counts = b_counts.tolist(), p_counts.tolist()
-    check(f >= MIN_FRAC and b_counts[0] == p_counts[0],
-          f"wave kernel at bounce 0: {f:.5f} of lanes agree, rays {b_counts[0]} vs {p_counts[0]}")
+    check(bool(live.any()), "wave kernel at bounce 0: no lane stays alive")
+    check(f >= MIN_FRAC, f"wave kernel at bounce 0: only {f:.5f} of lanes agree; worst "
+          f"lane {worst}: kernel {rows[worst].tolist()} plain {prows[worst].tolist()}")
+    check(b_counts == p_counts, f"wave kernel at bounce 0: counters {b_counts} vs {p_counts}")
+    wave_err, wave_frac = max(wave_err, e), min(wave_frac, f)
     b_bound, b_by = bound(Bm * (2 * pw.STATE_ROWS * 4 + 4) + scene_bytes,
                           b_counts[1] * SLAB_OPS + b_counts[3] * MT_OPS)
     print(f"phase 7: wave kernel, first bounce of the main path (B={Bm}): kernel "
           f"{b_ms:.3f} ms, plain {b_plain_ms:.3f} ms (one call), bound {b_bound:.4f} ms "
-          f"({b_by}); radiance and alive equal on {f * 100:.4f}% of lanes; counters "
+          f"({b_by}); all {pw.STATE_ROWS} state rows within rtol {RTOL} / atol {ATOL} "
+          f"on {f * 100:.4f}% of lanes ({int(live.sum())} alive), max abs err {e:.3e}; counters "
           f"(rays, node visits, box hits, tri tests, tri hits) kernel {b_counts} plain "
           f"{p_counts} ({card})")
-    del state, b_out, p_out
+    del state, b_out, p_out, rows, prows
     lap("phase 7")
 
     # lanes in (pixels: i, j, sx, sy, id; rays: o, d, id), radiance out
@@ -730,8 +767,10 @@ def main() -> int:
         "source": "bpt_tpu_torch/csrc/pt_wave.cu",
         "replaces": "bpt_tpu/ops/pallas/cluster_wave.py:340",
         "launches": paged_launches,
-        "launches_path": "pt_wave(paged=True), B=65,536, depth 10 (the coffee "
-                         "render does not page: cluster_ok holds)",
+        "launches_path": "the coffee render loop with paging forced, 512x512, "
+                         "16 spp, depth 10 (render() does not page it: cluster_ok "
+                         "holds)",
+        "paged_render_ms": paged_render_ms,
         "max_abs_err": a_err,
         "within_tol": a_frac,
         "ms": a_ms,
