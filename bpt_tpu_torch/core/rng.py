@@ -12,8 +12,12 @@ The BDPT megakernel has a stream of its own (``subkeys_bdpt``): one key
 per (section, bounce, slot), the counter ``(ray_id, 0)``, and word x0 of
 every call.
 
-The jnp wavefront's stream (``bpt_tpu.core.rng.wave_uniforms``) is a
-different stream and is not ported yet (ROADMAP §1 item 2).
+The jnp wavefront's stream (``wave_uniforms`` / ``uniform_rows``, the
+counterparts of ``bpt_tpu.core.rng``'s) is a third one, the stream of
+``jax.random`` itself with ``jax_threefry_partitionable``: each lane's key
+is ``fold_in(fold_in(key, bounce), ray_id)`` and its draw ``i`` comes from
+``threefry2x32(lane_key, (0, i))``, both words folded into the float.  The
+large-scene BDPT route draws from it.
 """
 
 from __future__ import annotations
@@ -114,6 +118,36 @@ def raygen_jitter(key: tuple[int, int], ray_ids: torch.Tensor):
 def ray_words(ray_ids: torch.Tensor) -> torch.Tensor:
     """int ray ids -> int64 uint32 words (the kernels' ``astype(uint32)``)."""
     return ray_ids.to(torch.int64) & MASK32
+
+
+# ------------------------------------------------------------- jnp stream
+
+
+def uniform_rows(key: tuple[int, int], ray_ids: torch.Tensor, bounce: int, n: int,
+                 dtype=torch.float32) -> list[torch.Tensor]:
+    """``bpt_tpu.core.rng.uniform_rows``: n rows of [B] uniforms in [0, 1),
+    ``jax.random.uniform(fold_in(fold_in(key, bounce), ray_id), (n,))`` per
+    lane.  The lane keys are tensors: ``threefry2x32(kb, (0, ray_id))``.
+    Draw i is ``threefry2x32(lane_key, (0, i)) = (x0, x1)``; float32 takes
+    the mantissa trick on ``x0 ^ x1``, float64 the top 52 bits of
+    ``(x0 << 32) | x1``, i.e. ``(x0 << 20) | (x1 >> 12)``."""
+    kb = fold_in(key, bounce)
+    rid = ray_words(ray_ids)
+    k1, k2 = threefry2x32(kb[0], kb[1], torch.zeros_like(rid), rid)
+    rows = []
+    for i in range(n):
+        x0, x1 = threefry2x32(k1, k2, 0, i)
+        if dtype == torch.float64:
+            rows.append(((x0 << 20) | (x1 >> 12)).to(torch.float64) * 2.0 ** -52)
+        else:
+            rows.append(bits_to_unit_float(x0 ^ x1).to(dtype))
+    return rows
+
+
+def wave_uniforms(key: tuple[int, int], ray_ids: torch.Tensor, bounce: int, n: int,
+                  dtype=torch.float32) -> torch.Tensor:
+    """``bpt_tpu.core.rng.wave_uniforms``: the same draws as [B, n]."""
+    return torch.stack(uniform_rows(key, ray_ids, bounce, n, dtype), dim=-1)
 
 
 # ------------------------------------------------------------ BDPT stream

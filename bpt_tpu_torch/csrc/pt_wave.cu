@@ -1,10 +1,13 @@
-// Large-scene PT for Hopper (sm_90a): BVH closest hit and the per-bounce
-// wave kernel.
+// Large-scene tracing for Hopper (sm_90a): the BVH closest and any hit,
+// and the per-bounce PT wave kernel.
 //
 // closest_bvh replaces the Pallas kernel
 // bpt_tpu/ops/pallas/cluster_wave.py::clustered_closest_ftb_pallas (the
 // front-to-back clustered closest hit over (T_MIN, inf) with an active
 // mask): out t (inf on a miss), tri (-1 on a miss), u, v.
+// any_bvh replaces cluster_wave.py::clustered_any_ftb_pallas (the any hit
+// over [T_MIN, tmax] of BDPT's connection shadow rays, tmax <= 0 marking a
+// dead lane, early exit): out hit.
 // pt_wave_bounce replaces bpt_tpu/ops/pallas/pt_wave.py::_launch_bounce
 // (_bounce_kernel): one PT bounce per ray, the closest hit (its own
 // traversal, or closest_bvh's hit in paged mode) followed by make_bounce's
@@ -21,17 +24,23 @@
 // Design: one thread per ray.  The thread walks the threaded-DFS BVH of
 // scene/bvh.py (preorder with skip links: a box hit at an internal node
 // goes to the next node, a miss or a leaf to the skip link), so it needs no
-// stack, with the visit order, NaN slab rules and `t <= t_best` replace rule
-// of ops/soa.py::bvh_closest; kernel and plain version take the same branch
+// stack, with the visit order, NaN slab rules and `t <= t_best` accept rule
+// of ops/soa.py::_bvh_walk; kernel and plain version take the same branch
 // at every step and count the same node visits, box hits, triangle tests
-// and accepted tests.  The TPU layout (128-lane tiles, the cluster blocks
-// and their DMA double buffer, the lane roll, the per-octant order table)
-// does not carry over.  The shade is pt_shade.cuh's pt_bounce, shared with
-// the PT megakernel; the material and light tables and the slot keys sit in
-// shared memory.  Ray state is a [13, B] row-major f32 array (origin,
-// direction, throughput, radiance, alive: ops/kernels/pt_wave.py's
-// STATE_ROWS) so a warp's access to one row is coalesced.
-// Counters are exact 64-bit integers: warp sums, one atomic per warp.
+// and accepted tests.  One walk serves both hits (bvh_walk<ANY>): the any
+// hit keeps its interval and stops after the first leaf with a hit, which
+// makes its answer independent of the visit order.  A shadow wave holds a
+// lane per (camera vertex, light vertex) pair and most pairs are dead
+// (tmax <= 0): a dead lane reads its tmax, writes a miss and returns.  The
+// TPU layout (128-lane tiles, the cluster blocks and their DMA double
+// buffer, the lane roll, the per-octant order table, the sort that parks
+// dead lanes in tail tiles) does not carry over.  The shade is
+// pt_shade.cuh's pt_bounce, shared with the PT megakernel; the material and
+// light tables and the slot keys sit in shared memory.  Ray state is a
+// [13, B] row-major f32 array (origin, direction, throughput, radiance,
+// alive: ops/kernels/pt_wave.py's STATE_ROWS) so a warp's access to one row
+// is coalesced.  Counters are exact 64-bit integers: warp sums, one atomic
+// per warp.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -65,14 +74,18 @@ __device__ __forceinline__ void slab_axis(float lo_b, float hi_b, float o,
   hi = nan ? inf_f() : fmaxf(t0, t1);
 }
 
-// Closest hit over [tmin, tmax] by the threaded DFS of soa.bvh_closest.
-// t is inf and tri -1 on a miss; u, v are the winner's barycentrics.
-__device__ __forceinline__ void bvh_closest(const Bvh& g, float ox, float oy,
-                                            float oz, float dx, float dy,
-                                            float dz, float tmin, float tmax,
-                                            float& t_out, int& tri_out,
-                                            float& u_out, float& v_out,
-                                            TraceCounts& c) {
+// The threaded-DFS walk of soa._bvh_walk over [tmin, tmax].  ANY = false:
+// the closest hit (an accepted test shrinks the interval; t is inf and tri
+// -1 on a miss; u, v are the winner's barycentrics).  ANY = true: the
+// interval stays, a leaf tests all its triangles and a hit among them ends
+// the walk; tri >= 0 on a hit.
+template <bool ANY>
+__device__ __forceinline__ void bvh_walk(const Bvh& g, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz, float tmin, float tmax,
+                                         float& t_out, int& tri_out,
+                                         float& u_out, float& v_out,
+                                         TraceCounts& c) {
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
   float t_best = tmax, ub = 0.0f, vb = 0.0f;
   int tri = -1;
@@ -110,12 +123,15 @@ __device__ __forceinline__ void bvh_closest(const Bvh& g, float ox, float oy,
       const float t = moller_trumbore_uv(ox, oy, oz, dx, dy, dz, tv, u, v, valid);
       if (valid && t >= tmin && t <= t_best) {
         c.hits += 1;
-        t_best = t;
         tri = k;
-        ub = u;
-        vb = v;
+        if constexpr (!ANY) {
+          t_best = t;
+          ub = u;
+          vb = v;
+        }
       }
     }
+    if (ANY && tri >= 0) break;
     i = skip;
   }
   t_out = tri >= 0 ? t_best : inf_f();
@@ -144,7 +160,7 @@ struct WalkHit {
                                             float dx, float dy, float dz) {
     float t, u, v;
     int tri;
-    bvh_closest(g, ox, oy, oz, dx, dy, dz, T_MIN, inf_f(), t, tri, u, v, c);
+    bvh_walk<false>(g, ox, oy, oz, dx, dy, dz, T_MIN, inf_f(), t, tri, u, v, c);
     return Hit{tri, t};
   }
 
@@ -198,13 +214,42 @@ __global__ void __launch_bounds__(WAVE_BLOCK) closest_bvh(const ClosestParams p)
     float t = inf_f(), u = 0.0f, v = 0.0f;
     int tri = -1;
     if (p.active[lane]) {
-      bvh_closest(p.g, p.o[0][lane], p.o[1][lane], p.o[2][lane], p.d[0][lane],
-                  p.d[1][lane], p.d[2][lane], T_MIN, inf_f(), t, tri, u, v, c);
+      bvh_walk<false>(p.g, p.o[0][lane], p.o[1][lane], p.o[2][lane], p.d[0][lane],
+                      p.d[1][lane], p.d[2][lane], T_MIN, inf_f(), t, tri, u, v, c);
     }
     p.t[lane] = t;
     p.tri[lane] = tri;
     p.u[lane] = u;
     p.v[lane] = v;
+  }
+  warp_add(c.nodes, &p.counters[0]);
+  warp_add(c.boxes, &p.counters[1]);
+  warp_add(c.tests, &p.counters[2]);
+  warp_add(c.hits, &p.counters[3]);
+}
+
+struct AnyParams {
+  int B;
+  Bvh g;
+  const float* o[3];
+  const float* d[3];
+  const float* tmax;             // [B]; <= 0 marks a dead lane
+  unsigned char* hit;            // [B] bool
+  unsigned long long* counters;  // [4] node visits, box hits, tri tests, tri hits
+};
+
+__global__ void __launch_bounds__(WAVE_BLOCK) any_bvh(const AnyParams p) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  TraceCounts c;
+  if (lane < p.B) {
+    const float tmax = p.tmax[lane];
+    int tri = -1;
+    if (tmax > 0.0f) {  // a dead lane (tmax <= 0) never reaches the root
+      float t, u, v;
+      bvh_walk<true>(p.g, p.o[0][lane], p.o[1][lane], p.o[2][lane], p.d[0][lane],
+                     p.d[1][lane], p.d[2][lane], T_MIN, tmax, t, tri, u, v, c);
+    }
+    p.hit[lane] = tri >= 0;
   }
   warp_add(c.nodes, &p.counters[0]);
   warp_add(c.boxes, &p.counters[1]);
@@ -314,6 +359,29 @@ int bpt_closest_bvh(int B, int N, const float* nodes, const float* tris,
   p.counters = counters;
   if (B > 0) {
     bpt::closest_bvh<<<bpt::grid_of(B), bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+int bpt_any_bvh(int B, int N, const float* nodes, const float* tris,
+                const float* ox, const float* oy, const float* oz,
+                const float* dx, const float* dy, const float* dz,
+                const float* tmax, unsigned char* hit,
+                unsigned long long* counters, void* stream) {
+  bpt::AnyParams p;
+  p.B = B;
+  p.g = bpt::Bvh{(const float4*)nodes, (const float4*)tris, N};
+  p.o[0] = ox;
+  p.o[1] = oy;
+  p.o[2] = oz;
+  p.d[0] = dx;
+  p.d[1] = dy;
+  p.d[2] = dz;
+  p.tmax = tmax;
+  p.hit = hit;
+  p.counters = counters;
+  if (B > 0) {
+    bpt::any_bvh<<<bpt::grid_of(B), bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
   }
   return (int)cudaGetLastError();
 }

@@ -16,15 +16,19 @@ Three stages, each a full-batch wave:
    (integrator bdpt-mis) each pair carries its power-heuristic weight.
 
 Randomness enters only through the uniform sources, so tests inject the
-same uniforms here and in ``bpt_tpu``.  This wavefront is the plain version
-the CUDA BDPT megakernel (``ops/kernels/bdpt_kernel.py``) is held against;
-it is not a render route on the card.
+same uniforms here and in ``bpt_tpu``.  On a scene of at most 512
+triangles this wavefront is the plain version the CUDA BDPT megakernel
+(``ops/kernels/bdpt_kernel.py``) is held against.  On a larger scene it
+is the render's estimator on the card, as ``bdpt_radiance`` is on
+``bpt_tpu``'s large-scene route: ``bdpt_fast`` feeds it the jnp stream and
+its traversals launch the CUDA BVH walks (``ops.soa.closest_hit`` /
+``any_hit`` on a CUDA scene: ``closest_bvh`` and ``any_bvh``).  ``plain``
+walks the BVH in torch instead, for comparisons.
 
 Not ported (each refused where it would be asked for): ``bpt_tpu``'s
 live-prefix narrowed trace and its batched or sparse connection waves
-(TPU study options, ROADMAP §2 "Not to port"), the jnp-stream
-``bdpt_fast`` (ROADMAP §1 item 2), ``ref_vis`` (ROADMAP §1 item 7) and
-volumes (ROADMAP §1 item 8).
+(TPU study options, ROADMAP §2 "Not to port"), ``ref_vis`` (ROADMAP §0
+step 4) and volumes (ROADMAP §1 item 8).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 from bpt_tpu_torch.core import rng
 from bpt_tpu_torch.core import vec3 as v3
 from bpt_tpu_torch.core.vec3 import Vec3
+from bpt_tpu_torch.models.pt import default_uniforms_fn
 from bpt_tpu_torch.ops import shade_soa as sh
 from bpt_tpu_torch.ops import soa
 from bpt_tpu_torch.ops.intersect import T_MIN
@@ -175,7 +180,7 @@ def _set3(vv: Vec3, b, mask, val: Vec3):
 
 def trace_subpath(scene: SceneTensors, o: Vec3, d: Vec3, thr0: Vec3, alive0,
                   steps: int, uniforms_fn, collect_background: bool,
-                  mis_prev=None):
+                  mis_prev=None, plain: bool = False):
     """trace_path (camera.h:325-370) for ``steps`` bounces.
 
     Returns (Vertices [steps, B], background contribution Vec3 [B],
@@ -186,7 +191,7 @@ def trace_subpath(scene: SceneTensors, o: Vec3, d: Vec3, thr0: Vec3, alive0,
     delta (bool), mtype (int), pfwd (its own forward area pdf).  Every
     scattering pdf in the material set is independent of the incoming
     direction, so the reverse pdfs of interior vertices are fixed at trace
-    time."""
+    time.  ``plain``: the closest hits walk the BVH in torch on any device."""
     if scene.num_volumes:
         raise NotImplementedError(
             "volumes are not yet ported to bpt_tpu_torch (ROADMAP §1 item 8)")
@@ -209,7 +214,7 @@ def trace_subpath(scene: SceneTensors, o: Vec3, d: Vec3, thr0: Vec3, alive0,
     for b in range(steps):
         u = uniforms_fn(b, NT)
 
-        h = soa.closest_hit(scene, o, d, T_MIN, torch.inf, mask=alive)
+        h = soa.closest_hit(scene, o, d, T_MIN, torch.inf, mask=alive, plain=plain)
         rec = soa.complete_hit(scene, o, d, h)
         mtype = scene.materials.mtype[rec.mat]
 
@@ -296,7 +301,7 @@ def trace_subpath(scene: SceneTensors, o: Vec3, d: Vec3, thr0: Vec3, alive0,
 
 
 def build_light_subpath(scene: SceneTensors, B, max_depth: int, start_u,
-                        uniforms_fn, dtype, mis: bool = False):
+                        uniforms_fn, dtype, mis: bool = False, plain: bool = False):
     """build_light_path (camera.h:372-418). start_u: NLS rows of [B].
     Returns (emitter Vertices [1, B], traced Vertices [max_depth-1, B],
     path_ok, BDPTStats[, MisInfo of the whole light path])."""
@@ -348,7 +353,8 @@ def build_light_subpath(scene: SceneTensors, B, max_depth: int, start_u,
             pfwd=s.pdf.to(dtype),
         )
     out = trace_subpath(scene, o, dir_unit, thr, exit_ok, max_depth - 1,
-                        uniforms_fn, collect_background=False, mis_prev=mis_prev)
+                        uniforms_fn, collect_background=False, mis_prev=mis_prev,
+                        plain=plain)
     if mis:
         traced, _, stats, mis_tail = out
         ones = torch.ones((1, B), dtype=dtype, device=dev)
@@ -373,7 +379,7 @@ def _concat_vertices(a: Vertices, b: Vertices) -> Vertices:
 
 def connect_paths(scene: SceneTensors, cam: Vertices, light: Vertices,
                   mis_c: MisInfo = None, mis_l: MisInfo = None,
-                  max_depth: int = 0):
+                  max_depth: int = 0, plain: bool = False):
     """All-pairs connect_vertices (camera.h:316-320, 440-475), one
     [S_l*B] shadow wave per camera slot.
 
@@ -480,7 +486,7 @@ def connect_paths(scene: SceneTensors, cam: Vertices, light: Vertices,
         occluded = soa.any_hit(
             scene, Vec3(*(c.reshape(-1) for c in so)),
             Vec3(*(c.reshape(-1) for c in du)), T_MIN, t_vis.reshape(-1),
-            mask=pair_ok.reshape(-1)).reshape(S_l, B)
+            mask=pair_ok.reshape(-1), plain=plain).reshape(S_l, B)
         n_tested = n_tested + pair_ok.sum(dtype=torch.int64)
         pair_ok = pair_ok & ~occluded
         total = Vec3(*(acc + torch.where(pair_ok, c, 0.0).sum(dim=0)
@@ -496,7 +502,7 @@ def _row3(vv: Vec3, s) -> Vec3:
 def bdpt_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
                   cam_uniforms_fn, light_start_u, light_uniforms_fn,
                   mis: bool = False, ref_vis: bool = False,
-                  count_shadow_tests: bool = False):
+                  count_shadow_tests: bool = False, plain: bool = False):
     """bidirectional_color (camera.h:294-323) for a batch of primary rays.
     origins/dirs: [B,3].  light_start_u: [B, NLS] or NLS rows of [B].
 
@@ -504,13 +510,14 @@ def bdpt_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
     (not in the reference, which sums all pairs unweighted).
     ``count_shadow_tests`` adds T triangle tests per pair that reaches the
     any-hit test to ``tri_tests``, as the megakernel counts them; off, the
-    stats equal ``bpt_tpu``'s wavefront, which leaves them out.
+    stats equal ``bpt_tpu``'s wavefront, which leaves them out.  ``plain``
+    walks the BVH in torch on any device (``trace_subpath``).
 
     Returns (radiance [B,3], BDPTStats)."""
     if ref_vis:
         raise NotImplementedError(
             "ref_vis (the reference binary's endpoint artifact) is not yet "
-            "ported to bpt_tpu_torch (ROADMAP §1 item 7)")
+            "ported to bpt_tpu_torch (ROADMAP §0 step 4)")
     B = origins.shape[0]
     dtype, dev = origins.dtype, origins.device
     o0 = v3.from_array(origins)
@@ -530,7 +537,7 @@ def bdpt_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
     cam_out = trace_subpath(scene, o0, d0, Vec3(ones, ones, ones),
                             torch.ones((B,), dtype=torch.bool, device=dev),
                             max_depth, cam_uniforms_fn, collect_background=True,
-                            mis_prev=mis_prev_cam)
+                            mis_prev=mis_prev_cam, plain=plain)
     if mis:
         cam, bg_acc, stats_c, mis_c = cam_out
     else:
@@ -554,7 +561,7 @@ def bdpt_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
     result = Vec3(*(a + c.sum(dim=0) for a, c in zip(bg_acc, ve)))
 
     light_out = build_light_subpath(scene, B, max_depth, light_start_u,
-                                    light_uniforms_fn, dtype, mis=mis)
+                                    light_uniforms_fn, dtype, mis=mis, plain=plain)
     if mis:
         emitter, traced, _, stats_l, mis_l = light_out
     else:
@@ -563,7 +570,7 @@ def bdpt_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
     light = _concat_vertices(emitter, traced) if max_depth > 1 else emitter
 
     connect, n_shadow, n_tested = connect_paths(
-        scene, cam, light, mis_c=mis_c, mis_l=mis_l, max_depth=max_depth)
+        scene, cam, light, mis_c=mis_c, mis_l=mis_l, max_depth=max_depth, plain=plain)
     result = Vec3(*(a + c for a, c in zip(result, connect)))
 
     tri_tests = stats_c.tri_tests + stats_l.tri_tests
@@ -578,3 +585,26 @@ def bdpt_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
         tri_hits=stats_c.tri_hits + stats_l.tri_hits,
     )
     return v3.to_array(result), stats
+
+
+def bdpt_fast(scene: SceneTensors, origins, dirs, ray_ids, key, max_depth: int,
+              mis: bool = False, ref_vis: bool = False, plain: bool = False):
+    """``bpt_tpu.models.bdpt.bdpt_fast``'s jnp branch: ``bdpt_radiance``
+    on the jnp stream (bpt_tpu/models/bdpt.py:1041-1055).  ``key`` is the
+    render key; the camera trace draws from ``fold_in(key, 2)``, the light
+    start from ``fold_in(key, 3)`` (one ``wave_uniforms`` call of NLS
+    draws at bounce 0) and the light trace from ``fold_in(key, 4)``, each
+    keyed by the absolute ray id.  ray_ids [B] int, negative = inactive (a
+    zero radiance; the lane still traces, as in ``bpt_tpu``).
+
+    Returns (radiance [B,3], BDPTStats)."""
+    active = ray_ids >= 0
+    ids = torch.clamp_min(ray_ids, 0)
+    dtype = origins.dtype
+    ls_u = rng.uniform_rows(rng.fold_in(key, 3), ids, 0, NLS, dtype)
+    rad, stats = bdpt_radiance(
+        scene, origins, dirs, max_depth,
+        default_uniforms_fn(rng.fold_in(key, 2), ids, dtype), ls_u,
+        default_uniforms_fn(rng.fold_in(key, 4), ids, dtype),
+        mis=mis, ref_vis=ref_vis, plain=plain)
+    return torch.where(active[:, None], rad, 0.0), stats

@@ -50,6 +50,18 @@ class PTStats(NamedTuple):
     tri_hits: torch.Tensor
 
 
+def default_uniforms_fn(key, ray_ids, dtype):
+    """The jnp stream as uniform rows (``bpt_tpu.models.pt.
+    default_uniforms_fn`` without ``sel``): ``fn(bounce, n)`` gives
+    ``rng.uniform_rows(key, ray_ids, bounce, n)``.  ``key``: (k1, k2)
+    ints; ``ray_ids``: [B] int tensor."""
+
+    def fn(bounce, n):
+        return rng.uniform_rows(key, ray_ids, bounce, n, dtype)
+
+    return fn
+
+
 def kernel_stream_uniforms_fn(key, ray_ids, dtype):
     """The PT megakernel's in-kernel threefry stream as uniform rows:
     per-slot subkeys, the bounce in the threefry COUNTER, and paired draws
@@ -142,8 +154,9 @@ def pt_bounce(scene: SceneTensors, o: Vec3, d: Vec3, thr: Vec3, alive, h, u):
 
 
 def path_trace_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
-                        uniforms_fn):
+                        uniforms_fn, plain: bool = False):
     """Radiance for a batch of primary rays. origins/dirs: [B,3].
+    ``plain``: the closest hits walk the BVH in torch on any device.
 
     Returns (radiance [B,3], PTStats)."""
     if scene.num_volumes:
@@ -162,7 +175,7 @@ def path_trace_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
     stats = PTStats(zero, zero, zero, zero, zero)
 
     for b in range(max_depth):
-        h = soa.closest_hit(scene, o, d, T_MIN, torch.inf, mask=alive)
+        h = soa.closest_hit(scene, o, d, T_MIN, torch.inf, mask=alive, plain=plain)
         o, d, thr, inc, alive_new = pt_bounce(scene, o, d, thr, alive, h,
                                               uniforms_fn(b, NU))
         # a path adds radiance only on the bounce it ends, so this sum

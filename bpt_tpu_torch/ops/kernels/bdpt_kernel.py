@@ -78,7 +78,7 @@ def _buffer_uniforms(ubuf, depth: int):
 
 def _radiance(scene, origins, dirs, depth, sources, mis):
     rad, st = mb.bdpt_radiance(scene, origins, dirs, depth, *sources, mis=mis,
-                               count_shadow_tests=True)
+                               count_shadow_tests=True, plain=True)
     extra = torch.stack([st.node_visits, st.aabb_hits, st.tri_tests, st.tri_hits])
     return rad, st.rays_traced, st.shadow_rays, extra
 

@@ -41,6 +41,8 @@ _I = ctypes.c_int
 #                     out_r, out_g, out_b, counters, stream)
 # bpt_closest_bvh(B, N, nodes, tris, ox, oy, oz, dx, dy, dz, active,
 #                 t, tri, u, v, counters, stream)
+# bpt_any_bvh(B, N, nodes, tris, ox, oy, oz, dx, dy, dz, tmax, hit,
+#             counters, stream)
 # bpt_pt_wave_bounce(B, N, L, bounce, nodes, tris, mat_id, mat, lgt, keys,
 #                    state_in, rid, hit_t, hit_tri, state_out, counters, stream)
 _SIGNATURES = {
@@ -49,6 +51,7 @@ _SIGNATURES = {
     "bpt_bdpt_megakernel": ([_I] * 8 + [_P] * 5 + [_P] * 6 + [_P] * 3
                             + [_P] * 4 + [_P], _I),
     "bpt_closest_bvh": ([_I] * 2 + [_P] * 2 + [_P] * 7 + [_P] * 4 + [_P] * 2, _I),
+    "bpt_any_bvh": ([_I] * 2 + [_P] * 2 + [_P] * 7 + [_P] * 2 + [_P], _I),
     "bpt_pt_wave_bounce": ([_I] * 4 + [_P] * 6 + [_P] * 5 + [_P] * 2, _I),
     "bpt_cuda_error_string": ([_I], ctypes.c_char_p),
 }

@@ -46,8 +46,8 @@ def megakernel_reject_reason(scene: SceneTensors, integrator: str = "pt") -> str
     if integrator not in INTEGRATORS:
         return f"unknown integrator {integrator!r} (not one of {', '.join(INTEGRATORS)})"
     if scene.num_tris > MAX_TRIS:
-        return (f"{scene.num_tris} tris > MAX_TRIS={MAX_TRIS} (PT takes "
-                "pt_wave; BDPT needs ROADMAP §0 step 1)")
+        return (f"{scene.num_tris} tris > MAX_TRIS={MAX_TRIS} (render() sends "
+                "such scenes to pt_wave or the BDPT wave loop)")
     return shade_reject_reason(scene)
 
 
@@ -62,8 +62,8 @@ def shade_reject_reason(scene: SceneTensors) -> str:
     if scene.num_volumes:
         return "scene has volumes (not yet in the CUDA kernels: ROADMAP §1 item 8)"
     if scene.dtype != torch.float32:
-        return (f"dtype {scene.dtype} != float32 (f64 renders need the jnp "
-                "stream: ROADMAP §1 item 2)")
+        return (f"dtype {scene.dtype} != float32 (the CUDA kernels take "
+                "float32; f64 renders on the jnp route: ROADMAP §0 step 2)")
     if scene.has_textures:
         return "scene has textures (not yet ported: ROADMAP §1 item 8)"
     return ""
@@ -143,7 +143,7 @@ def pt_megakernel_plain(scene, o: Vec3, d: Vec3, ray_ids, key, depth: int,
     else:
         ufn = array_uniforms_fn(
             uniforms.reshape(depth, NU, B).permute(2, 0, 1)[idx])
-    rad, stats = path_trace_radiance(scene, origins, dirs, depth, ufn)
+    rad, stats = path_trace_radiance(scene, origins, dirs, depth, ufn, plain=True)
     return (*_scatter_active(rad, idx, B), *_counters(stats))
 
 
@@ -188,7 +188,7 @@ def pt_megakernel_pixels_plain(scene, i, j, sx, sy, ray_ids, cam13, key,
                                       torch.stack([u0, u1, zero, zero], -1))
         rad, stats = path_trace_radiance(
             scene, origins, dirs, depth,
-            kernel_stream_uniforms_fn(key_pt, rid, origins.dtype))
+            kernel_stream_uniforms_fn(key_pt, rid, origins.dtype), plain=True)
         total = rad if total is None else total + rad
         r, e = _counters(stats)
         rays = rays + r

@@ -1,8 +1,13 @@
-"""Large-scene PT: the BVH closest-hit kernel and the per-bounce wave.
+"""Large-scene tracing: the BVH closest-hit and any-hit kernels and the
+per-bounce PT wave.
 
 Counterpart of ``bpt_tpu/ops/pallas/pt_wave.py`` (``pt_wave``,
-``_coherence_key``, ``_launch_bounce``) and of the closest hit its paged
-mode runs, ``bpt_tpu/ops/pallas/cluster_wave.py::clustered_closest_ftb_pallas``.
+``_coherence_key``, ``_launch_bounce``) and of the clustered hits that
+``bpt_tpu``'s large-scene routes run,
+``bpt_tpu/ops/pallas/cluster_wave.py::clustered_closest_ftb_pallas`` and
+``clustered_any_ftb_pallas``: ``closest_bvh`` and ``any_bvh`` serve the BDPT
+wavefront's traversals (``ops.soa.closest_hit`` / ``any_hit`` on a CUDA
+scene) and ``pt_wave``'s paged mode.
 ``pt_wave`` takes the same arguments and returns the same outputs as
 bpt_tpu's, except that the key is a ``(k1, k2)`` pair of ints, the
 counters are exact int64, and they follow ``ops.soa.bvh_closest``'s
@@ -15,12 +20,13 @@ throughput, radiance, alive).  Between bounces a stable ``torch.sort`` of
 it, as bpt_tpu sorts in XLA between launches; the permutation is undone
 at the end, and since every draw is keyed by (ray id, bounce) the sort
 changes no result bit.  One launch per bounce: ``pt_wave_bounce`` walks the
-BVH and shades; in paged mode (``not cluster_ok(scene)``, bpt_tpu's rule)
-``closest_bvh`` computes the hits and ``pt_wave_bounce`` only shades.
+BVH and shades; in paged mode (``paged=True``, the counterpart of
+``bpt_tpu``'s ``precomp``) ``closest_bvh`` computes the hits and
+``pt_wave_bounce`` only shades.
 
 Dispatch is by device: a CPU tensor takes the plain PyTorch version
-(``ops.soa.bvh_closest`` and ``models.pt.pt_bounce``); a CUDA tensor
-launches ``csrc/pt_wave.cu`` or raises.  The wrappers count their launches
+(``ops.soa.bvh_closest``, ``ops.soa.bvh_any`` and ``models.pt.pt_bounce``);
+a CUDA tensor launches ``csrc/pt_wave.cu`` or raises.  The wrappers count their launches
 in ``<wrapper>.launches``, the plain versions their calls in
 ``<plain>.calls``.  Left out: bpt_tpu's TPU study options ``entry_sort``,
 ``pair_il`` and ``tile_rows``, and the texel stage (textures are not
@@ -30,7 +36,7 @@ ported).
 from __future__ import annotations
 
 import functools
-import math
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -42,32 +48,16 @@ from bpt_tpu_torch.ops import soa
 from bpt_tpu_torch.ops.intersect import T_MIN
 from bpt_tpu_torch.ops.kernels import build
 from bpt_tpu_torch.ops.kernels.pt_kernel import (
-    MAX_TRIS,
     _checked,
     _device_of,
     key_words,
     pack_shade_tables,
     shade_reject_reason,
 )
-from bpt_tpu_torch.scene import bvh as bvh_mod
 from bpt_tpu_torch.scene.types import SceneTensors
 
 STATE_ROWS = 13
 OX, DX, THR, RAD, ALIVE = 0, 3, 6, 9, 12  # first row of each field
-
-
-def cluster_ok(scene: SceneTensors) -> bool:
-    """bpt_tpu's single-table test (bpt_tpu/ops/pallas/clusters.py:92-102)
-    on the scene's cluster splits, or on the fixed-stride chop where the
-    scene has none: pt_wave pages exactly where bpt_tpu does."""
-    T = scene.num_tris
-    cs, ss = tuple(scene.cluster_splits), tuple(scene.super_splits)
-    if len(cs) >= 2 and len(ss) >= 2 and cs[-1] == T and ss[-1] == T:
-        C, S = len(cs) - 1, len(ss) - 1
-    else:
-        C = math.ceil(T / bvh_mod.CLUSTER_TRIS)
-        S = math.ceil(C / bvh_mod.SUPER)
-    return C <= bvh_mod.MAX_CLUSTERS and S * 8 + C * 7 <= bvh_mod.MAX_TABLE_F32
 
 
 class BvhTables(NamedTuple):
@@ -80,16 +70,31 @@ class BvhTables(NamedTuple):
     lgt: torch.Tensor  # [MAX_LIGHTS*13 + 3] f32, background at the tail
 
 
+_WALK_TABLES: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def walk_tables(scene: SceneTensors) -> tuple[torch.Tensor, torch.Tensor]:
+    """(nodes, tris): the BVH in the walk's layout (csrc/pt_wave.cu: Bvh),
+    32-byte nodes and 48-byte triangles, each a few float4 loads.  Packed
+    once a scene and kept while the scene lives, since every traversal of a
+    BDPT wave reads them."""
+    got = _WALK_TABLES.get(id(scene))
+    if got is None:
+        ints = torch.stack([scene.bvh_skip, scene.bvh_first * 4 + scene.bvh_count],
+                           dim=1).to(torch.int32)
+        nodes = torch.cat([scene.bvh_min.to(torch.float32), scene.bvh_max.to(torch.float32),
+                           ints.view(torch.float32)], dim=1).contiguous()
+        tris = torch.cat([scene.v0, scene.e1, scene.e2, scene.normal],
+                         dim=1).to(torch.float32).contiguous()
+        got = _WALK_TABLES[id(scene)] = (nodes, tris)
+        weakref.finalize(scene, _WALK_TABLES.pop, id(scene), None)
+    return got
+
+
 def pack_bvh(scene: SceneTensors) -> BvhTables:
-    """The scene in the kernels' layout (csrc/pt_wave.cu: Bvh): 32-byte
-    nodes and 48-byte triangles, each a few float4 loads."""
-    ints = torch.stack([scene.bvh_skip, scene.bvh_first * 4 + scene.bvh_count],
-                       dim=1).to(torch.int32)
-    nodes = torch.cat([scene.bvh_min.to(torch.float32), scene.bvh_max.to(torch.float32),
-                       ints.view(torch.float32)], dim=1).contiguous()
-    tris = torch.cat([scene.v0, scene.e1, scene.e2, scene.normal],
-                     dim=1).to(torch.float32).contiguous()
-    return BvhTables(nodes, tris, scene.mat_id.to(torch.int32).contiguous(),
+    """The scene in the wave kernel's layout: the walk's tables and the
+    shading tables."""
+    return BvhTables(*walk_tables(scene), scene.mat_id.to(torch.int32).contiguous(),
                      *pack_shade_tables(scene))
 
 
@@ -117,8 +122,7 @@ def closest_bvh_plain(scene, o: Vec3, d: Vec3, active):
 closest_bvh_plain.calls = 0
 
 
-def closest_bvh(scene: SceneTensors, o: Vec3, d: Vec3, active,
-                tables: BvhTables | None = None):
+def closest_bvh(scene: SceneTensors, o: Vec3, d: Vec3, active):
     """Closest hit over (T_MIN, inf) of the lanes ``active`` ([B] bool) by
     the threaded-DFS BVH walk.  Returns (t [B] f32, inf on a miss; tri [B]
     int32, -1 on a miss; u, v [B] f32; counters int64[4] = (node visits,
@@ -134,15 +138,15 @@ def closest_bvh(scene: SceneTensors, o: Vec3, d: Vec3, active,
     B = int(active.shape[0])
     ins = [_checked(x, (B,), dev, "ray component") for x in (*o, *d)]
     act = _checked(active, (B,), dev, "active", torch.bool)
-    tables = tables if tables is not None else pack_bvh(scene)
+    nodes, tris = walk_tables(scene)
     kw = dict(dtype=torch.float32, device=dev)
     t, u, v = (torch.empty(B, **kw) for _ in range(3))
     tri = torch.empty(B, dtype=torch.int32, device=dev)
     counters = torch.zeros(4, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         code = build.load_library().bpt_closest_bvh(
-            B, int(tables.nodes.shape[0]), tables.nodes.data_ptr(),
-            tables.tris.data_ptr(), *(x.data_ptr() for x in ins), act.data_ptr(),
+            B, int(nodes.shape[0]), nodes.data_ptr(), tris.data_ptr(),
+            *(x.data_ptr() for x in ins), act.data_ptr(),
             t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
             counters.data_ptr(), _stream(dev))
     build.check(code, "closest_bvh")
@@ -151,6 +155,51 @@ def closest_bvh(scene: SceneTensors, o: Vec3, d: Vec3, active,
 
 
 closest_bvh.launches = 0
+
+
+# -------------------------------------------------------------- any hit
+
+
+def any_bvh_plain(scene, o: Vec3, d: Vec3, tmax):
+    """Plain version of ``any_bvh``."""
+    any_bvh_plain.calls += 1
+    return soa.bvh_any(scene, o, d, T_MIN, tmax)
+
+
+any_bvh_plain.calls = 0
+
+
+def any_bvh(scene: SceneTensors, o: Vec3, d: Vec3, tmax):
+    """Any hit over [T_MIN, tmax] by the threaded-DFS BVH walk, which ends
+    at the first leaf holding a hit; tmax [B] f32, a lane with tmax <= 0 is
+    dead and misses without a walk.  Returns (hit [B] bool, counters
+    int64[4] = (node visits, AABB hits, triangle tests, triangle hits)),
+    equal to ``ops.soa.bvh_any``'s on every lane."""
+    dev = _device_of(tmax)
+    if dev.type == "cpu":
+        return any_bvh_plain(scene, o, d, tmax)
+    reason = shade_reject_reason(scene)
+    if reason:
+        raise ValueError(f"any_bvh cannot take this scene: {reason}")
+    if scene.device != dev:
+        raise ValueError(f"scene on {scene.device} but lanes on {dev}")
+    B = int(tmax.shape[0]) if tmax.dim() == 1 else -1
+    ins = [_checked(x, (B,), dev, "ray component") for x in (*o, *d)]
+    tm = _checked(tmax, (B,), dev, "tmax")
+    nodes, tris = walk_tables(scene)
+    hit = torch.empty(B, dtype=torch.bool, device=dev)
+    counters = torch.zeros(4, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        code = build.load_library().bpt_any_bvh(
+            B, int(nodes.shape[0]), nodes.data_ptr(), tris.data_ptr(),
+            *(x.data_ptr() for x in ins), tm.data_ptr(),
+            hit.data_ptr(), counters.data_ptr(), _stream(dev))
+    build.check(code, "any_bvh")
+    any_bvh.launches += 1
+    return hit, counters
+
+
+any_bvh.launches = 0
 
 
 # --------------------------------------------------------------- bounce
@@ -264,15 +313,13 @@ def _sort_key(state):
 
 
 def _pt_wave(scene, o: Vec3, d: Vec3, ray_ids, key, depth: int, sort: bool,
-             paged, plain: bool):
+             paged: bool, plain: bool):
     reason = shade_reject_reason(scene)
     if reason:
         raise ValueError(f"pt_wave cannot render this scene: {reason}")
     dev = _device_of(ray_ids)
     if scene.device != dev:
         raise ValueError(f"scene on {scene.device} but lanes on {dev}")
-    if paged is None:
-        paged = scene.num_tris > MAX_TRIS and not cluster_ok(scene)
     B = int(ray_ids.shape[0])
     state = torch.empty((STATE_ROWS, B), dtype=torch.float32, device=dev)
     state[OX:DX + 3] = torch.stack([*o, *d]).to(torch.float32)
@@ -286,8 +333,7 @@ def _pt_wave(scene, o: Vec3, d: Vec3, ray_ids, key, depth: int, sort: bool,
         closest, bounce = closest_bvh_plain, pt_wave_bounce_plain
     else:
         tables = pack_bvh(scene) if dev.type == "cuda" else None
-        closest = functools.partial(closest_bvh, tables=tables)
-        bounce = functools.partial(pt_wave_bounce, tables=tables)
+        closest, bounce = closest_bvh, functools.partial(pt_wave_bounce, tables=tables)
     for b in range(depth):
         if sort and b > 0:  # primaries arrive raster-coherent
             perm = torch.sort(_sort_key(state), stable=True).indices
@@ -308,11 +354,11 @@ def _pt_wave(scene, o: Vec3, d: Vec3, ray_ids, key, depth: int, sort: bool,
 
 
 def pt_wave(scene: SceneTensors, o: Vec3, d: Vec3, ray_ids, key, depth: int,
-            sort: bool = True, paged=None):
+            sort: bool = True, paged: bool = False):
     """Sorted per-bounce wavefront PT.  o, d: Vec3 of [B]; ray_ids [B] int
     (negative = inactive); key: the PT stream's key (the render's
-    ``fold_in(key, 1)``).  ``paged=None`` pages exactly when bpt_tpu does
-    (a scene over 512 triangles that fails ``cluster_ok``).
+    ``fold_in(key, 1)``).  The wave kernel walks the BVH itself unless
+    ``paged``, where ``closest_bvh`` computes each bounce's hits first.
 
     Returns (rad_x, rad_y, rad_z [B] f32, rays_traced int64,
     extra int64[4] = (node_visits, aabb_hits, tri_tests, tri_hits))."""
@@ -320,7 +366,7 @@ def pt_wave(scene: SceneTensors, o: Vec3, d: Vec3, ray_ids, key, depth: int,
 
 
 def pt_wave_plain(scene: SceneTensors, o: Vec3, d: Vec3, ray_ids, key,
-                  depth: int, sort: bool = True, paged=None):
+                  depth: int, sort: bool = True, paged: bool = False):
     """Plain version of ``pt_wave``: the same loop over the plain versions
     of both kernels, on any device."""
     pt_wave_plain.calls += 1

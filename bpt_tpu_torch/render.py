@@ -4,10 +4,10 @@ Mirrors ``python -m bpt_tpu.render``: no scene argument renders the
 built-in cornell box with the preset's integrator, BDPT; a YAML scene
 loads with its OBJ meshes and camera.  ``--device`` picks where the render
 runs: ``cuda`` (the default) launches the CUDA kernels, ``cpu`` runs their
-plain PyTorch versions.  The cornell box renders with pt, bdpt and
-bdpt-mis; scenes over 512 triangles (the coffee stand-in) with pt.  What
-the port lacks (BDPT on large scenes, textures, volumes, ``--f64``) exits
-non-zero with a "not yet ported" message naming its ROADMAP item.
+plain PyTorch versions.  Every scene renders with pt, bdpt and bdpt-mis:
+the coffee stand-in's YAML (91,540 triangles) with its own BDPT default.
+What the port lacks (textures, volumes, ``--f64``) exits non-zero with a
+"not yet ported" message naming its ROADMAP item.
 
 Usage:
     python -m bpt_tpu_torch.render [scene.yaml] [--spp N] [--size WxH]
@@ -52,8 +52,8 @@ def main(argv=None):
               "render with the kernel's plain PyTorch version", file=sys.stderr)
         return 2
     if args.f64:
-        print("bpt_tpu_torch: --f64 is not yet ported (it needs the jnp "
-              "stream: ROADMAP §1 item 2)", file=sys.stderr)
+        print("bpt_tpu_torch: --f64 is not yet ported (ROADMAP §0 step 2)",
+              file=sys.stderr)
         return 1
 
     from bpt_tpu_torch.models.render import render

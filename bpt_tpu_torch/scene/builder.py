@@ -265,7 +265,6 @@ class SceneBuilder:
         light_cdf = np.cumsum(area[light_idx])
         total_area = float(light_cdf[-1])
         use_bvh = T > 256  # bpt_tpu's brute-force threshold
-        splits = bvh_mod.cluster_splits(tree) if use_bvh else ((), ())
 
         return SceneTensors(
             v0=ten(v0), e1=ten(e1), e2=ten(e2),
@@ -294,6 +293,4 @@ class SceneBuilder:
                                        | (mtypes == MAT_DIELECTRIC))),
             has_iso_mats=bool(np.any(mtypes == MAT_ISOTROPIC)),
             lights_are_world=lights_are_world,
-            cluster_splits=splits[0],
-            super_splits=splits[1],
         )

@@ -18,64 +18,6 @@ import numpy as np
 _PAD_DELTA = 1.0e-4  # src/acceleration/aabb.h:84
 _PACK_TRIS = 32  # streaming-block grain of bpt_tpu's split rounding
 
-# bpt_tpu's cluster geometry (bpt_tpu/ops/pallas/clusters.py:43-54): the
-# splits below are computed with it so that routing on them (pt_wave's
-# paged mode, ``ops.kernels.pt_wave.cluster_ok``) takes bpt_tpu's route
-CLUSTER_TRIS = 32
-SUPER = 16  # clusters per supercluster
-MAX_CLUSTERS = 16384
-MAX_TABLE_F32 = 16384 * 7 + 1024 * 8
-
-
-def subtree_splits(bvh_skip, bvh_count, max_tris: int):
-    """Greedy maximal-subtree triangle-range split points: walks the
-    preorder/skip-link node array and, at each node whose subtree holds
-    <= max_tris triangles, emits the subtree's contiguous triangle range
-    and jumps the subtree (bpt_tpu/scene/bvh.py:29-56).  Segments tile
-    [0, T) because the triangle order is the BVH leaf order."""
-    skip = np.asarray(bvh_skip, np.int64)
-    count = np.asarray(bvh_count, np.int64)
-    N = skip.shape[0]
-    pre = np.zeros(N + 1, np.int64)
-    pre[1:] = np.cumsum(count)
-    tri_count = pre[skip] - pre[:N]
-    splits = [0]
-    pos = 0
-    while pos < N:
-        tc = int(tri_count[pos])
-        if 0 < tc <= max_tris:
-            splits.append(int(pre[pos]) + tc)
-            pos = int(skip[pos])
-        else:
-            pos += 1
-    return tuple(splits)
-
-
-def merge_splits(cs, ss, cap: int):
-    """Greedy fill-merge of adjacent segments up to ``cap`` triangles,
-    closing at every ``ss`` boundary (bpt_tpu/scene/bvh.py:59-78)."""
-    ssi = frozenset(ss)
-    merged = [cs[0]]
-    for k in range(1, len(cs)):
-        b = cs[k]
-        if b == cs[-1] or b in ssi or (cs[k + 1] - merged[-1]) > cap:
-            merged.append(b)
-    return tuple(merged)
-
-
-def cluster_splits(tree) -> tuple[tuple, tuple]:
-    """(cluster_splits, super_splits) of a built tree, as bpt_tpu's
-    builder computes them (bpt_tpu/scene/builder.py:340-362); both empty
-    when the subtree greed exceeds MAX_CLUSTERS."""
-    cs = subtree_splits(tree["bvh_skip"], tree["bvh_count"], CLUSTER_TRIS)
-    if len(cs) - 1 > MAX_CLUSTERS:
-        return (), ()
-    T = int(np.sum(tree["bvh_count"]))
-    ss = subtree_splits(tree["bvh_skip"], tree["bvh_count"], CLUSTER_TRIS * SUPER)
-    super_splits = merge_splits(ss, (0, T), CLUSTER_TRIS * SUPER)
-    return merge_splits(cs, super_splits, CLUSTER_TRIS), super_splits
-
-
 def _pad_box(bmin: np.ndarray, bmax: np.ndarray):
     size = bmax - bmin
     pad = np.where(size < _PAD_DELTA, _PAD_DELTA / 2.0, 0.0)

@@ -2,7 +2,7 @@
 
 Counterpart of ``bpt_tpu.scene.types.SceneArrays`` holding the fields the
 PT and BDPT megakernels' tables (``_pack_tables``, ``_pack_tables_bdpt``),
-the BVH traversal (``ops.soa.bvh_closest``, ``csrc/pt_wave.cu``) and the
+the BVH traversals (``ops.soa.bvh_closest`` / ``bvh_any``, ``csrc/pt_wave.cu``) and the
 estimators read, plus the static meta.  Texture tables and the volume
 boundary soup are not carried: this port has no textures or volumes yet
 (ROADMAP §1 item 8).
@@ -78,10 +78,6 @@ class SceneTensors:
     has_delta_mats: bool = True
     has_iso_mats: bool = True
     lights_are_world: bool = False
-    # bpt_tpu's BVH-subtree cluster boundaries; routing reads them
-    # (ops.kernels.pt_wave.cluster_ok), nothing packs clusters
-    cluster_splits: tuple = ()
-    super_splits: tuple = ()
 
     @property
     def dtype(self) -> torch.dtype:
@@ -97,8 +93,8 @@ _INT_FIELDS = {"mat_id": torch.int64, "light_mat": torch.int64,
                "bvh_first": torch.int32, "bvh_count": torch.int32}
 _MATERIAL_FIELDS = [f.name for f in dataclasses.fields(MaterialTable)]
 _META_TYPES = {
-    f.name: {"int": int, "bool": bool, "tuple": tuple}[f.type]
-    for f in dataclasses.fields(SceneTensors) if f.type in ("int", "bool", "tuple")
+    f.name: {"int": int, "bool": bool}[f.type]
+    for f in dataclasses.fields(SceneTensors) if f.type in ("int", "bool")
 }
 _META_FIELDS = list(_META_TYPES)
 _TENSOR_FIELDS = [

@@ -45,32 +45,62 @@
    65,536, on the coffee camera's primary rays and on as many random rays
    inside the scene's bounds: hit, triangle and t exact on >= 99.9% of
    lanes, the four counters exact.  Times kernel and plain version.
-6. pt_wave against pt_wave_plain at B = 65,536 coffee rays, depth 10, in
+6. any_bvh against its plain version (ops.soa.bvh_any) at B = 65,536
+   coffee shadow rays: 32,768 real connection rays of a coffee BDPT-MIS
+   wave (every 12th lane of its ten shadow waves: origin at a camera
+   vertex, tmax just short of a light vertex, a pair that fails the
+   connection tests dead with tmax <= 0) and 32,768 random rays in the
+   scene's bounds with random tmax, one lane in eight dead.  Every lane's
+   answer and the four counters exact; kernel and plain version timed.
+7. pt_wave against pt_wave_plain at B = 65,536 coffee rays, depth 4, in
    both modes (the wave kernel walks the BVH; paged=True: closest_bvh, then
    the shade-only wave kernel), rtol 1e-4 / atol 1e-6 on >= 99.9% of lanes,
    rays_traced and the four walk counters exact.
-7. The main path: render() of the coffee stand-in with PT at 512x512, 16
-   spp, depth 10, seed 0 (bench.py's coffee cell) — one warm-up and three
-   timed renders.  The wave kernel's launches must be > 0 and every plain
-   version's calls 0, the image finite, not black and bitwise identical
-   across renders.  rays_traced is printed beside the TPU bench's
-   11,110,273 (BENCH_r03/r04.json), not checked against it: bpt_tpu's own
-   Pallas pt_wave counts 2.58% fewer rays than its BVH path on a pixel
-   subset (tools/coffee_reference_rays.py; PERF.md, Findings).  Checked
-   instead: the port's count on that subset (every 257th pixel, all 16
-   strata) within 0.1% of bpt_tpu's BVH path on a CPU (44,024), and the
-   whole image within 1% of the TPU count scaled by bpt_tpu's own BVH /
-   Pallas ratio on the subset.  Writes output/chip_smoke_coffee_pt.png.
-   Then closest_bvh's path: the same render loop with paging forced
-   (render() does not page this scene), its launches counted there, no
-   plain version called, the image bitwise equal to render()'s and every
-   counter equal.  Last, one wave-kernel launch against its plain version
-   at the main path's first bounce (B = 4,194,304): all 13 state rows
-   (origin, direction and throughput on the lanes that stay alive) within
-   rtol 1e-4 / atol 1e-6 on >= 99.9% of lanes, all five counters exact;
-   both timed.
+8. The coffee PT main path: render() with PT at 512x512, 16 spp, depth 10,
+   seed 0 (bench.py's coffee cell) — one warm-up and three timed renders.
+   The wave kernel's launches must be > 0 and every plain version's calls
+   0, the image finite, not black and bitwise identical across renders.
+   rays_traced is printed beside the TPU bench's 11,110,273
+   (BENCH_r03/r04.json), not checked against it: bpt_tpu's own Pallas
+   pt_wave counts 2.58% fewer rays than its BVH path on a pixel subset
+   (tools/coffee_reference_rays.py; PERF.md, Findings).  Checked instead:
+   the port's count on that subset (every 257th pixel, all 16 strata)
+   within 0.1% of bpt_tpu's BVH path on a CPU (44,024), and the whole
+   image within 1% of the TPU count scaled by bpt_tpu's own BVH / Pallas
+   ratio on the subset.  Writes output/chip_smoke_coffee_pt.png.  Last,
+   one wave-kernel launch against its plain version at the main path's
+   first bounce (B = 4,194,304): all 13 state rows (origin, direction and
+   throughput on the lanes that stay alive) within rtol 1e-4 / atol 1e-6
+   on >= 99.9% of lanes, all five counters exact; both timed.
+9. The large-scene BDPT route against its plain traversals: the coffee
+   stand-in's bdpt-mis render loop at 32x32, 4 spp, depth 6, once through
+   closest_bvh / any_bvh and once through ops.soa.bvh_closest / bvh_any
+   on the card (plain=True): >= 99.9% of pixels within rtol 1e-4 / atol
+   1e-5 (bitwise equality is expected and printed), all six counters
+   exact, no kernel launched by the plain run and no plain walk by the
+   kernel run.
+10. The BDPT main path: render() of the coffee stand-in with bdpt-mis at
+   512x512, 4 spp, depth 10, seed 0 (bench.py's coffee BDPT cell), then
+   with bdpt at the same shape — each one warm-up and three timed renders.
+   closest_bvh must launch 19 times and any_bvh 10 times a wave (depth 10
+   camera and 9 light bounces; one shadow wave per camera vertex), no
+   other kernel and no plain version; the image finite, not black and
+   bitwise identical across renders.  Prints the walls, Mrays/s,
+   rays_traced and shadow_rays (beside the TPU bench's bdpt-mis counts,
+   4,294,700 and 695,189 in BENCH_r04.json, as a gap: bpt_tpu's clustered
+   closest hit misses nearer hits), waves per render and peak device
+   memory.  Checked instead: the port's counts on every 257th pixel (all 4
+   strata) within 0.1% (rays) and 1% (shadow rays) of bpt_tpu's CPU route
+   for the same stream (tools/coffee_reference_rays_bdpt.py); bdpt's
+   shadow rays within 1% of the port's plain route on a CPU, since
+   bpt_tpu's count there is 2.9% above it by connections between two
+   points of the floor plane, which carry no radiance.  The inputs
+   of one closest_bvh and one any_bvh launch of the warm-up render (camera
+   bounce 1; the shadow wave of camera vertex 1) are held against the
+   plain versions and timed at the main path's own shapes.  Writes
+   output/chip_smoke_coffee_bdpt{-mis,}.png.
 
-Each phase prints its seconds.  The second-to-last line is a JSON object
+Each phase prints its seconds, and the script its total.  The second-to-last line is a JSON object
 describing the kernels, each with its bound: the larger of the bytes it
 must move over 3.35 TB/s and its FP32 operations (from its counters) over
 67 TFLOP/s; the last line is {"ok": true, "device": {...}}.  Any failure
@@ -79,8 +109,10 @@ exits non-zero, and so does a machine without CUDA.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -100,6 +132,16 @@ TPU_BENCH_COFFEE_RAYS = 11_110_273  # BENCH_r03/r04.json; printed, not checked
 # tools/coffee_reference_rays.py on a CPU, every 257th pixel x 16 strata:
 # bpt_tpu's BVH path and its Pallas pt_wave
 CPU_BVH_COFFEE_SUBSET, CPU_PALLAS_COFFEE_SUBSET = 44_024, 42_887
+# coffee 512x512 / 4 spp / d10 / seed 0 BDPT-MIS: rays, shadow rays of the
+# TPU runs of BENCH_r04.json (printed, not checked).  Every 257th pixel x 4
+# strata, on a CPU (tools/coffee_reference_rays_bdpt.py): bpt_tpu's route
+# for it there (the jnp stratum loop over its BVH walk) and the port's plain
+# version of its route.  bdpt's shadow rays differ between the two by
+# connections between two points of the floor plane, which carry no
+# radiance (ROADMAP §3), so that one count is held against the port's own
+CPU_COFFEE_BDPT_SUBSET = {"bdpt-mis": (16_447, 2_623), "bdpt": (16_447, 3_155)}
+CPU_PLAIN_COFFEE_BDPT_SHADOW = {"bdpt-mis": 2_627, "bdpt": 3_064}
+TPU_BENCH_COFFEE_BDPT_MIS = (4_294_700, 695_189)
 EXPECTED_RAYS = 11_506_161  # bpt_tpu fused kernel, interpret mode on a CPU
 TPU_BENCH_RAYS = 11_497_620  # BENCH_r02..r04.json; printed, not checked
 # cornell 512x512 / 16 spp / d10 / seed 0: rays, shadow rays.  The TPU
@@ -191,6 +233,20 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (b, "bytes") if b >= o else (o, "operations")
 
 
+def closest_bytes(active) -> int:
+    """Bytes a ``closest_bvh`` call must move besides the scene: every lane
+    reads its mask byte and writes t, tri, u, v; a live lane also reads its
+    origin and direction."""
+    return int(active.shape[0]) * (1 + 4 * 4) + int(active.sum()) * 6 * 4
+
+
+def any_bytes(tmax) -> int:
+    """Bytes an ``any_bvh`` call must move besides the scene: every lane
+    reads its tmax and writes its answer byte; a live lane (tmax > 0) also
+    reads its origin and direction."""
+    return int(tmax.shape[0]) * (4 + 1) + int((tmax > 0).sum()) * 6 * 4
+
+
 def coffee_builder():
     """scenes/coffee/coffee_standin.yaml through SceneBuilder calls: its
     materials (the loader's 0-255 autoscale), its five OBJ meshes and its
@@ -220,15 +276,45 @@ def coffee_builder():
     return b
 
 
-def coffee_camera():
-    """The YAML's camera at bench.py's coffee cell: 512x512, 16 spp,
-    depth 10, PT."""
+def coffee_camera(width=512, spp=16, depth=10, integrator="pt"):
+    """The YAML's camera at bench.py's coffee cells: 512x512, depth 10, PT
+    at 16 spp (bdpt-mis at 4)."""
     from bpt_tpu_torch.scene.types import CameraConfig
 
-    return CameraConfig(aspect_ratio=1.0, image_width=512, samples_per_pixel=16,
-                        max_depth=10, vfov=30.0, lookfrom=(-0.02, 0.22, 0.85),
+    return CameraConfig(aspect_ratio=1.0, image_width=width, samples_per_pixel=spp,
+                        max_depth=depth, vfov=30.0, lookfrom=(-0.02, 0.22, 0.85),
                         lookat=(0.0, 0.16, 0.02), file_name="coffee_standin.png",
-                        integrator="pt")
+                        integrator=integrator)
+
+
+@contextlib.contextmanager
+def capture(module, name, keep=None):
+    """Records the arguments of the calls of ``module.<name>`` made while
+    the block runs (only the calls numbered in ``keep``, if given) as
+    {call number: (args, kwargs)}; the calls themselves go through."""
+    fn = getattr(module, name)
+    calls, n = {}, [0]
+
+    def spy(*args, **kw):
+        if keep is None or n[0] in keep:
+            calls[n[0]] = (args, kw)
+        n[0] += 1
+        return fn(*args, **kw)
+
+    setattr(module, name, spy)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def shadow_lanes(args, kw):
+    """(o, d, tmax) of a recorded ``ops.soa.any_hit`` call as ``any_bvh``
+    takes them: a lane the mask leaves out is dead, with tmax 0."""
+    import torch
+
+    _, o, d, _, tmax = args
+    return o, d, torch.where(kw["mask"], tmax, 0.0)
 
 
 def wave_rays(cc, pix, strata, key, dev):
@@ -288,6 +374,7 @@ def main() -> int:
     )
     from bpt_tpu_torch.utils.png import write_png
 
+    t_start = time.monotonic()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = subprocess.run(
@@ -532,12 +619,10 @@ def main() -> int:
         how = "SceneBuilder calls, and the YAML loader gives the same scene"
         del loaded
     check(coffee.num_tris == 91_540 and coffee.use_bvh, f"coffee: {coffee.num_tris} tris")
-    paged_main = not pw.cluster_ok(coffee)
     print(f"phase 4: coffee stand-in, {coffee.num_tris} triangles, "
           f"{int(coffee.bvh_skip.shape[0])} BVH nodes, {coffee.num_lights} light "
           f"triangles via {how}; parse {t_parse:.3f} s, BVH and tables {t_bvh:.3f} s, "
-          f"upload {t_up:.3f} s; cluster_ok {not paged_main} (the render "
-          f"{'pages' if paged_main else 'does not page'})")
+          f"upload {t_up:.3f} s")
     lap("phase 4")
 
     # ---- phase 5: closest_bvh vs bvh_closest
@@ -569,15 +654,59 @@ def main() -> int:
     a_ms = time_ms(lambda: pw.closest_bvh(coffee, o_p, d_p, act), reps=10)
     tables = pw.pack_bvh(coffee)
     scene_bytes = sum(t.numel() * t.element_size() for t in tables)
-    a_bound, a_by = bound(B * (6 * 4 + 1 + 4 * 4) + scene_bytes,
+    walk_bytes = sum(t.numel() * t.element_size() for t in pw.walk_tables(coffee))
+    a_bound, a_by = bound(closest_bytes(act) + walk_bytes,
                           a_counts[0] * SLAB_OPS + a_counts[2] * MT_OPS)
     print(f"phase 5: closest_bvh primary rays B={B}: kernel {a_ms:.3f} ms, plain "
           f"{a_plain_primary_ms:.3f} ms, bound {a_bound:.4f} ms ({a_by}) ({card})")
     lap("phase 5")
 
-    # ---- phase 6: pt_wave vs pt_wave_plain, both modes
+    # ---- phase 6: any_bvh vs bvh_any on coffee shadow rays
+    from bpt_tpu_torch.models.bdpt import bdpt_fast
+    from bpt_tpu_torch.models.render import jnp_raygen
+    from bpt_tpu_torch.ops import soa
+
+    ccb = camera_constants(coffee_camera(spp=4), torch.float32, dev)
+    lane = torch.arange(4096, device=dev)
+    o_c, d_c, ids_c = jnp_raygen(ccb, lane * 64, lane % 4, key, torch.float32)
+    with capture(soa, "any_hit") as waves:
+        bdpt_fast(coffee, o_c, d_c, ids_c, key, depth, mis=True)
+    check(len(waves) == depth, f"{len(waves)} shadow waves, not {depth}")
+    real = [shadow_lanes(*w) for w in waves.values()]
+    half = B // 2
+    o_s, d_s = (Vec3(*(torch.cat([torch.cat([r[k][c] for r in real])[::12][:half],
+                                  rnd[c][:half]]) for c in range(3)))
+                for k, rnd in ((0, o_r), (1, d_r)))
+    tmax_r = torch.from_numpy(g.uniform(0.0, float(np.linalg.norm(hi - lo)), half)
+                              .astype(np.float32)).to(dev)
+    tmax_r[::8] = 0.0
+    tmax_s = torch.cat([torch.cat([r[2] for r in real])[::12][:half], tmax_r])
+    del waves, real
+    pw.any_bvh.launches = pw.any_bvh_plain.calls = 0
+    hit_k, c_k = pw.any_bvh(coffee, o_s, d_s, tmax_s)
+    (hit_p, c_p), s_plain_ms = timed(lambda: pw.any_bvh_plain(coffee, o_s, d_s, tmax_s))
+    s_counts, dead = c_k.tolist(), float((tmax_s[:half] <= 0).double().mean())
+    print(f"phase 6: any_bvh on {B} coffee shadow rays ({half} of a BDPT-MIS wave's "
+          f"connections, {dead * 100:.2f}% of them dead; {half} random): answers equal on "
+          f"{float((hit_k == hit_p).double().mean()) * 100:.4f}% of lanes ({int(hit_k.sum())} "
+          f"hits); counters (node visits, box hits, tri tests, tri hits) kernel {s_counts} "
+          f"plain {c_p.tolist()}; plain {s_plain_ms:.3f} ms")
+    check(pw.any_bvh.launches == 1 and pw.any_bvh_plain.calls == 1, "any_bvh dispatch")
+    check(torch.equal(hit_k, hit_p), "any_bvh: answers differ from bvh_any")
+    check(s_counts == c_p.tolist(), "any_bvh: counters differ from bvh_any")
+    any_err = float((hit_k != hit_p).float().max())
+    s_ms = time_ms(lambda: pw.any_bvh(coffee, o_s, d_s, tmax_s), reps=10)
+    s_bound, s_by = bound(any_bytes(tmax_s) + walk_bytes,
+                          s_counts[0] * SLAB_OPS + s_counts[2] * MT_OPS)
+    print(f"phase 6: any_bvh B={B}: kernel {s_ms:.3f} ms, plain {s_plain_ms:.3f} ms, bound "
+          f"{s_bound:.4f} ms ({s_by}) ({card})")
+    del o_s, d_s, tmax_s, hit_k, hit_p
+    lap("phase 6")
+
+    # ---- phase 7: pt_wave vs pt_wave_plain, both modes
     key_pt = rng.fold_in(key, 1)
-    wave_args = (coffee, o_p, d_p, ids_p, key_pt, depth)
+    depth_w = 4
+    wave_args = (coffee, o_p, d_p, ids_p, key_pt, depth_w)
     wplain, wave_plain_ms = timed(lambda: pw.pt_wave_plain(*wave_args))
     wave_err, wave_frac, wave_ms = 0.0, 1.0, {}
     for paged in (False, True):
@@ -588,33 +717,36 @@ def main() -> int:
         a_launches, b_launches = pw.closest_bvh.launches, pw.pt_wave_bounce.launches
         n_plain = pw.closest_bvh_plain.calls + pw.pt_wave_bounce_plain.calls
         mode = "paged (closest_bvh + shade-only wave kernel)" if paged else "walk"
-        f, e = compare(f"phase 6: pt_wave {mode} B={B} depth={depth}", kout, wplain,
+        f, e = compare(f"phase 7: pt_wave {mode} B={B} depth={depth_w}", kout, wplain,
                        exact_counts=True)
-        check(b_launches == depth and a_launches == (depth if paged else 0) and not n_plain,
+        check(b_launches == depth_w and a_launches == (depth_w if paged else 0)
+              and not n_plain,
               f"pt_wave {mode}: launches {a_launches} / {b_launches}, plain calls {n_plain}")
         wave_err, wave_frac = max(wave_err, e), min(wave_frac, f)
         wave_ms[paged] = time_ms(lambda: pw.pt_wave(*wave_args, paged=paged), reps=5)
-    print(f"phase 6: pt_wave B={B} depth={depth}: walk {wave_ms[False]:.3f} ms, paged "
+    print(f"phase 7: pt_wave B={B} depth={depth_w}: walk {wave_ms[False]:.3f} ms, paged "
           f"{wave_ms[True]:.3f} ms, plain {wave_plain_ms:.3f} ms (one call) ({card})")
     del wplain, kout
-    lap("phase 6")
+    lap("phase 7")
 
-    # ---- phase 7: the main path, the coffee render through pt_wave
+    # ---- phase 8: the coffee PT main path, through pt_wave
     cfg = coffee_camera()
     render(coffee, cfg, seed=0)  # warm-up
     plains = (pk.pt_megakernel_plain, pk.pt_megakernel_pixels_plain,
               bk.bdpt_megakernel_plain, bk.bdpt_megakernel_pixels_plain,
-              pw.closest_bvh_plain, pw.pt_wave_bounce_plain, pw.pt_wave_plain)
+              pw.closest_bvh_plain, pw.any_bvh_plain, pw.pt_wave_bounce_plain,
+              pw.pt_wave_plain, soa.bvh_closest, soa.bvh_any)
     for fn in plains:
         fn.calls = 0
-    pw.closest_bvh.launches = pw.pt_wave_bounce.launches = 0
+    pw.closest_bvh.launches = pw.any_bvh.launches = pw.pt_wave_bounce.launches = 0
     results = [render(coffee, cfg, seed=0) for _ in range(3)]
     wave_launches = pw.pt_wave_bounce.launches
     n_plain = sum(fn.calls for fn in plains)
     check(wave_launches > 0, "coffee main path launched no wave kernel")
     check(n_plain == 0, f"coffee main path called a plain version {n_plain} times")
-    check(pw.closest_bvh.launches == (wave_launches if paged_main else 0),
-          f"coffee main path launched closest_bvh {pw.closest_bvh.launches} times")
+    check(pw.closest_bvh.launches == pw.any_bvh.launches == 0,
+          f"coffee PT launched the BVH hit kernels {pw.closest_bvh.launches} / "
+          f"{pw.any_bvh.launches} times")
     walls = [r.stats.wall_seconds for r in results]
     wall = statistics.median(walls)
     res = results[0]
@@ -635,7 +767,7 @@ def main() -> int:
           f"coffee rays_traced {st.rays_traced} not within 1% of {scaled:.0f}")
     path = write_png("chip_smoke_coffee_pt.png", res.rgb8(), output_dir="output")
     tpu_gap = (st.rays_traced - TPU_BENCH_COFFEE_RAYS) / TPU_BENCH_COFFEE_RAYS * 100
-    print(f"phase 7: render coffee 512x512 16 spp depth 10 seed 0: walls "
+    print(f"phase 8: render coffee 512x512 16 spp depth 10 seed 0: walls "
           f"{[round(w, 6) for w in walls]} s, median {wall:.6f} s, "
           f"{st.rays_traced / wall / 1e6:.3f} Mrays/s; rays_traced {st.rays_traced} "
           f"(TPU bench {TPU_BENCH_COFFEE_RAYS}, {tpu_gap:+.4f}%; that count scaled by "
@@ -648,34 +780,7 @@ def main() -> int:
           f"tri hits {st.triangle_hits}; wave kernel launches {wave_launches}, plain "
           f"calls {n_plain}; wrote {path} ({card})")
 
-    # closest_bvh's path: the same render loop with paging forced (the
-    # coffee scene passes cluster_ok, so render() itself does not page)
-    from bpt_tpu_torch.models.render import _render_wave
-
-    cc_r = camera_constants(cfg, torch.float32, dev)
-    for fn in plains:
-        fn.calls = 0
-    pw.closest_bvh.launches = pw.pt_wave_bounce.launches = 0
-    fb_paged = torch.zeros((512 * 512, 3), device=dev)
-    (p_rays, p_extra), paged_render_ms = timed(
-        lambda: _render_wave(coffee, cfg, cc_r, 0, fb_paged, 0, None, None, paged=True))
-    paged_launches = pw.closest_bvh.launches
-    n_plain = sum(fn.calls for fn in plains)
-    check(paged_launches > 0 and paged_launches == pw.pt_wave_bounce.launches,
-          f"paged render: closest_bvh {paged_launches} launches, wave kernel "
-          f"{pw.pt_wave_bounce.launches}")
-    check(n_plain == 0, f"paged render called a plain version {n_plain} times")
-    p_counts = [int(p_rays), *p_extra.tolist()]
-    w_counts = [st.rays_traced, st.bvh_node_visits, st.aabb_hits, st.triangle_tests,
-                st.triangle_hits]
-    check(p_counts == w_counts, f"paged render counters {p_counts}, unpaged {w_counts}")
-    check(np.array_equal(fb_paged.cpu().numpy().reshape(512, 512, 3), fb),
-          "paged render's image differs from render()'s")
-    print(f"phase 7: the same render paged (closest_bvh, then the shade-only wave "
-          f"kernel): {paged_render_ms:.3f} ms; image bitwise equal to render()'s and "
-          f"counters (rays, node visits, box hits, tri tests, tri hits) {p_counts} "
-          f"equal; closest_bvh launches {paged_launches}, plain calls {n_plain} ({card})")
-    del results, res, fb, fb_paged
+    del results, res, fb
 
     # the wave kernel at the main path's first bounce: 16 strata of 512^2
     o_m, d_m, ids_m = wave_rays(ccc, torch.arange(512 * 512, device=dev), 16, key, dev)
@@ -706,14 +811,172 @@ def main() -> int:
     wave_err, wave_frac = max(wave_err, e), min(wave_frac, f)
     b_bound, b_by = bound(Bm * (2 * pw.STATE_ROWS * 4 + 4) + scene_bytes,
                           b_counts[1] * SLAB_OPS + b_counts[3] * MT_OPS)
-    print(f"phase 7: wave kernel, first bounce of the main path (B={Bm}): kernel "
+    print(f"phase 8: wave kernel, first bounce of the main path (B={Bm}): kernel "
           f"{b_ms:.3f} ms, plain {b_plain_ms:.3f} ms (one call), bound {b_bound:.4f} ms "
           f"({b_by}); all {pw.STATE_ROWS} state rows within rtol {RTOL} / atol {ATOL} "
           f"on {f * 100:.4f}% of lanes ({int(live.sum())} alive), max abs err {e:.3e}; counters "
           f"(rays, node visits, box hits, tri tests, tri hits) kernel {b_counts} plain "
           f"{p_counts} ({card})")
     del state, b_out, p_out, rows, prows
-    lap("phase 7")
+    lap("phase 8")
+
+    # ---- phase 9: the large-scene BDPT route against its plain traversals
+    from bpt_tpu_torch.models.render import _bdpt_wave_shape, _render_bdpt_wave
+
+    cfg9 = coffee_camera(width=32, spp=4, depth=6, integrator="bdpt-mis")
+    cc9 = camera_constants(cfg9, torch.float32, dev)
+    runs = {}
+    for plain in (False, True):
+        for fn in plains:
+            fn.calls = 0
+        pw.closest_bvh.launches = pw.any_bvh.launches = 0
+        fb9 = torch.zeros((32 * 32, 3), device=dev)
+        (r9, sh9, ex9), ms9 = timed(lambda: _render_bdpt_wave(
+            coffee, cfg9, cc9, "bdpt-mis", 0, fb9, 0, None, None, plain=plain))
+        launched = pw.closest_bvh.launches + pw.any_bvh.launches
+        walks = soa.bvh_closest.calls + soa.bvh_any.calls
+        n_plain = sum(fn.calls for fn in plains)
+        if plain:
+            check(launched == 0 and walks > 0 and walks == n_plain,
+                  f"plain route: {launched} kernel launches, {walks} walks")
+        else:
+            check(launched > 0 and n_plain == 0,
+                  f"kernel route: {launched} launches, {n_plain} plain calls")
+        runs[plain] = (fb9, [int(r9), int(sh9), *ex9.tolist()], ms9, launched or walks)
+    f9, e9, w9 = agreement(runs[False][0], runs[True][0], BDPT_ATOL)
+    bitwise = torch.equal(runs[False][0], runs[True][0])
+    print(f"phase 9: coffee bdpt-mis 32x32 4 spp depth 6, kernels vs plain traversals: "
+          f"{f9 * 100:.4f}% of pixels within rtol {RTOL} / atol {BDPT_ATOL} (bitwise "
+          f"{'equal' if bitwise else 'different'}), max abs err {e9:.3e}; worst pixel {w9}: "
+          f"kernels {runs[False][0][w9].tolist()} plain {runs[True][0][w9].tolist()}; counters "
+          f"(rays, shadow, nodes, aabb, tri tests, tri hits) kernels {runs[False][1]} plain "
+          f"{runs[True][1]}; {runs[False][3]} launches in {runs[False][2]:.1f} ms, "
+          f"{runs[True][3]} plain walks in {runs[True][2]:.1f} ms ({card})")
+    check(f9 >= MIN_FRAC, f"BDPT route: only {f9:.5f} of pixels agree with the plain walks")
+    check(runs[False][1] == runs[True][1], "BDPT route: counters differ from the plain walks")
+    del runs
+    lap("phase 9")
+
+    # ---- phase 10: the BDPT main paths, coffee bdpt-mis and bdpt
+    launchers = (pk.pt_megakernel, pk.pt_megakernel_pixels, bk.bdpt_megakernel,
+                 bk.bdpt_megakernel_pixels, pw.pt_wave_bounce)
+    closest_main = any_main = 0
+    sub_pix = torch.arange(0, 512 * 512, 257, device=dev).repeat(4)
+    sub_s = torch.arange(4, device=dev).repeat_interleave(sub_pix.numel() // 4)
+    for name in ("bdpt-mis", "bdpt"):
+        mis = name == "bdpt-mis"
+        cfg = coffee_camera(spp=4, integrator=name)
+        if mis:  # the warm-up records one closest-hit and one shadow wave
+            with capture(soa, "closest_hit", keep={1}) as cl, \
+                    capture(soa, "any_hit", keep={1}) as an:
+                render(coffee, cfg, seed=0)
+            main_closest, main_shadow = cl[1], an[1]
+        else:
+            render(coffee, cfg, seed=0)  # warm-up
+        strata, span = _bdpt_wave_shape(512 * 512, 4, depth, mis)
+        waves = math.ceil(4 / strata) * math.ceil(512 * 512 / span)
+        for fn in plains:
+            fn.calls = 0
+        for fn in (*launchers, pw.closest_bvh, pw.any_bvh):
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        results = [render(coffee, cfg, seed=0) for _ in range(3)]
+        peak = torch.cuda.max_memory_allocated(dev)
+        n_closest, n_any = pw.closest_bvh.launches, pw.any_bvh.launches
+        n_plain = sum(fn.calls for fn in plains)
+        n_other = sum(fn.launches for fn in launchers)
+        check(n_closest == 3 * waves * (2 * depth - 1) and n_any == 3 * waves * depth,
+              f"coffee {name}: {n_closest} closest_bvh and {n_any} any_bvh launches in 3 "
+              f"renders of {waves} waves")
+        check(n_plain == 0 and n_other == 0,
+              f"coffee {name}: {n_plain} plain calls, {n_other} other kernel launches")
+        closest_main += n_closest
+        any_main += n_any
+        walls = [r.stats.wall_seconds for r in results]
+        wall = statistics.median(walls)
+        res = results[0]
+        st = res.stats
+        fb = res.framebuffer_sum
+        check(fb.shape == (512, 512, 3), f"coffee {name} framebuffer shape {fb.shape}")
+        check(bool(np.isfinite(fb).all()), f"coffee {name}: non-finite framebuffer")
+        check(float(fb.mean()) > 0.0, f"coffee {name}: black image")
+        check(all(np.array_equal(r.framebuffer_sum, fb) for r in results[1:]),
+              f"coffee {name}: renders with the same seed differ")
+        o_u, d_u, ids_u = jnp_raygen(ccb, sub_pix, sub_s, key, torch.float32)
+        sub = [int(x) for x in bdpt_fast(coffee, o_u, d_u, ids_u, key, depth, mis=mis)[1][:2]]
+        ref = CPU_COFFEE_BDPT_SUBSET[name]
+        gaps = [(a - b) / b * 100 for a, b in zip(sub, ref)]
+        plain_sh = CPU_PLAIN_COFFEE_BDPT_SHADOW[name]
+        sh_ref = ref[1] if mis else plain_sh
+        sh_gap = (sub[1] - sh_ref) / sh_ref * 100
+        path = write_png(f"chip_smoke_coffee_{name}.png", res.rgb8(), output_dir="output")
+        tpu = (f"TPU bench {TPU_BENCH_COFFEE_BDPT_MIS[0]}, "
+               f"{(st.rays_traced / TPU_BENCH_COFFEE_BDPT_MIS[0] - 1) * 100:+.4f}%; "
+               if mis else "")
+        tpu_sh = (f"TPU bench {TPU_BENCH_COFFEE_BDPT_MIS[1]}, "
+                  f"{(st.shadow_rays / TPU_BENCH_COFFEE_BDPT_MIS[1] - 1) * 100:+.4f}%; "
+                  if mis else "")
+        print(f"phase 10: render coffee {name} 512x512 4 spp depth {depth} seed 0: walls "
+              f"{[round(w, 6) for w in walls]} s, median {wall:.6f} s, "
+              f"{st.rays_traced / wall / 1e6:.3f} Mrays/s on rays_traced "
+              f"({st.total_rays / wall / 1e6:.3f} with shadow rays); rays_traced "
+              f"{st.rays_traced} ({tpu}not a target: ROADMAP §3), shadow_rays "
+              f"{st.shadow_rays} ({tpu_sh}not a target); every 257th pixel: rays {sub[0]}, "
+              f"shadow {sub[1]} (bpt_tpu's CPU route {ref[0]}, {ref[1]}: {gaps[0]:+.4f}%, "
+              f"{gaps[1]:+.4f}%; the port's plain route on a CPU: shadow {plain_sh}); node "
+              f"visits {st.bvh_node_visits}, box hits {st.aabb_hits}, "
+              f"tri tests {st.triangle_tests}, tri hits {st.triangle_hits}; {waves} wave(s) "
+              f"of {strata} strata x {span} pixels a render; peak device memory "
+              f"{peak / 2**30:.2f} GiB; closest_bvh {n_closest} and any_bvh {n_any} "
+              f"launches, plain calls {n_plain}; wrote {path} ({card})")
+        check(abs(gaps[0]) <= 0.1, f"coffee {name}: subset rays {sub[0]} not within 0.1% "
+              f"of {ref[0]}")
+        check(abs(sh_gap) <= 1.0, f"coffee {name}: subset shadow rays {sub[1]} not within "
+              f"1% of {sh_ref}")
+        del results, res, fb
+        lap(f"phase 10 ({name})")
+
+    # closest_bvh and any_bvh at the main path's own shapes: the warm-up
+    # render's camera bounce 1 and its shadow wave of camera vertex 1
+    args, kw = main_closest
+    o_m, d_m, act_m = args[1], args[2], kw["mask"]
+    Bc = int(act_m.shape[0])
+    kout = pw.closest_bvh(coffee, o_m, d_m, act_m)
+    pout, cm_plain_ms = timed(lambda: pw.closest_bvh_plain(coffee, o_m, d_m, act_m))
+    same = (kout[1] == pout[1]) & ((kout[0] == pout[0]) | (kout[0].isinf() & pout[0].isinf()))
+    cm_frac, cm_counts = float(same.double().mean()), kout[4].tolist()
+    both = kout[0].isfinite() & pout[0].isfinite()
+    a_err = max(a_err, float((kout[0] - pout[0])[both].abs().max()))
+    a_frac = min(a_frac, cm_frac)
+    check(cm_frac >= MIN_FRAC, f"closest_bvh at the main path's shape: {cm_frac:.5f} agree")
+    check(cm_counts == pout[4].tolist(), "closest_bvh at the main path's shape: counters")
+    cm_ms = time_ms(lambda: pw.closest_bvh(coffee, o_m, d_m, act_m), reps=5)
+    cm_bound, cm_by = bound(closest_bytes(act_m) + walk_bytes,
+                            cm_counts[0] * SLAB_OPS + cm_counts[2] * MT_OPS)
+    print(f"phase 10: closest_bvh, camera bounce 1 of the bdpt-mis wave (B={Bc}, "
+          f"{int(act_m.sum())} live): kernel {cm_ms:.3f} ms, plain {cm_plain_ms:.3f} ms (one "
+          f"call), bound {cm_bound:.4f} ms ({cm_by}); hit, tri and t equal on "
+          f"{cm_frac * 100:.4f}% of lanes; counters kernel {cm_counts} plain "
+          f"{pout[4].tolist()} ({card})")
+    del kout, pout, same, both, main_closest, o_m, d_m, act_m
+    o_w, d_w, t_w = shadow_lanes(*main_shadow)
+    Bs = int(t_w.shape[0])
+    hit_k, c_k = pw.any_bvh(coffee, o_w, d_w, t_w)
+    (hit_p, c_p), am_plain_ms = timed(lambda: pw.any_bvh_plain(coffee, o_w, d_w, t_w))
+    am_frac, am_counts = float((hit_k == hit_p).double().mean()), c_k.tolist()
+    any_err = max(any_err, float((hit_k != hit_p).float().max()))
+    check(torch.equal(hit_k, hit_p) and am_counts == c_p.tolist(),
+          f"any_bvh at the main path's shape: {am_frac:.6f} agree, counters {am_counts} "
+          f"vs {c_p.tolist()}")
+    am_ms = time_ms(lambda: pw.any_bvh(coffee, o_w, d_w, t_w), reps=5)
+    am_bound, am_by = bound(any_bytes(t_w) + walk_bytes,
+                            am_counts[0] * SLAB_OPS + am_counts[2] * MT_OPS)
+    print(f"phase 10: any_bvh, the shadow wave of camera vertex 1 (B={Bs}, "
+          f"{int((t_w > 0).sum())} live): kernel {am_ms:.3f} ms, plain {am_plain_ms:.3f} ms "
+          f"(one call), bound {am_bound:.4f} ms ({am_by}); answers and counters {am_counts} "
+          f"equal ({card})")
+    del main_shadow, o_w, d_w, t_w, hit_k, hit_p
+    lap("phase 10")
 
     # lanes in (pixels: i, j, sx, sy, id; rays: o, d, id), radiance out
     pt_tab = sum(t.numel() * t.element_size() for t in pk._pack_tables(scene))
@@ -726,6 +989,7 @@ def main() -> int:
           f"{pt_rays_bound[0]:.4f} ms ({pt_rays_bound[1]}); bdpt_megakernel pixels "
           f"{bdpt_bound:.4f} ms ({bdpt_by}), rays {bdpt_rays_bound[0]:.4f} ms "
           f"({bdpt_rays_bound[1]})")
+    print(f"chip_smoke: all phases passed in {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "pt_megakernel",
         "route": "cuda",
@@ -766,18 +1030,39 @@ def main() -> int:
         "route": "cuda",
         "source": "bpt_tpu_torch/csrc/pt_wave.cu",
         "replaces": "bpt_tpu/ops/pallas/cluster_wave.py:340",
-        "launches": paged_launches,
-        "launches_path": "the coffee render loop with paging forced, 512x512, "
-                         "16 spp, depth 10 (render() does not page it: cluster_ok "
-                         "holds)",
-        "paged_render_ms": paged_render_ms,
+        "launches": closest_main,
+        "launches_path": "three coffee bdpt-mis and three bdpt renders, 512x512, 4 spp, "
+                         "depth 10",
         "max_abs_err": a_err,
         "within_tol": a_frac,
-        "ms": a_ms,
-        "plain_ms": a_plain_primary_ms,
-        "bound_ms": a_bound,
-        "bound_by": a_by,
+        "ms": cm_ms,
+        "plain_ms": cm_plain_ms,
+        "bound_ms": cm_bound,
+        "bound_by": cm_by,
         "library_ms": None,
+        "shape": f"camera bounce 1 of the bdpt-mis wave, B={Bc}",
+        "primaries_65536_ms": a_ms,
+        "primaries_65536_plain_ms": a_plain_primary_ms,
+        "primaries_65536_bound_ms": a_bound,
+    }, {
+        "name": "any_bvh",
+        "route": "cuda",
+        "source": "bpt_tpu_torch/csrc/pt_wave.cu",
+        "replaces": "bpt_tpu/ops/pallas/cluster_wave.py:397",
+        "launches": any_main,
+        "launches_path": "three coffee bdpt-mis and three bdpt renders, 512x512, 4 spp, "
+                         "depth 10",
+        "max_abs_err": any_err,
+        "within_tol": am_frac,
+        "ms": am_ms,
+        "plain_ms": am_plain_ms,
+        "bound_ms": am_bound,
+        "bound_by": am_by,
+        "library_ms": None,
+        "shape": f"the bdpt-mis wave's shadow wave of camera vertex 1, B={Bs}",
+        "mixed_65536_ms": s_ms,
+        "mixed_65536_plain_ms": s_plain_ms,
+        "mixed_65536_bound_ms": s_bound,
     }, {
         "name": "pt_wave_bounce",
         "route": "cuda",

@@ -1,5 +1,5 @@
-"""The CUDA kernels (PT and BDPT megakernels, the BVH closest hit and the
-per-bounce wave) against their plain PyTorch versions on the card.
+"""The CUDA kernels (PT and BDPT megakernels, the BVH closest and any hit
+and the per-bounce wave) against their plain PyTorch versions on the card.
 
 Needs an NVIDIA card with sm_90a (H100) and nvcc; elsewhere every test
 skips.  Run on the GPU machine with
@@ -222,6 +222,66 @@ def test_closest_bvh_matches_plain_exactly():
     assert bool((got[1][~active] == -1).all())
 
 
+def test_any_bvh_matches_plain_exactly():
+    """Every lane's answer and all four counters; one lane in eight dead."""
+    scene = big_scene(builder, device="cuda")
+    o, d, _ = _big_lanes(8192, 11)
+    tmax = torch.from_numpy(np.random.default_rng(11).uniform(
+        0.1, 6.0, 8192).astype(np.float32)).cuda()
+    tmax[::8] = 0.0
+    n = pw.any_bvh.launches
+    got = pw.any_bvh(scene, o, d, tmax)
+    want = pw.any_bvh_plain(scene, o, d, tmax)
+    torch.cuda.synchronize()
+    assert pw.any_bvh.launches == n + 1
+    assert torch.equal(got[0], want[0]) and bool(got[0].any())
+    assert not bool(got[0][::8].any())
+    assert got[1].tolist() == want[1].tolist()
+
+
+def test_megakernel_plain_versions_walk_in_torch():
+    """A scene of 257-512 triangles has a BVH and takes the megakernels;
+    their plain versions walk its BVH in torch and launch no BVH kernel."""
+    from bpt_tpu_torch.ops import soa
+
+    b = presets.cornell_box_builder()
+    b.add_uv_sphere((278.0, 150.0, 278.0), 100.0, builder.MaterialSpec.lambertian(
+        (0.7, 0.7, 0.7)), lat_steps=8, lon_steps=20)
+    scene = b.build(device="cuda")
+    assert 256 < scene.num_tris <= pk.MAX_TRIS and scene.use_bvh
+    o, d = (torch.from_numpy(x).cuda() for x in rays(1024, 5))
+    ov, dv = Vec3(*o.unbind(1)), Vec3(*d.unbind(1))
+    ids = torch.arange(1024, dtype=torch.int32, device="cuda")
+    launched = pw.closest_bvh.launches + pw.any_bvh.launches
+    walks = soa.bvh_closest.calls, soa.bvh_any.calls
+    pk.pt_megakernel_plain(scene, ov, dv, ids, rng.prng_key(1), 3)
+    bk.bdpt_megakernel_plain(scene, ov, dv, ids, rng.prng_key(1), 3)
+    assert pw.closest_bvh.launches + pw.any_bvh.launches == launched
+    assert soa.bvh_closest.calls > walks[0] and soa.bvh_any.calls > walks[1]
+
+
+@pytest.mark.parametrize("integrator", ["bdpt", "bdpt-mis"])
+def test_render_bdpt_wave_on_card_matches_cpu(integrator):
+    """The large-scene BDPT route: 7 closest_bvh and 4 any_bvh launches a
+    wave at depth 4, no plain walk, and the CPU render's image."""
+    from bpt_tpu_torch.ops import soa
+
+    cfg = dataclasses.replace(presets.cornell_box_camera(), image_width=16,
+                              samples_per_pixel=4, max_depth=4, integrator=integrator,
+                              vfov=40.0, lookfrom=(0.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0))
+    nc, na = pw.closest_bvh.launches, pw.any_bvh.launches
+    walks = soa.bvh_closest.calls + soa.bvh_any.calls
+    gpu = render(big_scene(builder, device="cuda"), cfg, seed=3)
+    assert (pw.closest_bvh.launches - nc, pw.any_bvh.launches - na) == (7, 4)
+    assert soa.bvh_closest.calls + soa.bvh_any.calls == walks
+    cpu = render(big_scene(builder, device="cpu"), cfg, seed=3)
+    ok = np.isclose(gpu.framebuffer_sum, cpu.framebuffer_sum, rtol=1e-4, atol=1e-5)
+    assert ok.all(axis=-1).mean() >= 0.99
+    assert abs(gpu.stats.rays_traced - cpu.stats.rays_traced) <= 10
+    assert abs(gpu.stats.shadow_rays - cpu.stats.shadow_rays) <= 0.01 * cpu.stats.shadow_rays
+    assert gpu.stats.shadow_rays > 0
+
+
 @pytest.mark.parametrize("paged", [False, True], ids=["walk", "paged"])
 def test_pt_wave_matches_plain(paged):
     scene = big_scene(builder, device="cuda")
@@ -274,6 +334,13 @@ def test_wave_wrappers_reject_what_the_kernels_cannot_take():
     o, d, ids = _big_lanes(64, 9)
     with pytest.raises(ValueError, match="expected"):
         pw.closest_bvh(scene, o, d, (ids >= 0)[:32])
+    tmax = torch.ones(64, device="cuda")
+    with pytest.raises(ValueError, match="expected"):
+        pw.any_bvh(scene, o, d, tmax[:32])
+    with pytest.raises(ValueError, match="expected"):
+        pw.any_bvh(scene, o, d, tmax.double())
+    with pytest.raises(ValueError, match="float32"):
+        pw.any_bvh(big_scene(builder, device="cuda", dtype=torch.float64), o, d, tmax)
     state = torch.zeros((pw.STATE_ROWS, 64), device="cuda")
     with pytest.raises(ValueError, match="expected"):
         pw.pt_wave_bounce(scene, state, ids[:32], rng.prng_key(0), 0)

@@ -1,5 +1,5 @@
 """bpt_tpu_torch's scene side for YAML/OBJ scenes against bpt_tpu: the OBJ
-parser, the BVH build and its cluster splits, the builder's node arrays,
+parser, the BVH build, the builder's node arrays,
 the YAML loader (camera and every scene array, exactly) and the scene
 factories' device default."""
 
@@ -11,12 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from bpt_tpu.ops.pallas import clusters as jclusters
 from bpt_tpu.scene import builder as jbuilder
 from bpt_tpu.scene import bvh as jbvh
 from bpt_tpu.scene import loader as jloader
 from bpt_tpu.scene import obj as jobj
-from bpt_tpu_torch.ops.kernels import pt_wave as tw
 from bpt_tpu_torch.scene import builder as tbuilder
 from bpt_tpu_torch.scene import bvh as tbvh
 from bpt_tpu_torch.scene import loader as tloader
@@ -73,10 +71,7 @@ def test_bvh_and_cluster_splits_match_bpt_tpu(which):
         port = big_scene(tbuilder, device="cpu")
         jscene = big_scene(jbuilder, dtype=jnp.float32)
         assert port.num_tris == 964 and port.use_bvh
-        _assert_scene_equal(port, jscene)  # node arrays, order, splits
-        assert port.cluster_splits and port.super_splits
-        assert tw.cluster_ok(port) == jclusters.cluster_ok(jscene)
-        tree = {k: getattr(port, k).numpy() for k in ("bvh_skip", "bvh_count")}
+        _assert_scene_equal(port, jscene)  # node arrays and triangle order
     else:
         lo, hi = _glass_bounds()
         tree = tbvh.build_bvh(lo, hi)
@@ -84,13 +79,6 @@ def test_bvh_and_cluster_splits_match_bpt_tpu(which):
         assert set(tree) == set(want)
         for k in tree:
             np.testing.assert_array_equal(tree[k], want[k], err_msg=k)
-    for cap in (2, 32, 512):
-        cs = tbvh.subtree_splits(tree["bvh_skip"], tree["bvh_count"], cap)
-        assert cs == jbvh.subtree_splits(tree["bvh_skip"], tree["bvh_count"], cap)
-        T = int(tree["bvh_count"].sum())
-        assert cs[0] == 0 and cs[-1] == T
-        for ss in ((0, T), cs[::3] + (T,)):
-            assert tbvh.merge_splits(cs, ss, 2 * cap) == jbvh.merge_splits(cs, ss, 2 * cap)
 
 
 @pytest.mark.parametrize("name", ["cornell_box", "glass/glass_standin",
@@ -105,7 +93,6 @@ def test_loader_matches_bpt_tpu(name, capsys):
     out = capsys.readouterr().out
     assert out.count(f"Triangles: {got.scene.num_tris}") == 2
     _assert_scene_equal(got.scene, want.scene)
-    assert tw.cluster_ok(got.scene) == jclusters.cluster_ok(want.scene)
 
 
 @pytest.mark.parametrize("name", ["earth", "cornell_smoke"])

@@ -12,6 +12,7 @@ own pt_wave is bit-equal to its fused kernel on the same stream, and the
 port's render through pt_wave is bit-equal to its fused plain version."""
 
 import dataclasses
+import gc
 
 import jax
 import jax.numpy as jnp
@@ -100,6 +101,24 @@ def test_closest_bvh_wrapper_takes_the_plain_version_on_cpu(port_scene):
     np.testing.assert_array_equal(t.numpy(), h.t.numpy())
     assert tri.dtype == torch.int32 and (tri[~active] == -1).all()
     assert counters.tolist() == [int(getattr(h, c)) for c in COUNTERS]
+
+
+def test_walk_tables_are_packed_once_a_scene():
+    """The hit kernels' nodes and triangles are packed at the first
+    traversal of a scene, reused by every later one, and dropped with the
+    scene."""
+    scene = big_scene(tbuilder, device="cpu")
+    nodes, tris = tw.walk_tables(scene)
+    assert tw.walk_tables(scene)[0] is nodes and tw.pack_bvh(scene).tris is tris
+    assert nodes.shape == (scene.bvh_skip.shape[0], 8) and tris.shape == (scene.num_tris, 12)
+    ints = nodes[:, 6:].view(torch.int32)
+    assert torch.equal(ints[:, 0], scene.bvh_skip.to(torch.int32))
+    assert torch.equal(ints[:, 1], (scene.bvh_first * 4 + scene.bvh_count).to(torch.int32))
+    assert torch.equal(tris[:, 9:], scene.normal.to(torch.float32))
+    key = id(scene)
+    del scene
+    gc.collect()
+    assert key not in tw._WALK_TABLES
 
 
 def test_coherence_key_matches_bpt_tpu():
@@ -224,5 +243,18 @@ def test_render_wave_batches_and_stratum_checkpoints(port_scene, monkeypatch):
 
 @pytest.mark.parametrize("integrator", ["bdpt", "bdpt-mis"])
 def test_render_refuses_bdpt_on_large_scenes(port_scene, integrator):
-    with pytest.raises(NotImplementedError, match=r"kernel 8.*ROADMAP §0 step 1"):
-        render(port_scene, _big_cfg(integrator=integrator))
+    """What the large-scene BDPT route still refuses: ref_vis (ROADMAP §0
+    step 4), a depth outside the CLI's 1..80, and a checkpoint of another
+    loop's stream."""
+    from bpt_tpu_torch.models.bdpt import bdpt_fast
+
+    o, d = big_rays(16, 2)
+    with pytest.raises(NotImplementedError, match=r"ref_vis.*ROADMAP §0 step 4"):
+        bdpt_fast(port_scene, torch.from_numpy(o), torch.from_numpy(d), torch.arange(16),
+                  rng.prng_key(0), 2, mis=integrator == "bdpt-mis", ref_vis=True)
+    with pytest.raises(NotImplementedError, match=r"outside 1\.\.80"):
+        render(port_scene, _big_cfg(integrator=integrator, max_depth=81))
+    snap = dict(framebuffer_sum=np.zeros((10, 10, 3)), strata_done=1, units_done=1,
+                unit_kind="stratum", stream="wave")
+    with pytest.raises(ValueError, match="jnp stream"):
+        render(port_scene, _big_cfg(integrator=integrator), resume=snap)

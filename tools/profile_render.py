@@ -1,13 +1,15 @@
 """Where the time of a bpt_tpu_torch render goes, on one NVIDIA card.
 
-Renders the cornell box with PT, BDPT or BDPT-MIS, or the coffee stand-in
-(scenes/coffee/coffee_standin.yaml, 91,540 triangles: PT through pt_wave)
-— default PT at 512x512, 16 spp, depth 10, seed 0: one warm-up render,
-then ``--renders`` timed ones (their walls and median), then one render
-under ``torch.profiler`` with CUDA activity.  Prints the profiler's tables
-by device time and by host time, the device time of the CUDA kernels and
-(coffee) of the sorts, the gathers and everything else (raygen, sort keys,
-small ops), the sum of all device time, and the device time spent before
+Renders the cornell box or the coffee stand-in (scenes/coffee/
+coffee_standin.yaml, 91,540 triangles: PT through pt_wave, BDPT through
+the jnp-stream wave loop over closest_bvh / any_bvh) with PT, BDPT or
+BDPT-MIS — default PT at 512x512, 16 spp, depth 10, seed 0: one warm-up
+render, then ``--renders`` timed ones (their walls and median), then one
+render under ``torch.profiler`` with CUDA activity.  Prints the profiler's
+tables by device time and by host time, the device time of the
+megakernels and the wave kernel, of closest_bvh, of any_bvh, of the sorts,
+the gathers and everything else (raygen, sort keys, the BDPT wavefront's
+torch ops), the sum of all device time, and the device time spent before
 the wall clock stops as a share of the profiled render's wall (the
 device's busy share; the profiler's own host overhead lengthens that
 wall).  The coffee scene needs PyYAML.
@@ -84,8 +86,9 @@ def main(argv=None) -> int:
     busy = sum(e.self_device_time_total for e in events) / 1e3
     readback = sum(e.self_device_time_total for e in events
                    if e.key.startswith("Memcpy DtoH")) / 1e3
-    groups = {"kernel": ("megakernel", "pt_wave_bounce", "closest_bvh"),
-              "sort": ("Radix", "radix", "sort"), "gather": ("index", "gather")}
+    groups = {"kernel": ("megakernel", "pt_wave_bounce"), "closest_bvh": ("closest_bvh",),
+              "any_bvh": ("any_bvh",), "sort": ("Radix", "radix", "sort"),
+              "gather": ("index", "gather")}
     dev_ms = {name: 0.0 for name in (*groups, "other")}
     for e in events:
         if e.self_device_time_total <= 0 or e.key.startswith("Memcpy DtoH"):
