@@ -105,14 +105,19 @@ def subkeys_with_raygen(key: tuple[int, int], nu: int = NU) -> list[int]:
     return subkeys(fold_in(key, 1), nu) + list(fold_in(kg, 0)) + list(fold_in(kg, 1))
 
 
-def raygen_jitter(key: tuple[int, int], ray_ids: torch.Tensor):
+def raygen_jitter(key: tuple[int, int], ray_ids: torch.Tensor, defocus: bool = False):
     """The megakernel's stratified-jitter pair: ONE threefry call at
-    counter 0 off ``fold_in(fold_in(key, STREAM_RAYGEN=0), 0)``, both words
-    (render._raygen_jitter_host without defocus)."""
+    counter (ray id, 0) off ``fold_in(fold_in(key, STREAM_RAYGEN=0), 0)``,
+    both words (bpt_tpu's render._raygen_jitter_host).  ``defocus=True``
+    returns four uniforms: the defocus-disk pair is a second call at
+    counter (ray id, 1), and the jitter pair stays the same."""
     k = fold_in(fold_in(key, 0), 0)
     ridu = ray_words(ray_ids)
     b0, b1 = threefry2x32(k[0], k[1], ridu, torch.zeros_like(ridu))
-    return bits_to_unit_float(b0), bits_to_unit_float(b1)
+    if not defocus:
+        return bits_to_unit_float(b0), bits_to_unit_float(b1)
+    d0, d1 = threefry2x32(k[0], k[1], ridu, torch.ones_like(ridu))
+    return tuple(bits_to_unit_float(x) for x in (b0, b1, d0, d1))
 
 
 def ray_words(ray_ids: torch.Tensor) -> torch.Tensor:

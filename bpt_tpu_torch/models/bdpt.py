@@ -16,19 +16,19 @@ Three stages, each a full-batch wave:
    (integrator bdpt-mis) each pair carries its power-heuristic weight.
 
 Randomness enters only through the uniform sources, so tests inject the
-same uniforms here and in ``bpt_tpu``.  On a scene of at most 512
-triangles this wavefront is the plain version the CUDA BDPT megakernel
-(``ops/kernels/bdpt_kernel.py``) is held against.  On a larger scene it
-is the render's estimator on the card, as ``bdpt_radiance`` is on
-``bpt_tpu``'s large-scene route: ``bdpt_fast`` feeds it the jnp stream and
-its traversals launch the CUDA BVH walks (``ops.soa.closest_hit`` /
-``any_hit`` on a CUDA scene: ``closest_bvh`` and ``any_bvh``).  ``plain``
-walks the BVH in torch instead, for comparisons.
+same uniforms here and in ``bpt_tpu``.  This wavefront is the plain version
+the CUDA BDPT megakernel (``ops/kernels/bdpt_kernel.py``) is held against,
+and the render's estimator wherever ``bdpt_fast`` takes its jnp branch, as
+``bdpt_radiance`` is on ``bpt_tpu``'s jnp routes: there its traversals
+(``ops.soa.closest_hit`` / ``any_hit``) launch the CUDA hit kernels on a
+CUDA scene, ``closest_bvh`` / ``any_bvh`` with a BVH and ``closest_tri`` /
+``any_tri`` without.  ``plain`` runs their torch versions instead, for
+comparisons.
 
 Not ported (each refused where it would be asked for): ``bpt_tpu``'s
 live-prefix narrowed trace and its batched or sparse connection waves
-(TPU study options, ROADMAP §2 "Not to port"), ``ref_vis`` (ROADMAP §0
-step 4) and volumes (ROADMAP §1 item 8).
+(TPU study options, ROADMAP §2 "Not to port") and volumes (ROADMAP §1
+item 8).
 """
 
 from __future__ import annotations
@@ -379,7 +379,7 @@ def _concat_vertices(a: Vertices, b: Vertices) -> Vertices:
 
 def connect_paths(scene: SceneTensors, cam: Vertices, light: Vertices,
                   mis_c: MisInfo = None, mis_l: MisInfo = None,
-                  max_depth: int = 0, plain: bool = False):
+                  max_depth: int = 0, plain: bool = False, ref_vis: bool = False):
     """All-pairs connect_vertices (camera.h:316-320, 440-475), one
     [S_l*B] shadow wave per camera slot.
 
@@ -387,6 +387,13 @@ def connect_paths(scene: SceneTensors, cam: Vertices, light: Vertices,
     heuristic (beta=2) over every strategy of the same path length that
     the estimator realizes (a deviation from the reference, which sums all
     pairs unweighted; docs/PARITY.md).
+
+    ``ref_vis`` emulates the reference binary's endpoint artifact
+    (bpt_tpu/models/bdpt.py:850-887): the direction divides per component
+    by the distance, as camera.h:429 does, and the shadow range ends
+    exactly at the connection's endpoint (max_t, inclusive), where the
+    endpoint's own surface lies; the rounding of its Möller–Trumbore t then
+    decides whether the pair is visible.
 
     Returns (radiance Vec3 [B], visible pairs, pairs that reached the
     any-hit test) — the last two int64 scalars."""
@@ -428,8 +435,11 @@ def connect_paths(scene: SceneTensors, cam: Vertices, light: Vertices,
         dist2 = v3.length_squared(diff)
         pair_ok = c_ok[None] & light_ok & (dist2 > 0.0)
         dist = torch.sqrt(torch.clamp_min(dist2, 1e-30))
-        inv_dist = 1.0 / dist
-        du = Vec3(diff.x * inv_dist, diff.y * inv_dist, diff.z * inv_dist)
+        if ref_vis:
+            du = Vec3(diff.x / dist, diff.y / dist, diff.z / dist)
+        else:
+            inv_dist = 1.0 / dist
+            du = Vec3(diff.x * inv_dist, diff.y * inv_dist, diff.z * inv_dist)
         sgn_cam = du.x * cn.x[None] + du.y * cn.y[None] + du.z * cn.z[None]
         sgn_light = v3.dot(light.normal, -du)
         cos_cam = torch.abs(sgn_cam)
@@ -448,7 +458,7 @@ def connect_paths(scene: SceneTensors, cam: Vertices, light: Vertices,
         pair_ok = pair_ok & (max_t > 0.0)
         so = Vec3(cp.x[None] + 0.001 * du.x, cp.y[None] + 0.001 * du.y,
                   cp.z[None] + 0.001 * du.z)
-        t_vis = max_t * (1.0 - SHADOW_EPS_REL)
+        t_vis = max_t if ref_vis else max_t * (1.0 - SHADOW_EPS_REL)
 
         g = (cos_cam * cos_light) / torch.clamp_min(dist2, 1e-30)
         contrib = Vec3(cam_factor.x[None] * light_factor.x * g,
@@ -508,16 +518,13 @@ def bdpt_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
 
     ``mis`` switches on power-heuristic MIS over the (s, t) strategies
     (not in the reference, which sums all pairs unweighted).
-    ``count_shadow_tests`` adds T triangle tests per pair that reaches the
-    any-hit test to ``tri_tests``, as the megakernel counts them; off, the
-    stats equal ``bpt_tpu``'s wavefront, which leaves them out.  ``plain``
-    walks the BVH in torch on any device (``trace_subpath``).
+    ``ref_vis``: the reference binary's shadow-endpoint artifact
+    (``connect_paths``).  ``count_shadow_tests`` adds T triangle tests per
+    pair that reaches the any-hit test to ``tri_tests``, as the megakernel
+    counts them; off, the stats equal ``bpt_tpu``'s wavefront, which leaves
+    them out.  ``plain`` runs the hits' torch versions on any device.
 
     Returns (radiance [B,3], BDPTStats)."""
-    if ref_vis:
-        raise NotImplementedError(
-            "ref_vis (the reference binary's endpoint artifact) is not yet "
-            "ported to bpt_tpu_torch (ROADMAP §0 step 4)")
     B = origins.shape[0]
     dtype, dev = origins.dtype, origins.device
     o0 = v3.from_array(origins)
@@ -570,7 +577,8 @@ def bdpt_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
     light = _concat_vertices(emitter, traced) if max_depth > 1 else emitter
 
     connect, n_shadow, n_tested = connect_paths(
-        scene, cam, light, mis_c=mis_c, mis_l=mis_l, max_depth=max_depth, plain=plain)
+        scene, cam, light, mis_c=mis_c, mis_l=mis_l, max_depth=max_depth, plain=plain,
+        ref_vis=ref_vis)
     result = Vec3(*(a + c for a, c in zip(result, connect)))
 
     tri_tests = stats_c.tri_tests + stats_l.tri_tests
@@ -589,15 +597,34 @@ def bdpt_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
 
 def bdpt_fast(scene: SceneTensors, origins, dirs, ray_ids, key, max_depth: int,
               mis: bool = False, ref_vis: bool = False, plain: bool = False):
-    """``bpt_tpu.models.bdpt.bdpt_fast``'s jnp branch: ``bdpt_radiance``
-    on the jnp stream (bpt_tpu/models/bdpt.py:1041-1055).  ``key`` is the
-    render key; the camera trace draws from ``fold_in(key, 2)``, the light
-    start from ``fold_in(key, 3)`` (one ``wave_uniforms`` call of NLS
-    draws at bounce 0) and the light trace from ``fold_in(key, 4)``, each
-    keyed by the absolute ray id.  ray_ids [B] int, negative = inactive (a
-    zero radiance; the lane still traces, as in ``bpt_tpu``).
+    """``bpt_tpu.models.bdpt.bdpt_fast`` (bdpt.py:1005-1055): one BDPT
+    sample of each primary ray.  ``key`` is the render key; ray_ids [B]
+    int, negative = inactive (a zero radiance).
+
+    Dispatch: on a CUDA scene the estimators follow ``bpt_tpu``'s TPU
+    dispatch, on a CPU scene its CPU dispatch.  So a CUDA scene that the
+    megakernel takes (``megakernel_reject_reason``) launches
+    ``bdpt_megakernel`` in rays mode on its own stream (streams 2/3/4 fold
+    inside), unless ``ref_vis``; everything else runs the jnp branch,
+    ``bdpt_radiance`` on the jnp stream: the camera trace draws from
+    ``fold_in(key, 2)``, the light start from ``fold_in(key, 3)`` (one
+    ``wave_uniforms`` call of NLS draws at bounce 0) and the light trace
+    from ``fold_in(key, 4)``, each keyed by the absolute ray id (an
+    inactive lane still traces, as in ``bpt_tpu``), its hits on the CUDA
+    hit kernels of a CUDA scene.  ``plain`` keeps those branches and swaps
+    every kernel for its plain version.
 
     Returns (radiance [B,3], BDPTStats)."""
+    from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk  # imports this module
+    from bpt_tpu_torch.ops.kernels.pt_kernel import megakernel_reject_reason
+
+    if (scene.device.type == "cuda" and not ref_vis
+            and not megakernel_reject_reason(scene, "bdpt")):
+        launch = bk.bdpt_megakernel_plain if plain else bk.bdpt_megakernel
+        rx, ry, rz, rays, shadow, extra = launch(
+            scene, Vec3(*origins.unbind(1)), Vec3(*dirs.unbind(1)), ray_ids, key,
+            max_depth, mis=mis)
+        return torch.stack([rx, ry, rz], dim=-1), BDPTStats(rays, shadow, *extra)
     active = ray_ids >= 0
     ids = torch.clamp_min(ray_ids, 0)
     dtype = origins.dtype

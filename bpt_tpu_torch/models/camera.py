@@ -30,6 +30,7 @@ class CameraConstants:
     height: int = 0
     sqrt_spp: int = 1
     defocus: bool = False
+    ref_vis: bool = False  # CameraConfig.ref_vis
 
 
 def camera_constants(cfg: CameraConfig, dtype=torch.float32,
@@ -76,6 +77,7 @@ def camera_constants(cfg: CameraConfig, dtype=torch.float32,
         height=h,
         sqrt_spp=cfg.sqrt_spp,
         defocus=cfg.defocus_angle > 0.0,
+        ref_vis=cfg.ref_vis,
     )
 
 

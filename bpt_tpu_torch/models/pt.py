@@ -9,8 +9,15 @@ bounces (camera.h:273-275).  Randomness enters only through
 ``uniforms_fn(bounce, n) -> n rows of [B]``.
 
 This wavefront is the plain version the CUDA megakernel
-(``ops/kernels/pt_kernel.py``) is held against; it is not a render route
-on the card.
+(``ops/kernels/pt_kernel.py``) is held against, and the render's estimator
+wherever ``path_trace_fast`` takes its jnp branch, its closest hits on the
+CUDA hit kernels of a CUDA scene (``ops.soa.closest_hit``).
+
+Dispatch of ``path_trace_fast`` / ``path_trace_pixels_fast``, as
+``bpt_tpu``'s (models/pt.py:54-131): on a CUDA scene the estimators follow
+``bpt_tpu``'s TPU dispatch, on a CPU scene its CPU dispatch, which is the
+jnp estimators.  ``plain`` keeps the card's branches and swaps every kernel
+for its plain version (only comparisons pass it).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 from bpt_tpu_torch.core import rng
 from bpt_tpu_torch.core import vec3 as v3
 from bpt_tpu_torch.core.vec3 import Vec3
+from bpt_tpu_torch.models.camera import CameraConstants, generate_rays
 from bpt_tpu_torch.ops import shade_soa as sh
 from bpt_tpu_torch.ops import soa
 from bpt_tpu_torch.ops.intersect import T_MIN
@@ -195,3 +203,59 @@ def path_trace_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
     stats = stats._replace(
         rays_traced=stats.rays_traced + alive.sum(dtype=torch.int64))
     return v3.to_array(rad), stats
+
+
+def _megakernel_ok(scene: SceneTensors) -> bool:
+    from bpt_tpu_torch.ops.kernels.pt_kernel import megakernel_reject_reason
+
+    return scene.device.type == "cuda" and not megakernel_reject_reason(scene, "pt")
+
+
+def path_trace_fast(scene: SceneTensors, origins, dirs, ray_ids, key, max_depth: int,
+                    plain: bool = False):
+    """PT radiance of primary rays (bpt_tpu/models/pt.py:54-86).  ray_ids
+    [B] int, negative = inactive (a zero radiance); ``key``: the PT
+    stream's key (the render's ``fold_in(key, 1)``).  A CUDA scene that
+    the megakernel takes launches ``pt_megakernel`` in rays mode (its own
+    threefry stream); every other scene runs ``path_trace_radiance`` on the
+    jnp stream, keyed by the absolute ray id.
+
+    Returns (radiance [B,3], PTStats)."""
+    if _megakernel_ok(scene):
+        from bpt_tpu_torch.ops.kernels import pt_kernel as pk  # imports this module
+
+        launch = pk.pt_megakernel_plain if plain else pk.pt_megakernel
+        rx, ry, rz, rays, extra = launch(scene, Vec3(*origins.unbind(1)),
+                                         Vec3(*dirs.unbind(1)), ray_ids, key, max_depth)
+        return torch.stack([rx, ry, rz], dim=-1), PTStats(rays, *extra)
+    active = ray_ids >= 0
+    rad, stats = path_trace_radiance(
+        scene, origins, dirs, max_depth,
+        default_uniforms_fn(key, torch.clamp_min(ray_ids, 0), origins.dtype), plain=plain)
+    return torch.where(active[:, None], rad, 0.0), stats
+
+
+def path_trace_pixels_fast(scene: SceneTensors, i, j, sx, sy, ray_ids,
+                           cc: CameraConstants, key, max_depth: int, plain: bool = False):
+    """PT radiance of one sample of each pixel (bpt_tpu/models/pt.py:
+    89-131): i, j pixel coordinates, sx, sy stratum indices, ray_ids [B]
+    the absolute sample ids pix*spp + s (negative = inactive); ``key``: the
+    render key.  A CUDA scene that the megakernel takes, without defocus,
+    launches ``pt_megakernel_pixels`` (raygen in the kernel, its jitter
+    stream); otherwise the jnp raygen (``fold_in(key, 0)``) feeds
+    ``path_trace_fast`` on ``fold_in(key, 1)``.  The two routes draw
+    different jitter, as in ``bpt_tpu``.
+
+    Returns (radiance [B,3], PTStats)."""
+    if _megakernel_ok(scene) and not cc.defocus:
+        from bpt_tpu_torch.ops.kernels import pt_kernel as pk  # imports this module
+
+        launch = pk.pt_megakernel_pixels_plain if plain else pk.pt_megakernel_pixels
+        rx, ry, rz, rays, extra = launch(scene, i, j, sx, sy, ray_ids,
+                                         pk.camera_table(cc), key, max_depth)
+        return torch.stack([rx, ry, rz], dim=-1), PTStats(rays, *extra)
+    u_gen = rng.wave_uniforms(rng.fold_in(key, 0), torch.clamp_min(ray_ids, 0), 0, 4,
+                              i.dtype)
+    o, d = generate_rays(cc, i, j, sx, sy, u_gen)
+    return path_trace_fast(scene, o, d, ray_ids, rng.fold_in(key, 1), max_depth,
+                           plain=plain)

@@ -1,19 +1,23 @@
 """Render loop: the chunked fused-megakernel loop of
 ``bpt_tpu.models.render`` for PT and BDPT (render.py:157-224, 759-817),
-and its two large-scene loops: the spp-batched ``pt_wave`` loop for PT
-(render.py:243-368, 665-712) and the jnp-stream BDPT wave loop for bdpt and
-bdpt-mis (render.py:371-497, 713-755).
+the spp-batched ``pt_wave`` loop for PT on large scenes (render.py:243-368,
+665-712), and the stratum loop over the jnp estimators (render.py:76-128,
+371-497, 713-755, 819-867) for everything else: BDPT on large scenes, and
+on small ones defocus, ref_vis, float64, scenes over the megakernels'
+capacity and stratum checkpoints of the jnp stream.
 
-Each chunk of pixels is one ``pt_megakernel_pixels`` call (integrator pt)
-or one ``bdpt_megakernel_pixels`` call (bdpt, bdpt-mis) that runs every
-sample stratum of those pixels; the framebuffer is a running sum, which
-gives free checkpoint/resume at chunk granularity.  A render of a scene
-over 512 triangles instead runs batches of sample strata over the whole
-image, with stratum checkpoints: PT through ``pt_wave``, BDPT through
-``models.bdpt.bdpt_fast``, whose traversals launch the BVH kernels.  Every
+Each chunk of pixels of the fused loop is one ``pt_megakernel_pixels``
+call (integrator pt) or one ``bdpt_megakernel_pixels`` call (bdpt,
+bdpt-mis) that runs every sample stratum of those pixels; the framebuffer
+is a running sum, which gives free checkpoint/resume at chunk granularity.
+The other two loops run batches of sample strata over the whole image,
+with stratum checkpoints: ``pt_wave``, or ``models.pt.path_trace_pixels_
+fast`` / ``models.bdpt.bdpt_fast``, whose dispatch follows ``bpt_tpu``'s
+TPU dispatch on a CUDA scene and its CPU dispatch on a CPU scene.  Every
 draw is keyed by the absolute sample id pix*spp + s, so the image depends
 neither on the chunk size nor on the batch.  On a CUDA scene the loops run
-the CUDA kernels; on a CPU scene they run the kernels' plain versions.
+the CUDA kernels; on a CPU scene they run the kernels' plain versions or
+the jnp estimators.
 """
 
 from __future__ import annotations
@@ -29,16 +33,18 @@ from bpt_tpu_torch.core import rng
 from bpt_tpu_torch.core import vec3 as v3
 from bpt_tpu_torch.models.bdpt import bdpt_fast
 from bpt_tpu_torch.models.camera import camera_constants, generate_rays
+from bpt_tpu_torch.models.pt import path_trace_pixels_fast
 from bpt_tpu_torch.ops.film import to_rgb8
 from bpt_tpu_torch.ops.kernels.bdpt_kernel import MAX_DEPTH, bdpt_megakernel_pixels
 from bpt_tpu_torch.ops.kernels.pt_kernel import (
+    INTEGRATORS,
     MAX_TRIS,
     camera_table,
     megakernel_reject_reason,
     pt_megakernel_pixels,
     shade_reject_reason,
 )
-from bpt_tpu_torch.ops.kernels.pt_wave import pt_wave
+from bpt_tpu_torch.ops.kernels.pt_wave import pt_wave, walk_reject_reason
 from bpt_tpu_torch.scene.types import CameraConfig, SceneTensors
 from bpt_tpu_torch.utils.stats import RenderStats
 
@@ -91,44 +97,52 @@ BYTES_PER_RAY = {False: (0, 470, 160), True: (15, 440, 900)}
 BDPT_WAVE_BYTES = 24 << 30
 
 
-def _uses_wave(scene: SceneTensors, integrator: str) -> bool:
-    """PT on a scene over 512 triangles takes pt_wave at every image size
+def _resume_stream(resume) -> str:
+    """Which RNG stream wrote a stratum-kind checkpoint ("wave": pt_wave's
+    megakernel-parity jitter; "jnp": the stratum loop); "" otherwise."""
+    if _resume_kind(resume) != "stratum":
+        return ""
+    return resume.get("stream", "")
+
+
+def _route(scene: SceneTensors, cfg: CameraConfig, integrator: str, resume) -> str:
+    """bpt_tpu's order (render.py:665-867): ``"wave"`` (PT on a scene over
+    512 triangles through pt_wave), ``"fused"`` (the megakernels' chunk
+    loop), else ``"strata"``, the stratum loop over the jnp estimators.
+
+    pt_wave takes PT on a scene over 512 triangles at every image size
     (bpt_tpu sends such renders under 2^18 pixels to its clustered fused
-    megakernel, which is not ported: ROADMAP §3)."""
-    return integrator == "pt" and scene.num_tris > MAX_TRIS
+    megakernel, which is not ported: ROADMAP §3) unless it is float64,
+    ref_vis, over the shade tables' capacity, or resuming a checkpoint of
+    another loop.  The megakernels take a scene of at most 512 triangles
+    within their capacity, float32, without defocus or ref_vis, starting
+    fresh or resuming a chunk-kind checkpoint.  Everything else, BDPT on
+    a scene over 512 triangles included, runs the stratum loop."""
+    kind = _resume_kind(resume)
+    if (integrator == "pt" and scene.num_tris > MAX_TRIS and not cfg.ref_vis
+            and not shade_reject_reason(scene) and kind in ("", "stratum")
+            and _resume_stream(resume) in ("", "wave")):
+        return "wave"
+    if (cfg.defocus_angle <= 0.0 and not cfg.ref_vis and kind in ("", "chunk")
+            and not megakernel_reject_reason(scene, integrator)):
+        return "fused"
+    return "strata"
 
 
-def _uses_bdpt_wave(scene: SceneTensors, integrator: str) -> bool:
-    """BDPT on a scene over 512 triangles takes the jnp-stream wave loop at
-    every image size and depth (bpt_tpu sends such renders under 2^18
-    samples or past depth 32 to its clustered fused megakernel, which is not
-    ported: ROADMAP §3)."""
-    return integrator in ("bdpt", "bdpt-mis") and scene.num_tris > MAX_TRIS
-
-
-def _bdpt_wave_reject_reason(scene: SceneTensors) -> str:
-    if scene.device.type == "cuda":
-        return shade_reject_reason(scene)  # the BVH kernels' tables
+def _reject_reason(scene: SceneTensors, cfg: CameraConfig, integrator: str,
+                   route: str) -> str:
+    if integrator not in INTEGRATORS:
+        return f"unknown integrator {integrator!r} (not one of {', '.join(INTEGRATORS)})"
+    if integrator != "pt" and not 1 <= cfg.max_depth <= MAX_DEPTH:
+        return (f"BDPT max_depth {cfg.max_depth} outside 1..{MAX_DEPTH}, the "
+                "CUDA kernel's vertex-scratch bound")
+    if route != "strata":
+        return ""  # the route was chosen because its kernels take the scene
     if scene.num_volumes or scene.has_textures:
         return "scene has volumes or textures (not yet ported: ROADMAP §1 item 8)"
+    if scene.device.type == "cuda" and scene.use_bvh:
+        return walk_reject_reason(scene)
     return ""
-
-
-def _reject_reason(scene: SceneTensors, cfg: CameraConfig, integrator: str) -> str:
-    bdpt_wave = _uses_bdpt_wave(scene, integrator)
-    if _uses_wave(scene, integrator):
-        reason = shade_reject_reason(scene)
-    elif bdpt_wave:
-        reason = _bdpt_wave_reject_reason(scene)
-    else:
-        reason = megakernel_reject_reason(scene, integrator)
-    if not reason and integrator != "pt" and not 1 <= cfg.max_depth <= MAX_DEPTH:
-        reason = (f"BDPT max_depth {cfg.max_depth} outside 1..{MAX_DEPTH}, the "
-                  "CUDA kernel's vertex-scratch bound")
-    if not reason and cfg.defocus_angle > 0.0 and not bdpt_wave:
-        reason = ("defocus camera (only the large-scene BDPT route draws the "
-                  "disk yet: ROADMAP §0 step 2)")
-    return reason
 
 
 def _bdpt_wave_shape(npix: int, spp_eff: int, depth: int, mis: bool) -> tuple[int, int]:
@@ -196,7 +210,9 @@ def _render_chunks(scene, cfg, cc, integrator, seed, fb, chunk_size,
 def _render_wave(scene, cfg, cc, seed, fb, strata_done, bar, stratum_callback):
     """bpt_tpu's pt_wave loop (render.py:665-712 over _make_step_pt_wave):
     batches of strata over the whole image, each one pt_wave call, added
-    to the framebuffer in stratum order.  Returns (rays, extra int64[4])."""
+    to the framebuffer in stratum order; the primary rays' jitter (and the
+    defocus disk's draws) on the megakernel's stream.  Returns (rays,
+    extra int64[4])."""
     dev, dtype = scene.device, scene.dtype
     W, H = cc.width, cc.height
     npix = W * H
@@ -215,10 +231,13 @@ def _render_wave(scene, cfg, cc, seed, fb, strata_done, bar, stratum_callback):
         j = (pix // W).to(dtype).repeat(b)
         s = s_lin + torch.arange(b, device=dev).repeat_interleave(npix)
         ray_ids = pix.repeat(b) * spp_eff + s
-        u0, u1 = rng.raygen_jitter(key, ray_ids)
-        zero = torch.zeros_like(u0)
+        if cc.defocus:  # the disk pair: a second threefry call
+            u = rng.raygen_jitter(key, ray_ids, defocus=True)
+        else:
+            u0, u1 = rng.raygen_jitter(key, ray_ids)
+            u = (u0, u1, torch.zeros_like(u0), torch.zeros_like(u0))
         o3, d3 = generate_rays(cc, i, j, (s % S).to(dtype), (s // S).to(dtype),
-                               torch.stack([u0, u1, zero, zero], -1).to(dtype))
+                               torch.stack(u, -1).to(dtype))
         rx, ry, rz, r, e = pt_wave(scene, v3.from_array(o3), v3.from_array(d3),
                                    ray_ids.to(torch.int32), key_pt, cfg.max_depth)
         rad = torch.stack([rx, ry, rz], dim=-1).to(dtype).reshape(b, npix, 3)
@@ -252,23 +271,33 @@ def jnp_raygen(cc, pix, s, key, dtype):
     return o, d, ray_ids
 
 
-def _render_bdpt_wave(scene, cfg, cc, integrator, seed, fb, strata_done, bar,
-                      stratum_callback, plain: bool = False):
-    """bpt_tpu's large-scene BDPT loop (render.py:713-755 over
-    _make_step_bdpt_wave): waves of whole strata of the image, or of pixel
-    ranges of one stratum where a stratum is over the memory budget, each
-    one ``bdpt_fast`` call on the jnp stream after ``jnp_raygen``; every
-    pixel adds its strata in stratum order.  ``plain`` walks
-    the BVH in torch, for comparisons on the card.  Returns (rays, shadow
-    rays, extra int64[4])."""
+def _render_strata(scene, cfg, cc, integrator, seed, fb, strata_done, bar,
+                   stratum_callback, plain: bool = False):
+    """bpt_tpu's jnp stratum loop (render.py:819-867 over _make_step) and
+    its large-scene BDPT twin (render.py:713-755 over
+    _make_step_bdpt_wave), one loop: waves of whole strata of the image,
+    or of pixel ranges of one stratum where a stratum is over the memory
+    budget.  A PT wave (at most 2^22 rays, ``_wave_spp_batch``) is one
+    ``path_trace_pixels_fast`` call; a BDPT wave (``_bdpt_wave_shape``) is
+    ``jnp_raygen`` and one ``bdpt_fast`` call.  Every draw is keyed by the
+    absolute sample id and every pixel adds its strata in stratum order, so
+    the image does not depend on the waves.  Writes stratum-kind
+    checkpoints of the "jnp" stream.  ``plain`` runs the kernels' plain
+    versions on the card, for comparisons.  Returns (rays, shadow rays,
+    extra int64[4])."""
     dev, dtype = scene.device, scene.dtype
     W, H = cc.width, cc.height
     npix = W * H
     S = cfg.sqrt_spp
     spp_eff = S * S
-    batch, span = _bdpt_wave_shape(npix, spp_eff, cfg.max_depth, integrator == "bdpt-mis")
+    if integrator == "pt":
+        batch, span = _wave_spp_batch(npix, spp_eff), npix
+    else:
+        batch, span = _bdpt_wave_shape(npix, spp_eff, cfg.max_depth,
+                                       integrator == "bdpt-mis")
     key = rng.prng_key(seed)
     acc = torch.zeros(6, dtype=torch.int64, device=dev)
+    no_shadow = torch.zeros((), dtype=torch.int64, device=dev)
     s_lin = strata_done
     while s_lin < spp_eff:
         b = min(batch, spp_eff - s_lin)
@@ -276,10 +305,18 @@ def _render_bdpt_wave(scene, cfg, cc, integrator, seed, fb, strata_done, bar,
             n = min(span, npix - p0)
             pix = (p0 + torch.arange(n, dtype=torch.int64, device=dev)).repeat(b)
             s = s_lin + torch.arange(b, device=dev).repeat_interleave(n)
-            o, d, ray_ids = jnp_raygen(cc, pix, s, key, dtype)
-            rad, st = bdpt_fast(scene, o, d, ray_ids, key, cfg.max_depth,
-                                mis=integrator == "bdpt-mis", plain=plain)
-            rad = rad.reshape(b, n, 3)
+            if integrator == "pt":
+                rad, st = path_trace_pixels_fast(
+                    scene, (pix % W).to(dtype), (pix // W).to(dtype), (s % S).to(dtype),
+                    (s // S).to(dtype), pix * spp_eff + s, cc, key, cfg.max_depth,
+                    plain=plain)
+                st = (st.rays_traced, no_shadow, *st[1:])
+            else:
+                o, d, ray_ids = jnp_raygen(cc, pix, s, key, dtype)
+                rad, st = bdpt_fast(scene, o, d, ray_ids, key, cfg.max_depth,
+                                    mis=integrator == "bdpt-mis", ref_vis=cfg.ref_vis,
+                                    plain=plain)
+            rad = rad.to(dtype).reshape(b, n, 3)
             for k in range(b):  # stratum-order left fold
                 fb[p0:p0 + n] += rad[k]
             acc += torch.stack(list(st))
@@ -306,22 +343,22 @@ def render(
     stratum_callback=None,
 ) -> RenderResult:
     """camera::render (src/camera.h:43-145) minus the PNG write, for PT,
-    BDPT and BDPT-MIS on the fused megakernels, and on large scenes for PT
-    through pt_wave and for BDPT through the jnp-stream wave loop, on the
-    scene's device.
+    BDPT and BDPT-MIS on the scene's device, through the route ``_route``
+    picks: the fused megakernels, pt_wave, or the stratum loop over the jnp
+    estimators (``_render_strata``).
 
     ``resume``: optional checkpoint dict (framebuffer_sum, units_done and
-    chunk_size of a chunk-kind one, or strata_done of a stratum-kind one
-    written by a wave loop: stream "wave" for pt_wave, "jnp" for BDPT, as
-    ``bpt_tpu``'s loops write them) to continue an interrupted render.
-    ``stratum_callback(state_dict)`` fires after each completed chunk or
-    batch of strata — the checkpoint hook (the name is ``bpt_tpu``'s)."""
+    chunk_size of a chunk-kind one, which the fused loop writes and
+    resumes, or strata_done of a stratum-kind one: stream "wave" for
+    pt_wave, "jnp" for the stratum loop, as ``bpt_tpu``'s loops write them)
+    to continue an interrupted render.  ``stratum_callback(state_dict)``
+    fires after each completed chunk or batch of strata — the checkpoint
+    hook (the name is ``bpt_tpu``'s)."""
     integrator = integrator or cfg.integrator
-    reason = _reject_reason(scene, cfg, integrator)
+    route = _route(scene, cfg, integrator, resume)
+    reason = _reject_reason(scene, cfg, integrator, route)
     if reason:
         raise NotImplementedError(f"bpt_tpu_torch cannot render this: {reason}")
-    wave = _uses_wave(scene, integrator)
-    bdpt_wave = _uses_bdpt_wave(scene, integrator)
 
     dev = scene.device
     cc = camera_constants(cfg, scene.dtype, dev)
@@ -336,27 +373,27 @@ def render(
 
     chunks_done = strata_done = 0
     kind = _resume_kind(resume)
-    if (wave or bdpt_wave) and kind:
-        stream = "wave" if wave else "jnp"
-        if kind != "stratum" or resume.get("stream", "") not in ("", stream):
-            raise ValueError(
-                f"a {kind}-kind checkpoint (stream {resume.get('stream', '')!r}) "
-                f"cannot resume the {'pt_wave' if wave else 'BDPT wave'} loop, "
-                f"which writes stratum-kind checkpoints of the {stream} stream")
-        strata_done = int(resume.get("units_done", resume.get("strata_done", 0)))
-    elif kind == "chunk":
-        chunks_done = int(resume.get("units_done", resume.get("strata_done", 0)))
+    done = int(resume.get("units_done", resume.get("strata_done", 0))) if kind else 0
+    if route == "fused" and kind == "chunk":
+        chunks_done = done
         ck = int(resume.get("chunk_size", 0))
         if ck and ck != chunk_size:
             raise ValueError(
                 f"chunk-kind checkpoint was written with chunk_size={ck} "
                 f"but this run would use {chunk_size}; pass "
                 f"chunk_size={ck} to resume it")
-    elif kind:
+    elif route == "strata" and kind == "chunk":  # bpt_tpu's words (render.py:819-828)
         raise ValueError(
-            f"a {kind}-kind checkpoint cannot resume the fused chunk loop of a "
-            "scene of at most 512 triangles (bpt_tpu's jnp stratum loop for "
-            "such scenes is not ported yet: ROADMAP §0 step 2)")
+            "chunk-kind checkpoint can only resume on the fused megakernel "
+            "path (same backend/scene/config as the run that wrote it)")
+    elif route == "strata" and _resume_stream(resume) == "wave":
+        raise ValueError(
+            "stratum checkpoint was written by the pt_wave/fused-parity RNG "
+            "stream but this run would continue it on the jnp wavefront "
+            "(different jitter stream; it writes checkpoints of the jnp stream) "
+            "— resume on the configuration that wrote it, or restart")
+    else:
+        strata_done = done
     if resume:
         # a copy: the loop adds into fb in place
         fb = torch.tensor(np.asarray(resume["framebuffer_sum"]).reshape(npix, 3),
@@ -368,18 +405,18 @@ def render(
     if progress:
         from bpt_tpu_torch.utils.progress import ProgressBar
 
-        bar = ProgressBar(spp_eff - strata_done if wave or bdpt_wave
-                          else n_chunks - chunks_done)
+        bar = ProgressBar(n_chunks - chunks_done if route == "fused"
+                          else spp_eff - strata_done)
 
     stats = RenderStats()
     stats.bvh_nodes_built = int(scene.bvh_skip.shape[0]) if scene.use_bvh else 0
     t0 = time.monotonic()
     shadow_acc = 0
-    if wave:
+    if route == "wave":
         rays_acc, extra_acc = _render_wave(scene, cfg, cc, seed, fb, strata_done,
                                            bar, stratum_callback)
-    elif bdpt_wave:
-        rays_acc, shadow_acc, extra_acc = _render_bdpt_wave(
+    elif route == "strata":
+        rays_acc, shadow_acc, extra_acc = _render_strata(
             scene, cfg, cc, integrator, seed, fb, strata_done, bar, stratum_callback)
     else:
         rays_acc, shadow_acc, extra_acc = _render_chunks(

@@ -45,6 +45,9 @@ _I = ctypes.c_int
 #             counters, stream)
 # bpt_pt_wave_bounce(B, N, L, bounce, nodes, tris, mat_id, mat, lgt, keys,
 #                    state_in, rid, hit_t, hit_tri, state_out, counters, stream)
+# bpt_closest_tri(f64, B, T, tri, ox, oy, oz, dx, dy, dz, tmin, tmax,
+#                 t, tri_out, u, v, stream)
+# bpt_any_tri(f64, B, T, tri, ox, oy, oz, dx, dy, dz, tmin, tmax, hit, stream)
 _SIGNATURES = {
     "bpt_pt_megakernel": ([_I] * 7 + [_P] * 5 + [_P] * 6 + [_P] * 2
                           + [_P] * 4 + [_P], _I),
@@ -53,6 +56,8 @@ _SIGNATURES = {
     "bpt_closest_bvh": ([_I] * 2 + [_P] * 2 + [_P] * 7 + [_P] * 4 + [_P] * 2, _I),
     "bpt_any_bvh": ([_I] * 2 + [_P] * 2 + [_P] * 7 + [_P] * 2 + [_P], _I),
     "bpt_pt_wave_bounce": ([_I] * 4 + [_P] * 6 + [_P] * 5 + [_P] * 2, _I),
+    "bpt_closest_tri": ([_I] * 3 + [_P] + [_P] * 8 + [_P] * 4 + [_P], _I),
+    "bpt_any_tri": ([_I] * 3 + [_P] + [_P] * 8 + [_P] + [_P], _I),
     "bpt_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

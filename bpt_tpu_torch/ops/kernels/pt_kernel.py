@@ -63,7 +63,7 @@ def shade_reject_reason(scene: SceneTensors) -> str:
         return "scene has volumes (not yet in the CUDA kernels: ROADMAP §1 item 8)"
     if scene.dtype != torch.float32:
         return (f"dtype {scene.dtype} != float32 (the CUDA kernels take "
-                "float32; f64 renders on the jnp route: ROADMAP §0 step 2)")
+                "float32; render() takes float64 through the stratum loop)")
     if scene.has_textures:
         return "scene has textures (not yet ported: ROADMAP §1 item 8)"
     return ""

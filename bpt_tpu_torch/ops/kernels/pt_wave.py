@@ -107,6 +107,15 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def walk_reject_reason(scene: SceneTensors) -> str:
+    """Why the BVH hit kernels cannot take ``scene`` ('' if they can):
+    they read only the walk's tables, in float32."""
+    if scene.dtype != torch.float32:
+        return (f"dtype {scene.dtype} != float32 (the BVH hit kernels take float32; "
+                "float64 on a scene with a BVH on the card: ROADMAP §0 step 8)")
+    return ""
+
+
 # ---------------------------------------------------------- closest hit
 
 
@@ -130,7 +139,7 @@ def closest_bvh(scene: SceneTensors, o: Vec3, d: Vec3, active):
     dev = _device_of(active)
     if dev.type == "cpu":
         return closest_bvh_plain(scene, o, d, active)
-    reason = shade_reject_reason(scene)
+    reason = walk_reject_reason(scene)
     if reason:
         raise ValueError(f"closest_bvh cannot take this scene: {reason}")
     if scene.device != dev:
@@ -178,7 +187,7 @@ def any_bvh(scene: SceneTensors, o: Vec3, d: Vec3, tmax):
     dev = _device_of(tmax)
     if dev.type == "cpu":
         return any_bvh_plain(scene, o, d, tmax)
-    reason = shade_reject_reason(scene)
+    reason = walk_reject_reason(scene)
     if reason:
         raise ValueError(f"any_bvh cannot take this scene: {reason}")
     if scene.device != dev:

@@ -6,8 +6,10 @@ loads with its OBJ meshes and camera.  ``--device`` picks where the render
 runs: ``cuda`` (the default) launches the CUDA kernels, ``cpu`` runs their
 plain PyTorch versions.  Every scene renders with pt, bdpt and bdpt-mis:
 the coffee stand-in's YAML (91,540 triangles) with its own BDPT default.
-What the port lacks (textures, volumes, ``--f64``) exits non-zero with a
-"not yet ported" message naming its ROADMAP item.
+``--f64`` renders the preset or YAML scene in float64, as ``bpt_tpu``'s
+CLI does, through the stratum loop (on the card, a scene without a BVH
+only: ROADMAP §0 step 8).  What the port lacks (textures, volumes) exits
+non-zero with a "not yet ported" message naming its ROADMAP item.
 
 Usage:
     python -m bpt_tpu_torch.render [scene.yaml] [--spp N] [--size WxH]
@@ -37,8 +39,7 @@ def main(argv=None):
     ap.add_argument("--chunk-size", type=int, default=None)
     ap.add_argument("--checkpoint", type=str, default=None,
                     help="npz path for save/resume")
-    ap.add_argument("--f64", action="store_true",
-                    help="double precision (not yet ported)")
+    ap.add_argument("--f64", action="store_true", help="double precision")
     ap.add_argument("--no-progress", action="store_true")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where to render: the CUDA kernel or its plain "
@@ -51,10 +52,7 @@ def main(argv=None):
         print("bpt_tpu_torch: CUDA is not available; pass --device cpu to "
               "render with the kernel's plain PyTorch version", file=sys.stderr)
         return 2
-    if args.f64:
-        print("bpt_tpu_torch: --f64 is not yet ported (ROADMAP §0 step 2)",
-              file=sys.stderr)
-        return 1
+    dtype = torch.float64 if args.f64 else torch.float32
 
     from bpt_tpu_torch.models.render import render
     from bpt_tpu_torch.scene.presets import cornell_box, cornell_box_camera
@@ -84,14 +82,14 @@ def main(argv=None):
         from bpt_tpu_torch.scene.loader import load_scene_from_yaml
 
         try:
-            loaded = load_scene_from_yaml(args.scene, device=args.device)
+            loaded = load_scene_from_yaml(args.scene, dtype=dtype, device=args.device)
         except Exception as ex:  # the reference prints and exits 1
             print(f"Failed to load scene: {ex}", file=sys.stderr)
             return 1
         scene = loaded.scene
         cfg = dataclasses.replace(loaded.camera, **overrides)
     else:
-        scene = cornell_box(dtype=torch.float32, device=args.device)
+        scene = cornell_box(dtype=dtype, device=args.device)
         cfg = dataclasses.replace(cornell_box_camera(), **overrides)
 
     resume = None

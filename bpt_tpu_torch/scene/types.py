@@ -165,6 +165,9 @@ class CameraConfig:
     focus_dist: float = 10.0
     file_name: str = "image.png"
     integrator: str = "bdpt"  # reference de-facto default (camera.h:245-253)
+    # BDPT's emulation of the reference binary's shadow-endpoint artifact
+    # (models.bdpt.connect_paths; bpt_tpu/scene/types.py:217)
+    ref_vis: bool = False
 
     @property
     def image_height(self) -> int:

@@ -100,6 +100,36 @@
    plain versions and timed at the main path's own shapes.  Writes
    output/chip_smoke_coffee_bdpt{-mis,}.png.
 
+11. closest_tri / any_tri (the brute-force hits of a scene without a
+   BVH) against their plain versions (ops.soa.brute_closest / brute_any)
+   on 65,613 random rays with per-lane [tmin, tmax] (one lane in five
+   dead, one in seven to inf) in the cornell box and in a 256-triangle
+   soup, in float32 and float64: triangle and any-answer exact, t, u, v
+   within 1e-6.
+12. The ref_vis BDPT main path: render() of the cornell box with bdpt and
+   ref_vis at 256x256, 64 spp, depth 10, seed 0 (the reference binary's
+   own configuration, tests/test_ref_rmse.py) — one warm-up and three
+   timed renders through the stratum loop: closest_tri must launch 19 and
+   any_tri 10 times a wave, nothing else launch and no plain version run;
+   the images bitwise equal, their 8x8-downsampled RMSE against the
+   binary's PNG under bpt_tpu's bound 0.045; peak device memory printed.
+   On every 257th pixel x 64 strata the card's rays within 0.1% of
+   bpt_tpu's CPU route (tools/cornell_reference_rays_refvis.py) and its
+   shadow rays within 1% of the port's plain route on this machine's CPU
+   (bpt_tpu's, decided by XLA's contracted arithmetic at the endpoint
+   ties, printed with the gap).  Both kernels held against their plain
+   versions at the main path's shapes (camera bounce 1, the shadow wave of
+   camera vertex 1) on their first 2^20 lanes and timed at the full
+   shapes; the route at 64x64, 16 spp bitwise equal to its plain=True
+   twin, counters included.  Writes output/chip_smoke_cornell_ref_vis.png.
+13. Defocus on the card: the cornell box at 512x512, 16 spp, depth 10,
+   defocus angle 1 focused at the room's centre, with pt and with bdpt —
+   one warm-up and three timed renders each through the stratum loop,
+   launching pt_megakernel / bdpt_megakernel in rays mode only, no plain
+   version; walls and Mrays/s printed.
+14. The CLI's --f64 (64x64, 4 spp; its BDPT default) in this process:
+   exit 0, the float64 closest_tri / any_tri launched, no plain version.
+
 Each phase prints its seconds, and the script its total.  The second-to-last line is a JSON object
 describing the kernels, each with its bound: the larger of the bytes it
 must move over 3.35 TB/s and its FP32 operations (from its counters) over
@@ -142,6 +172,17 @@ CPU_BVH_COFFEE_SUBSET, CPU_PALLAS_COFFEE_SUBSET = 44_024, 42_887
 CPU_COFFEE_BDPT_SUBSET = {"bdpt-mis": (16_447, 2_623), "bdpt": (16_447, 3_155)}
 CPU_PLAIN_COFFEE_BDPT_SHADOW = {"bdpt-mis": 2_627, "bdpt": 3_064}
 TPU_BENCH_COFFEE_BDPT_MIS = (4_294_700, 695_189)
+# the reference binary's own BDPT configuration (tests/test_ref_rmse.py:
+# 88-94): cornell 256x256 / 64 spp / d10 / seed 0 with ref_vis, through the
+# stratum loop and the brute-force hit kernels.  Its image is held within
+# bpt_tpu's own bound (test_ref_rmse.py:107) of the binary's PNG; every
+# 257th pixel x 64 strata on a CPU (tools/cornell_reference_rays_refvis.py):
+# bpt_tpu's route there (rays, shadow rays, mean radiance) and the port's
+# plain route's shadow rays
+REF_BDPT_PNG = "tests/golden/ref_binary/ref_bdpt_256_64.png"
+REF_RMSE_BOUND = 0.045
+CPU_REFVIS_SUBSET = (169_385, 109_805, 0.186788)
+CPU_PLAIN_REFVIS_SHADOW = 106_309
 EXPECTED_RAYS = 11_506_161  # bpt_tpu fused kernel, interpret mode on a CPU
 TPU_BENCH_RAYS = 11_497_620  # BENCH_r02..r04.json; printed, not checked
 # cornell 512x512 / 16 spp / d10 / seed 0: rays, shadow rays.  The TPU
@@ -245,6 +286,88 @@ def any_bytes(tmax) -> int:
     reads its tmax and writes its answer byte; a live lane (tmax > 0) also
     reads its origin and direction."""
     return int(tmax.shape[0]) * (4 + 1) + int((tmax > 0).sum()) * 6 * 4
+
+
+def tri_soup(n, seed, dev, dtype):
+    """n random triangles in the cornell box's bounds under a quad light
+    of the box's size: n + 2 triangles, no BVH up to n = 254."""
+    import numpy as np
+
+    from bpt_tpu_torch.scene.builder import MaterialSpec as MS, SceneBuilder
+
+    g = np.random.default_rng(seed)
+    b = SceneBuilder()
+    for _ in range(n):
+        p = g.uniform(0, 555, 3)
+        b.add_triangle(tuple(p), tuple(p + g.normal(0, 60, 3)), tuple(p + g.normal(0, 60, 3)),
+                       MS.lambertian((0.7, 0.7, 0.7)))
+    b.add_quad((0, 555, 0), (555, 0, 0), (0, 0, 555), MS.diffuse_light((4, 4, 4)))
+    return b.build(device=dev, dtype=dtype)
+
+
+def tri_lanes(B, seed, dev, dtype):
+    """Random rays in the cornell box with per-lane [tmin, tmax]: one lane
+    in five dead (tmax < tmin), one in seven running to inf."""
+    import numpy as np
+    import torch
+
+    from bpt_tpu_torch.core.vec3 import Vec3
+
+    g = np.random.default_rng(seed)
+    o = torch.from_numpy(g.uniform(50, 500, (B, 3))).to(dev, dtype)
+    d = torch.from_numpy(g.normal(size=(B, 3))).to(dev, dtype)
+    tmin = torch.from_numpy(g.uniform(0.0, 50.0, B)).to(dev, dtype)
+    tmax = tmin + torch.from_numpy(g.uniform(-200.0, 900.0, B)).to(dev, dtype)
+    tmax[::7] = torch.inf
+    return Vec3(*o.unbind(1)), Vec3(*d.unbind(1)), tmin, tmax
+
+
+def compare_tri(name, scene, o, d, tmin, tmax, card):
+    """closest_tri / any_tri against their plain versions on the same
+    lanes: hit, triangle and any-answer must be equal, t, u, v within 1e-6.
+    Returns (max abs err of t, u, v on hits; share of lanes equal)."""
+    import torch
+
+    from bpt_tpu_torch.ops.kernels import intersect as ki
+
+    kout = ki.closest_tri(scene, o, d, tmin, tmax)
+    pout = ki.closest_tri_plain(scene, o, d, tmin, tmax)
+    hit_k = ki.any_tri(scene, o, d, tmin, tmax)
+    hit_p = ki.any_tri_plain(scene, o, d, tmin, tmax)
+    torch.cuda.synchronize()
+    hit = pout[1] >= 0
+    same = (kout[1] == pout[1]) & (hit_k == hit_p)
+    err = max(float((k - p)[hit].abs().max()) if bool(hit.any()) else 0.0
+              for k, p in zip(kout[0:1] + kout[2:], pout[0:1] + pout[2:]))
+    B, live = int(hit.shape[0]), int((tmin <= tmax).sum())
+    print(f"{name}: B={B} ({live} live), closest hits {int(hit.sum())}, any hits "
+          f"{int(hit_p.sum())}; tri and any-answer equal on "
+          f"{float(same.double().mean()) * 100:.4f}% of lanes; t, u, v max abs err {err:.3e}; "
+          f"misses t = inf {bool(kout[0][~hit].isinf().all())} ({card})")
+    check(bool(same.all()), f"{name}: tri or any-answer differ from the plain versions")
+    check(torch.equal(kout[0][~hit], pout[0][~hit]), f"{name}: a miss's t differs")
+    check(err <= 1e-6, f"{name}: t, u, v differ by {err:.3e}")
+    return err, float(same.double().mean())
+
+
+def any_tests(scene, o, d, tmin, tmax, chunk=1 << 21) -> int:
+    """Möller–Trumbore tests ``any_tri`` runs on these lanes: a live lane
+    stops at its first hit (index + 1 tests), a lane without a hit tests
+    every triangle, a dead lane none."""
+    import torch
+
+    from bpt_tpu_torch.ops import soa
+
+    T, n = scene.num_tris, 0
+    idx = torch.arange(1, T + 1, device=tmin.device)[:, None]
+    for k in range(0, int(tmin.shape[0]), chunk):
+        sl = slice(k, k + chunk)
+        oc, dc = (type(o)(*(c[sl] for c in v)) for v in (o, d))
+        det, t, u, v = soa._mt_all(scene.v0, scene.e1, scene.e2, oc, dc)
+        ok = soa._mt_valid(det, t, u, v, tmin[sl][None], tmax[sl][None])
+        first = torch.where(ok, idx, T).amin(dim=0)
+        n += int(torch.where(tmin[sl] <= tmax[sl], first, 0).sum())
+    return n
 
 
 def coffee_builder():
@@ -821,7 +944,7 @@ def main() -> int:
     lap("phase 8")
 
     # ---- phase 9: the large-scene BDPT route against its plain traversals
-    from bpt_tpu_torch.models.render import _bdpt_wave_shape, _render_bdpt_wave
+    from bpt_tpu_torch.models.render import _bdpt_wave_shape, _render_strata
 
     cfg9 = coffee_camera(width=32, spp=4, depth=6, integrator="bdpt-mis")
     cc9 = camera_constants(cfg9, torch.float32, dev)
@@ -831,7 +954,7 @@ def main() -> int:
             fn.calls = 0
         pw.closest_bvh.launches = pw.any_bvh.launches = 0
         fb9 = torch.zeros((32 * 32, 3), device=dev)
-        (r9, sh9, ex9), ms9 = timed(lambda: _render_bdpt_wave(
+        (r9, sh9, ex9), ms9 = timed(lambda: _render_strata(
             coffee, cfg9, cc9, "bdpt-mis", 0, fb9, 0, None, None, plain=plain))
         launched = pw.closest_bvh.launches + pw.any_bvh.launches
         walks = soa.bvh_closest.calls + soa.bvh_any.calls
@@ -978,6 +1101,239 @@ def main() -> int:
     del main_shadow, o_w, d_w, t_w, hit_k, hit_p
     lap("phase 10")
 
+    # ---- phase 11: closest_tri / any_tri vs brute_closest / brute_any
+    from bpt_tpu_torch.ops.kernels import intersect as ki
+
+    tri_err, tri_frac = 0.0, 1.0
+    for dtype in (torch.float32, torch.float64):
+        for sc_name, sc in (("cornell", cornell_box(device=dev, dtype=dtype)),
+                            ("256-triangle soup", tri_soup(254, 3, dev, dtype))):
+            check(not sc.use_bvh and sc.dtype == dtype, f"{sc_name}: {sc.num_tris} tris")
+            e, f = compare_tri(f"phase 11: closest_tri / any_tri {sc_name} {dtype}", sc,
+                               *tri_lanes(65_536 + 77, 5, dev, dtype), card)
+            tri_err, tri_frac = max(tri_err, e), min(tri_frac, f)
+    lap("phase 11")
+
+    # ---- phase 12: the ref_vis BDPT main path, 256x256 / 64 spp / depth 10
+    from bpt_tpu_torch.models.render import _wave_spp_batch
+    from bpt_tpu_torch.ops.intersect import T_MIN
+    from bpt_tpu_torch.utils.png import read_png
+
+    tri_kernels = (ki.closest_tri, ki.any_tri)
+    tri_plains = (ki.closest_tri_plain, ki.any_tri_plain)
+    everything = (*launchers, pw.closest_bvh, pw.any_bvh)
+    all_plains = (*plains, *tri_plains)
+    cfg12 = dataclasses.replace(cornell_box_camera(), image_width=256, samples_per_pixel=64,
+                                max_depth=depth, integrator="bdpt", ref_vis=True)
+    t0 = time.monotonic()
+    with capture(soa, "closest_hit", keep={1}) as cl, capture(soa, "any_hit", keep={1}) as an:
+        render(scene, cfg12, seed=0)  # warm-up; records camera bounce 1 and its shadow wave
+    warm = time.monotonic() - t0
+    main_closest, main_shadow = cl[1], an[1]
+    strata, span = _bdpt_wave_shape(256 * 256, 64, depth, False)
+    waves = math.ceil(64 / strata) * math.ceil(256 * 256 / span)
+    for fn in all_plains:
+        fn.calls = 0
+    for fn in (*everything, *tri_kernels):
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    results = [render(scene, cfg12, seed=0) for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated(dev)
+    tri_launches = [fn.launches for fn in tri_kernels]
+    n_plain = sum(fn.calls for fn in all_plains)
+    n_other = sum(fn.launches for fn in everything)
+    check(tri_launches == [3 * waves * (2 * depth - 1), 3 * waves * depth],
+          f"ref_vis main path: {tri_launches} closest_tri / any_tri launches in 3 renders of "
+          f"{waves} waves")
+    check(n_plain == 0 and n_other == 0,
+          f"ref_vis main path: {n_plain} plain calls, {n_other} other kernel launches")
+    walls = [r.stats.wall_seconds for r in results]
+    wall = statistics.median(walls)
+    res = results[0]
+    st, fb = res.stats, res.framebuffer_sum
+    check(fb.shape == (256, 256, 3) and bool(np.isfinite(fb).all()) and float(fb.mean()) > 0,
+          "ref_vis main path: framebuffer not finite, black or misshapen")
+    check(all(np.array_equal(r.framebuffer_sum, fb) for r in results[1:]),
+          "ref_vis main path: renders with the same seed differ")
+
+    def down(img, f=8):
+        h, w, c = img.shape
+        return img.reshape(h // f, f, w // f, f, c).mean((1, 3))
+
+    gold = read_png(REF_BDPT_PNG).astype(np.float64) / 255.0
+    ours = res.rgb8().astype(np.float64) / 255.0
+    rmse = float(np.sqrt(np.mean((down(ours) - down(gold)) ** 2)))
+    check(rmse < REF_RMSE_BOUND, f"ref_vis main path: downsampled RMSE {rmse:.4f} against the "
+          f"reference binary's image, bound {REF_RMSE_BOUND}")
+    path = write_png("chip_smoke_cornell_ref_vis.png", res.rgb8(), output_dir="output")
+    # every 257th pixel x 64 strata, on the card and by the port's plain route on a CPU
+    cc12 = camera_constants(cfg12, torch.float32, dev)
+    sub_pix = torch.arange(0, 256 * 256, 257).repeat(64)
+    sub_s = torch.arange(64).repeat_interleave(sub_pix.numel() // 64)
+    sub = {}
+    for where, sc in (("card", scene), ("cpu", cornell_box(device="cpu"))):
+        cc_w = cc12 if where == "card" else camera_constants(cfg12, torch.float32, "cpu")
+        o_u, d_u, ids_u = jnp_raygen(cc_w, sub_pix.to(sc.device), sub_s.to(sc.device), key,
+                                     torch.float32)
+        rad_u, st_u = bdpt_fast(sc, o_u, d_u, ids_u, key, depth, ref_vis=True)
+        sub[where] = (int(st_u.rays_traced), int(st_u.shadow_rays), float(rad_u.mean()))
+    ray_gap = (sub["card"][0] - CPU_REFVIS_SUBSET[0]) / CPU_REFVIS_SUBSET[0] * 100
+    sh_gap = (sub["card"][1] - sub["cpu"][1]) / sub["cpu"][1] * 100
+    print(f"phase 12: render cornell bdpt ref_vis 256x256 64 spp depth {depth} seed 0: warm-up "
+          f"{warm:.3f} s, walls {[round(w, 6) for w in walls]} s, median {wall:.6f} s, "
+          f"{st.rays_traced / wall / 1e6:.3f} Mrays/s on rays_traced "
+          f"({st.total_rays / wall / 1e6:.3f} with shadow rays); rays_traced {st.rays_traced}, "
+          f"shadow_rays {st.shadow_rays}, tri tests {st.triangle_tests}, tri hits "
+          f"{st.triangle_hits}; {waves} wave(s) of {strata} strata x {span} pixels; peak device "
+          f"memory {peak / 2**30:.2f} GiB; closest_tri / any_tri launches {tri_launches}, plain "
+          f"calls {n_plain}; downsampled RMSE against {REF_BDPT_PNG} {rmse:.4f} (bound "
+          f"{REF_RMSE_BOUND}); wrote {path} ({card})")
+    print(f"phase 12: every 257th pixel x 64 strata: card rays {sub['card'][0]}, shadow "
+          f"{sub['card'][1]}, mean radiance {sub['card'][2]:.6f}; bpt_tpu's CPU route rays "
+          f"{CPU_REFVIS_SUBSET[0]} ({ray_gap:+.4f}%), shadow {CPU_REFVIS_SUBSET[1]} "
+          f"({(sub['card'][1] / CPU_REFVIS_SUBSET[1] - 1) * 100:+.4f}%: ties at the endpoint), "
+          f"mean radiance {CPU_REFVIS_SUBSET[2]:.6f} "
+          f"({(sub['card'][2] / CPU_REFVIS_SUBSET[2] - 1) * 100:+.4f}%); the port's plain route "
+          f"on this CPU: rays {sub['cpu'][0]}, shadow {sub['cpu'][1]} ({sh_gap:+.4f}%), mean "
+          f"radiance {sub['cpu'][2]:.6f} (recorded here: shadow {CPU_PLAIN_REFVIS_SHADOW}) ({card})")
+    check(abs(ray_gap) <= 0.1, f"ref_vis subset rays {sub['card'][0]} not within 0.1% of "
+          f"{CPU_REFVIS_SUBSET[0]}")
+    check(abs(sh_gap) <= 1.0, f"ref_vis subset shadow rays {sub['card'][1]} not within 1% of "
+          f"the plain route's {sub['cpu'][1]}")
+    del results, res, fb
+
+    # the kernels at the main path's own shapes (camera bounce 1 of the
+    # wave; the shadow wave of camera vertex 1), against their plain
+    # versions on the first 2^20 lanes: the plain sweeps hold [T, B]
+    # temporaries, which do not fit at 42M lanes
+    args, kw = main_closest
+    o_m, d_m = args[1], args[2]
+    Bt_c = int(o_m.x.shape[0])
+    tmin_c = torch.full((Bt_c,), T_MIN, device=dev)
+    tmax_c = torch.where(kw["mask"], torch.inf, 0.0)
+    o_w, d_w, t_w = shadow_lanes(*main_shadow)
+    Bt_s = int(t_w.shape[0])
+    tmin_s = torch.full((Bt_s,), T_MIN, device=dev)
+    del main_closest, main_shadow
+    n_sl = 1 << 20
+    sl = slice(0, n_sl)
+    e, f = compare_tri(f"phase 12: closest_tri / any_tri on camera bounce 1 of the main path, "
+                       f"lanes 0..{n_sl}", scene, Vec3(*(c[sl] for c in o_m)),
+                       Vec3(*(c[sl] for c in d_m)), tmin_c[sl], tmax_c[sl], card)
+    e2, f2 = compare_tri(f"phase 12: closest_tri / any_tri on the shadow wave of camera vertex "
+                         f"1, lanes 0..{n_sl}", scene, Vec3(*(c[sl] for c in o_w)),
+                         Vec3(*(c[sl] for c in d_w)), tmin_s[sl], t_w[sl], card)
+    tri_err, tri_frac = max(tri_err, e, e2), min(tri_frac, f, f2)
+    ct_args = (scene, o_m, d_m, tmin_c, tmax_c)
+    at_args = (scene, o_w, d_w, tmin_s, t_w)
+    ct_ms = time_ms(lambda: ki.closest_tri(*ct_args), reps=10)
+    at_ms = time_ms(lambda: ki.any_tri(*at_args), reps=10)
+    sl_args = [(a[0], *(Vec3(*(c[sl] for c in v)) for v in a[1:3]), a[3][sl], a[4][sl])
+               for a in (ct_args, at_args)]
+    ct_sl_ms = time_ms(lambda: ki.closest_tri(*sl_args[0]), reps=10)
+    at_sl_ms = time_ms(lambda: ki.any_tri(*sl_args[1]), reps=10)
+    _, ct_plain_ms = timed(lambda: ki.closest_tri_plain(*sl_args[0]))
+    _, at_plain_ms = timed(lambda: ki.any_tri_plain(*sl_args[1]))
+    T_c = scene.num_tris
+    table_bytes = T_c * 9 * 4
+    live_c, live_s = int(kw["mask"].sum()), int((t_w >= T_MIN).sum())
+    ct_bound, ct_by = bound(Bt_c * (2 * 4 + 16) + live_c * 24 + table_bytes,
+                            live_c * T_c * MT_OPS)
+    at_bound, at_by = bound(Bt_s * (2 * 4 + 1) + live_s * 24 + table_bytes,
+                            any_tests(scene, *at_args[1:]) * MT_OPS)
+    print(f"phase 12: closest_tri, camera bounce 1 (B={Bt_c}, {live_c} live): kernel "
+          f"{ct_ms:.3f} ms, bound {ct_bound:.4f} ms ({ct_by}); at lanes 0..{n_sl}: kernel "
+          f"{ct_sl_ms:.3f} ms, plain {ct_plain_ms:.3f} ms (one call) ({card})")
+    print(f"phase 12: any_tri, the shadow wave of camera vertex 1 (B={Bt_s}, {live_s} live): "
+          f"kernel {at_ms:.3f} ms, bound {at_bound:.4f} ms ({at_by}); at lanes 0..{n_sl}: "
+          f"kernel {at_sl_ms:.3f} ms, plain {at_plain_ms:.3f} ms (one call) ({card})")
+    del o_m, d_m, o_w, d_w, t_w, tmin_c, tmax_c, tmin_s, ct_args, at_args, sl_args
+
+    # the route against its plain twin on the card at 64x64, 16 spp
+    cfg64 = dataclasses.replace(cfg12, image_width=64, samples_per_pixel=16)
+    cc64 = camera_constants(cfg64, torch.float32, dev)
+    twin = {}
+    for plain in (False, True):
+        for fn in all_plains:
+            fn.calls = 0
+        for fn in (*everything, *tri_kernels):
+            fn.launches = 0
+        fb64 = torch.zeros((64 * 64, 3), device=dev)
+        out = _render_strata(scene, cfg64, cc64, "bdpt", 0, fb64, 0, None, None, plain=plain)
+        torch.cuda.synchronize()
+        counts = [int(out[0]), int(out[1]), *out[2].tolist()]
+        launched = sum(fn.launches for fn in (*everything, *tri_kernels))
+        n_plain = sum(fn.calls for fn in all_plains)
+        check(launched == (0 if plain else 29) and n_plain == (29 if plain else 0),
+              f"64x64 route plain={plain}: {launched} launches, {n_plain} plain calls")
+        twin[plain] = (fb64, counts)
+    check(torch.equal(twin[False][0], twin[True][0]) and twin[False][1] == twin[True][1],
+          f"the 64x64 ref_vis route differs from its plain twin: counters {twin[False][1]} vs "
+          f"{twin[True][1]}, max abs err {float((twin[False][0] - twin[True][0]).abs().max()):.3e}")
+    print(f"phase 12: the ref_vis route at 64x64, 16 spp equals its plain=True twin bitwise, "
+          f"counters (rays, shadow, nodes, aabb, tri tests, tri hits) {twin[False][1]} ({card})")
+    del twin
+    lap("phase 12")
+
+    # ---- phase 13: defocus on the card, through the rays-mode megakernels
+    centre = (277.5, 277.5, 277.5)
+    rays_mode_launches = {}
+    for name in ("pt", "bdpt"):
+        cam = cornell_box_camera()
+        cfg13 = dataclasses.replace(cam, image_width=512, samples_per_pixel=16, max_depth=depth,
+                                    integrator=name, defocus_angle=1.0,
+                                    focus_dist=math.dist(cam.lookfrom, centre))
+        render(scene, cfg13, seed=0)  # warm-up
+        mk = pk.pt_megakernel if name == "pt" else bk.bdpt_megakernel
+        waves = (math.ceil(16 / _wave_spp_batch(512 * 512, 16)) if name == "pt"
+                 else math.ceil(16 / _bdpt_wave_shape(512 * 512, 16, depth, False)[0]))
+        for fn in all_plains:
+            fn.calls = 0
+        for fn in (*everything, *tri_kernels):
+            fn.launches = 0
+        results = [render(scene, cfg13, seed=0) for _ in range(3)]
+        n_mk = mk.launches
+        n_other = sum(fn.launches for fn in (*everything, *tri_kernels)) - n_mk
+        n_plain = sum(fn.calls for fn in all_plains)
+        check(n_mk == 3 * waves and n_other == 0 and n_plain == 0,
+              f"defocus {name}: {n_mk} rays-mode launches, {n_other} other launches, {n_plain} "
+              "plain calls")
+        rays_mode_launches[name] = n_mk
+        walls = [r.stats.wall_seconds for r in results]
+        wall = statistics.median(walls)
+        st, fb = results[0].stats, results[0].framebuffer_sum
+        check(bool(np.isfinite(fb).all()) and float(fb.mean()) > 0,
+              f"defocus {name}: non-finite or black image")
+        check(all(np.array_equal(r.framebuffer_sum, fb) for r in results[1:]),
+              f"defocus {name}: renders with the same seed differ")
+        path = write_png(f"chip_smoke_cornell_defocus_{name}.png", results[0].rgb8(),
+                         output_dir="output")
+        print(f"phase 13: render cornell {name} defocus_angle 1.0 focus_dist "
+              f"{cfg13.focus_dist:.1f} 512x512 16 spp depth {depth}: walls "
+              f"{[round(w, 6) for w in walls]} s, median {wall:.6f} s, "
+              f"{st.rays_traced / wall / 1e6:.3f} Mrays/s; rays_traced {st.rays_traced}, "
+              f"shadow_rays {st.shadow_rays}; {mk.__name__} rays-mode launches {n_mk}, other "
+              f"launches {n_other}, plain calls {n_plain}; wrote {path} ({card})")
+        del results, fb
+    lap("phase 13")
+
+    # ---- phase 14: the CLI's --f64 through the float64 instantiation
+    from bpt_tpu_torch import render as cli
+
+    for fn in all_plains:
+        fn.calls = 0
+    for fn in (*everything, *tri_kernels):
+        fn.launches = 0
+    argv = ["--f64", "--size", "64x64", "--spp", "4", "--output", "chip_smoke_f64.png",
+            "--no-progress"]
+    rc = cli.main(argv)
+    f64_launches = [fn.launches for fn in tri_kernels]
+    n_plain = sum(fn.calls for fn in all_plains)
+    print(f"phase 14: python -m bpt_tpu_torch.render {' '.join(argv)}: exit {rc}; "
+          f"closest_tri / any_tri float64 launches {f64_launches}, plain calls {n_plain} ({card})")
+    check(rc == 0 and min(f64_launches) > 0 and n_plain == 0, "--f64 did not render on the card")
+    lap("phase 14")
+
     # lanes in (pixels: i, j, sx, sy, id; rays: o, d, id), radiance out
     pt_tab = sum(t.numel() * t.element_size() for t in pk._pack_tables(scene))
     bdpt_tab = sum(t.numel() * t.element_size() for t in bk._pack_tables_bdpt(scene))
@@ -1006,6 +1362,9 @@ def main() -> int:
         "rays_mode_ms": rays_ms,
         "rays_mode_plain_ms": rays_plain_ms,
         "rays_mode_bound_ms": pt_rays_bound[0],
+        "rays_mode_launches": rays_mode_launches["pt"],
+        "rays_mode_launches_path": "three cornell PT renders with defocus, 512x512, 16 spp, "
+                                   "depth 10",
     }, {
         "name": "bdpt_megakernel",
         "route": "cuda",
@@ -1024,6 +1383,9 @@ def main() -> int:
         "rays_mode_ms": bdpt_rays_ms,
         "rays_mode_plain_ms": bdpt_rays_plain_ms,
         "rays_mode_bound_ms": bdpt_rays_bound[0],
+        "rays_mode_launches": rays_mode_launches["bdpt"],
+        "rays_mode_launches_path": "three cornell BDPT renders with defocus, 512x512, 16 spp, "
+                                   "depth 10",
         "depth80_ms": d80_ms,
     }, {
         "name": "closest_bvh",
@@ -1079,6 +1441,40 @@ def main() -> int:
         "pt_wave_ms": wave_ms[False],
         "pt_wave_paged_ms": wave_ms[True],
         "pt_wave_plain_ms": wave_plain_ms,
+    }, {
+        "name": "closest_tri",
+        "route": "cuda",
+        "source": "bpt_tpu_torch/csrc/intersect.cu",
+        "replaces": "bpt_tpu/ops/pallas/intersect.py:172",
+        "launches": tri_launches[0],
+        "launches_path": "three cornell ref_vis BDPT renders, 256x256, 64 spp, depth 10",
+        "max_abs_err": tri_err,
+        "within_tol": tri_frac,
+        "ms": ct_ms,
+        "plain_ms": ct_plain_ms,
+        "bound_ms": ct_bound,
+        "bound_by": ct_by,
+        "library_ms": None,
+        "shape": f"camera bounce 1 of the ref_vis wave, B={Bt_c}",
+        "plain_shape": f"its first {n_sl} lanes",
+        "slice_ms": ct_sl_ms,
+    }, {
+        "name": "any_tri",
+        "route": "cuda",
+        "source": "bpt_tpu_torch/csrc/intersect.cu",
+        "replaces": "bpt_tpu/ops/pallas/intersect.py:214",
+        "launches": tri_launches[1],
+        "launches_path": "three cornell ref_vis BDPT renders, 256x256, 64 spp, depth 10",
+        "max_abs_err": tri_err,
+        "within_tol": tri_frac,
+        "ms": at_ms,
+        "plain_ms": at_plain_ms,
+        "bound_ms": at_bound,
+        "bound_by": at_by,
+        "library_ms": None,
+        "shape": f"the ref_vis wave's shadow wave of camera vertex 1, B={Bt_s}",
+        "plain_shape": f"its first {n_sl} lanes",
+        "slice_ms": at_sl_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -3,7 +3,7 @@ stream (``core.rng.wave_uniforms`` / ``uniform_rows``,
 ``models.pt.default_uniforms_fn``), the BVH any hit (``ops.soa.bvh_any``,
 the plain version of the CUDA ``any_bvh``) and its dispatch, and the
 ``render()`` route of bdpt and bdpt-mis on a scene over 512 triangles
-(``models.render._render_bdpt_wave`` over ``models.bdpt.bdpt_fast``)
+(``models.render._render_strata`` over ``models.bdpt.bdpt_fast``)
 against ``bpt_tpu``'s CPU route for it, the jnp stratum loop.
 
 Tolerances: the stream and the any hit exact; images to 1e-10 at f64.

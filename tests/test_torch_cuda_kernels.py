@@ -1,5 +1,6 @@
-"""The CUDA kernels (PT and BDPT megakernels, the BVH closest and any hit
-and the per-bounce wave) against their plain PyTorch versions on the card.
+"""The CUDA kernels (PT and BDPT megakernels, the BVH closest and any hit,
+the per-bounce wave and the brute-force closest and any hit) against their
+plain PyTorch versions on the card, and the render routes through them.
 
 Needs an NVIDIA card with sm_90a (H100) and nvcc; elsewhere every test
 skips.  Run on the GPU machine with
@@ -347,3 +348,121 @@ def test_wave_wrappers_reject_what_the_kernels_cannot_take():
     with pytest.raises(ValueError, match="float32"):
         pw.pt_wave(big_scene(builder, device="cuda", dtype=torch.float64), o, d, ids,
                    rng.prng_key(0), 2)
+
+
+def tri_soup(n, seed, device="cuda", dtype=torch.float32):
+    """n random triangles in the cornell box's bounds under one quad light
+    of the box's size: n + 2 triangles, no BVH up to 254 (256 in all)."""
+    g = np.random.default_rng(seed)
+    b = builder.SceneBuilder()
+    white = builder.MaterialSpec.lambertian((0.7, 0.7, 0.7))
+    for _ in range(n):
+        p = g.uniform(0, 555, 3)
+        b.add_triangle(tuple(p), tuple(p + g.normal(0, 60, 3)), tuple(p + g.normal(0, 60, 3)),
+                       white)
+    b.add_quad((0, 555, 0), (555, 0, 0), (0, 0, 555),
+               builder.MaterialSpec.diffuse_light((4, 4, 4)))
+    return b.build(device=device, dtype=dtype)
+
+
+def _tri_lanes(B, seed, dtype):
+    """Random rays with per-lane [tmin, tmax]; one lane in five dead
+    (tmax < tmin), one in seven to inf."""
+    o, d = (torch.from_numpy(x).to("cuda", dtype) for x in rays(B, seed))
+    g = np.random.default_rng(seed)
+    tmin = torch.from_numpy(g.uniform(0.0, 50.0, B)).to("cuda", dtype)
+    tmax = tmin + torch.from_numpy(g.uniform(-200.0, 900.0, B)).to("cuda", dtype)
+    tmax[::7] = torch.inf
+    return Vec3(*o.unbind(1)), Vec3(*d.unbind(1)), tmin, tmax
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_tri_kernels_match_plain(dtype):
+    """closest_tri / any_tri against brute_closest / brute_any on the
+    cornell box and a 256-triangle soup: hit, triangle and any-answer
+    exact, t, u, v within 1e-6 (exact expected: both round every
+    operation)."""
+    from bpt_tpu_torch.ops.kernels import intersect as ki
+
+    for scene in (presets.cornell_box(device="cuda", dtype=dtype), tri_soup(254, 3, dtype=dtype)):
+        assert not scene.use_bvh
+        o, d, tmin, tmax = _tri_lanes(10_007, 4, dtype)
+        n = ki.closest_tri.launches, ki.any_tri.launches
+        got = ki.closest_tri(scene, o, d, tmin, tmax)
+        want = ki.closest_tri_plain(scene, o, d, tmin, tmax)
+        hit_k = ki.any_tri(scene, o, d, tmin, tmax)
+        hit_p = ki.any_tri_plain(scene, o, d, tmin, tmax)
+        torch.cuda.synchronize()
+        assert (ki.closest_tri.launches, ki.any_tri.launches) == (n[0] + 1, n[1] + 1)
+        assert torch.equal(got[1], want[1]) and 0.2 < float((got[1] >= 0).double().mean()) < 0.95
+        hit = got[1] >= 0
+        assert torch.equal(got[0][~hit], want[0][~hit]) and bool(got[0][~hit].isinf().all())
+        for g_, w_ in zip(got[0:1] + got[2:], want[0:1] + want[2:]):
+            assert g_.dtype == dtype and float((g_ - w_)[hit].abs().max()) <= 1e-6
+        assert torch.equal(hit_k, hit_p) and not bool(hit_k[tmax < tmin].any())
+
+
+def test_tri_wrappers_reject_what_the_kernels_cannot_take():
+    from bpt_tpu_torch.ops.kernels import intersect as ki
+
+    scene = presets.cornell_box(device="cuda")
+    o, d, tmin, tmax = _tri_lanes(64, 1, torch.float32)
+    with pytest.raises(ValueError, match="expected"):
+        ki.closest_tri(scene, o, d, tmin[:32], tmax[:32])
+    with pytest.raises(ValueError, match="expected"):
+        ki.any_tri(scene, o, d, tmin, tmax.double())
+    with pytest.raises(ValueError, match="float32 or float64"):
+        ki.any_tri(dataclasses.replace(scene, v0=scene.v0.half()), o, d, tmin, tmax)
+
+
+def test_render_ref_vis_on_card_matches_cpu():
+    """The ref_vis BDPT render (the stratum loop over closest_tri /
+    any_tri: 2 * depth - 1 and depth launches a wave, no plain call) at
+    32x32, 16 spp, depth 10, against the same render on the CPU: rays
+    within 0.1%; shadow rays and the image's mean within 3%, since a tie at
+    a connection's endpoint resolves on the last ulp of a hit point."""
+    from bpt_tpu_torch.ops.kernels import intersect as ki
+
+    cfg = dataclasses.replace(presets.cornell_box_camera(), image_width=32,
+                              samples_per_pixel=16, max_depth=10, integrator="bdpt",
+                              ref_vis=True)
+    n = ki.closest_tri.launches, ki.any_tri.launches
+    calls = ki.closest_tri_plain.calls + ki.any_tri_plain.calls
+    gpu = render(presets.cornell_box(device="cuda"), cfg, seed=3)
+    assert (ki.closest_tri.launches - n[0], ki.any_tri.launches - n[1]) == (19, 10)
+    assert ki.closest_tri_plain.calls + ki.any_tri_plain.calls == calls
+    cpu = render(presets.cornell_box(device="cpu"), cfg, seed=3)
+    assert abs(gpu.stats.rays_traced - cpu.stats.rays_traced) <= 1e-3 * cpu.stats.rays_traced
+    assert abs(gpu.stats.shadow_rays / cpu.stats.shadow_rays - 1) <= 0.03
+    assert abs(gpu.framebuffer_sum.mean() / cpu.framebuffer_sum.mean() - 1) <= 0.03
+
+
+@pytest.mark.parametrize("integrator", ["pt", "bdpt", "bdpt-mis"])
+def test_defocus_render_launches_only_rays_mode(integrator):
+    """Defocus on the cornell box takes the stratum loop: one rays-mode
+    megakernel launch a wave (jnp raygen first), no pixels-mode launch, no
+    hit kernel and no plain version; the image equals the route's plain
+    twin on the card (plain=True)."""
+    from bpt_tpu_torch.models.render import _render_strata
+    from bpt_tpu_torch.ops.kernels import intersect as ki
+
+    cfg = dataclasses.replace(presets.cornell_box_camera(), image_width=16,
+                              samples_per_pixel=4, max_depth=4, integrator=integrator,
+                              defocus_angle=1.0, focus_dist=1078.0)
+    mk = pk.pt_megakernel if integrator == "pt" else bk.bdpt_megakernel
+    others = (pk.pt_megakernel_pixels, bk.bdpt_megakernel_pixels, ki.closest_tri, ki.any_tri,
+              pk.pt_megakernel if integrator != "pt" else bk.bdpt_megakernel)
+    plains = (pk.pt_megakernel_plain, bk.bdpt_megakernel_plain)
+    n, n_other = mk.launches, sum(f.launches for f in others)
+    n_plain = sum(f.calls for f in plains)
+    scene = presets.cornell_box(device="cuda")
+    res = render(scene, cfg, seed=2)
+    assert mk.launches == n + 1 and sum(f.launches for f in others) == n_other
+    assert sum(f.calls for f in plains) == n_plain
+    fb = torch.zeros((16 * 16, 3), device="cuda")
+    _render_strata(scene, cfg, camera_constants(cfg, torch.float32, "cuda"), integrator, 2, fb,
+                   0, None, None, plain=True)
+    assert sum(f.calls for f in plains) == n_plain + 1
+    ok = np.isclose(res.framebuffer_sum, fb.cpu().numpy().reshape(16, 16, 3), rtol=1e-4,
+                    atol=1e-5)
+    assert ok.all(axis=-1).mean() >= 0.99 and res.framebuffer_sum.mean() > 0

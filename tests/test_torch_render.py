@@ -148,9 +148,9 @@ def test_chunk_checkpoint_resume_bitwise(port_result, tmp_path):
     with pytest.raises(ValueError, match="chunk_size=16"):
         render(tpresets.cornell_box(device="cpu"), _cfg(tpresets), seed=SEED, chunk_size=8,
                resume=resume)
-    with pytest.raises(ValueError, match="stratum"):
+    with pytest.raises(ValueError, match="stratum"):  # pt_wave's stream
         render(tpresets.cornell_box(device="cpu"), _cfg(tpresets), seed=SEED,
-               resume=dict(resume, unit_kind="stratum"))
+               resume=dict(resume, unit_kind="stratum", stream="wave"))
 
 
 @pytest.mark.parametrize("spp", [1, 16])
@@ -163,14 +163,19 @@ def test_to_rgb8_matches_jax(spp):
 
 
 def test_render_rejects_unported_configurations():
+    """Textures and volumes (the stratum loop takes every other small
+    scene: defocus, ref_vis and float64 render since it came), BDPT past
+    the kernel's depth bound and an unknown integrator."""
     scene = tpresets.cornell_box(device="cpu")
     for integrator in ("pt", "bdpt", "bdpt-mis"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            render(scene, _cfg(tpresets, integrator, defocus_angle=1.0))
+        for unported in (dict(has_textures=True), dict(num_volumes=1)):
+            with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
+                render(dataclasses.replace(scene, **unported),
+                       _cfg(tpresets, integrator, defocus_angle=1.0))
     with pytest.raises(NotImplementedError, match="outside 1..80"):
         render(scene, _cfg(tpresets, "bdpt", max_depth=81))
-    with pytest.raises(NotImplementedError, match="float32"):
-        render(tpresets.cornell_box(device="cpu", dtype=torch.float64), _cfg(tpresets))
+    with pytest.raises(NotImplementedError, match="unknown integrator"):
+        render(tpresets.cornell_box(device="cpu", dtype=torch.float64), _cfg(tpresets, "mlt"))
 
 
 _NO_JAX = (
@@ -265,11 +270,13 @@ def test_cli_default_renders_bdpt_without_jax(tmp_path):
 
 @pytest.mark.parametrize("argv", [
     ["scenes/cornell_smoke.yaml", "--integrator", "bdpt"],
-    ["--f64", "--integrator", "bdpt-mis"],
+    ["scenes/cornell_smoke.yaml", "--f64", "--integrator", "bdpt-mis"],
     ["scenes/cornell_smoke.yaml", "--integrator", "pt"],
-    ["--f64", "--integrator", "pt"],
+    ["scenes/earth.yaml", "--f64", "--integrator", "pt"],
 ], ids=["bdpt", "bdpt-mis", "yaml", "f64"])
 def test_cli_not_ported_exits_nonzero(argv, capsys):
+    """Volumes (cornell_smoke.yaml) and textures (earth.yaml), with and
+    without --f64."""
     rc = cli.main(["--device", "cpu", "--size", "4x4", "--spp", "1",
                    "--no-progress", *argv])
     assert rc != 0

@@ -243,15 +243,13 @@ def test_render_wave_batches_and_stratum_checkpoints(port_scene, monkeypatch):
 
 @pytest.mark.parametrize("integrator", ["bdpt", "bdpt-mis"])
 def test_render_refuses_bdpt_on_large_scenes(port_scene, integrator):
-    """What the large-scene BDPT route still refuses: ref_vis (ROADMAP §0
-    step 4), a depth outside the CLI's 1..80, and a checkpoint of another
-    loop's stream."""
-    from bpt_tpu_torch.models.bdpt import bdpt_fast
-
-    o, d = big_rays(16, 2)
-    with pytest.raises(NotImplementedError, match=r"ref_vis.*ROADMAP §0 step 4"):
-        bdpt_fast(port_scene, torch.from_numpy(o), torch.from_numpy(d), torch.arange(16),
-                  rng.prng_key(0), 2, mis=integrator == "bdpt-mis", ref_vis=True)
+    """What the large-scene BDPT route still refuses: a depth outside the
+    CLI's 1..80, a chunk-kind checkpoint and a checkpoint of pt_wave's
+    stream (ref_vis renders since the stratum loop came)."""
+    with pytest.raises(ValueError, match="chunk-kind"):
+        render(port_scene, _big_cfg(integrator=integrator),
+               resume=dict(framebuffer_sum=np.zeros((10, 10, 3)), units_done=1,
+                           unit_kind="chunk", chunk_size=100))
     with pytest.raises(NotImplementedError, match=r"outside 1\.\.80"):
         render(port_scene, _big_cfg(integrator=integrator, max_depth=81))
     snap = dict(framebuffer_sum=np.zeros((10, 10, 3)), strata_done=1, units_done=1,

@@ -3,26 +3,30 @@
 Renders the cornell box or the coffee stand-in (scenes/coffee/
 coffee_standin.yaml, 91,540 triangles: PT through pt_wave, BDPT through
 the jnp-stream wave loop over closest_bvh / any_bvh) with PT, BDPT or
-BDPT-MIS — default PT at 512x512, 16 spp, depth 10, seed 0: one warm-up
-render, then ``--renders`` timed ones (their walls and median), then one
-render under ``torch.profiler`` with CUDA activity.  Prints the profiler's
-tables by device time and by host time, the device time of the
-megakernels and the wave kernel, of closest_bvh, of any_bvh, of the sorts,
-the gathers and everything else (raygen, sort keys, the BDPT wavefront's
-torch ops), the sum of all device time, and the device time spent before
+BDPT-MIS — default PT at 512x512, 16 spp, depth 10, seed 0; ``--ref-vis``
+(BDPT's shadow-endpoint emulation) and ``--defocus`` (angle 1, focused at
+the cornell room's centre) send a small scene through the stratum loop:
+one warm-up render, then ``--renders`` timed ones (their walls and
+median), then one render under ``torch.profiler`` with CUDA activity.
+Prints the profiler's tables by device time and by host time, the device
+time of the megakernels and the wave kernel, of closest_bvh, any_bvh,
+closest_tri and any_tri, of the sorts, the gathers and everything else
+(raygen, sort keys, the BDPT wavefront's torch ops), the sum of all
+device time, and the device time spent before
 the wall clock stops as a share of the profiled render's wall (the
 device's busy share; the profiler's own host overhead lengthens that
 wall).  The coffee scene needs PyYAML.
 
     python tools/profile_render.py [--scene cornell|coffee]
         [--integrator pt|bdpt|bdpt-mis] [--width 512] [--spp 16]
-        [--depth 10] [--renders 10]
+        [--depth 10] [--renders 10] [--ref-vis] [--defocus]
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import os
 import statistics
 import subprocess
@@ -39,6 +43,8 @@ def main(argv=None) -> int:
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--depth", type=int, default=10)
     ap.add_argument("--renders", type=int, default=10)
+    ap.add_argument("--ref-vis", action="store_true")
+    ap.add_argument("--defocus", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -66,11 +72,15 @@ def main(argv=None) -> int:
         scene, cam = cornell_box(device=dev), cornell_box_camera()
     cfg = dataclasses.replace(cam, image_width=args.width, aspect_ratio=1.0,
                               samples_per_pixel=args.spp, max_depth=args.depth,
-                              integrator=args.integrator)
+                              integrator=args.integrator, ref_vis=args.ref_vis)
+    if args.defocus:
+        cfg = dataclasses.replace(cfg, defocus_angle=1.0,
+                                  focus_dist=math.dist(cam.lookfrom, (277.5, 277.5, 277.5)))
     render(scene, cfg, seed=0)  # warm-up: kernel build and load
     walls = [render(scene, cfg, seed=0).stats.wall_seconds
              for _ in range(args.renders)]
-    print(f"{args.scene} {args.integrator} render walls {walls} s, median "
+    print(f"{args.scene} {args.integrator} ref_vis={args.ref_vis} defocus={args.defocus} "
+          f"{args.width}x{args.width} {args.spp} spp render walls {walls} s, median "
           f"{statistics.median(walls)} s ({card})")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -87,7 +97,8 @@ def main(argv=None) -> int:
     readback = sum(e.self_device_time_total for e in events
                    if e.key.startswith("Memcpy DtoH")) / 1e3
     groups = {"kernel": ("megakernel", "pt_wave_bounce"), "closest_bvh": ("closest_bvh",),
-              "any_bvh": ("any_bvh",), "sort": ("Radix", "radix", "sort"),
+              "any_bvh": ("any_bvh",), "closest_tri": ("closest_tri",),
+              "any_tri": ("any_tri",), "sort": ("Radix", "radix", "sort"),
               "gather": ("index", "gather")}
     dev_ms = {name: 0.0 for name in (*groups, "other")}
     for e in events:
