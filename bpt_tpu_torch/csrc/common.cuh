@@ -93,6 +93,14 @@ __device__ __forceinline__ float moller_trumbore(
   return moller_trumbore_uv(ox, oy, oz, dx, dy, dz, tri, u, v, valid);
 }
 
+// What a closest-hit provider reports for one ray: the triangle (-1 on a
+// miss) and t.  The provider's surface(tri, ...) gives the triangle's
+// geometric normal and material.
+struct Hit {
+  int tri;
+  float t;
+};
+
 // normalize with the dead-lane guard of pt_kernel._normalize_safe
 __device__ __forceinline__ void normalize_safe(float& x, float& y, float& z) {
   const float n2 = x * x + y * y + z * z;

@@ -2,8 +2,8 @@
 // (pt_megakernel.cu) and the per-bounce wave kernel (pt_wave.cu): the
 // estimator of make_bounce (bpt_tpu/ops/pallas/pt_kernel.py:177-675) with
 // real branches for its masks.  The closest hit comes from a provider the
-// caller passes in: the megakernel's brute-force sweep over shared memory,
-// the wave kernel's BVH traversal, or a hit computed by an earlier launch.
+// caller passes in (bvh_walk.cuh): the megakernel's brute-force sweep over
+// shared memory, the BVH walk, or a hit computed by an earlier launch.
 #pragma once
 
 #include <cstdint>
@@ -51,14 +51,6 @@ struct Draws {
     threefry2x32(keys[2 * slot], keys[2 * slot + 1], x0, x1);
     return bits_to_unit(x0);
   }
-};
-
-// What a closest-hit provider reports for one ray: the triangle (-1 on a
-// miss) and t.  The provider's surface(tri, ...) gives the triangle's
-// geometric normal and material.
-struct Hit {
-  int tri;
-  float t;
 };
 
 // A lane's path: the ray, its throughput and the radiance gathered so far.

@@ -21,15 +21,14 @@
 // 48 B per triangle: about 3 MB + 4.4 MB for the 91k-triangle coffee
 // stand-in) stays resident in the 50 MB L2 cache.
 //
-// Design: one thread per ray.  The thread walks the threaded-DFS BVH of
-// scene/bvh.py (preorder with skip links: a box hit at an internal node
-// goes to the next node, a miss or a leaf to the skip link), so it needs no
-// stack, with the visit order, NaN slab rules and `t <= t_best` accept rule
-// of ops/soa.py::_bvh_walk; kernel and plain version take the same branch
-// at every step and count the same node visits, box hits, triangle tests
-// and accepted tests.  One walk serves both hits (bvh_walk<ANY>): the any
-// hit keeps its interval and stops after the first leaf with a hit, which
-// makes its answer independent of the visit order.  A shadow wave holds a
+// Design: one thread per ray.  The thread runs bvh_walk.cuh's
+// threaded-DFS walk (no stack; the visit order, NaN slab rules and accept
+// rule of ops/soa.py::_bvh_walk), so kernel and plain version take the
+// same branch at every step and count the same node visits, box hits,
+// triangle tests and accepted tests.  One walk serves both hits
+// (bvh_walk<ANY>): the any hit keeps its interval and stops after the
+// first leaf with a hit, which makes its answer independent of the visit
+// order.  A shadow wave holds a
 // lane per (camera vertex, light vertex) pair and most pairs are dead
 // (tmax <= 0): a dead lane reads its tmax, writes a miss and returns.  The
 // TPU layout (128-lane tiles, the cluster blocks and their DMA double
@@ -45,131 +44,14 @@
 
 #include <cstdint>
 
+#include "bvh_walk.cuh"
 #include "pt_shade.cuh"
 
 namespace bpt {
 
 constexpr int WAVE_BLOCK = 128;
 
-struct Bvh {
-  const float4* nodes;  // [2N]: (min xyz, max x), (max yz, skip, first*4 + count)
-  const float4* tris;   // [3T]: (v0 xyz, e1 x), (e1 yz, e2 xy), (e2 z, normal)
-  int N;
-};
-
-__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
-
-struct TraceCounts {
-  unsigned long long nodes = 0, boxes = 0, tests = 0, hits = 0;
-};
-
-// jnp.minimum / maximum propagate NaN, and bvh_closest then reads a NaN
-// slab bound as unconstrained (-inf / +inf).
-__device__ __forceinline__ void slab_axis(float lo_b, float hi_b, float o,
-                                          float inv, float& lo, float& hi) {
-  const float t0 = (lo_b - o) * inv;
-  const float t1 = (hi_b - o) * inv;
-  const bool nan = isnan(t0) || isnan(t1);
-  lo = nan ? -inf_f() : fminf(t0, t1);
-  hi = nan ? inf_f() : fmaxf(t0, t1);
-}
-
-// The threaded-DFS walk of soa._bvh_walk over [tmin, tmax].  ANY = false:
-// the closest hit (an accepted test shrinks the interval; t is inf and tri
-// -1 on a miss; u, v are the winner's barycentrics).  ANY = true: the
-// interval stays, a leaf tests all its triangles and a hit among them ends
-// the walk; tri >= 0 on a hit.
-template <bool ANY>
-__device__ __forceinline__ void bvh_walk(const Bvh& g, float ox, float oy,
-                                         float oz, float dx, float dy,
-                                         float dz, float tmin, float tmax,
-                                         float& t_out, int& tri_out,
-                                         float& u_out, float& v_out,
-                                         TraceCounts& c) {
-  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
-  float t_best = tmax, ub = 0.0f, vb = 0.0f;
-  int tri = -1;
-  int i = 0;
-  while (i < g.N) {
-    c.nodes += 1;
-    const float4 a = __ldg(&g.nodes[2 * i]);
-    const float4 b = __ldg(&g.nodes[2 * i + 1]);
-    float lox, hix, loy, hiy, loz, hiz;
-    slab_axis(a.x, a.w, ox, ix, lox, hix);
-    slab_axis(a.y, b.x, oy, iy, loy, hiy);
-    slab_axis(a.z, b.y, oz, iz, loz, hiz);
-    const float t_enter = fmaxf(fmaxf(lox, loy), fmaxf(loz, tmin));
-    const float t_exit = fminf(fminf(hix, hiy), fminf(hiz, t_best));
-    const int skip = __float_as_int(b.z);
-    if (!(t_exit > t_enter)) {
-      i = skip;
-      continue;
-    }
-    c.boxes += 1;
-    const int fc = __float_as_int(b.w);
-    const int cnt = fc & 3;
-    if (cnt == 0) {  // internal node: descend
-      i += 1;
-      continue;
-    }
-    for (int k = fc >> 2, end = (fc >> 2) + cnt; k < end; ++k) {
-      c.tests += 1;
-      const float4 p0 = __ldg(&g.tris[3 * k]);
-      const float4 p1 = __ldg(&g.tris[3 * k + 1]);
-      const float4 p2 = __ldg(&g.tris[3 * k + 2]);
-      const float tv[9] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w, p2.x};
-      float u, v;
-      bool valid;
-      const float t = moller_trumbore_uv(ox, oy, oz, dx, dy, dz, tv, u, v, valid);
-      if (valid && t >= tmin && t <= t_best) {
-        c.hits += 1;
-        tri = k;
-        if constexpr (!ANY) {
-          t_best = t;
-          ub = u;
-          vb = v;
-        }
-      }
-    }
-    if (ANY && tri >= 0) break;
-    i = skip;
-  }
-  t_out = tri >= 0 ? t_best : inf_f();
-  tri_out = tri;
-  u_out = ub;
-  v_out = vb;
-}
-
-__device__ __forceinline__ void surface_of(const Bvh& g, const int* mat_id,
-                                           int tri, float& gnx, float& gny,
-                                           float& gnz, int& mat) {
-  const float4 n = __ldg(&g.tris[3 * tri + 2]);
-  gnx = n.y;
-  gny = n.z;
-  gnz = n.w;
-  mat = __ldg(&mat_id[tri]);
-}
-
-// pt_bounce's hit providers: the walk, or a hit closest_bvh computed.
-struct WalkHit {
-  Bvh g;
-  const int* mat_id;
-  TraceCounts& c;
-
-  __device__ __forceinline__ Hit operator()(float ox, float oy, float oz,
-                                            float dx, float dy, float dz) {
-    float t, u, v;
-    int tri;
-    bvh_walk<false>(g, ox, oy, oz, dx, dy, dz, T_MIN, inf_f(), t, tri, u, v, c);
-    return Hit{tri, t};
-  }
-
-  __device__ __forceinline__ void surface(int k, float& gnx, float& gny,
-                                          float& gnz, int& mat) const {
-    surface_of(g, mat_id, k, gnx, gny, gnz, mat);
-  }
-};
-
+// pt_bounce's provider in paged mode: the hit closest_bvh computed.
 struct GivenHit {
   Bvh g;
   const int* mat_id;
@@ -186,13 +68,6 @@ struct GivenHit {
     surface_of(g, mat_id, k, gnx, gny, gnz, mat);
   }
 };
-
-// Adds a warp's sum of v to *dst with one atomic.
-__device__ __forceinline__ void warp_add(unsigned long long v,
-                                         unsigned long long* dst) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if ((threadIdx.x & 31) == 0 && v) atomicAdd(dst, v);
-}
 
 struct ClosestParams {
   int B;
@@ -299,7 +174,7 @@ __global__ void __launch_bounds__(WAVE_BLOCK) pt_wave_bounce(const WaveParams p)
         GivenHit h{p.g, p.mat_id, p.hit_t[lane], p.hit_tri[lane]};
         alive = pt_bounce(s_mat, s_lgt, p.L, dr, p.bounce, h, s);
       } else {
-        WalkHit h{p.g, p.mat_id, c};
+        WalkHit<TraceCounts> h{p.g, p.mat_id, c};
         alive = pt_bounce(s_mat, s_lgt, p.L, dr, p.bounce, h, s);
       }
       // at most one bounce of a path adds radiance: rr + 0 elsewhere

@@ -28,7 +28,7 @@ comparisons.
 Not ported (each refused where it would be asked for): ``bpt_tpu``'s
 live-prefix narrowed trace and its batched or sparse connection waves
 (TPU study options, ROADMAP §2 "Not to port") and volumes (ROADMAP §1
-item 8).
+item 4).
 """
 
 from __future__ import annotations
@@ -194,7 +194,7 @@ def trace_subpath(scene: SceneTensors, o: Vec3, d: Vec3, thr0: Vec3, alive0,
     time.  ``plain``: the closest hits walk the BVH in torch on any device."""
     if scene.num_volumes:
         raise NotImplementedError(
-            "volumes are not yet ported to bpt_tpu_torch (ROADMAP §1 item 8)")
+            "volumes are not yet ported to bpt_tpu_torch (ROADMAP §1 item 4)")
     B = o.x.shape[0]
     dtype, dev = o.x.dtype, o.x.device
     verts = _empty_vertices(steps, B, dtype, dev)
@@ -379,7 +379,8 @@ def _concat_vertices(a: Vertices, b: Vertices) -> Vertices:
 
 def connect_paths(scene: SceneTensors, cam: Vertices, light: Vertices,
                   mis_c: MisInfo = None, mis_l: MisInfo = None,
-                  max_depth: int = 0, plain: bool = False, ref_vis: bool = False):
+                  max_depth: int = 0, plain: bool = False, ref_vis: bool = False,
+                  counts: bool = False):
     """All-pairs connect_vertices (camera.h:316-320, 440-475), one
     [S_l*B] shadow wave per camera slot.
 
@@ -395,8 +396,11 @@ def connect_paths(scene: SceneTensors, cam: Vertices, light: Vertices,
     endpoint's own surface lies; the rounding of its Möller–Trumbore t then
     decides whether the pair is visible.
 
-    Returns (radiance Vec3 [B], visible pairs, pairs that reached the
-    any-hit test) — the last two int64 scalars."""
+    ``counts`` sums the shadow rays' walk counters (``soa.any_hit_counted``).
+
+    Returns (radiance Vec3 [B], visible pairs int64, the shadow rays'
+    int64[3] node visits, box hits and triangle tests; zeros unless
+    ``counts``)."""
     S_c, B = cam.valid.shape
     S_l = light.valid.shape[0]
     dtype, dev = cam.p.x.dtype, cam.p.x.device
@@ -419,7 +423,7 @@ def connect_paths(scene: SceneTensors, cam: Vertices, light: Vertices,
     zeros = torch.zeros((B,), dtype=dtype, device=dev)
     total = Vec3(zeros, zeros, zeros)
     n_shadow = torch.zeros((), dtype=torch.int64, device=dev)
-    n_tested = torch.zeros((), dtype=torch.int64, device=dev)
+    shadow_walk = torch.zeros(3, dtype=torch.int64, device=dev)
     for s in range(S_c):
         cp, cn, cthr = _row3(cam.p, s), _row3(cam.normal, s), _row3(cam.thr, s)
         cmat = cam.mat[s]
@@ -493,16 +497,19 @@ def connect_paths(scene: SceneTensors, cam: Vertices, light: Vertices,
             w_mis = 1.0 / (1.0 + sum_c + sum_l)
             contrib = Vec3(contrib.x * w_mis, contrib.y * w_mis, contrib.z * w_mis)
 
-        occluded = soa.any_hit(
-            scene, Vec3(*(c.reshape(-1) for c in so)),
-            Vec3(*(c.reshape(-1) for c in du)), T_MIN, t_vis.reshape(-1),
-            mask=pair_ok.reshape(-1), plain=plain).reshape(S_l, B)
-        n_tested = n_tested + pair_ok.sum(dtype=torch.int64)
-        pair_ok = pair_ok & ~occluded
+        shadow = (Vec3(*(c.reshape(-1) for c in so)), Vec3(*(c.reshape(-1) for c in du)),
+                  T_MIN, t_vis.reshape(-1))
+        if counts:
+            occluded, walk = soa.any_hit_counted(scene, *shadow, mask=pair_ok.reshape(-1),
+                                                 plain=plain)
+            shadow_walk = shadow_walk + walk
+        else:
+            occluded = soa.any_hit(scene, *shadow, mask=pair_ok.reshape(-1), plain=plain)
+        pair_ok = pair_ok & ~occluded.reshape(S_l, B)
         total = Vec3(*(acc + torch.where(pair_ok, c, 0.0).sum(dim=0)
                        for acc, c in zip(total, contrib)))
         n_shadow = n_shadow + pair_ok.sum(dtype=torch.int64)
-    return total, n_shadow, n_tested
+    return total, n_shadow, shadow_walk
 
 
 def _row3(vv: Vec3, s) -> Vec3:
@@ -519,10 +526,12 @@ def bdpt_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
     ``mis`` switches on power-heuristic MIS over the (s, t) strategies
     (not in the reference, which sums all pairs unweighted).
     ``ref_vis``: the reference binary's shadow-endpoint artifact
-    (``connect_paths``).  ``count_shadow_tests`` adds T triangle tests per
-    pair that reaches the any-hit test to ``tri_tests``, as the megakernel
-    counts them; off, the stats equal ``bpt_tpu``'s wavefront, which leaves
-    them out.  ``plain`` runs the hits' torch versions on any device.
+    (``connect_paths``).  ``count_shadow_tests`` adds the shadow rays' node
+    visits, box hits and triangle tests to the counters, as the megakernel
+    counts them (T triangle tests a pair that reaches the any-hit test on a
+    scene without a BVH); off, the stats equal ``bpt_tpu``'s wavefront,
+    which leaves them out.  ``plain`` runs the hits' torch versions on any
+    device.
 
     Returns (radiance [B,3], BDPTStats)."""
     B = origins.shape[0]
@@ -576,23 +585,27 @@ def bdpt_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
         mis_l = None
     light = _concat_vertices(emitter, traced) if max_depth > 1 else emitter
 
-    connect, n_shadow, n_tested = connect_paths(
+    connect, n_shadow, sw = connect_paths(
         scene, cam, light, mis_c=mis_c, mis_l=mis_l, max_depth=max_depth, plain=plain,
-        ref_vis=ref_vis)
+        ref_vis=ref_vis, counts=count_shadow_tests)
     result = Vec3(*(a + c for a, c in zip(result, connect)))
 
-    tri_tests = stats_c.tri_tests + stats_l.tri_tests
-    if count_shadow_tests:
-        tri_tests = tri_tests + n_tested * scene.num_tris
     stats = BDPTStats(
         rays_traced=stats_c.rays_traced + stats_l.rays_traced,
         shadow_rays=n_shadow,
-        node_visits=stats_c.node_visits + stats_l.node_visits,
-        aabb_hits=stats_c.aabb_hits + stats_l.aabb_hits,
-        tri_tests=tri_tests,
+        node_visits=stats_c.node_visits + stats_l.node_visits + sw[0],
+        aabb_hits=stats_c.aabb_hits + stats_l.aabb_hits + sw[1],
+        tri_tests=stats_c.tri_tests + stats_l.tri_tests + sw[2],
         tri_hits=stats_c.tri_hits + stats_l.tri_hits,
     )
     return v3.to_array(result), stats
+
+
+def _megakernel_ok(scene: SceneTensors) -> bool:
+    """A CUDA scene the BDPT megakernel takes (bpt_tpu's TPU dispatch)."""
+    from bpt_tpu_torch.ops.kernels.pt_kernel import megakernel_reject_reason
+
+    return scene.device.type == "cuda" and not megakernel_reject_reason(scene, "bdpt")
 
 
 def bdpt_fast(scene: SceneTensors, origins, dirs, ray_ids, key, max_depth: int,
@@ -603,28 +616,37 @@ def bdpt_fast(scene: SceneTensors, origins, dirs, ray_ids, key, max_depth: int,
 
     Dispatch: on a CUDA scene the estimators follow ``bpt_tpu``'s TPU
     dispatch, on a CPU scene its CPU dispatch.  So a CUDA scene that the
-    megakernel takes (``megakernel_reject_reason``) launches
-    ``bdpt_megakernel`` in rays mode on its own stream (streams 2/3/4 fold
-    inside), unless ``ref_vis``; everything else runs the jnp branch,
-    ``bdpt_radiance`` on the jnp stream: the camera trace draws from
-    ``fold_in(key, 2)``, the light start from ``fold_in(key, 3)`` (one
-    ``wave_uniforms`` call of NLS draws at bounce 0) and the light trace
-    from ``fold_in(key, 4)``, each keyed by the absolute ray id (an
-    inactive lane still traces, as in ``bpt_tpu``), its hits on the CUDA
-    hit kernels of a CUDA scene.  ``plain`` keeps those branches and swaps
-    every kernel for its plain version.
+    megakernel takes (``megakernel_reject_reason``: a small scene, or one
+    with a BVH, which it walks) launches ``bdpt_megakernel`` in rays mode
+    on its own stream (streams 2/3/4 fold inside), unless ``ref_vis``;
+    everything else runs ``bdpt_jnp``.  ``plain`` keeps those branches and
+    swaps every kernel for its plain version.
 
     Returns (radiance [B,3], BDPTStats)."""
     from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk  # imports this module
-    from bpt_tpu_torch.ops.kernels.pt_kernel import megakernel_reject_reason
 
-    if (scene.device.type == "cuda" and not ref_vis
-            and not megakernel_reject_reason(scene, "bdpt")):
+    if not ref_vis and _megakernel_ok(scene):
         launch = bk.bdpt_megakernel_plain if plain else bk.bdpt_megakernel
         rx, ry, rz, rays, shadow, extra = launch(
             scene, Vec3(*origins.unbind(1)), Vec3(*dirs.unbind(1)), ray_ids, key,
             max_depth, mis=mis)
         return torch.stack([rx, ry, rz], dim=-1), BDPTStats(rays, shadow, *extra)
+    return bdpt_jnp(scene, origins, dirs, ray_ids, key, max_depth, mis=mis,
+                    ref_vis=ref_vis, plain=plain)
+
+
+def bdpt_jnp(scene: SceneTensors, origins, dirs, ray_ids, key, max_depth: int,
+             mis: bool = False, ref_vis: bool = False, plain: bool = False):
+    """The jnp branch of ``bdpt_fast``, and the estimator of ``bpt_tpu``'s
+    BDPT wave loop (``_make_step_bdpt_wave``): ``bdpt_radiance`` on the jnp
+    stream.  The camera trace draws from ``fold_in(key, 2)``, the light
+    start from ``fold_in(key, 3)`` (one ``wave_uniforms`` call of NLS
+    draws at bounce 0) and the light trace from ``fold_in(key, 4)``, each
+    keyed by the absolute ray id (an inactive lane still traces, as in
+    ``bpt_tpu``), its hits on the CUDA hit kernels of a CUDA scene;
+    ``plain`` swaps them for their plain versions.
+
+    Returns (radiance [B,3], BDPTStats)."""
     active = ray_ids >= 0
     ids = torch.clamp_min(ray_ids, 0)
     dtype = origins.dtype

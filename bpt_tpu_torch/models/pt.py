@@ -169,7 +169,7 @@ def path_trace_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
     Returns (radiance [B,3], PTStats)."""
     if scene.num_volumes:
         raise NotImplementedError(
-            "volumes are not yet ported to bpt_tpu_torch (ROADMAP §1 item 8)")
+            "volumes are not yet ported to bpt_tpu_torch (ROADMAP §1 item 4)")
     B = origins.shape[0]
     dtype = origins.dtype
     dev = origins.device

@@ -1,19 +1,22 @@
 """Render loop: the chunked fused-megakernel loop of
 ``bpt_tpu.models.render`` for PT and BDPT (render.py:157-224, 759-817),
 the spp-batched ``pt_wave`` loop for PT on large scenes (render.py:243-368,
-665-712), and the stratum loop over the jnp estimators (render.py:76-128,
-371-497, 713-755, 819-867) for everything else: BDPT on large scenes, and
-on small ones defocus, ref_vis, float64, scenes over the megakernels'
-capacity and stratum checkpoints of the jnp stream.
+665-712), the BDPT wave loop for BDPT on them
+(render.py:371-497, 713-755), and the jnp stratum loop (render.py:76-128,
+819-867) for everything else: defocus, ref_vis, float64, scenes over the
+megakernels' capacity and stratum checkpoints of the jnp stream.
 
 Each chunk of pixels of the fused loop is one ``pt_megakernel_pixels``
 call (integrator pt) or one ``bdpt_megakernel_pixels`` call (bdpt,
-bdpt-mis) that runs every sample stratum of those pixels; the framebuffer
-is a running sum, which gives free checkpoint/resume at chunk granularity.
-The other two loops run batches of sample strata over the whole image,
-with stratum checkpoints: ``pt_wave``, or ``models.pt.path_trace_pixels_
-fast`` / ``models.bdpt.bdpt_fast``, whose dispatch follows ``bpt_tpu``'s
-TPU dispatch on a CUDA scene and its CPU dispatch on a CPU scene.  Every
+bdpt-mis) that runs every sample stratum of those pixels, brute force on
+a scene of at most 512 triangles and walking the BVH of a larger one; the
+framebuffer is a running sum, which gives free checkpoint/resume at chunk
+granularity.  The other loops run batches of sample strata over the whole
+image, with stratum checkpoints: ``pt_wave``, or ``models.pt.path_trace_
+pixels_fast`` / ``models.bdpt.bdpt_fast``, whose dispatch follows
+``bpt_tpu``'s TPU dispatch on a CUDA scene and its CPU dispatch on a CPU
+scene; the BDPT wave loop is the same loop over ``bdpt_jnp`` on every
+scene, as ``bpt_tpu``'s wave runs its jnp estimator.  Every
 draw is keyed by the absolute sample id pix*spp + s, so the image depends
 neither on the chunk size nor on the batch.  On a CUDA scene the loops run
 the CUDA kernels; on a CPU scene they run the kernels' plain versions or
@@ -31,7 +34,7 @@ import torch
 
 from bpt_tpu_torch.core import rng
 from bpt_tpu_torch.core import vec3 as v3
-from bpt_tpu_torch.models.bdpt import bdpt_fast
+from bpt_tpu_torch.models.bdpt import bdpt_fast, bdpt_jnp
 from bpt_tpu_torch.models.camera import camera_constants, generate_rays
 from bpt_tpu_torch.models.pt import path_trace_pixels_fast
 from bpt_tpu_torch.ops.film import to_rgb8
@@ -105,26 +108,48 @@ def _resume_stream(resume) -> str:
     return resume.get("stream", "")
 
 
-def _route(scene: SceneTensors, cfg: CameraConfig, integrator: str, resume) -> str:
-    """bpt_tpu's order (render.py:665-867): ``"wave"`` (PT on a scene over
-    512 triangles through pt_wave), ``"fused"`` (the megakernels' chunk
-    loop), else ``"strata"``, the stratum loop over the jnp estimators.
+# bpt_tpu's routing constants, measured on a TPU and mirrored here, not
+# re-measured on the H100: its BDPT wave loop beats the fused megakernel
+# only from 2^18 samples a render (bpt_tpu/models/render.py:407-410), and
+# its jnp BDPT estimator unrolls its loops only to depth UNROLL_MAX = 32
+# (bpt_tpu/models/bdpt.py:66), past which deep BDPT takes the fused
+# megakernel (render.py:396-402).  bpt_tpu also sends PT under 2^18
+# pixels to the fused megakernel (render.py:291-296); the port sends it to
+# pt_wave, which renders coffee PT at 256x256 / 16 spp 5.6x faster than
+# the walk-mode megakernel on the H100 (PERF.md, Findings; ROADMAP §3).
+WAVE_MIN_RAYS = 1 << 18
+UNROLL_MAX = 32
 
-    pt_wave takes PT on a scene over 512 triangles at every image size
-    (bpt_tpu sends such renders under 2^18 pixels to its clustered fused
-    megakernel, which is not ported: ROADMAP §3) unless it is float64,
-    ref_vis, over the shade tables' capacity, or resuming a checkpoint of
-    another loop.  The megakernels take a scene of at most 512 triangles
-    within their capacity, float32, without defocus or ref_vis, starting
-    fresh or resuming a chunk-kind checkpoint.  Everything else, BDPT on
-    a scene over 512 triangles included, runs the stratum loop."""
-    kind = _resume_kind(resume)
-    if (integrator == "pt" and scene.num_tris > MAX_TRIS and not cfg.ref_vis
-            and not shade_reject_reason(scene) and kind in ("", "stratum")
-            and _resume_stream(resume) in ("", "wave")):
+
+def _route(scene: SceneTensors, cfg: CameraConfig, integrator: str, resume) -> str:
+    """bpt_tpu's order (render.py:665-867):
+
+    1. ``"wave"``: PT on a scene over 512 triangles, through pt_wave, at
+       2^18 pixels or more or where the fused loop would take it (bpt_tpu
+       takes the fused loop there), unless ref_vis, over the shade tables'
+       capacity or resuming a checkpoint of another loop;
+    2. ``"bdpt_wave"``: BDPT on a float32 scene over 512 triangles at 2^18
+       samples or more and depth <= 32, without ref_vis, starting fresh or
+       resuming a jnp stratum checkpoint: the stratum loop on the jnp
+       estimator;
+    3. ``"fused"``: the megakernels' chunk loop, for a scene they take
+       (brute force up to 512 triangles, a BVH walk above) without defocus
+       or ref_vis, starting fresh or resuming a chunk-kind checkpoint;
+    4. ``"strata"``: the jnp stratum loop, for everything else."""
+    kind, stream = _resume_kind(resume), _resume_stream(resume)
+    large = scene.num_tris > MAX_TRIS
+    npix = cfg.image_width * cfg.image_height
+    fused_ok = (cfg.defocus_angle <= 0.0 and not cfg.ref_vis
+                and not megakernel_reject_reason(scene, integrator))
+    if (integrator == "pt" and large and (npix >= WAVE_MIN_RAYS or fused_ok)
+            and not cfg.ref_vis and not shade_reject_reason(scene)
+            and kind in ("", "stratum") and stream in ("", "wave")):
         return "wave"
-    if (cfg.defocus_angle <= 0.0 and not cfg.ref_vis and kind in ("", "chunk")
-            and not megakernel_reject_reason(scene, integrator)):
+    if (integrator != "pt" and large and npix * cfg.effective_spp >= WAVE_MIN_RAYS
+            and cfg.max_depth <= UNROLL_MAX and scene.dtype == torch.float32
+            and not cfg.ref_vis and kind in ("", "stratum") and stream in ("", "jnp")):
+        return "bdpt_wave"
+    if fused_ok and kind in ("", "chunk"):
         return "fused"
     return "strata"
 
@@ -136,10 +161,10 @@ def _reject_reason(scene: SceneTensors, cfg: CameraConfig, integrator: str,
     if integrator != "pt" and not 1 <= cfg.max_depth <= MAX_DEPTH:
         return (f"BDPT max_depth {cfg.max_depth} outside 1..{MAX_DEPTH}, the "
                 "CUDA kernel's vertex-scratch bound")
-    if route != "strata":
+    if route in ("wave", "fused"):
         return ""  # the route was chosen because its kernels take the scene
     if scene.num_volumes or scene.has_textures:
-        return "scene has volumes or textures (not yet ported: ROADMAP §1 item 8)"
+        return "scene has volumes or textures (not yet ported: ROADMAP §1 items 3-4)"
     if scene.device.type == "cuda" and scene.use_bvh:
         return walk_reject_reason(scene)
     return ""
@@ -272,19 +297,20 @@ def jnp_raygen(cc, pix, s, key, dtype):
 
 
 def _render_strata(scene, cfg, cc, integrator, seed, fb, strata_done, bar,
-                   stratum_callback, plain: bool = False):
+                   stratum_callback, plain: bool = False, bdpt_wave: bool = False):
     """bpt_tpu's jnp stratum loop (render.py:819-867 over _make_step) and
-    its large-scene BDPT twin (render.py:713-755 over
+    its large-scene BDPT wave loop (render.py:713-755 over
     _make_step_bdpt_wave), one loop: waves of whole strata of the image,
     or of pixel ranges of one stratum where a stratum is over the memory
     budget.  A PT wave (at most 2^22 rays, ``_wave_spp_batch``) is one
     ``path_trace_pixels_fast`` call; a BDPT wave (``_bdpt_wave_shape``) is
-    ``jnp_raygen`` and one ``bdpt_fast`` call.  Every draw is keyed by the
-    absolute sample id and every pixel adds its strata in stratum order, so
-    the image does not depend on the waves.  Writes stratum-kind
-    checkpoints of the "jnp" stream.  ``plain`` runs the kernels' plain
-    versions on the card, for comparisons.  Returns (rays, shadow rays,
-    extra int64[4])."""
+    ``jnp_raygen`` and one ``bdpt_fast`` call, or with ``bdpt_wave`` one
+    ``bdpt_jnp`` call (the BDPT wave loop never launches the megakernel).
+    Every draw is keyed by the absolute sample id and every pixel adds its
+    strata in stratum order, so the image does not depend on the waves.
+    Writes stratum-kind checkpoints of the "jnp" stream.  ``plain`` runs
+    the kernels' plain versions on the card, for comparisons.  Returns
+    (rays, shadow rays, extra int64[4])."""
     dev, dtype = scene.device, scene.dtype
     W, H = cc.width, cc.height
     npix = W * H
@@ -295,6 +321,7 @@ def _render_strata(scene, cfg, cc, integrator, seed, fb, strata_done, bar,
     else:
         batch, span = _bdpt_wave_shape(npix, spp_eff, cfg.max_depth,
                                        integrator == "bdpt-mis")
+    estimate = bdpt_jnp if bdpt_wave else bdpt_fast
     key = rng.prng_key(seed)
     acc = torch.zeros(6, dtype=torch.int64, device=dev)
     no_shadow = torch.zeros((), dtype=torch.int64, device=dev)
@@ -313,9 +340,9 @@ def _render_strata(scene, cfg, cc, integrator, seed, fb, strata_done, bar,
                 st = (st.rays_traced, no_shadow, *st[1:])
             else:
                 o, d, ray_ids = jnp_raygen(cc, pix, s, key, dtype)
-                rad, st = bdpt_fast(scene, o, d, ray_ids, key, cfg.max_depth,
-                                    mis=integrator == "bdpt-mis", ref_vis=cfg.ref_vis,
-                                    plain=plain)
+                rad, st = estimate(scene, o, d, ray_ids, key, cfg.max_depth,
+                                   mis=integrator == "bdpt-mis", ref_vis=cfg.ref_vis,
+                                   plain=plain)
             rad = rad.to(dtype).reshape(b, n, 3)
             for k in range(b):  # stratum-order left fold
                 fb[p0:p0 + n] += rad[k]
@@ -344,8 +371,9 @@ def render(
 ) -> RenderResult:
     """camera::render (src/camera.h:43-145) minus the PNG write, for PT,
     BDPT and BDPT-MIS on the scene's device, through the route ``_route``
-    picks: the fused megakernels, pt_wave, or the stratum loop over the jnp
-    estimators (``_render_strata``).
+    picks: pt_wave, the BDPT wave loop, the fused megakernels, or the
+    stratum loop over the jnp estimators (``_render_strata``, which also
+    runs the BDPT wave loop).
 
     ``resume``: optional checkpoint dict (framebuffer_sum, units_done and
     chunk_size of a chunk-kind one, which the fused loop writes and
@@ -382,11 +410,11 @@ def render(
                 f"chunk-kind checkpoint was written with chunk_size={ck} "
                 f"but this run would use {chunk_size}; pass "
                 f"chunk_size={ck} to resume it")
-    elif route == "strata" and kind == "chunk":  # bpt_tpu's words (render.py:819-828)
+    elif route in ("strata", "bdpt_wave") and kind == "chunk":  # bpt_tpu's words (render.py:819-828)
         raise ValueError(
             "chunk-kind checkpoint can only resume on the fused megakernel "
             "path (same backend/scene/config as the run that wrote it)")
-    elif route == "strata" and _resume_stream(resume) == "wave":
+    elif route in ("strata", "bdpt_wave") and _resume_stream(resume) == "wave":
         raise ValueError(
             "stratum checkpoint was written by the pt_wave/fused-parity RNG "
             "stream but this run would continue it on the jnp wavefront "
@@ -415,9 +443,10 @@ def render(
     if route == "wave":
         rays_acc, extra_acc = _render_wave(scene, cfg, cc, seed, fb, strata_done,
                                            bar, stratum_callback)
-    elif route == "strata":
+    elif route in ("strata", "bdpt_wave"):
         rays_acc, shadow_acc, extra_acc = _render_strata(
-            scene, cfg, cc, integrator, seed, fb, strata_done, bar, stratum_callback)
+            scene, cfg, cc, integrator, seed, fb, strata_done, bar, stratum_callback,
+            bdpt_wave=route == "bdpt_wave")
     else:
         rays_acc, shadow_acc, extra_acc = _render_chunks(
             scene, cfg, cc, integrator, seed, fb, chunk_size, chunks_done, bar,

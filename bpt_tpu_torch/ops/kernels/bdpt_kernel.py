@@ -6,13 +6,25 @@ take the same arguments and return the same outputs as their Pallas
 counterparts, except that the key is a ``(k1, k2)`` pair of ints
 (``core.rng.prng_key``) and the counters are exact int64:
 ``(rad_x, rad_y, rad_z, rays_traced, shadow_rays, extra[4])`` with
-``extra = (node_visits, aabb_hits, tri_tests, tri_hits)``.  ``tri_tests``
-charges T per live lane per traced bounce and T per connection that
-reaches the shadow any-hit, as the Pallas kernel counts them.
+``extra = (node_visits, aabb_hits, tri_tests, tri_hits)``.
+
+Two modes, as bpt_tpu's kernel has (``use_clusters``): a scene of at most
+``MAX_TRIS`` triangles sweeps them all from shared memory; a larger scene
+with a BVH walks it for the closest hits and the shadow rays (the
+counterpart of the clustered mode).  The counters follow the Pallas
+kernel in what they count and the port's walk in how: the sweep charges
+T triangle tests a traced bounce and T a connection that reaches the
+shadow any-hit, and one accepted test a hit; the walk charges every node
+visit, box hit and triangle test of the closest and the shadow walks, and
+the accepted tests of the closest walks only (bpt_tpu's clustered kernel
+charges its shadow traversals to all but the triangle hits,
+bdpt_kernel.py:183-186, 239-250).
 
 Dispatch is by device: a CPU tensor takes the plain PyTorch version (the
 ``models.bdpt`` wavefront on the kernel's threefry stream or on injected
-uniforms); a CUDA tensor launches ``csrc/bdpt_megakernel.cu`` or raises.
+uniforms, over ``ops.soa.bvh_closest`` / ``bvh_any`` on a scene over
+``MAX_TRIS`` triangles, counting as the kernel does); a CUDA tensor
+launches ``csrc/bdpt_megakernel.cu`` or raises.
 Each wrapper counts its launches in ``<wrapper>.launches``; the plain
 versions count their calls in ``<plain>.calls``.
 """
@@ -34,6 +46,7 @@ from bpt_tpu_torch.ops.kernels.pt_kernel import (
     _lane_inputs,
     _pack_tables,
     _scatter_active,
+    walk_args,
 )
 from bpt_tpu_torch.scene.types import SceneTensors
 
@@ -150,27 +163,27 @@ def _launch(scene, ins, ray_ids, keys, depth, mis, pixels, cam=None,
     dev, B, ins, rid, keys_t, cam_t = _lane_inputs(
         scene, "bdpt-mis" if mis else "bdpt", ins, ray_ids, keys, cam)
     _, tri, mat, lgt = _pack_tables_bdpt(scene)
+    N, nodes, tris, mat_id = walk_args(scene)
     if ubuf is not None:
         ubuf = _checked(ubuf, (n_uniform_slots(depth), B), dev, "uniforms")
     stride = VTX_STRIDE_MIS if mis else VTX_STRIDE
     vtx = torch.empty((2, depth * stride, B), dtype=torch.float32, device=dev)
     out = torch.empty((3, B), dtype=torch.float32, device=dev)
-    counters = torch.zeros(4, dtype=torch.int64, device=dev)
+    counters = torch.zeros(6, dtype=torch.int64, device=dev)
     lib = build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.bpt_bdpt_megakernel(
             int(pixels), int(mis), B, scene.num_tris, scene.num_lights,
-            int(depth), int(sqrt_spp), len(keys),
-            tri.data_ptr(), mat.data_ptr(), lgt.data_ptr(), keys_t.data_ptr(),
+            int(depth), int(sqrt_spp), len(keys), N,
+            tri.data_ptr(), nodes, tris, None if mat_id is None else mat_id.data_ptr(),
+            mat.data_ptr(), lgt.data_ptr(), keys_t.data_ptr(),
             cam_t.data_ptr(), *(x.data_ptr() for x in ins), rid.data_ptr(),
             None if ubuf is None else ubuf.data_ptr(), vtx.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             counters.data_ptr(), stream)
     build.check(code, "bdpt_megakernel")
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    extra = torch.stack([zero, zero, counters[2], counters[3]])
-    return out[0], out[1], out[2], counters[0], counters[1], extra
+    return out[0], out[1], out[2], counters[0], counters[1], counters[2:]
 
 
 def bdpt_megakernel(scene: SceneTensors, o: Vec3, d: Vec3, ray_ids, key,

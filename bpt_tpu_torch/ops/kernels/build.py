@@ -33,12 +33,13 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# bpt_pt_megakernel(pixels, B, T, L, depth, spp_loop, sqrt_spp,
-#                   tri, mat, lgt, keys, cam, in0..in5, rid, ubuf,
-#                   out_r, out_g, out_b, counters, stream)
-# bpt_bdpt_megakernel(pixels, mis, B, T, L, depth, sqrt_spp, nkeys,
-#                     tri, mat, lgt, keys, cam, in0..in5, rid, ubuf, vtx,
-#                     out_r, out_g, out_b, counters, stream)
+# bpt_pt_megakernel(pixels, B, T, L, depth, spp_loop, sqrt_spp, N,
+#                   tri, nodes, tris, mat_id, mat, lgt, keys, cam,
+#                   in0..in5, rid, ubuf, out_r, out_g, out_b, counters, stream)
+# bpt_bdpt_megakernel(pixels, mis, B, T, L, depth, sqrt_spp, nkeys, N,
+#                     tri, nodes, tris, mat_id, mat, lgt, keys, cam,
+#                     in0..in5, rid, ubuf, vtx, out_r, out_g, out_b, counters,
+#                     stream)
 # bpt_closest_bvh(B, N, nodes, tris, ox, oy, oz, dx, dy, dz, active,
 #                 t, tri, u, v, counters, stream)
 # bpt_any_bvh(B, N, nodes, tris, ox, oy, oz, dx, dy, dz, tmax, hit,
@@ -49,9 +50,9 @@ _I = ctypes.c_int
 #                 t, tri_out, u, v, stream)
 # bpt_any_tri(f64, B, T, tri, ox, oy, oz, dx, dy, dz, tmin, tmax, hit, stream)
 _SIGNATURES = {
-    "bpt_pt_megakernel": ([_I] * 7 + [_P] * 5 + [_P] * 6 + [_P] * 2
+    "bpt_pt_megakernel": ([_I] * 8 + [_P] * 8 + [_P] * 6 + [_P] * 2
                           + [_P] * 4 + [_P], _I),
-    "bpt_bdpt_megakernel": ([_I] * 8 + [_P] * 5 + [_P] * 6 + [_P] * 3
+    "bpt_bdpt_megakernel": ([_I] * 9 + [_P] * 8 + [_P] * 6 + [_P] * 3
                             + [_P] * 4 + [_P], _I),
     "bpt_closest_bvh": ([_I] * 2 + [_P] * 2 + [_P] * 7 + [_P] * 4 + [_P] * 2, _I),
     "bpt_any_bvh": ([_I] * 2 + [_P] * 2 + [_P] * 7 + [_P] * 2 + [_P], _I),

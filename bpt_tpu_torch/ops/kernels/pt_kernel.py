@@ -6,11 +6,20 @@ the same arguments and return the same outputs as their Pallas
 counterparts, except that the key is a ``(k1, k2)`` pair of ints
 (``core.rng.prng_key``) and the counters are exact int64.
 
+Two modes, as bpt_tpu's kernel has (``use_clusters``): a scene of at most
+``MAX_TRIS`` triangles sweeps them all from shared memory; a larger scene
+with a BVH walks it (the counterpart of the clustered mode), with the walk
+tables of ``ops/kernels/pt_wave.py::walk_tables``.  The counters are the
+hit provider's: node visits and box hits are 0 in the sweep, which counts
+T triangle tests a closest hit and one accepted test a hit; the walk
+counts as ``closest_bvh`` does.
+
 Dispatch is by device: a CPU tensor takes the plain PyTorch version (the
-``models.pt`` wavefront on the same threefry stream); a CUDA tensor
-launches ``csrc/pt_megakernel.cu`` or raises.  Each wrapper counts its
-launches in ``<wrapper>.launches``; the plain versions count their calls
-in ``<plain>.calls``.
+``models.pt`` wavefront on the same threefry stream, over
+``ops.soa.bvh_closest`` on a scene over ``MAX_TRIS`` triangles); a CUDA
+tensor launches ``csrc/pt_megakernel.cu`` or raises.  Each wrapper counts
+its launches in ``<wrapper>.launches``; the plain versions count their
+calls in ``<plain>.calls``.
 """
 
 from __future__ import annotations
@@ -42,13 +51,20 @@ INTEGRATORS = ("pt", "bdpt", "bdpt-mis")
 
 def megakernel_reject_reason(scene: SceneTensors, integrator: str = "pt") -> str:
     """Why the PT or BDPT megakernel cannot render ``scene`` ('' if it
-    can); both take the same scenes."""
+    can); both take the same scenes: at most ``MAX_TRIS`` triangles, or a
+    BVH to walk, within ``shade_reject_reason``'s tables.  bpt_tpu's
+    single-table budget of its clustered mode (clusters.py:92-102, TPU
+    SMEM) has no counterpart: the walk reads the BVH from device memory."""
     if integrator not in INTEGRATORS:
         return f"unknown integrator {integrator!r} (not one of {', '.join(INTEGRATORS)})"
-    if scene.num_tris > MAX_TRIS:
-        return (f"{scene.num_tris} tris > MAX_TRIS={MAX_TRIS} (render() sends "
-                "such scenes to pt_wave or the BDPT wave loop)")
+    if scene.num_tris > MAX_TRIS and not scene.use_bvh:
+        return f"{scene.num_tris} tris > MAX_TRIS={MAX_TRIS} and no BVH to walk"
     return shade_reject_reason(scene)
+
+
+def use_walk(scene: SceneTensors) -> bool:
+    """The megakernels walk the scene's BVH (bpt_tpu's ``use_clusters``)."""
+    return scene.num_tris > MAX_TRIS
 
 
 def shade_reject_reason(scene: SceneTensors) -> str:
@@ -60,12 +76,12 @@ def shade_reject_reason(scene: SceneTensors) -> str:
     if m > MAX_MATS:
         return f"{m} materials > MAX_MATS={MAX_MATS}"
     if scene.num_volumes:
-        return "scene has volumes (not yet in the CUDA kernels: ROADMAP §1 item 8)"
+        return "scene has volumes (not yet in the CUDA kernels: ROADMAP §1 item 4)"
     if scene.dtype != torch.float32:
         return (f"dtype {scene.dtype} != float32 (the CUDA kernels take "
                 "float32; render() takes float64 through the stratum loop)")
     if scene.has_textures:
-        return "scene has textures (not yet ported: ROADMAP §1 item 8)"
+        return "scene has textures (not yet ported: ROADMAP §1 item 3)"
     return ""
 
 
@@ -92,13 +108,17 @@ def pack_shade_tables(scene: SceneTensors):
 def _pack_tables(scene: SceneTensors):
     """Padded kernel tables on the scene's device:
     (meta i32[8], tri f32[MAX_TRIS*13], mat f32[MAX_MATS*6],
-    lgt f32[MAX_LIGHTS*13 + 3] with the background at the tail)."""
+    lgt f32[MAX_LIGHTS*13 + 3] with the background at the tail).  A scene
+    the kernels walk gets one zero row for tri, which they do not read (as
+    bpt_tpu's clustered mode does)."""
     T = scene.num_tris
     M = int(scene.materials.mtype.shape[0])
     L = scene.num_lights
-    tri = torch.zeros((MAX_TRIS, TRI_STRIDE), dtype=torch.float32, device=scene.device)
-    tri[:T] = torch.cat([scene.v0, scene.e1, scene.e2, scene.normal,
-                         scene.mat_id[:, None].to(scene.dtype)], dim=1).to(torch.float32)
+    rows = 1 if use_walk(scene) else MAX_TRIS
+    tri = torch.zeros((rows, TRI_STRIDE), dtype=torch.float32, device=scene.device)
+    if not use_walk(scene):
+        tri[:T] = torch.cat([scene.v0, scene.e1, scene.e2, scene.normal,
+                             scene.mat_id[:, None].to(scene.dtype)], dim=1).to(torch.float32)
     meta = torch.tensor([T, M, L, 0, 0, 0, scene.num_volumes, 0],
                         dtype=torch.int32, device=scene.device)
     return (meta, tri.reshape(-1), *pack_shade_tables(scene))
@@ -239,29 +259,41 @@ def _lane_inputs(scene, integrator, ins, ray_ids, keys, cam):
     return dev, B, ins, rid, keys_t, cam_t
 
 
+def walk_args(scene):
+    """(N, nodes, tris, mat_id) of the walk mode's scene arguments, or
+    (0, None, None, None) in the brute mode."""
+    if not use_walk(scene):
+        return 0, None, None, None
+    from bpt_tpu_torch.ops.kernels.pt_wave import walk_tables  # imports this module
+
+    nodes, tris = walk_tables(scene)
+    mat_id = scene.mat_id.to(torch.int32).contiguous()
+    return int(nodes.shape[0]), nodes.data_ptr(), tris.data_ptr(), mat_id
+
+
 def _launch(scene, ins, ray_ids, keys, depth, pixels, cam=None, ubuf=None,
             spp_loop=1, sqrt_spp=1):
     dev, B, ins, rid, keys_t, cam_t = _lane_inputs(scene, "pt", ins, ray_ids, keys, cam)
     _, tri, mat, lgt = _pack_tables(scene)
+    N, nodes, tris, mat_id = walk_args(scene)
     if ubuf is not None:
         ubuf = _checked(ubuf, (depth * NU, B), dev, "uniforms")
     out = torch.empty((3, B), dtype=torch.float32, device=dev)
-    counters = torch.zeros(3, dtype=torch.int64, device=dev)
+    counters = torch.zeros(5, dtype=torch.int64, device=dev)
     lib = build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.bpt_pt_megakernel(
             int(pixels), B, scene.num_tris, scene.num_lights, int(depth),
-            int(spp_loop), int(sqrt_spp),
-            tri.data_ptr(), mat.data_ptr(), lgt.data_ptr(), keys_t.data_ptr(),
+            int(spp_loop), int(sqrt_spp), N,
+            tri.data_ptr(), nodes, tris, None if mat_id is None else mat_id.data_ptr(),
+            mat.data_ptr(), lgt.data_ptr(), keys_t.data_ptr(),
             cam_t.data_ptr(), *(x.data_ptr() for x in ins), rid.data_ptr(),
             None if ubuf is None else ubuf.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             counters.data_ptr(), stream)
     build.check(code, "pt_megakernel")
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    extra = torch.stack([zero, zero, counters[1], counters[2]])
-    return out[0], out[1], out[2], counters[0], extra
+    return out[0], out[1], out[2], counters[0], counters[1:]
 
 
 def _device_of(t) -> torch.device:

@@ -112,7 +112,7 @@ def walk_reject_reason(scene: SceneTensors) -> str:
     they read only the walk's tables, in float32."""
     if scene.dtype != torch.float32:
         return (f"dtype {scene.dtype} != float32 (the BVH hit kernels take float32; "
-                "float64 on a scene with a BVH on the card: ROADMAP §0 step 8)")
+                "float64 on a scene with a BVH on the card: ROADMAP §1 item 8)")
     return ""
 
 

@@ -1,7 +1,7 @@
 """SoA shading: branchless materials, sampling and light machinery on
 component tensors — counterpart of ``bpt_tpu.ops.shade_soa`` for
 untextured scenes (the albedo is the material table's; textures are
-ROADMAP §1 item 8)."""
+ROADMAP §1 item 3)."""
 
 from __future__ import annotations
 

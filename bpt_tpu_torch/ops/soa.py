@@ -319,21 +319,40 @@ def closest_hit(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax,
                   tri_hits=hit.sum(dtype=torch.int64))
 
 
+def _any_hit(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax, mask, plain: bool):
+    """(hit [B] bool, the walk's counters int64[4] or None for a sweep)."""
+    tmin_b, tmax_b = _bounds(o, tmin, tmax, mask)
+    if _kernel_route(scene, plain):
+        from bpt_tpu_torch.ops.kernels.pt_wave import any_bvh  # imports soa
+
+        _kernel_interval("any_bvh", tmin)
+        return any_bvh(scene, o, d, tmax_b)
+    if scene.use_bvh:
+        return bvh_any(scene, o, d, tmin_b, tmax_b)
+    return _sweeps(plain)[1](scene, o, d, tmin_b, tmax_b), None
+
+
 def any_hit(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax, mask=None,
             plain: bool = False):
     """bool [B]: a hit in [tmin, tmax]; lanes with mask=False miss.  A
     CUDA scene with a BVH launches ``any_bvh`` (tmin = T_MIN only), one
     without launches ``any_tri``, unless ``plain``; a CPU scene walks
     ``bvh_any`` or sweeps every triangle in torch."""
-    tmin_b, tmax_b = _bounds(o, tmin, tmax, mask)
-    if _kernel_route(scene, plain):
-        from bpt_tpu_torch.ops.kernels.pt_wave import any_bvh  # imports soa
+    return _any_hit(scene, o, d, tmin, tmax, mask, plain)[0]
 
-        _kernel_interval("any_bvh", tmin)
-        return any_bvh(scene, o, d, tmax_b)[0]
-    if scene.use_bvh:
-        return bvh_any(scene, o, d, tmin_b, tmax_b)[0]
-    return _sweeps(plain)[1](scene, o, d, tmin_b, tmax_b)
+
+def any_hit_counted(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax, mask=None,
+                    plain: bool = False):
+    """``any_hit`` and int64[3] = (node visits, box hits, triangle tests)
+    of these shadow rays as the megakernels count them: the walks' own, or
+    T tests a live lane of a sweep."""
+    hit, c = _any_hit(scene, o, d, tmin, tmax, mask, plain)
+    if c is None:
+        live = o.x.shape[0] if mask is None else mask.sum(dtype=torch.int64)
+        zero = torch.zeros((), dtype=torch.int64, device=o.x.device)
+        c = torch.stack([zero, zero, torch.as_tensor(live * scene.num_tris,
+                                                      device=o.x.device)])
+    return hit, c[:3]
 
 
 class HitRecSoA(NamedTuple):

@@ -8,7 +8,7 @@ plain PyTorch versions.  Every scene renders with pt, bdpt and bdpt-mis:
 the coffee stand-in's YAML (91,540 triangles) with its own BDPT default.
 ``--f64`` renders the preset or YAML scene in float64, as ``bpt_tpu``'s
 CLI does, through the stratum loop (on the card, a scene without a BVH
-only: ROADMAP §0 step 8).  What the port lacks (textures, volumes) exits
+only: ROADMAP §1 item 8).  What the port lacks (textures, volumes) exits
 non-zero with a "not yet ported" message naming its ROADMAP item.
 
 Usage:

@@ -50,7 +50,7 @@ class MaterialSpec:
     @staticmethod
     def lambertian(albedo=(0.0, 0.0, 0.0), texture=None):
         if texture is not None:
-            raise _not_ported("textures", "8")
+            raise _not_ported("textures", "3")
         return MaterialSpec(MAT_LAMBERTIAN, tuple(albedo))
 
     @staticmethod
@@ -65,13 +65,13 @@ class MaterialSpec:
     @staticmethod
     def diffuse_light(emission=(0.0, 0.0, 0.0), texture=None):
         if texture is not None:
-            raise _not_ported("textures", "8")
+            raise _not_ported("textures", "3")
         return MaterialSpec(MAT_LIGHT, tuple(emission))
 
     @staticmethod
     def isotropic(albedo=(0.0, 0.0, 0.0), texture=None):
         if texture is not None:
-            raise _not_ported("textures", "8")
+            raise _not_ported("textures", "3")
         return MaterialSpec(MAT_ISOTROPIC, tuple(albedo))
 
 
@@ -202,7 +202,7 @@ class SceneBuilder:
                               translate=translate)
 
     def add_volume(self, *args, **kwargs) -> int:
-        raise _not_ported("constant-density volumes", "8")
+        raise _not_ported("constant-density volumes", "4")
 
     add_volume_box = add_volume
     add_volume_sphere = add_volume

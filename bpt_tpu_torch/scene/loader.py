@@ -16,7 +16,7 @@ tolerant coercions and synonyms:
 
 bpt_tpu's extensions that the port does not have yet refuse with a
 ``NotImplementedError`` naming their ROADMAP item: a material ``texture``
-and the ``volume_box`` / ``volume_sphere`` surfaces (§1 item 8).  PyYAML is
+and the ``volume_box`` / ``volume_sphere`` surfaces (§1 items 3 and 4).  PyYAML is
 imported inside ``load_scene_from_yaml``, so the rest of the package never
 needs it.
 """
@@ -41,9 +41,9 @@ class LoadedScene:
     builder: SceneBuilder
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not yet ported to bpt_tpu_torch (ROADMAP §1 item 8)")
+        f"{what} is not yet ported to bpt_tpu_torch (ROADMAP §1 item {item})")
 
 
 # ----------------------------------------------------------- YAML coercion
@@ -122,7 +122,7 @@ def _refuse_texture(node):
         return
     ttype = _to_str(node.get("type"))
     if (ttype == "image" and _to_str(node.get("file"))) or ttype in ("checker", "noise"):
-        raise _not_ported("textures")
+        raise _not_ported("textures", 3)
 
 
 def build_material(node) -> MaterialSpec:
@@ -379,7 +379,7 @@ def load_scene_from_yaml(path, dtype=torch.float32, device="cuda",
         elif mesh_type == "object":
             _load_object(mesh, yaml_dir, builder, materials)
         elif mesh_type in ("volume_box", "volume_sphere"):
-            raise _not_ported(f"constant-density volumes ({mesh_type})")
+            raise _not_ported(f"constant-density volumes ({mesh_type})", 4)
         else:
             print(f"Unknown mesh type: {mesh_type}", file=sys.stderr)
 

@@ -5,7 +5,7 @@ PT and BDPT megakernels' tables (``_pack_tables``, ``_pack_tables_bdpt``),
 the BVH traversals (``ops.soa.bvh_closest`` / ``bvh_any``, ``csrc/pt_wave.cu``) and the
 estimators read, plus the static meta.  Texture tables and the volume
 boundary soup are not carried: this port has no textures or volumes yet
-(ROADMAP §1 item 8).
+(ROADMAP §1 items 3-4).
 """
 
 from __future__ import annotations

@@ -72,8 +72,8 @@
    first bounce (B = 4,194,304): all 13 state rows (origin, direction and
    throughput on the lanes that stay alive) within rtol 1e-4 / atol 1e-6
    on >= 99.9% of lanes, all five counters exact; both timed.
-9. The large-scene BDPT route against its plain traversals: the coffee
-   stand-in's bdpt-mis render loop at 32x32, 4 spp, depth 6, once through
+9. The large-scene BDPT wave route against its plain traversals: the coffee
+   stand-in's bdpt-mis render loop at 16x16, 4 spp, depth 6, once through
    closest_bvh / any_bvh and once through ops.soa.bvh_closest / bvh_any
    on the card (plain=True): >= 99.9% of pixels within rtol 1e-4 / atol
    1e-5 (bitwise equality is expected and printed), all six counters
@@ -129,6 +129,48 @@
    version; walls and Mrays/s printed.
 14. The CLI's --f64 (64x64, 4 spp; its BDPT default) in this process:
    exit 0, the float64 closest_tri / any_tri launched, no plain version.
+15. The megakernels' walk mode (scenes over 512 triangles, the clustered
+   mode of bpt_tpu's kernels) against the plain versions on the card:
+   PT, bdpt and bdpt-mis in rays mode (injected uniforms and the kernel's
+   stream) and pixels mode (256x256, 1 spp) on the 964-triangle scene of
+   tests/torch_parity.py at B = 65,536, depth 10, each kernel timed there;
+   then on the coffee stand-in, whose torch walks take 10-15 s a bounce:
+   the plain PT version at 8x8 pixels and depth 3, and at the real shapes (65,536 and 16,384 rays, 128x128 pixels, a
+   64x64 bdpt-mis case at depth 80) the plain estimators over the BVH
+   kernels closest_bvh / any_bvh, which equal the torch walks on every
+   lane (phases 5, 6, 10).  rtol 1e-4 / atol 1e-6 (PT)
+   and 1e-5 (BDPT) on >= 99.9% of lanes; rays, shadow rays and the four
+   walk counters exact.  Then the coffee subsets through the fused kernels
+   against bpt_tpu's counts for their stream on a CPU: PT on every 257th
+   pixel x 16 strata of 512x512, depth 10 (44,024, the count pt_wave's
+   identical stream gives: tools/coffee_reference_rays.py); bdpt and
+   bdpt-mis on every 257th pixel x 4 strata (tools/
+   coffee_reference_rays_fused.py), rays within 0.1%, shadow rays within
+   1% (bdpt's against the port's plain kernel on a CPU: ROADMAP §3).
+16. The slice's main path: render() of the coffee stand-in with bdpt-mis
+   at 512x512, 4 spp, depth 80 — one warm-up and three timed renders,
+   each one bdpt_megakernel_pixels launch in walk mode (one 2^18-pixel
+   chunk), no other kernel, no plain version; images bitwise equal; wall,
+   Mrays/s, shadow rays and peak memory printed beside the BDPT wave
+   loop's 37.145 s (PERF.md).  The kernel timed at that shape, and held
+   against its plain version on the main path's own inputs (4 spp, depth
+   80): every 16th pixel of the chunk with the plain estimator's walks
+   over closest_bvh / any_bvh, and 4 of its pixels walking in torch; rtol
+   1e-4 / atol 1e-5 on >= 99.9% of lanes, every counter exact.
+17. Coffee bdpt at 256x256, 1 spp, depth 10 (under 2^18 samples: fused),
+   its wall beside the stratum loop's forced on the same config (the jnp
+   stream over closest_bvh / any_bvh); the two images differ by stream
+   only, so their mean radiances agree within 5 sigma.
+18. Coffee PT at 256x256, 16 spp, depth 10: three renders through
+   render()'s route, pt_wave (bpt_tpu takes its fused kernel under 2^18
+   pixels; on the H100 pt_wave is faster: ROADMAP §3), against three
+   through the fused loop forced, one pixels-mode launch each:
+   rays_traced equal, >= 99.9% of pixels within rtol 1e-4 / atol 1e-6
+   (the max difference printed); both walls, and both routes' walls at
+   32x32 / 1 spp, 64x64 / 4 spp and 128x128 / 16 spp.
+19. Defocus on the coffee stand-in, bdpt and pt at 128x128, 4 spp, depth
+   10: the stratum loop, one rays-mode launch in walk mode a wave, no
+   other kernel and no plain version; each wave's launch timed.
 
 Each phase prints its seconds, and the script its total.  The second-to-last line is a JSON object
 describing the kernels, each with its bound: the larger of the bytes it
@@ -183,6 +225,18 @@ REF_BDPT_PNG = "tests/golden/ref_binary/ref_bdpt_256_64.png"
 REF_RMSE_BOUND = 0.045
 CPU_REFVIS_SUBSET = (169_385, 109_805, 0.186788)
 CPU_PLAIN_REFVIS_SHADOW = 106_309
+# the fused BDPT kernels' stream on every 257th pixel x 4 strata of coffee
+# 512x512 / d10 / seed 0, on a CPU (tools/coffee_reference_rays_fused.py):
+# bpt_tpu's jnp estimator fed that stream (rays, shadow rays) and the port's
+# plain fused kernel (shadow rays; bdpt's differ from bpt_tpu's by the floor
+# plane's connections, ROADMAP §3, so bdpt's are held against the port's)
+CPU_FUSED_COFFEE_SUBSET = {"bdpt-mis": (16_359, 2_727), "bdpt": (16_359, 3_219)}
+CPU_PLAIN_FUSED_COFFEE_SHADOW = {"bdpt-mis": 2_726, "bdpt": 3_189}
+# the coffee bdpt-mis 512x512 / 4 spp / d80 render through the BDPT wave
+# loop (PERF.md, Findings): wall seconds and peak device GiB
+WAVE_D80_WALL, WAVE_D80_PEAK_GIB = 37.145, 18.17
+WALK_KERNELS = ("pt_megakernel_walk", "pt_megakernel_pixels_walk", "bdpt_megakernel_walk",
+                "bdpt_megakernel_pixels_walk")
 EXPECTED_RAYS = 11_506_161  # bpt_tpu fused kernel, interpret mode on a CPU
 TPU_BENCH_RAYS = 11_497_620  # BENCH_r02..r04.json; printed, not checked
 # cornell 512x512 / 16 spp / d10 / seed 0: rays, shadow rays.  The TPU
@@ -370,6 +424,47 @@ def any_tests(scene, o, d, tmin, tmax, chunk=1 << 21) -> int:
     return n
 
 
+@contextlib.contextmanager
+def walks_on_kernels():
+    """The plain versions' BVH walks on the CUDA walks closest_bvh / any_bvh
+    while the block runs: they equal the torch walks on every lane,
+    counters included (phases 5, 6 and 10), so the plain estimators run at
+    the coffee stand-in's real shapes, where the torch walks take 10-15 s
+    a bounce."""
+    from bpt_tpu_torch.ops import soa
+
+    route = soa._kernel_route
+    soa._kernel_route = lambda scene, plain: scene.use_bvh and scene.device.type == "cuda"
+    try:
+        yield
+    finally:
+        soa._kernel_route = route
+
+
+def big_scene(dev):
+    """tests/torch_parity.py::big_scene: a metal UV sphere on a floor under
+    a quad light, 964 triangles, over the brute-force mode's 512."""
+    from bpt_tpu_torch.scene.builder import MaterialSpec as MS, SceneBuilder
+
+    b = SceneBuilder()
+    b.add_uv_sphere((0, 1, 0), 1.0, MS.metal((0.8, 0.8, 0.8), 0.05))
+    b.add_quad((-10, 0, -10), (20, 0, 0), (0, 0, 20), MS.lambertian((0.6, 0.6, 0.6)))
+    b.add_quad((-2, 6, -2), (4, 0, 0), (0, 0, 4), MS.diffuse_light((10, 10, 10)))
+    return b.build(device=dev)
+
+
+def walk_table_bytes(scene, bdpt=False) -> int:
+    """Bytes of the scene a walk-mode megakernel reads: the BVH's nodes and
+    triangles, the material ids and the shading tables."""
+    from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
+    from bpt_tpu_torch.ops.kernels import pt_kernel as pk
+    from bpt_tpu_torch.ops.kernels.pt_wave import walk_tables
+
+    shade = (bk._pack_tables_bdpt(scene) if bdpt else pk._pack_tables(scene))[2:]
+    return (sum(t.numel() * t.element_size() for t in (*walk_tables(scene), *shade))
+            + 4 * scene.num_tris)
+
+
 def coffee_builder():
     """scenes/coffee/coffee_standin.yaml through SceneBuilder calls: its
     materials (the loader's 0-255 autoscale), its five OBJ meshes and its
@@ -516,7 +611,7 @@ def main() -> int:
     log = lib_path.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "entry function" in line:
                 print("  ptxas:", line.strip())
     lap("phase 1")
 
@@ -785,7 +880,7 @@ def main() -> int:
     lap("phase 5")
 
     # ---- phase 6: any_bvh vs bvh_any on coffee shadow rays
-    from bpt_tpu_torch.models.bdpt import bdpt_fast
+    from bpt_tpu_torch.models.bdpt import bdpt_fast, bdpt_jnp
     from bpt_tpu_torch.models.render import jnp_raygen
     from bpt_tpu_torch.ops import soa
 
@@ -793,7 +888,7 @@ def main() -> int:
     lane = torch.arange(4096, device=dev)
     o_c, d_c, ids_c = jnp_raygen(ccb, lane * 64, lane % 4, key, torch.float32)
     with capture(soa, "any_hit") as waves:
-        bdpt_fast(coffee, o_c, d_c, ids_c, key, depth, mis=True)
+        bdpt_jnp(coffee, o_c, d_c, ids_c, key, depth, mis=True)
     check(len(waves) == depth, f"{len(waves)} shadow waves, not {depth}")
     real = [shadow_lanes(*w) for w in waves.values()]
     half = B // 2
@@ -946,16 +1041,20 @@ def main() -> int:
     # ---- phase 9: the large-scene BDPT route against its plain traversals
     from bpt_tpu_torch.models.render import _bdpt_wave_shape, _render_strata
 
-    cfg9 = coffee_camera(width=32, spp=4, depth=6, integrator="bdpt-mis")
+    # 16x16, depth 6: the torch walks' time goes with the longest walk of a
+    # traversal more than with its lanes, and a deeper route walks more
+    W9 = 16
+    cfg9 = coffee_camera(width=W9, spp=4, depth=6, integrator="bdpt-mis")
     cc9 = camera_constants(cfg9, torch.float32, dev)
     runs = {}
     for plain in (False, True):
         for fn in plains:
             fn.calls = 0
         pw.closest_bvh.launches = pw.any_bvh.launches = 0
-        fb9 = torch.zeros((32 * 32, 3), device=dev)
+        fb9 = torch.zeros((W9 * W9, 3), device=dev)
         (r9, sh9, ex9), ms9 = timed(lambda: _render_strata(
-            coffee, cfg9, cc9, "bdpt-mis", 0, fb9, 0, None, None, plain=plain))
+            coffee, cfg9, cc9, "bdpt-mis", 0, fb9, 0, None, None, plain=plain,
+            bdpt_wave=True))
         launched = pw.closest_bvh.launches + pw.any_bvh.launches
         walks = soa.bvh_closest.calls + soa.bvh_any.calls
         n_plain = sum(fn.calls for fn in plains)
@@ -968,7 +1067,7 @@ def main() -> int:
         runs[plain] = (fb9, [int(r9), int(sh9), *ex9.tolist()], ms9, launched or walks)
     f9, e9, w9 = agreement(runs[False][0], runs[True][0], BDPT_ATOL)
     bitwise = torch.equal(runs[False][0], runs[True][0])
-    print(f"phase 9: coffee bdpt-mis 32x32 4 spp depth 6, kernels vs plain traversals: "
+    print(f"phase 9: coffee bdpt-mis {W9}x{W9} 4 spp depth 6, kernels vs plain traversals: "
           f"{f9 * 100:.4f}% of pixels within rtol {RTOL} / atol {BDPT_ATOL} (bitwise "
           f"{'equal' if bitwise else 'different'}), max abs err {e9:.3e}; worst pixel {w9}: "
           f"kernels {runs[False][0][w9].tolist()} plain {runs[True][0][w9].tolist()}; counters "
@@ -1026,7 +1125,7 @@ def main() -> int:
         check(all(np.array_equal(r.framebuffer_sum, fb) for r in results[1:]),
               f"coffee {name}: renders with the same seed differ")
         o_u, d_u, ids_u = jnp_raygen(ccb, sub_pix, sub_s, key, torch.float32)
-        sub = [int(x) for x in bdpt_fast(coffee, o_u, d_u, ids_u, key, depth, mis=mis)[1][:2]]
+        sub = [int(x) for x in bdpt_jnp(coffee, o_u, d_u, ids_u, key, depth, mis=mis)[1][:2]]
         ref = CPU_COFFEE_BDPT_SUBSET[name]
         gaps = [(a - b) / b * 100 for a, b in zip(sub, ref)]
         plain_sh = CPU_PLAIN_COFFEE_BDPT_SHADOW[name]
@@ -1334,6 +1433,408 @@ def main() -> int:
     check(rc == 0 and min(f64_launches) > 0 and n_plain == 0, "--f64 did not render on the card")
     lap("phase 14")
 
+    # ---- phase 15: the megakernels' walk mode against their plain versions
+    from bpt_tpu_torch.models.camera import generate_rays
+    from bpt_tpu_torch.models.render import (
+        _render_chunks,
+        _render_wave,
+        _route,
+        default_chunk_size,
+    )
+
+    big = big_scene(dev)
+    check(big.num_tris == 964 and pk.use_walk(big) and big.use_bvh, "big scene")
+    walk_err = dict.fromkeys(WALK_KERNELS, 0.0)
+    walk_frac = dict.fromkeys(WALK_KERNELS, 1.0)
+
+    def walk_check(kname, name, kout, pout, atol):
+        f, e = compare(f"phase 15: {name}", kout, pout, exact_counts=True, atol=atol)
+        walk_err[kname] = max(walk_err[kname], e)
+        walk_frac[kname] = min(walk_frac[kname], f)
+
+    def walk_rays(kname, sc, o_, d_, ids_, k_, dep, u=None, mis=False):
+        """(kernel, plain, plain ms) of one rays-mode walk launch."""
+        if kname == "pt_megakernel_walk":
+            a = (sc, o_, d_, ids_, k_, dep)
+            kout = pk.pt_megakernel(*a, uniforms=u)
+            pout, p_ms = timed(lambda: pk.pt_megakernel_plain(*a, uniforms=u))
+        else:
+            a = (sc, o_, d_, ids_, k_, dep)
+            kout = bk.bdpt_megakernel(*a, uniforms=u, mis=mis)
+            pout, p_ms = timed(lambda: bk.bdpt_megakernel_plain(*a, uniforms=u, mis=mis))
+        return kout, pout, p_ms
+
+    def walk_pixels(kname, sc, cfg_, k_, mis=False):
+        """(kernel, plain, plain ms, args) of one pixels-mode walk launch of
+        a whole image, every stratum in the kernel."""
+        cc_ = camera_constants(cfg_, torch.float32, dev)
+        n = cc_.width * cc_.height
+        pix_ = torch.arange(n, dtype=torch.int64, device=dev)
+        i_, j_ = (pix_ % cc_.width).float(), (pix_ // cc_.width).float()
+        S_ = cfg_.sqrt_spp
+        if kname == "pt_megakernel_pixels_walk":
+            a = (sc, i_, j_, i_ * 0, j_ * 0, pix_, pk.camera_table(cc_), k_, cfg_.max_depth)
+            kw = dict(spp_loop=S_ * S_, sqrt_spp=S_)
+            kout = pk.pt_megakernel_pixels(*a, **kw)
+            pout, p_ms = timed(lambda: pk.pt_megakernel_pixels_plain(*a, **kw))
+            return kout, pout, p_ms, (a, kw)
+        a = (sc, i_, j_, pix_, pk.camera_table(cc_), k_, cfg_.max_depth, S_)
+        kw = dict(mis=mis)
+        kout = bk.bdpt_megakernel_pixels(*a, **kw)
+        pout, p_ms = timed(lambda: bk.bdpt_megakernel_pixels_plain(*a, **kw))
+        return kout, pout, p_ms, (a, kw)
+
+    # the 964-triangle scene at B = 65,536, depth 10: rays mode with injected
+    # uniforms and on the kernel's stream, pixels mode at 256x256, 1 spp; the
+    # kernels timed at these shapes beside their plain versions
+    B15 = 65536
+    g15 = np.random.default_rng(15)
+    o15 = torch.from_numpy((g15.uniform(-3, 3, (B15, 3)) * [1, 0.5, 1] + [0, 2.5, 0])
+                           .astype(np.float32)).to(dev)
+    d15 = torch.from_numpy(g15.normal(size=(B15, 3)).astype(np.float32)).to(dev)
+    ov15, dv15 = Vec3(*o15.unbind(1)), Vec3(*d15.unbind(1))
+    ids15 = torch.arange(B15, dtype=torch.int32, device=dev)
+    ids15[::13] = -1
+    walk_plain, walk_slice_ms = {}, {}
+    for kname, mis, slots, atol in (("pt_megakernel_walk", False, depth * NU, ATOL),
+                                    ("bdpt_megakernel_walk", False, n_slots, BDPT_ATOL),
+                                    ("bdpt_megakernel_walk", True, n_slots, BDPT_ATOL)):
+        u15 = torch.from_numpy(g15.uniform(size=(slots, B15)).astype(np.float32)).to(dev)
+        for mode, u in (("buffer", u15), ("rng", None)):
+            kout, pout, p_ms = walk_rays(kname, big, ov15, dv15, ids15, key, depth, u, mis)
+            torch.cuda.synchronize()
+            name = "pt" if kname.startswith("pt") else ("bdpt-mis" if mis else "bdpt")
+            walk_check(kname, f"{kname} {name} {mode} mode big scene B={B15} depth={depth} "
+                       f"(plain {p_ms:.1f} ms)", kout, pout, atol)
+            walk_plain.setdefault(kname, p_ms)
+        if kname not in walk_slice_ms:
+            fn = pk.pt_megakernel if kname.startswith("pt") else bk.bdpt_megakernel
+            walk_slice_ms[kname] = time_ms(lambda: fn(big, ov15, dv15, ids15, key, depth,
+                                                      uniforms=u15), reps=5)
+    cfg_big = dataclasses.replace(coffee_camera(width=256, spp=1, depth=depth), vfov=40.0,
+                                  lookfrom=(0.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0))
+    for kname, mis, atol in (("pt_megakernel_pixels_walk", False, ATOL),
+                             ("bdpt_megakernel_pixels_walk", False, BDPT_ATOL),
+                             ("bdpt_megakernel_pixels_walk", True, BDPT_ATOL)):
+        kout, pout, p_ms, (a, kw) = walk_pixels(kname, big, cfg_big, key, mis)
+        torch.cuda.synchronize()
+        walk_check(kname, f"{kname}{' bdpt-mis' if mis else ''} big scene 256x256 1 spp "
+                   f"depth={depth} (plain {p_ms:.1f} ms)", kout, pout, atol)
+        if kname not in walk_slice_ms:
+            fn = pk.pt_megakernel_pixels if kname.startswith("pt") else bk.bdpt_megakernel_pixels
+            walk_slice_ms[kname] = time_ms(lambda: fn(*a, **kw), reps=5)
+            walk_plain[kname] = p_ms
+    walk_plain_shape = {k: (f"the 964-triangle scene, {B15} lanes, depth {depth}"
+                            + (", bdpt" if k.startswith("bdpt") else ""))
+                        for k in WALK_KERNELS}
+    del o15, d15, ov15, dv15, kout, pout
+    lap("phase 15 (big scene)")
+
+    # the coffee stand-in: its torch walks take 10-15 s a bounce whatever
+    # the lane count (the longest walk's steps), so the plain PT version
+    # runs at 8x8 pixels and depth 3 (bdpt-mis: 4 pixels of the main path,
+    # phase 16); at the real shapes, and at depth 80, the plain estimator
+    # runs over closest_bvh / any_bvh (walks_on_kernels)
+    kout, pout, p_ms, _ = walk_pixels("pt_megakernel_pixels_walk", coffee,
+                                      coffee_camera(width=8, spp=1, depth=3), key)
+    walk_check("pt_megakernel_pixels_walk", f"pt_megakernel_pixels_walk coffee 8x8 1 spp "
+               f"depth=3 (plain {p_ms:.1f} ms)", kout, pout, ATOL)
+    key_pt = rng.fold_in(key, 1)
+    o_q, d_q, ids_q = wave_rays(ccc, torch.arange(B15, device=dev) * 4, 1, key, dev)
+    lane_q = torch.arange(B15 // 4, device=dev)
+    o_b, d_b, ids_b = jnp_raygen(ccb, lane_q * 16, lane_q % 4, key, torch.float32)
+    with walks_on_kernels():
+        kout, pout, r_ms = walk_rays("pt_megakernel_walk", coffee, o_q, d_q, ids_q, key_pt, depth)
+        walk_check("pt_megakernel_walk", f"pt_megakernel_walk pt rng mode coffee B={B15} "
+                   f"depth={depth} (plain estimator over the BVH kernels {r_ms:.1f} ms)",
+                   kout, pout, ATOL)
+        kout, pout, r_ms = walk_rays("bdpt_megakernel_walk", coffee, Vec3(*o_b.unbind(1)),
+                                     Vec3(*d_b.unbind(1)), ids_b.to(torch.int32), key, depth,
+                                     None, True)
+        walk_check("bdpt_megakernel_walk", f"bdpt_megakernel_walk bdpt-mis rng mode coffee "
+                   f"B={B15 // 4} depth={depth} (plain estimator over the BVH kernels "
+                   f"{r_ms:.1f} ms)", kout, pout, BDPT_ATOL)
+        for kname, mis, width, dep, atol in (
+                ("pt_megakernel_pixels_walk", False, 128, depth, ATOL),
+                ("bdpt_megakernel_pixels_walk", False, 128, depth, BDPT_ATOL),
+                ("bdpt_megakernel_pixels_walk", True, 64, 80, BDPT_ATOL)):
+            cfg_q = coffee_camera(width=width, spp=1, depth=dep)
+            kout, pout, r_ms, (a, kw) = walk_pixels(kname, coffee, cfg_q, key, mis)
+            walk_check(kname, f"{kname}{' bdpt-mis' if mis else ''} coffee {width}x{width} 1 "
+                       f"spp depth={dep} (plain estimator over the BVH kernels {r_ms:.1f} ms)",
+                       kout, pout, atol)
+    walk_d80_ms = time_ms(lambda: bk.bdpt_megakernel_pixels(*a, **kw), reps=5)
+    del kout, pout, o_q, d_q, o_b, d_b
+    lap("phase 15 (coffee)")
+
+    # the coffee subsets against bpt_tpu's counts for the fused kernels'
+    # stream on a CPU: PT, every 257th pixel x 16 strata of 512x512 / d10
+    # (pt_wave draws the same stream: tools/coffee_reference_rays.py); BDPT
+    # and BDPT-MIS, every 257th pixel x 4 strata of 512x512 / d10
+    # (tools/coffee_reference_rays_fused.py)
+    sub_pix = torch.arange(0, 512 * 512, 257, device=dev)
+    si, sj = (sub_pix % 512).float(), (sub_pix // 512).float()
+    cam16 = pk.camera_table(ccc)
+    sub_pt = int(pk.pt_megakernel_pixels(coffee, si, sj, si * 0, sj * 0, sub_pix, cam16, key,
+                                         depth, spp_loop=16, sqrt_spp=4)[3])
+    pt_gap = (sub_pt - CPU_BVH_COFFEE_SUBSET) / CPU_BVH_COFFEE_SUBSET * 100
+    print(f"phase 15: fused PT on every 257th pixel x 16 strata of coffee 512x512 depth "
+          f"{depth}: rays {sub_pt} (bpt_tpu's BVH path on this stream on a CPU "
+          f"{CPU_BVH_COFFEE_SUBSET}, {pt_gap:+.4f}%) ({card})")
+    check(abs(pt_gap) <= 0.1, f"fused PT subset rays {sub_pt} not within 0.1%")
+    cam4 = pk.camera_table(ccb)
+    for name in ("bdpt-mis", "bdpt"):
+        out = bk.bdpt_megakernel_pixels(coffee, si, sj, sub_pix, cam4, key, depth, 2,
+                                        mis=name == "bdpt-mis")
+        got = (int(out[3]), int(out[4]))
+        ref, plain_sh = CPU_FUSED_COFFEE_SUBSET[name], CPU_PLAIN_FUSED_COFFEE_SHADOW[name]
+        sh_ref = ref[1] if name == "bdpt-mis" else plain_sh
+        gaps = [(got[0] - ref[0]) / ref[0] * 100, (got[1] - sh_ref) / sh_ref * 100]
+        print(f"phase 15: fused {name} on every 257th pixel x 4 strata of coffee 512x512 depth "
+              f"{depth}: rays {got[0]}, shadow {got[1]} (bpt_tpu's jnp estimator on this stream "
+              f"on a CPU {ref[0]}, {ref[1]}: {gaps[0]:+.4f}%, "
+              f"{(got[1] - ref[1]) / ref[1] * 100:+.4f}%; the port's plain kernel on a CPU: "
+              f"shadow {plain_sh}, {(got[1] - plain_sh) / plain_sh * 100:+.4f}%) ({card})")
+        check(abs(gaps[0]) <= 0.1 and abs(gaps[1]) <= 1.0,
+              f"fused {name} subset counts {got} not within 0.1% / 1% of {ref[0]}, {sh_ref}")
+    lap("phase 15")
+
+    # ---- phase 16: the slice's main path, coffee bdpt-mis 512x512 / 4 spp / depth 80
+    cfg16 = coffee_camera(spp=4, depth=80, integrator="bdpt-mis")
+    check(_route(coffee, cfg16, "bdpt-mis", None) == "fused", "coffee d80: not the fused route")
+    render(coffee, cfg16, seed=0)  # warm-up
+    for fn in all_plains:
+        fn.calls = 0
+    for fn in (*everything, *tri_kernels):
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    results = [render(coffee, cfg16, seed=0) for _ in range(3)]
+    peak16 = torch.cuda.max_memory_allocated(dev)
+    main_launches = bk.bdpt_megakernel_pixels.launches
+    n_other = sum(fn.launches for fn in (*everything, *tri_kernels)) - main_launches
+    n_plain = sum(fn.calls for fn in all_plains)
+    check(main_launches == 3 and n_other == 0 and n_plain == 0,
+          f"coffee bdpt-mis d80: {main_launches} pixels-mode launches in 3 renders, {n_other} "
+          f"other launches, {n_plain} plain calls")
+    walls = [r.stats.wall_seconds for r in results]
+    wall = statistics.median(walls)
+    st, fb = results[0].stats, results[0].framebuffer_sum
+    check(fb.shape == (512, 512, 3) and bool(np.isfinite(fb).all()) and float(fb.mean()) > 0,
+          "coffee bdpt-mis d80: framebuffer not finite, black or misshapen")
+    check(all(np.array_equal(r.framebuffer_sum, fb) for r in results[1:]),
+          "coffee bdpt-mis d80: renders with the same seed differ")
+    path = write_png("chip_smoke_coffee_bdpt-mis_d80.png", results[0].rgb8(), output_dir="output")
+    print(f"phase 16: render coffee bdpt-mis 512x512 4 spp depth 80 seed 0 (fused, walk mode): "
+          f"walls {[round(w, 6) for w in walls]} s, median {wall:.6f} s (the BDPT wave loop "
+          f"took {WAVE_D80_WALL} s here), {st.rays_traced / wall / 1e6:.3f} Mrays/s on "
+          f"rays_traced ({st.total_rays / wall / 1e6:.3f} with shadow rays); rays_traced "
+          f"{st.rays_traced}, shadow_rays {st.shadow_rays}; node visits {st.bvh_node_visits}, "
+          f"box hits {st.aabb_hits}, tri tests {st.triangle_tests}, tri hits "
+          f"{st.triangle_hits}; peak device memory {peak16 / 2**30:.2f} GiB (the wave loop: "
+          f"{WAVE_D80_PEAK_GIB} GiB); bdpt_megakernel_pixels launches {main_launches}, other "
+          f"launches {n_other}, plain calls {n_plain}; wrote {path} ({card})")
+    # the kernel at the main path's own shape: one 2^18-pixel chunk
+    npx = 512 * 512
+    pix16 = torch.arange(npx, dtype=torch.int64, device=dev)
+    args16 = (coffee, (pix16 % 512).float(), (pix16 // 512).float(), pix16,
+              pk.camera_table(camera_constants(cfg16, torch.float32, dev)), key, 80, 2)
+    out16, main_ms = timed(lambda: bk.bdpt_megakernel_pixels(*args16, mis=True))
+    c16 = counters(out16)
+    # the kernel against its plain version on the main path's own inputs:
+    # every 16th pixel of the chunk with the plain estimator's walks over
+    # closest_bvh / any_bvh (walks_on_kernels; the torch walks would take
+    # hours at depth 80), and 4 of its pixels walking in torch.  Each slice
+    # is also launched alone, which must give the chunk's radiance on its
+    # lanes bitwise, for the slice's counters
+    kname16 = "bdpt_megakernel_pixels_walk"
+    walk_err[kname16], walk_frac[kname16] = 0.0, 1.0
+    slices16 = {"over the BVH kernels": (torch.arange(0, npx, 16, device=dev), True),
+                "walking in torch": (torch.arange(4, device=dev) * 65536 + 32768 + 256, False)}
+    plain16_ms = {}
+    for how, (sl, on_kernels) in slices16.items():
+        a_sl = (coffee, args16[1][sl], args16[2][sl], args16[3][sl], *args16[4:])
+        k_sl = bk.bdpt_megakernel_pixels(*a_sl, mis=True)
+        check(all(torch.equal(k_sl[c], out16[c][sl]) for c in range(3)),
+              f"phase 16: the slice's own launch differs from the chunk's on its lanes")
+        with walks_on_kernels() if on_kernels else contextlib.nullcontext():
+            p_sl, plain16_ms[how] = timed(
+                lambda: bk.bdpt_megakernel_pixels_plain(*a_sl, mis=True))
+        f, e = compare(f"phase 16: {kname16} bdpt-mis on {sl.numel()} pixels of the main "
+                       f"path's chunk (4 spp, depth 80), plain walks {how} "
+                       f"({plain16_ms[how]:.1f} ms)", k_sl, p_sl, exact_counts=True,
+                       atol=BDPT_ATOL)
+        walk_err[kname16] = max(walk_err[kname16], e)
+        walk_frac[kname16] = min(walk_frac[kname16], f)
+    del k_sl, p_sl
+    walk_ms = {"bdpt_megakernel_pixels_walk": main_ms}
+    walk_bound = {"bdpt_megakernel_pixels_walk": bound(
+        npx * (3 * 4 + 3 * 4) + walk_table_bytes(coffee, bdpt=True),
+        c16[2] * SLAB_OPS + c16[4] * MT_OPS)}
+    walk_launches = {"bdpt_megakernel_pixels_walk": main_launches}
+    walk_plain[kname16] = plain16_ms["over the BVH kernels"]
+    walk_plain_shape[kname16] = (
+        f"every 16th pixel of the main path's chunk ({npx // 16} pixels x 4 spp, depth 80), "
+        f"the plain estimator's walks over closest_bvh / any_bvh; 4 of its pixels walking "
+        f"in torch in {plain16_ms['walking in torch']:.1f} ms")
+    del results, fb, out16
+    lap("phase 16")
+
+    # ---- phase 17: coffee bdpt under 2^18 samples: fused against the stratum loop
+    cfg17 = coffee_camera(width=256, spp=1, depth=depth, integrator="bdpt")
+    cc17 = camera_constants(cfg17, torch.float32, dev)
+    check(_route(coffee, cfg17, "bdpt", None) == "fused", "coffee bdpt 256x256: not fused")
+    r17 = [render(coffee, cfg17, seed=0) for _ in range(2)]
+    fused17 = r17[1]
+    fb17 = torch.zeros((256 * 256, 3), device=dev)
+    _render_strata(coffee, cfg17, cc17, "bdpt", 0, fb17, 0, None, None, bdpt_wave=True)
+    torch.cuda.synchronize()
+    (s17, _, _), loop_ms = timed(lambda: _render_strata(
+        coffee, cfg17, cc17, "bdpt", 0, fb17.zero_(), 0, None, None, bdpt_wave=True))
+    a17 = fused17.framebuffer_sum.reshape(-1, 3).mean(1).astype(np.float64)
+    b17 = fb17.mean(1).double().cpu().numpy()
+    noise = 5.0 * math.sqrt(a17.var() / a17.size + b17.var() / b17.size)
+    print(f"phase 17: coffee bdpt 256x256 1 spp depth {depth}: fused {fused17.stats.wall_seconds:.6f} "
+          f"s ({fused17.stats.rays_traced} rays, {fused17.stats.shadow_rays} shadow), the stratum "
+          f"loop (forced, the jnp stream over closest_bvh / any_bvh) {loop_ms / 1e3:.6f} s "
+          f"({int(s17)} rays); mean radiance {a17.mean():.6f} vs {b17.mean():.6f}, difference "
+          f"{a17.mean() - b17.mean():+.6f} within 5 sigma {noise:.6f} ({card})")
+    check(fused17.stats.wall_seconds > 0 and abs(a17.mean() - b17.mean()) <= noise,
+          "coffee bdpt 256x256: the fused and stratum-loop means differ beyond their noise")
+    del r17, fused17, fb17
+    lap("phase 17")
+
+    # ---- phase 18: coffee PT under 2^18 pixels: pt_wave (render()'s route)
+    # against the fused loop's walk mode (bpt_tpu's route there), forced
+    def fused_pt(cfg_, fb_):
+        """The fused chunk loop on the coffee stand-in: (rays, ms)."""
+        cc_ = camera_constants(cfg_, torch.float32, dev)
+        n_ = cc_.width * cc_.height
+        (r_, _, _), ms_ = timed(lambda: _render_chunks(
+            coffee, cfg_, cc_, "pt", 0, fb_.zero_(), default_chunk_size(n_), 0, None, None))
+        return int(r_), ms_
+
+    cfg18 = coffee_camera(width=256, spp=16, depth=depth)
+    check(_route(coffee, cfg18, "pt", None) == "wave", "coffee PT 256x256: not pt_wave")
+    render(coffee, cfg18, seed=0)  # warm-up
+    fb18 = torch.zeros((256 * 256, 3), device=dev)
+    fused_pt(cfg18, fb18)  # warm-up
+    for fn in all_plains:
+        fn.calls = 0
+    for fn in (*everything, *tri_kernels):
+        fn.launches = 0
+    r18 = [render(coffee, cfg18, seed=0) for _ in range(3)]
+    n_wave = pw.pt_wave_bounce.launches
+    n_other = sum(fn.launches for fn in (*everything, *tri_kernels)) - n_wave
+    n_plain = sum(fn.calls for fn in all_plains)
+    check(n_wave == 3 * depth and n_other == 0 and n_plain == 0,
+          f"coffee PT 256x256: {n_wave} wave-kernel launches, {n_other} other, {n_plain} plain")
+    fused18 = [fused_pt(cfg18, fb18) for _ in range(3)]
+    pt_main = pk.pt_megakernel_pixels.launches
+    n_other = sum(fn.launches for fn in (*everything, *tri_kernels)) - pt_main - n_wave
+    n_plain = sum(fn.calls for fn in all_plains)
+    check(pt_main == 3 and n_other == 0 and n_plain == 0,
+          f"coffee PT 256x256 fused: {pt_main} pixels-mode launches, {n_other} other, "
+          f"{n_plain} plain")
+    wave18 = r18[0]
+    got18 = torch.from_numpy(wave18.framebuffer_sum.reshape(-1, 3)).to(dev)
+    f18, e18, w18 = agreement(fb18, got18)
+    wall18 = statistics.median(r.stats.wall_seconds for r in r18)
+    fwall18 = statistics.median(ms for _, ms in fused18) / 1e3
+    print(f"phase 18: coffee PT 256x256 16 spp depth {depth}: pt_wave (render()) walls "
+          f"{[round(r.stats.wall_seconds, 6) for r in r18]} s, median {wall18:.6f} s "
+          f"({wave18.stats.rays_traced / wall18 / 1e6:.3f} Mrays/s); the fused loop (forced) "
+          f"walls {[round(ms / 1e3, 6) for _, ms in fused18]} s, median {fwall18:.6f} s; "
+          f"rays_traced pt_wave {wave18.stats.rays_traced}, fused {fused18[0][0]}; "
+          f"{f18 * 100:.4f}% of pixels within rtol {RTOL} / atol {ATOL} (bitwise "
+          f"{'equal' if torch.equal(got18, fb18) else 'different'}), max abs diff {e18:.3e} "
+          f"({card})")
+    check(fused18[0][0] == wave18.stats.rays_traced,
+          "coffee PT 256x256: fused and pt_wave rays differ")
+    check(f18 >= MIN_FRAC, f"coffee PT 256x256: only {f18:.5f} of pixels agree with pt_wave")
+    check(all(np.array_equal(r.framebuffer_sum, wave18.framebuffer_sum) for r in r18[1:]),
+          "coffee PT 256x256: renders with the same seed differ")
+    # the two routes on smaller images: where would the fused loop win?
+    sweep = []
+    for W_, spp_ in ((32, 1), (64, 4), (128, 16)):
+        cfg_ = coffee_camera(width=W_, spp=spp_, depth=depth)
+        check(_route(coffee, cfg_, "pt", None) == "wave", f"coffee PT {W_}x{W_}: not pt_wave")
+        fb_ = torch.zeros((W_ * W_, 3), device=dev)
+        render(coffee, cfg_, seed=0)
+        fused_pt(cfg_, fb_)
+        w_ = statistics.median(render(coffee, cfg_, seed=0).stats.wall_seconds
+                               for _ in range(3))
+        f_ = statistics.median(fused_pt(cfg_, fb_)[1] for _ in range(3)) / 1e3
+        sweep.append(f"{W_}x{W_} {spp_} spp: pt_wave {w_:.6f} s, fused {f_:.6f} s "
+                     f"({f_ / w_:.2f}x)")
+    sweep.append(f"256x256 16 spp: pt_wave {wall18:.6f} s, fused {fwall18:.6f} s "
+                 f"({fwall18 / wall18:.2f}x)")
+    print(f"phase 18: coffee PT depth {depth}, medians of 3: {'; '.join(sweep)} ({card})")
+    pix18 = torch.arange(256 * 256, dtype=torch.int64, device=dev)
+    args18 = (coffee, (pix18 % 256).float(), (pix18 // 256).float(), pix18 * 0.0, pix18 * 0.0,
+              pix18, pk.camera_table(camera_constants(cfg18, torch.float32, dev)), key, depth)
+    walk_ms["pt_megakernel_pixels_walk"] = time_ms(lambda: pk.pt_megakernel_pixels(
+        *args18, spp_loop=16, sqrt_spp=4), reps=3)
+    c18 = counters(pk.pt_megakernel_pixels(*args18, spp_loop=16, sqrt_spp=4))
+    walk_bound["pt_megakernel_pixels_walk"] = bound(
+        256 * 256 * (5 * 4 + 3 * 4) + walk_table_bytes(coffee), c18[1] * SLAB_OPS
+        + c18[3] * MT_OPS)
+    walk_launches["pt_megakernel_pixels_walk"] = pt_main
+    del r18, wave18, fb18, got18
+    lap("phase 18")
+
+    # ---- phase 19: defocus on the coffee stand-in, rays mode in the stratum loop
+    for name in ("bdpt", "pt"):
+        cam19 = coffee_camera(width=128, spp=4, depth=depth, integrator=name)
+        cfg19 = dataclasses.replace(cam19, defocus_angle=1.0,
+                                    focus_dist=math.dist(cam19.lookfrom, cam19.lookat))
+        check(_route(coffee, cfg19, name, None) == "strata", f"coffee defocus {name} route")
+        render(coffee, cfg19, seed=0)  # warm-up
+        mk = pk.pt_megakernel if name == "pt" else bk.bdpt_megakernel
+        for fn in all_plains:
+            fn.calls = 0
+        for fn in (*everything, *tri_kernels):
+            fn.launches = 0
+        r19 = [render(coffee, cfg19, seed=0) for _ in range(3)]
+        n_mk = mk.launches
+        n_other = sum(fn.launches for fn in (*everything, *tri_kernels)) - n_mk
+        n_plain = sum(fn.calls for fn in all_plains)
+        check(n_mk == 3 and n_other == 0 and n_plain == 0,
+              f"coffee defocus {name}: {n_mk} rays-mode launches, {n_other} other, {n_plain} plain")
+        fb = r19[0].framebuffer_sum
+        check(bool(np.isfinite(fb).all()) and float(fb.mean()) > 0
+              and all(np.array_equal(r.framebuffer_sum, fb) for r in r19[1:]),
+              f"coffee defocus {name}: image non-finite, black or not deterministic")
+        wall = statistics.median(r.stats.wall_seconds for r in r19)
+        print(f"phase 19: render coffee {name} defocus_angle 1.0 128x128 4 spp depth {depth}: "
+              f"walls {[round(r.stats.wall_seconds, 6) for r in r19]} s, median {wall:.6f} s, "
+              f"rays_traced {r19[0].stats.rays_traced}, shadow_rays {r19[0].stats.shadow_rays}; "
+              f"{mk.__name__} launches {n_mk} (one a wave), other launches {n_other}, plain calls "
+              f"{n_plain} ({card})")
+        # the wave's own launch: the stratum loop's jnp raygen for all 4 strata
+        cc19 = camera_constants(cfg19, torch.float32, dev)
+        pix19 = torch.arange(128 * 128, dtype=torch.int64, device=dev).repeat(4)
+        s19 = torch.arange(4, device=dev).repeat_interleave(128 * 128)
+        if name == "pt":
+            ids19 = pix19 * 4 + s19
+            u_gen = rng.wave_uniforms(rng.fold_in(key, 0), ids19, 0, 4, torch.float32)
+            o19, d19 = generate_rays(cc19, (pix19 % 128).float(), (pix19 // 128).float(),
+                                     (s19 % 2).float(), (s19 // 2).float(), u_gen)
+            a19 = (coffee, Vec3(*o19.unbind(1)), Vec3(*d19.unbind(1)), ids19,
+                   rng.fold_in(key, 1), depth)
+            kname, run = "pt_megakernel_walk", lambda: pk.pt_megakernel(*a19)
+        else:
+            o19, d19, ids19 = jnp_raygen(cc19, pix19, s19, key, torch.float32)
+            a19 = (coffee, Vec3(*o19.unbind(1)), Vec3(*d19.unbind(1)), ids19, key, depth)
+            kname, run = "bdpt_megakernel_walk", lambda: bk.bdpt_megakernel(*a19)
+        walk_ms[kname] = time_ms(run, reps=3)
+        c19 = counters(run())
+        walk_bound[kname] = bound(int(ids19.shape[0]) * (7 * 4 + 3 * 4)
+                                  + walk_table_bytes(coffee, bdpt=name != "pt"),
+                                  c19[-4] * SLAB_OPS + c19[-2] * MT_OPS)
+        walk_launches[kname] = n_mk
+        del r19, fb
+    lap("phase 19")
+
     # lanes in (pixels: i, j, sx, sy, id; rays: o, d, id), radiance out
     pt_tab = sum(t.numel() * t.element_size() for t in pk._pack_tables(scene))
     bdpt_tab = sum(t.numel() * t.element_size() for t in bk._pack_tables_bdpt(scene))
@@ -1345,6 +1846,44 @@ def main() -> int:
           f"{pt_rays_bound[0]:.4f} ms ({pt_rays_bound[1]}); bdpt_megakernel pixels "
           f"{bdpt_bound:.4f} ms ({bdpt_by}), rays {bdpt_rays_bound[0]:.4f} ms "
           f"({bdpt_rays_bound[1]})")
+    walk_meta = {  # source, replaced Pallas call, launches' path, timed shape
+        "pt_megakernel_walk": (
+            "pt_megakernel.cu", "pt_kernel.py:1207",
+            "three coffee PT renders with defocus, 128x128, 4 spp, depth 10",
+            "the PT wave of one such render, 65,536 rays"),
+        "pt_megakernel_pixels_walk": (
+            "pt_megakernel.cu", "pt_kernel.py:1334",
+            "three coffee PT renders through the fused loop, forced (render() takes pt_wave), "
+            "256x256, 16 spp, depth 10",
+            "one such render's chunk, 65,536 pixels x 16 spp"),
+        "bdpt_megakernel_walk": (
+            "bdpt_megakernel.cu", "bdpt_kernel.py:1195",
+            "three coffee bdpt renders with defocus, 128x128, 4 spp, depth 10",
+            "the bdpt wave of one such render, 65,536 rays"),
+        "bdpt_megakernel_pixels_walk": (
+            "bdpt_megakernel.cu", "bdpt_kernel.py:1314",
+            "three coffee bdpt-mis renders, 512x512, 4 spp, depth 80",
+            "one such render's chunk, 262,144 pixels x 4 spp"),
+    }
+    walk_entries = [{
+        "name": k,
+        "route": "cuda",
+        "source": f"bpt_tpu_torch/csrc/{src}",
+        "replaces": f"bpt_tpu/ops/pallas/{tpu} (clustered mode)",
+        "launches": walk_launches[k],
+        "launches_path": path_,
+        "max_abs_err": walk_err[k],
+        "within_tol": walk_frac[k],
+        "ms": walk_ms[k],
+        "plain_ms": walk_plain[k],
+        "bound_ms": walk_bound[k][0],
+        "bound_by": walk_bound[k][1],
+        "library_ms": None,
+        "shape": shape,
+        "plain_shape": walk_plain_shape[k],
+        "slice_ms": walk_slice_ms[k],
+    } for k, (src, tpu, path_, shape) in walk_meta.items()]
+    walk_entries[-1]["depth80_64x64_ms"] = walk_d80_ms
     print(f"chip_smoke: all phases passed in {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "pt_megakernel",
@@ -1475,7 +2014,7 @@ def main() -> int:
         "shape": f"the ref_vis wave's shadow wave of camera vertex 1, B={Bt_s}",
         "plain_shape": f"its first {n_sl} lanes",
         "slice_ms": at_sl_ms,
-    }]}))
+    }, *walk_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -271,7 +271,8 @@ def test_resumes_bpt_tpu_stratum_checkpoint(port_scene, jax_renders, integrator)
 def test_cli_renders_the_coffee_yaml_with_its_bdpt_default(tmp_path):
     """The coffee stand-in's YAML (91,540 triangles; integrator bdpt) at
     8x8, 1 spp, depth 2 through the CLI, without --integrator and without
-    importing JAX: the BDPT wave loop traces subpaths and shadow rays."""
+    importing JAX: the fused route's walk mode traces subpaths and shadow
+    rays."""
     import os
     import re
     import subprocess

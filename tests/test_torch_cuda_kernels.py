@@ -1,6 +1,7 @@
-"""The CUDA kernels (PT and BDPT megakernels, the BVH closest and any hit,
-the per-bounce wave and the brute-force closest and any hit) against their
-plain PyTorch versions on the card, and the render routes through them.
+"""The CUDA kernels (PT and BDPT megakernels in their brute-force and walk
+modes, the BVH closest and any hit, the per-bounce wave and the
+brute-force closest and any hit) against their plain PyTorch versions on
+the card, and the render routes through them.
 
 Needs an NVIDIA card with sm_90a (H100) and nvcc; elsewhere every test
 skips.  Run on the GPU machine with
@@ -262,11 +263,15 @@ def test_megakernel_plain_versions_walk_in_torch():
 
 
 @pytest.mark.parametrize("integrator", ["bdpt", "bdpt-mis"])
-def test_render_bdpt_wave_on_card_matches_cpu(integrator):
-    """The large-scene BDPT route: 7 closest_bvh and 4 any_bvh launches a
-    wave at depth 4, no plain walk, and the CPU render's image."""
+def test_render_bdpt_wave_on_card_matches_cpu(integrator, monkeypatch):
+    """The large-scene BDPT wave route (taken here under its 2^18 samples):
+    7 closest_bvh and 4 any_bvh launches a wave at depth 4, no plain walk,
+    no megakernel, and the CPU render's image."""
+    from bpt_tpu_torch.models import render as rmod
     from bpt_tpu_torch.ops import soa
 
+    monkeypatch.setattr(rmod, "WAVE_MIN_RAYS", 1)
+    n_mk = bk.bdpt_megakernel.launches + bk.bdpt_megakernel_pixels.launches
     cfg = dataclasses.replace(presets.cornell_box_camera(), image_width=16,
                               samples_per_pixel=4, max_depth=4, integrator=integrator,
                               vfov=40.0, lookfrom=(0.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0))
@@ -275,6 +280,7 @@ def test_render_bdpt_wave_on_card_matches_cpu(integrator):
     gpu = render(big_scene(builder, device="cuda"), cfg, seed=3)
     assert (pw.closest_bvh.launches - nc, pw.any_bvh.launches - na) == (7, 4)
     assert soa.bvh_closest.calls + soa.bvh_any.calls == walks
+    assert bk.bdpt_megakernel.launches + bk.bdpt_megakernel_pixels.launches == n_mk
     cpu = render(big_scene(builder, device="cpu"), cfg, seed=3)
     ok = np.isclose(gpu.framebuffer_sum, cpu.framebuffer_sum, rtol=1e-4, atol=1e-5)
     assert ok.all(axis=-1).mean() >= 0.99
@@ -466,3 +472,114 @@ def test_defocus_render_launches_only_rays_mode(integrator):
     ok = np.isclose(res.framebuffer_sum, fb.cpu().numpy().reshape(16, 16, 3), rtol=1e-4,
                     atol=1e-5)
     assert ok.all(axis=-1).mean() >= 0.99 and res.framebuffer_sum.mean() > 0
+
+
+# ------------------------------------------- the megakernels' walk mode
+
+
+def _walk_counters(out):
+    """(rays, shadow rays, node visits, box hits, tri tests, tri hits) of
+    a PT (shadow 0) or BDPT megakernel's outputs."""
+    if len(out) == 5:
+        return [int(out[3]), 0] + [int(x) for x in out[4]]
+    return _counters(out)
+
+
+@pytest.mark.parametrize("integrator", ["pt", "bdpt", "bdpt-mis"])
+@pytest.mark.parametrize("injected", [True, False], ids=["buffer", "rng"])
+def test_walk_rays_mode_matches_plain(integrator, injected):
+    """The walk mode on the 964-triangle scene: radiance on >= 99.9% of
+    lanes, rays, shadow rays and the four walk counters exact."""
+    scene = big_scene(builder, device="cuda")
+    B, depth = 8192, 6
+    o, d, ids = _big_lanes(B, 12)
+    slots = depth * NU if integrator == "pt" else bk.n_uniform_slots(depth)
+    u = (torch.from_numpy(np.random.default_rng(13).uniform(size=(slots, B))
+                          .astype(np.float32)).cuda() if injected else None)
+    a = (scene, o, d, ids, rng.prng_key(3), depth)
+    if integrator == "pt":
+        n = pk.pt_megakernel.launches
+        got = pk.pt_megakernel(*a, uniforms=u)
+        want = pk.pt_megakernel_plain(*a, uniforms=u)
+        launched = pk.pt_megakernel.launches - n
+    else:
+        n = bk.bdpt_megakernel.launches
+        got = bk.bdpt_megakernel(*a, uniforms=u, mis=integrator == "bdpt-mis")
+        want = bk.bdpt_megakernel_plain(*a, uniforms=u, mis=integrator == "bdpt-mis")
+        launched = bk.bdpt_megakernel.launches - n
+    torch.cuda.synchronize()
+    assert launched == 1
+    assert _frac_close(got, want) >= 0.999
+    assert all(float(c[::13].abs().max()) == 0.0 for c in got[:3])
+    kc = _walk_counters(got)
+    assert kc == _walk_counters(want) and kc[2] > kc[3] > 0
+
+
+@pytest.mark.parametrize("integrator", ["pt", "bdpt", "bdpt-mis"])
+def test_walk_pixels_mode_matches_plain(integrator):
+    scene = big_scene(builder, device="cuda")
+    W, S, depth = 32, 2, 10
+    cfg = dataclasses.replace(presets.cornell_box_camera(), image_width=W,
+                              samples_per_pixel=S * S, vfov=40.0, lookfrom=(0.0, 2.0, 6.0),
+                              lookat=(0.0, 1.0, 0.0))
+    cam = pk.camera_table(camera_constants(cfg, torch.float32, "cuda"))
+    pix = torch.arange(W * W, device="cuda")
+    i, j = (pix % W).float(), (pix // W).float()
+    if integrator == "pt":
+        a = (scene, i, j, i * 0, j * 0, pix.int(), cam, rng.prng_key(0), depth)
+        got = pk.pt_megakernel_pixels(*a, spp_loop=S * S, sqrt_spp=S)
+        want = pk.pt_megakernel_pixels_plain(*a, spp_loop=S * S, sqrt_spp=S)
+    else:
+        a = (scene, i, j, pix.int(), cam, rng.prng_key(0), depth, S)
+        got = bk.bdpt_megakernel_pixels(*a, mis=integrator == "bdpt-mis")
+        want = bk.bdpt_megakernel_pixels_plain(*a, mis=integrator == "bdpt-mis")
+    torch.cuda.synchronize()
+    assert _frac_close(got, want) >= 0.999
+    assert _walk_counters(got) == _walk_counters(want)
+
+
+def test_walk_depth80_matches_plain():
+    scene = big_scene(builder, device="cuda")
+    W, S = 8, 2
+    cfg = dataclasses.replace(presets.cornell_box_camera(), image_width=W,
+                              samples_per_pixel=S * S, vfov=40.0, lookfrom=(0.0, 2.0, 6.0),
+                              lookat=(0.0, 1.0, 0.0))
+    pix = torch.arange(W * W, device="cuda")
+    i, j = (pix % W).float(), (pix // W).float()
+    a = (scene, i, j, pix, pk.camera_table(camera_constants(cfg, torch.float32, "cuda")),
+         rng.prng_key(1), 80, S)
+    got = bk.bdpt_megakernel_pixels(*a, mis=True)
+    want = bk.bdpt_megakernel_pixels_plain(*a, mis=True)
+    torch.cuda.synchronize()
+    assert _frac_close(got, want) >= 0.999
+    assert _walk_counters(got) == _walk_counters(want)
+
+
+@pytest.mark.parametrize("integrator", ["pt", "bdpt-mis"])
+def test_render_fused_walk_on_card_matches_cpu(integrator, monkeypatch):
+    """Under 2^18 samples large-scene BDPT takes the fused loop: one
+    pixels-mode launch, no BVH hit kernel, no plain version, and the CPU
+    render's image and counters.  render() sends large-scene PT to
+    pt_wave at every size; its fused loop is held here by taking that
+    route by hand."""
+    from bpt_tpu_torch.models import render as rmod
+    from bpt_tpu_torch.ops import soa
+
+    if integrator == "pt":
+        monkeypatch.setattr(rmod, "_route", lambda *args: "fused")
+
+    cfg = dataclasses.replace(presets.cornell_box_camera(), image_width=16,
+                              samples_per_pixel=4, max_depth=6, integrator=integrator,
+                              vfov=40.0, lookfrom=(0.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0))
+    mk = pk.pt_megakernel_pixels if integrator == "pt" else bk.bdpt_megakernel_pixels
+    n, hits = mk.launches, pw.closest_bvh.launches + pw.any_bvh.launches
+    walks = soa.bvh_closest.calls + soa.bvh_any.calls
+    gpu = render(big_scene(builder, device="cuda"), cfg, seed=3)
+    assert mk.launches == n + 1
+    assert pw.closest_bvh.launches + pw.any_bvh.launches == hits
+    assert soa.bvh_closest.calls + soa.bvh_any.calls == walks
+    cpu = render(big_scene(builder, device="cpu"), cfg, seed=3)
+    ok = np.isclose(gpu.framebuffer_sum, cpu.framebuffer_sum, rtol=1e-4, atol=1e-5)
+    assert ok.all(axis=-1).mean() >= 0.99
+    assert abs(gpu.stats.rays_traced - cpu.stats.rays_traced) <= 10
+    assert abs(gpu.stats.shadow_rays - cpu.stats.shadow_rays) <= 0.01 * max(1, cpu.stats.shadow_rays)

@@ -169,7 +169,7 @@ def test_render_rejects_unported_configurations():
     scene = tpresets.cornell_box(device="cpu")
     for integrator in ("pt", "bdpt", "bdpt-mis"):
         for unported in (dict(has_textures=True), dict(num_volumes=1)):
-            with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
+            with pytest.raises(NotImplementedError, match="ROADMAP §1 items 3-4"):
                 render(dataclasses.replace(scene, **unported),
                        _cfg(tpresets, integrator, defocus_angle=1.0))
     with pytest.raises(NotImplementedError, match="outside 1..80"):
@@ -193,7 +193,8 @@ _NO_JAX = (
 @pytest.mark.parametrize("scene", ["cornell", "coffee"])
 def test_cli_renders_png_without_jax(tmp_path, scene):
     """The cornell box at 8x8 / 4 spp / depth 2, and the 91,540-triangle
-    coffee stand-in from its YAML at 8x8 / 1 spp / depth 2 (pt_wave)."""
+    coffee stand-in from its YAML at 8x8 / 1 spp / depth 2 (the fused
+    route's walk mode, whose plain version walks the BVH in torch)."""
     spp = "4" if scene == "cornell" else "1"
     args = ["--device", "cpu", "--integrator", "pt", "--size", "8x8", "--spp", spp,
             "--max-depth", "2", "--output", "t.png", "--output-dir", str(tmp_path),

@@ -17,7 +17,7 @@ from bpt_tpu_torch.ops.kernels import pt_kernel as tk
 from bpt_tpu_torch.scene import builder as tbuilder
 from bpt_tpu_torch.scene import presets as tpresets
 from bpt_tpu_torch.scene.types import scene_from_numpy, scene_to_numpy
-from torch_parity import mixed_scene, to_port
+from torch_parity import big_scene, mixed_scene, to_port
 
 DT = {"f32": (jnp.float32, torch.float32), "f64": (jnp.float64, torch.float64)}
 
@@ -63,10 +63,15 @@ def test_scene_from_numpy_roundtrip():
         scene_from_numpy({k: v for k, v in arrays.items() if k != "v0"}, meta, device="cpu")
 
 
-@pytest.mark.parametrize("which", ["cornell", "mixed"])
+@pytest.mark.parametrize("which", ["cornell", "mixed", "big"])
 def test_pack_tables_equal(which):
+    """The megakernels' tables; on the 964-triangle scene, their walk mode
+    (bpt_tpu's clustered mode) gets one zero triangle row."""
     if which == "cornell":
         js, ts = jpresets.cornell_box(), tpresets.cornell_box(device="cpu")
+    elif which == "big":
+        js, ts = big_scene(jbuilder), big_scene(tbuilder, device="cpu")
+        assert jk.use_clusters(js) and tk.use_walk(ts)
     else:
         js = mixed_scene(jbuilder, jpresets)
         ts = mixed_scene(tbuilder, tpresets, device="cpu")

@@ -237,17 +237,18 @@ def test_render_wave_batches_and_stratum_checkpoints(port_scene, monkeypatch):
     assert {s["unit_kind"] for s in snaps} == {"stratum"} and snaps[0]["stream"] == "wave"
     resumed = render(port_scene, cfg, seed=4, resume=snaps[1])
     np.testing.assert_array_equal(resumed.framebuffer_sum, whole.framebuffer_sum)
-    with pytest.raises(ValueError, match="chunk-kind"):
-        render(port_scene, cfg, seed=4, resume=dict(snaps[1], unit_kind="chunk"))
+    # a chunk-kind checkpoint resumes on the fused loop, which walks the BVH
+    assert rmod._route(port_scene, cfg, "pt", dict(snaps[1], unit_kind="chunk")) == "fused"
 
 
 @pytest.mark.parametrize("integrator", ["bdpt", "bdpt-mis"])
 def test_render_refuses_bdpt_on_large_scenes(port_scene, integrator):
-    """What the large-scene BDPT route still refuses: a depth outside the
-    CLI's 1..80, a chunk-kind checkpoint and a checkpoint of pt_wave's
-    stream (ref_vis renders since the stratum loop came)."""
+    """What large-scene BDPT still refuses: a depth outside the CLI's
+    1..80, a chunk-kind checkpoint on a route the fused loop does not
+    serve (ref_vis) and a checkpoint of pt_wave's stream (ref_vis renders
+    since the stratum loop came)."""
     with pytest.raises(ValueError, match="chunk-kind"):
-        render(port_scene, _big_cfg(integrator=integrator),
+        render(port_scene, _big_cfg(integrator=integrator, ref_vis=True),
                resume=dict(framebuffer_sum=np.zeros((10, 10, 3)), units_done=1,
                            unit_kind="chunk", chunk_size=100))
     with pytest.raises(NotImplementedError, match=r"outside 1\.\.80"):

@@ -11,6 +11,15 @@ import torch
 
 from bpt_tpu_torch.scene.types import scene_from_numpy
 
+# One intra-op thread a process.  The suite runs under pytest-xdist, six
+# workers on eight cores, and each worker imports every test module while
+# it collects, so this holds in all of them.  Six processes at torch's
+# default of eight threads each oversubscribe the cores: the 64x64 cornell
+# goldens through the stratum loop took 505 s (pt) and 676 s (bdpt) a
+# process with six running, 1.6 s and 6.3 s at one thread (0.6 s and 1.7 s
+# alone at eight).
+torch.set_num_threads(1)
+
 
 def to_port(jscene, device="cpu", dtype=torch.float32):
     """bpt_tpu SceneArrays -> bpt_tpu_torch SceneTensors via numpy."""

@@ -1,13 +1,15 @@
-"""A/B of the PT megakernel between copies of bpt_tpu_torch, on one card.
+"""A/B of the PT and BDPT megakernels between copies of bpt_tpu_torch, on
+one card.
 
 Each argument is a directory holding a ``bpt_tpu_torch`` package (this
 checkout, or another commit unpacked with ``git archive``).  In the order
 given, each runs in its own process: it builds that copy's kernels, then
 times ``pt_megakernel_pixels`` on the cornell box at 512x512 (one chunk of
 2^18 pixels), 16 spp, depth 10, seed 0 (CUDA events, 10 calls after a
-warm-up) and ``pt_megakernel`` in RNG mode at B = 65,536 random rays,
-depth 10, and prints both with rays_traced and ptxas's register count.
-Give the copies as A B B A to see the spread.
+warm-up), ``pt_megakernel`` in RNG mode at B = 65,536 random rays, depth
+10, and ``bdpt_megakernel_pixels`` (bdpt and bdpt-mis) at the PT pixels
+shape, and prints each with rays_traced and the brute-force kernels'
+ptxas registers and spills.  Give the copies as A B B A to see the spread.
 
     python tools/ab_pt_megakernel.py DIR_A DIR_B DIR_B DIR_A
 """
@@ -24,13 +26,21 @@ import numpy as np, torch
 from bpt_tpu_torch.core import rng
 from bpt_tpu_torch.core.vec3 import Vec3
 from bpt_tpu_torch.models.camera import camera_constants
+from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
 from bpt_tpu_torch.ops.kernels import build
 from bpt_tpu_torch.ops.kernels import pt_kernel as pk
 from bpt_tpu_torch.scene.presets import cornell_box, cornell_box_camera
 
 log = build.build().with_suffix(".log").read_text().splitlines()
-regs = next(l.strip() for k, l in enumerate(log) if "Used" in l
-            and any("13pt_megakernel" in x for x in log[max(0, k - 3):k]))
+
+
+def ptxas(entry):  # ptxas's stack / spill and register lines of one kernel
+    k = next(k for k, l in enumerate(log) if "entry function" in l and entry in l)
+    lines = [l.strip() for l in log[k + 1:k + 5] if "spill" in l or "Used" in l]
+    return f"{entry}: " + " / ".join(lines)
+
+
+regs = "; ".join(ptxas(e) for e in ("13pt_megakernelE", "15bdpt_megakernelE"))
 dev = torch.device("cuda", 0)
 scene = cornell_box(device=dev)
 W, S, depth = 512, 4, 10
@@ -47,6 +57,10 @@ runs = {
     "pixels 512x512x16spp": lambda: pk.pt_megakernel_pixels(
         scene, i, j, i * 0, j * 0, pix, cam, rng.prng_key(0), depth, spp_loop=S * S, sqrt_spp=S),
     "rays B=65536": lambda: pk.pt_megakernel(scene, o, d, ids, rng.prng_key(0), depth),
+    "bdpt pixels 512x512x16spp": lambda: bk.bdpt_megakernel_pixels(
+        scene, i, j, pix, cam, rng.prng_key(0), depth, S),
+    "bdpt-mis pixels 512x512x16spp": lambda: bk.bdpt_megakernel_pixels(
+        scene, i, j, pix, cam, rng.prng_key(0), depth, S, mis=True),
 }
 out = []
 for name, fn in runs.items():

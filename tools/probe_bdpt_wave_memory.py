@@ -1,5 +1,6 @@
 """Peak device memory per ray of one large-scene BDPT wave, on one NVIDIA
-card: ``models.bdpt.bdpt_fast`` over the coffee stand-in
+card: ``models.bdpt.bdpt_jnp`` (the BDPT wave loop's estimator) over the
+coffee stand-in
 (scenes/coffee/coffee_standin.yaml) for waves of the render loop's own
 primary rays at several depths, bdpt and bdpt-mis.  For each it prints the
 peak of ``torch.cuda.max_memory_allocated`` above the memory held before
@@ -8,8 +9,9 @@ seconds; then the least-squares fit of bytes per ray = a*S^2 + b*S + c
 over the depths S (a = 0 without MIS), the form of
 ``models/render.py::BYTES_PER_RAY``.  With ``--render-depth N`` it then
 renders the coffee stand-in at 512x512, 4 spp, depth N with bdpt-mis
-through ``models.render.render`` and prints the wave shape the budget
-chose, the render's wall and its peak device memory against
+through the BDPT wave loop (``models.render._render_strata`` with
+``bdpt_wave``, which ``render()`` takes to depth 32) and prints the wave
+shape the budget chose, the render's wall and its peak device memory against
 ``BDPT_WAVE_BYTES``.
 
     python tools/probe_bdpt_wave_memory.py [--rays 65536] [--depths 2,5,10,20]
@@ -42,7 +44,7 @@ def main(argv=None) -> int:
     import torch
 
     from bpt_tpu_torch.core import rng
-    from bpt_tpu_torch.models.bdpt import bdpt_fast
+    from bpt_tpu_torch.models.bdpt import bdpt_jnp
     from bpt_tpu_torch.models.camera import camera_constants
     from bpt_tpu_torch.models import render as render_mod
     from bpt_tpu_torch.models.render import jnp_raygen
@@ -73,7 +75,7 @@ def main(argv=None) -> int:
             base = torch.cuda.memory_allocated(dev)
             torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.monotonic()
-            rad, st = bdpt_fast(loaded.scene, o, d, ids, key, depth, mis=mis)
+            rad, st = bdpt_jnp(loaded.scene, o, d, ids, key, depth, mis=mis)
             torch.cuda.synchronize()
             secs = time.monotonic() - t0
             peak = torch.cuda.max_memory_allocated(dev) - base
@@ -104,17 +106,22 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        res = render_mod.render(loaded.scene, rcfg, seed=0, integrator="bdpt-mis")
+        fb = torch.zeros((512 * 512, 3), device=dev)
+        t0 = time.monotonic()
+        rays, shadow, _ = render_mod._render_strata(
+            loaded.scene, rcfg, camera_constants(rcfg, torch.float32, dev), "bdpt-mis", 0, fb,
+            0, None, None, bdpt_wave=True)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
         peak = torch.cuda.max_memory_allocated(dev) - base
-        fb = res.framebuffer_sum
-        st = res.stats
+        fb = fb.cpu().numpy()
         print(f"render bdpt-mis 512x512, 4 spp, depth {depth}: waves of {strata} strata x "
               f"{span} pixels ({a * depth * depth + b * depth + c} budgeted bytes a ray); "
-              f"wall {st.wall_seconds:.3f} s; peak {peak / 2**30:.3f} GiB above the "
+              f"wall {wall:.3f} s; peak {peak / 2**30:.3f} GiB above the "
               f"{base / 2**30:.3f} GiB held, {peak / (strata * span):.1f} B a ray, "
               f"{peak / budget * 100:.1f}% of BDPT_WAVE_BYTES ({budget / 2**30:.0f} GiB); "
               f"allocator reserved {torch.cuda.max_memory_reserved(dev) / 2**30:.3f} GiB; "
-              f"rays {st.rays_traced}, shadow rays {st.shadow_rays}; image finite "
+              f"rays {int(rays)}, shadow rays {int(shadow)}; image finite "
               f"{bool(np.isfinite(fb).all())}, mean {float(fb.mean()):.6f}", flush=True)
     return 0
 
