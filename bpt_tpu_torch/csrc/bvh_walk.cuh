@@ -47,6 +47,21 @@ __device__ __forceinline__ void slab_axis(float lo_b, float hi_b, float o,
   hi = nan ? inf_f() : fmaxf(t0, t1);
 }
 
+// The clustered kernels' slab test of the box (lo3, hi3) at box[0..5]
+// (cluster_wave.cu, plucker.cu; bpt_tpu/ops/pallas/clusters.py::_slab):
+// entry clamped to T_MIN, exit to bound, NaN terms unconstrained.
+__device__ __forceinline__ bool box_entered(const float* box, float ox, float oy,
+                                            float oz, float ix, float iy, float iz,
+                                            float bound) {
+  float lox, hix, loy, hiy, loz, hiz;
+  slab_axis(__ldg(box), __ldg(box + 3), ox, ix, lox, hix);
+  slab_axis(__ldg(box + 1), __ldg(box + 4), oy, iy, loy, hiy);
+  slab_axis(__ldg(box + 2), __ldg(box + 5), oz, iz, loz, hiz);
+  const float enter = fmaxf(fmaxf(lox, loy), fmaxf(loz, T_MIN));
+  const float exit_ = fminf(fminf(hix, hiy), fminf(hiz, bound));
+  return exit_ > enter;
+}
+
 // The threaded-DFS walk of soa._bvh_walk over [tmin, tmax].  ANY = false:
 // the closest hit (an accepted test shrinks the interval; t is inf and tri
 // -1 on a miss; u, v are the winner's barycentrics).  ANY = true: the

@@ -49,6 +49,9 @@ _I = ctypes.c_int
 # bpt_closest_tri(f64, B, T, tri, ox, oy, oz, dx, dy, dz, tmin, tmax,
 #                 t, tri_out, u, v, stream)
 # bpt_any_tri(f64, B, T, tri, ox, oy, oz, dx, dy, dz, tmin, tmax, hit, stream)
+# bpt_clustered_hit(any, B, S, C, T, table, blocks, ox, oy, oz, dx, dy, dz,
+#                   tmin, tmax, t, tri, u, v, hit, counters, stream)
+# bpt_plucker_hit: the same arguments (S unused)
 _SIGNATURES = {
     "bpt_pt_megakernel": ([_I] * 8 + [_P] * 8 + [_P] * 6 + [_P] * 2
                           + [_P] * 4 + [_P], _I),
@@ -59,6 +62,8 @@ _SIGNATURES = {
     "bpt_pt_wave_bounce": ([_I] * 4 + [_P] * 6 + [_P] * 5 + [_P] * 2, _I),
     "bpt_closest_tri": ([_I] * 3 + [_P] + [_P] * 8 + [_P] * 4 + [_P], _I),
     "bpt_any_tri": ([_I] * 3 + [_P] + [_P] * 8 + [_P] + [_P], _I),
+    "bpt_clustered_hit": ([_I] * 5 + [_P] * 2 + [_P] * 8 + [_P] * 5 + [_P] * 2, _I),
+    "bpt_plucker_hit": ([_I] * 5 + [_P] * 2 + [_P] * 8 + [_P] * 5 + [_P] * 2, _I),
     "bpt_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -36,7 +36,6 @@ ported).
 from __future__ import annotations
 
 import functools
-import weakref
 from typing import NamedTuple
 
 import torch
@@ -54,7 +53,7 @@ from bpt_tpu_torch.ops.kernels.pt_kernel import (
     pack_shade_tables,
     shade_reject_reason,
 )
-from bpt_tpu_torch.scene.types import SceneTensors
+from bpt_tpu_torch.scene.types import SceneTensors, per_scene
 
 STATE_ROWS = 13
 OX, DX, THR, RAD, ALIVE = 0, 3, 6, 9, 12  # first row of each field
@@ -70,25 +69,19 @@ class BvhTables(NamedTuple):
     lgt: torch.Tensor  # [MAX_LIGHTS*13 + 3] f32, background at the tail
 
 
-_WALK_TABLES: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
-
-
+@per_scene
 def walk_tables(scene: SceneTensors) -> tuple[torch.Tensor, torch.Tensor]:
     """(nodes, tris): the BVH in the walk's layout (csrc/pt_wave.cu: Bvh),
     32-byte nodes and 48-byte triangles, each a few float4 loads.  Packed
     once a scene and kept while the scene lives, since every traversal of a
     BDPT wave reads them."""
-    got = _WALK_TABLES.get(id(scene))
-    if got is None:
-        ints = torch.stack([scene.bvh_skip, scene.bvh_first * 4 + scene.bvh_count],
-                           dim=1).to(torch.int32)
-        nodes = torch.cat([scene.bvh_min.to(torch.float32), scene.bvh_max.to(torch.float32),
-                           ints.view(torch.float32)], dim=1).contiguous()
-        tris = torch.cat([scene.v0, scene.e1, scene.e2, scene.normal],
-                         dim=1).to(torch.float32).contiguous()
-        got = _WALK_TABLES[id(scene)] = (nodes, tris)
-        weakref.finalize(scene, _WALK_TABLES.pop, id(scene), None)
-    return got
+    ints = torch.stack([scene.bvh_skip, scene.bvh_first * 4 + scene.bvh_count],
+                       dim=1).to(torch.int32)
+    nodes = torch.cat([scene.bvh_min.to(torch.float32), scene.bvh_max.to(torch.float32),
+                       ints.view(torch.float32)], dim=1).contiguous()
+    tris = torch.cat([scene.v0, scene.e1, scene.e2, scene.normal],
+                     dim=1).to(torch.float32).contiguous()
+    return nodes, tris
 
 
 def pack_bvh(scene: SceneTensors) -> BvhTables:

@@ -10,14 +10,21 @@ closest_tri`` / ``any_tri`` and ``ops/kernels/pt_wave.py::closest_bvh`` /
 ``any_bvh``.
 
 Dispatch (``closest_hit``, ``any_hit``), as bpt_tpu's (soa.py:534-644): a
-scene with a BVH (``scene.use_bvh``) walks it, a scene without one sweeps
-every triangle.  On a CUDA scene both launch the kernels (a failure raises;
-nothing falls back), on a CPU scene they run in torch, as bpt_tpu does on
-a CPU; ``plain`` runs the torch versions on the card, for comparisons.
+scene without a BVH sweeps every triangle; a scene with one (``scene.
+use_bvh``) on the card takes bpt_tpu's TPU route (``wave_impl``): the BVH
+walks ``closest_bvh`` / ``any_bvh`` over the production interval, the
+clustered kernels of ``ops/kernels/cluster_wave.py`` over any other or with
+``BPT_TPU_NO_FTB``, those of ``ops/kernels/plucker.py`` with
+``BPT_TPU_WAVE_IMPL=plucker``; on a CPU it walks the BVH in torch, as
+bpt_tpu does there.  On a CUDA scene the calls launch the kernels (a
+failure raises; nothing falls back); ``plain`` runs their torch versions on
+the card, for comparisons.
 """
 
 from __future__ import annotations
 
+import numbers
+import os
 from typing import NamedTuple
 
 import torch
@@ -261,12 +268,44 @@ def _bounds(o: Vec3, tmin, tmax, mask):
     return tmin_b, tmax_b
 
 
+def _card_bvh(scene: SceneTensors) -> bool:
+    """A scene with a BVH on the card takes ``bpt_tpu``'s TPU dispatch
+    (``wave_impl``); on a CPU it walks the BVH in torch, as ``bpt_tpu``
+    does there (its clustered route requires the TPU, soa.py:344-362)."""
+    return scene.use_bvh and scene.device.type == "cuda"
+
+
 def _kernel_route(scene: SceneTensors, plain: bool) -> bool:
-    """BVH traversals of a CUDA scene launch the CUDA walks
-    (``ops/kernels/pt_wave.py``), as bpt_tpu's dispatch sends them to its
-    clustered Pallas kernels on a TPU (soa.py:543-551, 594-637); ``plain``
-    runs the torch walks on the card instead, for comparisons only."""
-    return scene.use_bvh and scene.device.type == "cuda" and not plain
+    """Hit calls of such a scene launch the CUDA kernels; ``plain`` runs
+    their plain versions on the card instead, for comparisons only."""
+    return _card_bvh(scene) and not plain
+
+
+def _is_static(x, val: float) -> bool:
+    """x is a Python number equal to val (bpt_tpu's _is_static: a
+    per-lane tensor is never the production interval)."""
+    return isinstance(x, numbers.Real) and float(x) == val
+
+
+def wave_impl(tmin, tmax=None) -> str:
+    """The hit kernels ``bpt_tpu`` takes for a large scene on its TPU
+    (soa.py:410-427, 472-475, 544-551, 599-601), by its own switches, read
+    here at call time and nowhere else:
+    - ``"bvh"``: the production interval, (T_MIN, inf) for a closest hit
+      (``tmax`` given) and tmin = T_MIN for an any hit (``tmax`` None),
+      with neither switch set: the FTB kernels 7 and 8, ported as
+      ``closest_bvh`` / ``any_bvh``;
+    - ``"roll"``: any other interval, or ``BPT_TPU_NO_FTB`` set: kernels 10
+      and 11, ``clustered_closest`` / ``clustered_any``;
+    - ``"plucker"``: ``BPT_TPU_WAVE_IMPL=plucker``, any interval: kernels 12
+      and 13, ``plucker_closest`` / ``plucker_any``."""
+    impl = os.environ.get("BPT_TPU_WAVE_IMPL", "roll")
+    if impl == "plucker":
+        return "plucker"
+    production = _is_static(tmin, T_MIN) and (tmax is None or _is_static(tmax, torch.inf))
+    if production and impl == "roll" and os.environ.get("BPT_TPU_NO_FTB", "") == "":
+        return "bvh"
+    return "roll"
 
 
 def _sweeps(plain: bool):
@@ -280,53 +319,102 @@ def _sweeps(plain: bool):
     return ki.closest_tri, ki.any_tri
 
 
-def _kernel_interval(what, tmin, tmax=torch.inf):
-    """The CUDA walks start at T_MIN; closest_bvh runs to inf."""
-    if not (isinstance(tmin, float) and tmin == T_MIN
-            and isinstance(tmax, float) and tmax == torch.inf):
-        raise ValueError(f"the CUDA {what} takes tmin = T_MIN and no other bound, "
-                         f"not tmin {tmin}, tmax {tmax}")
+def _clustered(scene: SceneTensors, o: Vec3, d: Vec3, tmin_b, tmax_b, mask,
+               impl: str, kernels: bool, any_hit: bool):
+    """The clustered route (``bpt_tpu``'s _clustered_sorted_closest and
+    any_hit, soa.py:385-407, 505-516, 612-633): the lanes sorted by
+    ``morton_octant_key`` over the root box, the lanes the mask leaves out
+    last; the kernel (``kernels``) or its plain version over [tmin_b,
+    tmax_b]; the answers back in lane order.  The sort changes no lane's
+    answer.  Returns the kernel's outputs but its counters."""
+    from bpt_tpu_torch.ops.kernels import cluster_wave as cw  # imports soa
+    from bpt_tpu_torch.ops.kernels import plucker as kp
+
+    kernel, plain = {
+        ("roll", False): (cw.clustered_closest, cw.clustered_closest_plain),
+        ("roll", True): (cw.clustered_any, cw.clustered_any_plain),
+        ("plucker", False): (kp.plucker_closest, kp.plucker_closest_plain),
+        ("plucker", True): (kp.plucker_any, kp.plucker_any_plain),
+    }[impl, any_hit]
+    fn = kernel if kernels else plain
+    f32 = torch.float32
+    key = cw.morton_octant_key(scene.bvh_min[0].to(f32), scene.bvh_max[0].to(f32),
+                               *(c.to(f32) for c in (*o, *d)))
+    if mask is not None:
+        key = torch.where(mask, key, 0x7FFFFFFF)
+    perm = torch.sort(key, stable=True).indices
+    out = fn(scene, Vec3(*(c[perm] for c in o)), Vec3(*(c[perm] for c in d)),
+             tmin_b[perm], tmax_b[perm])[:-1]
+    back = []
+    for x in out:
+        y = torch.empty_like(x)
+        y[perm] = x
+        back.append(y)
+    return back
+
+
+def _live(o: Vec3, mask):
+    return o.x.shape[0] if mask is None else mask.sum(dtype=torch.int64)
 
 
 def closest_hit(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax,
                 mask=None, plain: bool = False) -> HitSoA:
     """mask: optional [B] bool — lanes with mask=False are culled (tmax
     collapses to 0) and excluded from the stats counters.  A CUDA scene
-    with a BVH launches ``closest_bvh`` (over (T_MIN, inf) only), one
-    without launches ``closest_tri`` (any [tmin, tmax]), unless ``plain``;
-    a CPU scene walks ``bvh_closest`` or sweeps in torch.  Counters of a
-    sweep: T triangle tests per live lane, one accepted test per hit."""
-    if _kernel_route(scene, plain):
-        from bpt_tpu_torch.ops.kernels.pt_wave import closest_bvh  # imports soa
+    with a BVH takes the kernels ``wave_impl`` names: ``closest_bvh`` over
+    the production interval, ``clustered_closest`` / ``plucker_closest`` over
+    any [tmin, tmax]; one without launches ``closest_tri``; ``plain`` runs
+    their plain versions.  A CPU scene walks ``bvh_closest`` or sweeps in
+    torch.  Counters of a sweep and of the clustered route (bpt_tpu's,
+    soa.py:524-531): T triangle tests per live lane, one accepted test per
+    hit."""
+    zero = torch.zeros((), dtype=torch.int64, device=o.x.device)
+    if _card_bvh(scene):
+        impl = wave_impl(tmin, tmax)
+        kernels = _kernel_route(scene, plain)
+        if impl == "bvh" and kernels:
+            from bpt_tpu_torch.ops.kernels.pt_wave import closest_bvh  # imports soa
 
-        _kernel_interval("closest_bvh", tmin, tmax)
-        active = (torch.ones(o.x.shape, dtype=torch.bool, device=o.x.device)
-                  if mask is None else mask)
-        t, tri, u, v, c = closest_bvh(scene, o, d, active)
-        hit = tri >= 0
-        return HitSoA(hit=hit, t=t, tri=torch.clamp_min(tri, 0).long(), u=u, v=v,
-                      node_visits=c[0], aabb_hits=c[1], tri_tests=c[2], tri_hits=c[3])
+            active = (torch.ones(o.x.shape, dtype=torch.bool, device=o.x.device)
+                      if mask is None else mask)
+            t, tri, u, v, c = closest_bvh(scene, o, d, active)
+            hit = tri >= 0
+            return HitSoA(hit=hit, t=t, tri=torch.clamp_min(tri, 0).long(), u=u, v=v,
+                          node_visits=c[0], aabb_hits=c[1], tri_tests=c[2], tri_hits=c[3])
+        if impl != "bvh":
+            t, tri, u, v = _clustered(scene, o, d, *_bounds(o, tmin, tmax, mask), mask,
+                                      impl, kernels, any_hit=False)
+            hit = tri >= 0
+            return HitSoA(hit=hit, t=t, tri=torch.clamp_min(tri, 0).long(), u=u, v=v,
+                          node_visits=zero, aabb_hits=zero,
+                          tri_tests=torch.as_tensor(_live(o, mask) * scene.num_tris,
+                                                    device=o.x.device),
+                          tri_hits=hit.sum(dtype=torch.int64))
     if scene.use_bvh:
         return bvh_closest(scene, o, d, tmin, tmax, mask)
     tmin_b, tmax_b = _bounds(o, tmin, tmax, mask)
     t, tri, u, v = _sweeps(plain)[0](scene, o, d, tmin_b, tmax_b)
     hit = tri >= 0  # a culled lane (tmax 0 < T_MIN) never hits
-    live = o.x.shape[0] if mask is None else mask.sum(dtype=torch.int64)
-    zero = torch.zeros((), dtype=torch.int64, device=o.x.device)
     return HitSoA(hit=hit, t=t, tri=torch.clamp_min(tri, 0).long(), u=u, v=v,
                   node_visits=zero, aabb_hits=zero,
-                  tri_tests=torch.as_tensor(live * scene.num_tris, device=o.x.device),
+                  tri_tests=torch.as_tensor(_live(o, mask) * scene.num_tris, device=o.x.device),
                   tri_hits=hit.sum(dtype=torch.int64))
 
 
 def _any_hit(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax, mask, plain: bool):
-    """(hit [B] bool, the walk's counters int64[4] or None for a sweep)."""
+    """(hit [B] bool, the walk's counters int64[4], or None for a sweep and
+    the clustered route)."""
     tmin_b, tmax_b = _bounds(o, tmin, tmax, mask)
-    if _kernel_route(scene, plain):
-        from bpt_tpu_torch.ops.kernels.pt_wave import any_bvh  # imports soa
+    if _card_bvh(scene):
+        impl = wave_impl(tmin)
+        kernels = _kernel_route(scene, plain)
+        if impl == "bvh" and kernels:
+            from bpt_tpu_torch.ops.kernels.pt_wave import any_bvh  # imports soa
 
-        _kernel_interval("any_bvh", tmin)
-        return any_bvh(scene, o, d, tmax_b)
+            return any_bvh(scene, o, d, tmax_b)
+        if impl != "bvh":
+            return _clustered(scene, o, d, tmin_b, tmax_b, mask, impl, kernels,
+                              any_hit=True)[0], None
     if scene.use_bvh:
         return bvh_any(scene, o, d, tmin_b, tmax_b)
     return _sweeps(plain)[1](scene, o, d, tmin_b, tmax_b), None
@@ -335,9 +423,10 @@ def _any_hit(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax, mask, plain: boo
 def any_hit(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax, mask=None,
             plain: bool = False):
     """bool [B]: a hit in [tmin, tmax]; lanes with mask=False miss.  A
-    CUDA scene with a BVH launches ``any_bvh`` (tmin = T_MIN only), one
-    without launches ``any_tri``, unless ``plain``; a CPU scene walks
-    ``bvh_any`` or sweeps every triangle in torch."""
+    CUDA scene with a BVH takes the kernels ``wave_impl`` names: ``any_bvh``
+    for tmin = T_MIN, ``clustered_any`` / ``plucker_any`` for any tmin; one
+    without launches ``any_tri``; ``plain`` runs their plain versions.  A
+    CPU scene walks ``bvh_any`` or sweeps every triangle in torch."""
     return _any_hit(scene, o, d, tmin, tmax, mask, plain)[0]
 
 
@@ -345,12 +434,11 @@ def any_hit_counted(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax, mask=None
                     plain: bool = False):
     """``any_hit`` and int64[3] = (node visits, box hits, triangle tests)
     of these shadow rays as the megakernels count them: the walks' own, or
-    T tests a live lane of a sweep."""
+    T tests a live lane of a sweep and of the clustered route."""
     hit, c = _any_hit(scene, o, d, tmin, tmax, mask, plain)
     if c is None:
-        live = o.x.shape[0] if mask is None else mask.sum(dtype=torch.int64)
         zero = torch.zeros((), dtype=torch.int64, device=o.x.device)
-        c = torch.stack([zero, zero, torch.as_tensor(live * scene.num_tris,
+        c = torch.stack([zero, zero, torch.as_tensor(_live(o, mask) * scene.num_tris,
                                                       device=o.x.device)])
     return hit, c[:3]
 

@@ -5,7 +5,8 @@ triangle_collection helpers, src/objects/primatives/triangle.h:135-309):
 triangles accumulate host-side in float64, transforms are baked at add
 time, and ``build()`` flattens everything into tensors once, in the same
 BVH leaf order as ``bpt_tpu`` so triangle ids and sums match it exactly,
-with the BVH node arrays and bpt_tpu's cluster splits beside them.
+with the BVH node arrays and the clustered hit kernels' subtree splits
+(``cluster_splits``, ``super_splits``) beside them.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from bpt_tpu_torch.ops.clusters import CLUSTER_TRIS, MAX_CLUSTERS, SUPER
 from bpt_tpu_torch.scene import bvh as bvh_mod
 from bpt_tpu_torch.scene.obj import parse_obj
 from bpt_tpu_torch.scene.types import (
@@ -266,6 +268,18 @@ class SceneBuilder:
         total_area = float(light_cdf[-1])
         use_bvh = T > 256  # bpt_tpu's brute-force threshold
 
+        # the clustered hit kernels' subtree-aligned splits, with the
+        # fill-merge (bpt_tpu/scene/builder.py:343-362); past MAX_CLUSTERS
+        # none, and the kernels take the fixed-stride chop
+        cluster_splits = super_splits = ()
+        if use_bvh:
+            cs = bvh_mod.subtree_splits(tree["bvh_skip"], tree["bvh_count"], CLUSTER_TRIS)
+            if len(cs) - 1 <= MAX_CLUSTERS:
+                ss = bvh_mod.subtree_splits(tree["bvh_skip"], tree["bvh_count"],
+                                            CLUSTER_TRIS * SUPER)
+                super_splits = bvh_mod.merge_splits(ss, (0, T), CLUSTER_TRIS * SUPER)
+                cluster_splits = bvh_mod.merge_splits(cs, super_splits, CLUSTER_TRIS)
+
         return SceneTensors(
             v0=ten(v0), e1=ten(e1), e2=ten(e2),
             normal=ten(normal), area=ten(area),
@@ -289,6 +303,8 @@ class SceneBuilder:
             num_lights=int(light_idx.size),
             num_volumes=0,
             use_bvh=use_bvh,
+            cluster_splits=cluster_splits,
+            super_splits=super_splits,
             has_delta_mats=bool(np.any((mtypes == MAT_METAL)
                                        | (mtypes == MAT_DIELECTRIC))),
             has_iso_mats=bool(np.any(mtypes == MAT_ISOTROPIC)),

@@ -18,6 +18,48 @@ import numpy as np
 _PAD_DELTA = 1.0e-4  # src/acceleration/aabb.h:84
 _PACK_TRIS = 32  # streaming-block grain of bpt_tpu's split rounding
 
+
+def subtree_splits(bvh_skip, bvh_count, max_tris: int):
+    """Greedy maximal-subtree triangle-range split points (bpt_tpu/scene/
+    bvh.py:29-57).
+
+    Walks the preorder/skip-link node array; at each node whose subtree
+    holds <= max_tris triangles, emits the subtree's contiguous triangle
+    range as one segment and jumps the whole subtree.  The triangle order
+    is the BVH leaf order, so the segments tile [0, T) and each one is a
+    subtree of the build.  The clustered hit kernels (ops/clusters.py)
+    take these as their clusters and superclusters."""
+    skip = np.asarray(bvh_skip, np.int64)
+    count = np.asarray(bvh_count, np.int64)
+    N = skip.shape[0]
+    pre = np.zeros(N + 1, np.int64)
+    pre[1:] = np.cumsum(count)
+    tri_count = pre[skip] - pre[:N]
+    splits = [0]
+    pos = 0
+    while pos < N:
+        tc = int(tri_count[pos])
+        if 0 < tc <= max_tris:
+            splits.append(int(pre[pos]) + tc)
+            pos = int(skip[pos])
+        else:
+            pos += 1
+    return tuple(splits)
+
+
+def merge_splits(cs, ss, cap: int):
+    """Greedy fill-merge of adjacent subtree segments up to ``cap``
+    triangles, closing at every ``ss`` boundary so that the outer and
+    inner splits stay aligned (bpt_tpu/scene/bvh.py:60-80)."""
+    ssi = frozenset(ss)
+    merged = [cs[0]]
+    for k in range(1, len(cs)):
+        b = cs[k]
+        if b == cs[-1] or b in ssi or (cs[k + 1] - merged[-1]) > cap:
+            merged.append(b)
+    return tuple(merged)
+
+
 def _pad_box(bmin: np.ndarray, bmax: np.ndarray):
     size = bmax - bmin
     pad = np.where(size < _PAD_DELTA, _PAD_DELTA / 2.0, 0.0)

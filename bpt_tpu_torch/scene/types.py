@@ -2,7 +2,8 @@
 
 Counterpart of ``bpt_tpu.scene.types.SceneArrays`` holding the fields the
 PT and BDPT megakernels' tables (``_pack_tables``, ``_pack_tables_bdpt``),
-the BVH traversals (``ops.soa.bvh_closest`` / ``bvh_any``, ``csrc/pt_wave.cu``) and the
+the BVH traversals (``ops.soa.bvh_closest`` / ``bvh_any``, ``csrc/pt_wave.cu``), the
+clustered hit kernels (``ops/clusters.py``, ``ops/plucker.py``) and the
 estimators read, plus the static meta.  Texture tables and the volume
 boundary soup are not carried: this port has no textures or volumes yet
 (ROADMAP §1 items 3-4).
@@ -11,6 +12,8 @@ boundary soup are not carried: this port has no textures or volumes yet
 from __future__ import annotations
 
 import dataclasses
+import functools
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -75,6 +78,13 @@ class SceneTensors:
     use_bvh: bool = True
     has_textures: bool = False
     has_noise: bool = False
+    # BVH-subtree-aligned split points of the clustered hit kernels
+    # (ops/clusters.py; bpt_tpu/scene/types.py:149-156): cluster k covers
+    # the triangles [cluster_splits[k], cluster_splits[k + 1]) and is a
+    # subtree of <= 32; superclusters likewise of <= 512.  () -> the
+    # fixed-stride chop.
+    cluster_splits: tuple = ()
+    super_splits: tuple = ()
     has_delta_mats: bool = True
     has_iso_mats: bool = True
     lights_are_world: bool = False
@@ -93,14 +103,32 @@ _INT_FIELDS = {"mat_id": torch.int64, "light_mat": torch.int64,
                "bvh_first": torch.int32, "bvh_count": torch.int32}
 _MATERIAL_FIELDS = [f.name for f in dataclasses.fields(MaterialTable)]
 _META_TYPES = {
-    f.name: {"int": int, "bool": bool}[f.type]
-    for f in dataclasses.fields(SceneTensors) if f.type in ("int", "bool")
+    f.name: {"int": int, "bool": bool, "tuple": tuple}[f.type]
+    for f in dataclasses.fields(SceneTensors) if f.type in ("int", "bool", "tuple")
 }
 _META_FIELDS = list(_META_TYPES)
 _TENSOR_FIELDS = [
     f.name for f in dataclasses.fields(SceneTensors)
     if f.name not in _META_FIELDS and f.name != "materials"
 ] + ["materials." + n for n in _MATERIAL_FIELDS]
+
+
+def per_scene(fn):
+    """``fn(scene)``, computed once a scene and kept while the scene lives
+    (in ``<wrapper>.cache``, by ``id(scene)``): the kernels' tables, which
+    every hit call of a wave reads."""
+    cache = {}
+
+    @functools.wraps(fn)
+    def tables(scene):
+        got = cache.get(id(scene))
+        if got is None:
+            got = cache[id(scene)] = fn(scene)
+            weakref.finalize(scene, cache.pop, id(scene), None)
+        return got
+
+    tables.cache = cache
+    return tables
 
 
 def scene_device(device) -> torch.device:

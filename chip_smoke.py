@@ -171,6 +171,31 @@
 19. Defocus on the coffee stand-in, bdpt and pt at 128x128, 4 spp, depth
    10: the stratum loop, one rays-mode launch in walk mode a wave, no
    other kernel and no plain version; each wave's launch timed.
+20. The clustered hit kernels (Pallas kernels 10-13: clustered_closest /
+   clustered_any, plucker_closest / plucker_any) against their plain
+   versions on 65,536 coffee primary rays over (T_MIN, inf) and on as
+   many random rays in the scene's bounds with per-lane [tmin, tmax], one
+   lane in eight dead: hit, triangle and any-answer exact and t, u, v
+   within 1e-6 on >= 99.9% of lanes, the four counters exact; kernel and
+   plain version timed on the primaries.
+21. The coffee bdpt-mis main path (512x512, 4 spp, depth 10, seed 0)
+   with BPT_TPU_NO_FTB=1, then with BPT_TPU_WAVE_IMPL=plucker, bpt_tpu's
+   switches for those kernels: one warm-up and three timed renders each.
+   clustered_closest (plucker_closest) must launch 19 times and
+   clustered_any (plucker_any) 10 times a wave, no other kernel and no
+   plain version; the images bitwise identical across renders, finite and
+   not black.  bpt_tpu's cluster boxes are the triangles' unpadded bounds,
+   so its clustered kernels never enter a cluster flat in one axis and
+   count more rays than its BVH route (ROADMAP §3).  Checked instead of
+   the default route's count: the card's counts on every 257th pixel (all
+   4 strata) within 0.1% (rays) and 1% (shadow rays) of bpt_tpu's route
+   with the same switch on a CPU, its Pallas kernels in interpret mode
+   (tools/coffee_reference_rays_clustered.py), and the whole image within
+   1% of phase 10's count scaled by the ratio of the two routes on that
+   subset.  Prints the walls, Mrays/s, shadow rays, the pixels that
+   differ from the default route's image and peak device memory; times
+   each kernel at the main path's own shapes (camera bounce 1, B =
+   1,048,576; the shadow wave of camera vertex 1, B = 10,485,760).
 
 Each phase prints its seconds, and the script its total.  The second-to-last line is a JSON object
 describing the kernels, each with its bound: the larger of the bytes it
@@ -185,6 +210,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -199,6 +225,11 @@ HBM_BPS, FP32_OPS = 3.35e12, 67e12
 # node's slab test (pt_wave.cu: 12 for the three axes' t0/t1, 6 min/max,
 # 6 for entry and exit, 1 compare); the kernels' counters say how many ran
 MT_OPS, SLAB_OPS = 52, 25
+# FP32 operations one Plücker triangle test needs (plucker.cu): the three
+# edge rows' 6 nonzero terms each, 33; the plane row's 3 terms and its
+# constant, 6; the sign tests, reciprocal, t and the interval, 23.  The
+# kernel issues 99: it also multiplies the rows' 24 zero coefficients
+PLUCKER_OPS = 62
 COFFEE_YAML = "scenes/coffee/coffee_standin.yaml"
 TPU_BENCH_COFFEE_RAYS = 11_110_273  # BENCH_r03/r04.json; printed, not checked
 # tools/coffee_reference_rays.py on a CPU, every 257th pixel x 16 strata:
@@ -213,6 +244,12 @@ CPU_BVH_COFFEE_SUBSET, CPU_PALLAS_COFFEE_SUBSET = 44_024, 42_887
 # radiance (ROADMAP §3), so that one count is held against the port's own
 CPU_COFFEE_BDPT_SUBSET = {"bdpt-mis": (16_447, 2_623), "bdpt": (16_447, 3_155)}
 CPU_PLAIN_COFFEE_BDPT_SHADOW = {"bdpt-mis": 2_627, "bdpt": 3_064}
+# the same subset of bdpt-mis through the clustered hit kernels, on a CPU
+# (tools/coffee_reference_rays_clustered.py): bpt_tpu's TPU route forced
+# there with its Pallas kernels in interpret mode under BPT_TPU_NO_FTB=1
+# (rolled) and BPT_TPU_WAVE_IMPL=plucker, and the port's plain route
+CPU_CLUSTERED_COFFEE_SUBSET = {"rolled": (16_784, 2_690), "plucker": (16_777, 2_692)}
+CPU_PLAIN_CLUSTERED_COFFEE = {"rolled": (16_784, 2_688), "plucker": (16_784, 2_686)}
 TPU_BENCH_COFFEE_BDPT_MIS = (4_294_700, 695_189)
 # the reference binary's own BDPT configuration (tests/test_ref_rmse.py:
 # 88-94): cornell 256x256 / 64 spp / d10 / seed 0 with ref_vis, through the
@@ -320,6 +357,25 @@ def timed(fn):
     stop.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(stop)
+
+
+def cl_agreement(kout, pout):
+    """(lanes equal within 1e-6 as a fraction, max abs err, hits) of a
+    clustered hit kernel's outputs against its plain version's, (hit,
+    counters) or (t, tri, u, v, counters): the any answer exactly; for the
+    closest hit, triangle exact and t, u, v within 1e-6 (t equal where the
+    plain version misses)."""
+    import torch
+
+    if len(kout) == 2:
+        same = kout[0] == pout[0]
+        return float(same.double().mean()), float((~same).float().max()), int(kout[0].sum())
+    hit = pout[1] >= 0
+    diffs = [(k - p).abs() for k, p in zip((kout[0], *kout[2:4]), (pout[0], *pout[2:4]))]
+    diffs[0] = torch.where(hit, diffs[0], (kout[0] != pout[0]).float())
+    same = (kout[1] == pout[1]) & torch.stack(diffs).amax(dim=0).le(1e-6)
+    err = max(float(x[hit].max()) if bool(hit.any()) else 0.0 for x in diffs)
+    return float(same.double().mean()), err, int(hit.sum())
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -519,6 +575,7 @@ def capture(module, name, keep=None):
         n[0] += 1
         return fn(*args, **kw)
 
+    spy.__dict__.update(fn.__dict__)  # a wrapper counts its launches on its own name
     setattr(module, name, spy)
     try:
         yield calls
@@ -1151,6 +1208,8 @@ def main() -> int:
               f"of {strata} strata x {span} pixels a render; peak device memory "
               f"{peak / 2**30:.2f} GiB; closest_bvh {n_closest} and any_bvh {n_any} "
               f"launches, plain calls {n_plain}; wrote {path} ({card})")
+        if mis:  # the default route's render, for phase 21
+            default_mis = (st.rays_traced, st.shadow_rays, fb.copy())
         check(abs(gaps[0]) <= 0.1, f"coffee {name}: subset rays {sub[0]} not within 0.1% "
               f"of {ref[0]}")
         check(abs(sh_gap) <= 1.0, f"coffee {name}: subset shadow rays {sub[1]} not within "
@@ -1835,6 +1894,195 @@ def main() -> int:
         del r19, fb
     lap("phase 19")
 
+    # ---- phase 20: the clustered kernels (Pallas kernels 10-13) vs their plain versions
+    from bpt_tpu_torch.ops.clusters import cluster_tables
+    from bpt_tpu_torch.ops.kernels import cluster_wave as cw
+    from bpt_tpu_torch.ops.kernels import plucker as kp
+    from bpt_tpu_torch.ops.plucker import plucker_tables
+
+    clustered = {  # name: (module, kernel, plain version)
+        "clustered_closest": (cw, cw.clustered_closest, cw.clustered_closest_plain),
+        "clustered_any": (cw, cw.clustered_any, cw.clustered_any_plain),
+        "plucker_closest": (kp, kp.plucker_closest, kp.plucker_closest_plain),
+        "plucker_any": (kp, kp.plucker_any, kp.plucker_any_plain),
+    }
+    cl_kernels = tuple(v[1] for v in clustered.values())
+    cl_plains = tuple(v[2] for v in clustered.values())
+    cl_tab = {"clustered": sum(t.numel() * t.element_size() for t in cluster_tables(coffee)[:2]),
+              "plucker": sum(t.numel() * t.element_size() for t in plucker_tables(coffee)[:2])}
+    B = 65536
+    o_p, d_p, _ = wave_rays(ccc, torch.arange(B, device=dev) * 4, 1, key, dev)
+    lo, hi = (x.cpu().numpy() for x in (coffee.bvh_min[0], coffee.bvh_max[0]))
+    o_r = Vec3(*torch.from_numpy(g.uniform(lo, hi, (B, 3)).astype(np.float32)).to(dev).unbind(1))
+    d_r = Vec3(*torch.from_numpy(g.normal(size=(B, 3)).astype(np.float32)).to(dev).unbind(1))
+    tmin_r = np.where(g.uniform(size=B) < 0.5, g.uniform(0.0, 0.1, B), T_MIN).astype(np.float32)
+    tmax_r = (tmin_r + g.uniform(0.0, float(np.linalg.norm(hi - lo)), B)).astype(np.float32)
+    tmax_r[::7] = np.inf
+    tmax_r[::8] = 0.0  # one lane in eight dead
+    lane_sets = {"primary": (o_p, d_p, torch.full((B,), T_MIN, device=dev),
+                             torch.full((B,), math.inf, device=dev)),
+                 "random": (o_r, d_r, torch.from_numpy(tmin_r).to(dev),
+                            torch.from_numpy(tmax_r).to(dev))}
+    cl_res = {}
+    for name, (_, kern, plain_fn) in clustered.items():
+        res20 = cl_res[name] = {"general_frac": 1.0, "general_err": 0.0}
+        for lset, args in lane_sets.items():
+            kout = kern(coffee, *args)
+            pout, p_ms = timed(lambda: plain_fn(coffee, *args))
+            kc, pc = kout[-1].tolist(), pout[-1].tolist()
+            frac, err, hits = cl_agreement(kout, pout)
+            print(f"phase 20: {name} on {B} coffee {lset} rays: equal on {frac * 100:.4f}% of "
+                  f"lanes ({hits} hits), max abs err {err:.3e}; counters (slab tests, boxes "
+                  f"entered, tri tests, accepted tests) kernel {kc} plain {pc}; plain "
+                  f"{p_ms:.3f} ms")
+            check(frac >= MIN_FRAC and err <= 1e-6, f"{name} {lset}: only {frac:.5f} of lanes "
+                  f"agree, max abs err {err:.3e}")
+            check(kc == pc, f"{name} {lset}: counters differ from the plain version")
+            res20["general_frac"] = min(res20["general_frac"], frac)
+            res20["general_err"] = max(res20["general_err"], err)
+            if lset == "primary":
+                res20["primaries_plain_ms"] = p_ms
+                res20["primaries_ms"] = time_ms(lambda: kern(coffee, *args), reps=5)
+        print(f"phase 20: {name} primary rays B={B}: kernel {res20['primaries_ms']:.3f} ms, "
+              f"plain {res20['primaries_plain_ms']:.3f} ms ({card})")
+    del lane_sets, o_r, d_r
+    lap("phase 20")
+
+    # ---- phase 21: the coffee bdpt-mis main path under BPT_TPU_NO_FTB and
+    # BPT_TPU_WAVE_IMPL=plucker: kernels 10-11, then 12-13
+    def cl_bound(name, c, lanes_b, live):
+        """(bound ms, by) of a clustered launch: every lane reads its tmax
+        and writes its answer, a live lane reads its ray and tmin; the
+        tables once; 25 FP32 operations a slab test, 52 a Möller–Trumbore
+        test, 62 a Plücker test (what it needs: PLUCKER_OPS) and 21 a
+        Plücker cluster's features."""
+        out = 1 if name.endswith("any") else 16
+        tab = cl_tab["plucker" if name.startswith("plucker") else "clustered"]
+        ops = (c[0] * SLAB_OPS + c[1] * 21 + c[2] * PLUCKER_OPS
+               if name.startswith("plucker") else c[0] * SLAB_OPS + c[2] * MT_OPS)
+        return bound(lanes_b * (4 + out) + live * 7 * 4 + tab, ops)
+
+    cfg21 = coffee_camera(spp=4, integrator="bdpt-mis")
+    strata, span = _bdpt_wave_shape(512 * 512, 4, depth, True)
+    waves = math.ceil(4 / strata) * math.ceil(512 * 512 / span)
+    def_rays, def_shadow, def_fb = default_mis
+    pix21 = torch.arange(0, 512 * 512, 257, device=dev).repeat(4)
+    s21 = torch.arange(4, device=dev).repeat_interleave(pix21.numel() // 4)
+    o21, d21, ids21 = jnp_raygen(ccb, pix21, s21, key, torch.float32)
+    bvh_sub = CPU_COFFEE_BDPT_SUBSET["bdpt-mis"][0]
+    for impl, var, val, closest_name, any_name in (
+            ("rolled", "BPT_TPU_NO_FTB", "1", "clustered_closest", "clustered_any"),
+            ("plucker", "BPT_TPU_WAVE_IMPL", "plucker", "plucker_closest", "plucker_any")):
+        mod, kc21, _ = clustered[closest_name]
+        ka21 = clustered[any_name][1]
+        os.environ[var] = val
+        try:
+            with capture(mod, closest_name, keep={1}) as cl21, \
+                    capture(mod, any_name, keep={1}) as an21:
+                render(coffee, cfg21, seed=0)  # warm-up; records camera bounce 1, its shadow wave
+            sub21 = [int(x) for x in bdpt_jnp(coffee, o21, d21, ids21, key, depth,
+                                              mis=True)[1][:2]]
+            for fn in (*all_plains, *cl_plains):
+                fn.calls = 0
+            for fn in (*everything, *tri_kernels, *cl_kernels):
+                fn.launches = 0
+            torch.cuda.reset_peak_memory_stats(dev)
+            r21 = [render(coffee, cfg21, seed=0) for _ in range(3)]
+            peak = torch.cuda.max_memory_allocated(dev)
+        finally:
+            del os.environ[var]
+        n_c, n_a = kc21.launches, ka21.launches
+        n_other = sum(fn.launches for fn in (*everything, *tri_kernels, *cl_kernels)) - n_c - n_a
+        n_plain = sum(fn.calls for fn in (*all_plains, *cl_plains))
+        check(n_c == 3 * waves * (2 * depth - 1) and n_a == 3 * waves * depth,
+              f"coffee bdpt-mis {impl}: {n_c} {closest_name} and {n_a} {any_name} launches in "
+              f"3 renders of {waves} waves")
+        check(n_other == 0 and n_plain == 0,
+              f"coffee bdpt-mis {impl}: {n_other} other launches, {n_plain} plain calls")
+        fb = r21[0].framebuffer_sum
+        st = r21[0].stats
+        check(bool(np.isfinite(fb).all()) and float(fb.mean()) > 0.0
+              and all(np.array_equal(r.framebuffer_sum, fb) for r in r21[1:]),
+              f"coffee bdpt-mis {impl}: image non-finite, black or not deterministic")
+        gap = (st.rays_traced - def_rays) / def_rays
+        walls = [r.stats.wall_seconds for r in r21]
+        wall = statistics.median(walls)
+        n_diff = int((fb != def_fb).any(axis=-1).sum())
+        # bpt_tpu's cluster boxes are the triangles' unpadded bounds, so a
+        # cluster flat in one axis is never entered (ROADMAP §3): the route
+        # counts its own rays, held against bpt_tpu's route for it on the
+        # pixel subset, and the whole image against the default route's
+        # count scaled by the two routes' ratio on that subset
+        ref, plain_ref = CPU_CLUSTERED_COFFEE_SUBSET[impl], CPU_PLAIN_CLUSTERED_COFFEE[impl]
+        sub_gaps = [(a - b) / b * 100 for a, b in zip(sub21, ref)]
+        scaled = def_rays * ref[0] / bvh_sub
+        scaled_gap = (st.rays_traced - scaled) / scaled * 100
+        print(f"phase 21: render coffee bdpt-mis 512x512 4 spp depth {depth} seed 0 with "
+              f"{var}={val}: walls {[round(w, 6) for w in walls]} s, median {wall:.6f} s, "
+              f"{st.rays_traced / wall / 1e6:.3f} Mrays/s; rays_traced {st.rays_traced} "
+              f"({gap * 100:+.4f}% from the default route's {def_rays}; {scaled_gap:+.4f}% "
+              f"from that count scaled by bpt_tpu's route / BVH ratio on the subset, "
+              f"{scaled:.0f}; TPU bench {TPU_BENCH_COFFEE_BDPT_MIS[0]}, "
+              f"{(st.rays_traced / TPU_BENCH_COFFEE_BDPT_MIS[0] - 1) * 100:+.4f}%, not a "
+              f"target), shadow_rays {st.shadow_rays} (default {def_shadow}); every 257th "
+              f"pixel: rays {sub21[0]}, shadow {sub21[1]} (bpt_tpu's route on a CPU {ref[0]}, "
+              f"{ref[1]}: {sub_gaps[0]:+.4f}%, {sub_gaps[1]:+.4f}%; the port's plain route on "
+              f"a CPU {plain_ref[0]}, {plain_ref[1]}); {n_diff} of {512 * 512} pixels differ "
+              f"from the default route's image; peak device memory {peak / 2**30:.2f} GiB; "
+              f"{closest_name} {n_c} and {any_name} {n_a} launches, other launches "
+              f"{n_other}, plain calls {n_plain} ({card})")
+        check(abs(sub_gaps[0]) <= 0.1 and abs(sub_gaps[1]) <= 1.0,
+              f"coffee bdpt-mis {impl}: subset rays / shadow rays {sub21} not within 0.1% / "
+              f"1% of bpt_tpu's {ref}")
+        check(abs(scaled_gap) <= 1.0, f"coffee bdpt-mis {impl}: rays_traced {st.rays_traced} "
+              f"not within 1% of {scaled:.0f}")
+        del r21, fb
+        # each kernel timed at the main path's own shapes, and held against
+        # its plain version on those inputs: every 4th lane of camera bounce
+        # 1, every lane of the shadow wave (the plain versions work on live
+        # lanes only, and that wave's are its first 1.5%)
+        for name, kern, calls, what, stride in (
+                (closest_name, kc21, cl21, "camera bounce 1", 4),
+                (any_name, ka21, an21, "the shadow wave of camera vertex 1", 1)):
+            args, kw = calls[1]
+            Bm = int(args[-1].shape[0])
+            live = int((args[-1] > 0).sum())
+            ms21 = time_ms(lambda: kern(*args, **kw), reps=3)
+            full = kern(*args, **kw)
+            c21 = full[-1].tolist()
+            sl = torch.arange(0, Bm, stride, device=dev)
+            s_args = (args[0], *(Vec3(*(x[sl] for x in v)) for v in args[1:3]),
+                      *(x[sl] for x in args[3:5]))
+            kout = kern(*s_args)
+            check(all(torch.equal(a[sl], b) for a, b in zip(full[:-1], kout[:-1])),
+                  f"{name}: its launch on every {stride}th lane of {what} differs from the "
+                  f"whole launch on those lanes")
+            pout, p_ms = timed(lambda: clustered[name][2](*s_args))
+            kc, pc = kout[-1].tolist(), pout[-1].tolist()
+            frac, err, hits = cl_agreement(kout, pout)
+            n_sl, live_sl = int(sl.numel()), int((s_args[-1] > 0).sum())
+            res = cl_res[name]
+            res.update(ms=ms21, launches=n_c if name == closest_name else n_a,
+                       shape=f"{what} of the bdpt-mis wave, B={Bm} ({live} live)",
+                       launches_path=f"three coffee bdpt-mis renders with {var}={val}, 512x512, "
+                                     f"4 spp, depth {depth}",
+                       frac=frac, err=err, plain_ms=p_ms,
+                       plain_shape=f"every {stride}th lane of {what}, {n_sl} lanes "
+                                   f"({live_sl} live)" if stride > 1 else
+                                   f"{what}, all {n_sl} lanes ({live_sl} live)")
+            res["bound"] = cl_bound(name, c21, Bm, live)
+            print(f"phase 21: {name}, {what} (B={Bm}, {live} live): kernel {ms21:.3f} ms, "
+                  f"bound {res['bound'][0]:.4f} ms ({res['bound'][1]}); counters {c21}; against "
+                  f"its plain version on {res['plain_shape']}: equal on {frac * 100:.4f}% of "
+                  f"lanes ({hits} hits), max abs err {err:.3e}, counters kernel {kc} plain "
+                  f"{pc}; plain {p_ms:.3f} ms ({card})")
+            check(frac >= MIN_FRAC and err <= 1e-6, f"{name} on {what}: only {frac:.5f} of "
+                  f"lanes agree with the plain version, max abs err {err:.3e}")
+            check(kc == pc, f"{name} on {what}: counters differ from the plain version")
+            del full, kout, pout, s_args, sl
+        del cl21, an21, args, kw
+        lap(f"phase 21 ({impl})")
+
     # lanes in (pixels: i, j, sx, sy, id; rays: o, d, id), radiance out
     pt_tab = sum(t.numel() * t.element_size() for t in pk._pack_tables(scene))
     bdpt_tab = sum(t.numel() * t.element_size() for t in bk._pack_tables_bdpt(scene))
@@ -1884,6 +2132,29 @@ def main() -> int:
         "slice_ms": walk_slice_ms[k],
     } for k, (src, tpu, path_, shape) in walk_meta.items()]
     walk_entries[-1]["depth80_64x64_ms"] = walk_d80_ms
+    cl_replaces = {"clustered_closest": "cluster_wave.py:212", "clustered_any": "cluster_wave.py:254",
+                   "plucker_closest": "plucker.py:332", "plucker_any": "plucker.py:364"}
+    cl_entries = [{
+        "name": k,
+        "route": "cuda",
+        "source": f"bpt_tpu_torch/csrc/{'plucker' if k.startswith('plucker') else 'cluster_wave'}.cu",
+        "replaces": f"bpt_tpu/ops/pallas/{cl_replaces[k]}",
+        "launches": r["launches"],
+        "launches_path": r["launches_path"],
+        "max_abs_err": r["err"],
+        "within_tol": r["frac"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound"][0],
+        "bound_by": r["bound"][1],
+        "library_ms": None,
+        "shape": r["shape"],
+        "plain_shape": r["plain_shape"],
+        "primaries_65536_ms": r["primaries_ms"],
+        "primaries_65536_plain_ms": r["primaries_plain_ms"],
+        "general_interval_within_tol": r["general_frac"],
+        "general_interval_max_abs_err": r["general_err"],
+    } for k, r in cl_res.items()]
     print(f"chip_smoke: all phases passed in {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "pt_megakernel",
@@ -2014,7 +2285,7 @@ def main() -> int:
         "shape": f"the ref_vis wave's shadow wave of camera vertex 1, B={Bt_s}",
         "plain_shape": f"its first {n_sl} lanes",
         "slice_ms": at_sl_ms,
-    }, *walk_entries]}))
+    }, *walk_entries, *cl_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,7 +1,8 @@
 """The CUDA kernels (PT and BDPT megakernels in their brute-force and walk
-modes, the BVH closest and any hit, the per-bounce wave and the
-brute-force closest and any hit) against their plain PyTorch versions on
-the card, and the render routes through them.
+modes, the BVH closest and any hit, the per-bounce wave, the brute-force
+closest and any hit, and the rolled and Plücker clustered closest and any
+hit) against their plain PyTorch versions on the card, and the render
+routes and hit dispatch through them.
 
 Needs an NVIDIA card with sm_90a (H100) and nvcc; elsewhere every test
 skips.  Run on the GPU machine with
@@ -583,3 +584,83 @@ def test_render_fused_walk_on_card_matches_cpu(integrator, monkeypatch):
     assert ok.all(axis=-1).mean() >= 0.99
     assert abs(gpu.stats.rays_traced - cpu.stats.rays_traced) <= 10
     assert abs(gpu.stats.shadow_rays - cpu.stats.shadow_rays) <= 0.01 * max(1, cpu.stats.shadow_rays)
+
+
+def _interval_lanes(B, seed):
+    """big_rays with per-lane [tmin, tmax]: tmin above T_MIN on a third of
+    the lanes, tmax finite on most, one lane in nine dead (tmax <= 0)."""
+    from bpt_tpu_torch.ops.intersect import T_MIN
+
+    o, d, _ = _big_lanes(B, seed)
+    g = np.random.default_rng(seed)
+    tmin = np.where(g.uniform(size=B) < 0.3, g.uniform(0.3, 1.0, B), T_MIN).astype(np.float32)
+    tmax = g.uniform(0.5, 6.0, B).astype(np.float32)
+    tmax[::5] = np.inf
+    tmax[::9] = 0.0
+    return o, d, torch.from_numpy(tmin).cuda(), torch.from_numpy(tmax).cuda()
+
+
+def _clustered_fns(impl):
+    from bpt_tpu_torch.ops.kernels import cluster_wave as cw
+    from bpt_tpu_torch.ops.kernels import plucker as kp
+
+    return {"roll": (cw.clustered_closest, cw.clustered_closest_plain,
+                     cw.clustered_any, cw.clustered_any_plain),
+            "plucker": (kp.plucker_closest, kp.plucker_closest_plain,
+                        kp.plucker_any, kp.plucker_any_plain)}[impl]
+
+
+@pytest.mark.parametrize("impl", ["roll", "plucker"])
+def test_clustered_kernels_match_plain_bitwise(impl):
+    """The rolled (Pallas kernels 10-11) and Plücker (12-13) clustered
+    kernels against their plain versions over per-lane intervals: hit,
+    triangle and any-answer exact, t, u, v to the bit, counters exact."""
+    scene = big_scene(builder, device="cuda")
+    o, d, tmin, tmax = _interval_lanes(8193, 13)
+    closest, closest_plain, any_, any_plain = _clustered_fns(impl)
+    n = (closest.launches, any_.launches)
+    got = closest(scene, o, d, tmin, tmax)
+    want = closest_plain(scene, o, d, tmin, tmax)
+    hit_k, c_k = any_(scene, o, d, tmin, tmax)
+    hit_p, c_p = any_plain(scene, o, d, tmin, tmax)
+    torch.cuda.synchronize()
+    assert (closest.launches, any_.launches) == (n[0] + 1, n[1] + 1)
+    assert torch.equal(got[1], want[1]) and bool((got[1] >= 0).any())
+    for k, p in zip(got[:4], want[:4]):
+        bad = (k != p) & ~(k.isnan() & p.isnan())
+        assert not bool(bad.any()), (f"lane {int(bad.nonzero()[0])}: kernel "
+                                     f"{[float(x[bad][0]) for x in got[:4]]}")
+    assert got[4].tolist() == want[4].tolist()
+    assert torch.equal(hit_k, hit_p) and bool(hit_k.any()) and not bool(hit_k[::9].any())
+    assert c_k.tolist() == c_p.tolist()
+
+
+@pytest.mark.parametrize("switch", ["", "BPT_TPU_NO_FTB", "BPT_TPU_WAVE_IMPL"])
+def test_clustered_dispatch_on_card_matches_plain(switch, monkeypatch):
+    """ops.soa.closest_hit / any_hit on a card scene with a BVH: a general
+    interval (no switch) or the production one under a switch launches the
+    clustered kernels, raises nothing, and equals plain=True."""
+    from bpt_tpu_torch.ops import soa
+    from bpt_tpu_torch.ops.intersect import T_MIN
+
+    scene = big_scene(builder, device="cuda")
+    o, d, tmin, tmax = _interval_lanes(4097, 17)
+    mask = tmax > 0.0
+    if switch:
+        monkeypatch.setenv(switch, "plucker" if switch == "BPT_TPU_WAVE_IMPL" else "1")
+        tmin, tmax = T_MIN, float("inf")
+    closest, closest_plain, any_, any_plain = _clustered_fns(
+        "plucker" if switch == "BPT_TPU_WAVE_IMPL" else "roll")
+    n = (closest.launches, any_.launches, closest_plain.calls, any_plain.calls)
+    walks = (pw.closest_bvh.launches, pw.any_bvh.launches)
+    got = soa.closest_hit(scene, o, d, tmin, tmax, mask=mask)
+    hit = soa.any_hit(scene, o, d, tmin, tmax, mask=mask)
+    assert (closest.launches, any_.launches) == (n[0] + 1, n[1] + 1)
+    want = soa.closest_hit(scene, o, d, tmin, tmax, mask=mask, plain=True)
+    hit_p = soa.any_hit(scene, o, d, tmin, tmax, mask=mask, plain=True)
+    torch.cuda.synchronize()
+    assert (closest_plain.calls, any_plain.calls) == (n[2] + 1, n[3] + 1)
+    assert (pw.closest_bvh.launches, pw.any_bvh.launches) == walks
+    for k, p in zip(got, want):
+        assert torch.equal(k, p)
+    assert torch.equal(hit, hit_p) and bool(got.hit.any()) and not bool(got.hit[~mask].any())

@@ -118,7 +118,7 @@ def test_walk_tables_are_packed_once_a_scene():
     key = id(scene)
     del scene
     gc.collect()
-    assert key not in tw._WALK_TABLES
+    assert key not in tw.walk_tables.cache
 
 
 def test_coherence_key_matches_bpt_tpu():

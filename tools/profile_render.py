@@ -10,7 +10,9 @@ one warm-up render, then ``--renders`` timed ones (their walls and
 median), then one render under ``torch.profiler`` with CUDA activity.
 Prints the profiler's tables by device time and by host time, the device
 time of the megakernels and the wave kernel, of closest_bvh, any_bvh,
-closest_tri and any_tri, of the sorts, the gathers and everything else
+closest_tri and any_tri, of the clustered and Plücker hit kernels (under
+bpt_tpu's switches BPT_TPU_NO_FTB=1 / BPT_TPU_WAVE_IMPL=plucker, read from
+the environment), of the sorts, the gathers and everything else
 (raygen, sort keys, the BDPT wavefront's torch ops), the sum of all
 device time, and the device time spent before
 the wall clock stops as a share of the profiled render's wall (the
@@ -79,7 +81,10 @@ def main(argv=None) -> int:
     render(scene, cfg, seed=0)  # warm-up: kernel build and load
     walls = [render(scene, cfg, seed=0).stats.wall_seconds
              for _ in range(args.renders)]
+    switches = " ".join(f"{k}={os.environ[k]}" for k in ("BPT_TPU_NO_FTB", "BPT_TPU_WAVE_IMPL")
+                        if k in os.environ)
     print(f"{args.scene} {args.integrator} ref_vis={args.ref_vis} defocus={args.defocus} "
+          f"{switches or 'no switch'} "
           f"{args.width}x{args.width} {args.spp} spp render walls {walls} s, median "
           f"{statistics.median(walls)} s ({card})")
 
@@ -98,7 +103,8 @@ def main(argv=None) -> int:
                    if e.key.startswith("Memcpy DtoH")) / 1e3
     groups = {"kernel": ("megakernel", "pt_wave_bounce"), "closest_bvh": ("closest_bvh",),
               "any_bvh": ("any_bvh",), "closest_tri": ("closest_tri",),
-              "any_tri": ("any_tri",), "sort": ("Radix", "radix", "sort"),
+              "any_tri": ("any_tri",), "clustered_hit": ("RolledMT",),
+              "plucker_hit": ("PluckerChop",), "sort": ("Radix", "radix", "sort"),
               "gather": ("index", "gather")}
     dev_ms = {name: 0.0 for name in (*groups, "other")}
     for e in events:
