@@ -21,10 +21,12 @@
 // divergence of the lanes' node sequences (pt_wave.cu), on top of the
 // paths' own divergence.
 //
-// Design: one thread per lane (a ray, or a pixel that walks all its strata
-// one after another: the persistent-sample idea of the TPU kernel without
-// its lockstep), each path runs to termination with real branches instead
-// of masked selects, and the material / light tables (and in brute mode
+// Design: the brute mode takes one thread per lane (a ray, or a pixel that
+// walks all its strata one after another: the persistent-sample idea of
+// the TPU kernel without its lockstep); the walk mode one lane per sample
+// on a persistent grid (walk_sched.cuh), since its samples' walk chains
+// differ in length far more.  Each path runs to termination with real
+// branches instead of masked selects, and the material / light tables (and in brute mode
 // the triangle table) sit in shared memory, where every thread of a
 // converged warp reads the same word (a broadcast).  The walk reads the
 // BVH from global memory through the read-only path, so the mode has no
@@ -42,6 +44,7 @@
 
 #include "bvh_walk.cuh"
 #include "pt_shade.cuh"
+#include "walk_sched.cuh"
 
 namespace bpt {
 
@@ -55,8 +58,10 @@ constexpr int WALK_MIN_BLOCKS = 4;
 struct Params {
   int pixels;    // 0: rays given (o, d); 1: in-kernel raygen from pixels
   int B, T, L, depth;
-  int spp_loop;  // pixels mode: > 1 walks all strata of a pixel
+  int spp_loop;  // pixels mode: > 1 runs the strata of a pixel
   int sqrt_spp;
+  int k0, nk;    // walk mode, spp_loop > 1: the launch's strata [k0, k0 + nk)
+  int* next;     // walk mode: the work counter (walk_sched.cuh)
   const float* tri;   // brute mode: [MAX_TRIS * 13]
   Bvh g;              // walk mode: the BVH (g.N > 0)
   const int* mat_id;  // walk mode: [T]
@@ -68,6 +73,8 @@ struct Params {
   const float* in[6];
   const int* rid;     // [B] ray / sample / pixel id; < 0 = inactive lane
   const float* ubuf;  // optional [depth*NU, B] injected uniforms
+  // [B], or in the walk mode's pixels mode with spp_loop > 1 [nk][B]: the
+  // radiance of sample (lane, k) at (k - k0) * B + lane
   float* out_r;
   float* out_g;
   float* out_b;
@@ -143,8 +150,41 @@ __device__ __forceinline__ void stage_tables(const Params& p, Tables& s) {
   for (int k = threadIdx.x; k < nkeys; k += blockDim.x) s.keys[k] = p.keys[k];
 }
 
-// One lane of either mode: its ray, or its pixel's strata, traced with the
-// provider `closest`; writes the lane's radiance and counts its rays.
+// One sample of `lane`: its ray (rays mode), its stratum (pixels mode with
+// spp_loop 1: rid is the absolute sample id, the stratum in sx, sy), or
+// stratum k of its pixel (spp_loop > 1: rid is the pixel id, the sample id
+// pix*spp + k), traced with the provider `closest`.
+template <class Closest>
+__device__ __forceinline__ void sample(const Params& p, const Tables& s,
+                                       int lane, int rid, uint32_t k,
+                                       Closest closest, float& r, float& g,
+                                       float& b) {
+  if (!p.pixels) {
+    const Draws dr{p.ubuf, p.B, s.keys, (uint32_t)rid, lane};
+    trace_path(s, p.L, p.depth, dr, p.in[0][lane], p.in[1][lane], p.in[2][lane],
+               p.in[3][lane], p.in[4][lane], p.in[5][lane], closest, r, g, b);
+    return;
+  }
+  uint32_t ridu = (uint32_t)rid;
+  float sx, sy;
+  if (p.spp_loop > 1) {
+    const uint32_t S = (uint32_t)p.sqrt_spp;
+    ridu = ridu * (S * S) + k;
+    sx = (float)(k % S);
+    sy = (float)(k / S);
+  } else {
+    sx = p.in[2][lane];
+    sy = p.in[3][lane];
+  }
+  float o[3], d[3];
+  stratum_ray(p.cam, s, ridu, p.in[0][lane], p.in[1][lane], sx, sy, o, d);
+  const Draws dr{p.ubuf, p.B, s.keys, ridu, lane};
+  trace_path(s, p.L, p.depth, dr, o[0], o[1], o[2], d[0], d[1], d[2], closest,
+             r, g, b);
+}
+
+// The brute mode's lane: its ray, or its pixel's strata one after another,
+// each sample's radiance added into the pixel total in stratum order.
 template <class Closest>
 __device__ __forceinline__ void run_lane(const Params& p, const Tables& s,
                                          Closest closest) {
@@ -153,32 +193,13 @@ __device__ __forceinline__ void run_lane(const Params& p, const Tables& s,
   const int rid = p.rid[lane];
   float tot_r = 0.0f, tot_g = 0.0f, tot_b = 0.0f;
   if (rid >= 0) {
-    float o[3], d[3], sr, sg, sb;
-    if (!p.pixels) {
-      const Draws dr{p.ubuf, p.B, s.keys, (uint32_t)rid, lane};
-      trace_path(s, p.L, p.depth, dr, p.in[0][lane], p.in[1][lane], p.in[2][lane],
-                 p.in[3][lane], p.in[4][lane], p.in[5][lane], closest,
-                 tot_r, tot_g, tot_b);
-    } else if (p.spp_loop == 1) {
-      // rid is the absolute sample id; the stratum comes in sx, sy
-      stratum_ray(p.cam, s, (uint32_t)rid, p.in[0][lane], p.in[1][lane],
-                  p.in[2][lane], p.in[3][lane], o, d);
-      const Draws dr{p.ubuf, p.B, s.keys, (uint32_t)rid, lane};
-      trace_path(s, p.L, p.depth, dr, o[0], o[1], o[2], d[0], d[1], d[2],
-                 closest, tot_r, tot_g, tot_b);
+    if (!p.pixels || p.spp_loop == 1) {
+      sample(p, s, lane, rid, 0u, closest, tot_r, tot_g, tot_b);
     } else {
-      // rid is the pixel id; sample ids pix*spp + s walk the strata in
-      // order and each sample's radiance is flushed into the pixel total
-      // in stratum order (the float-add order of per-stratum launches)
-      const int S = p.sqrt_spp;
-      const uint32_t spp = (uint32_t)(S * S);
-      for (uint32_t st = 0; st < spp; ++st) {
-        const uint32_t ridu = (uint32_t)rid * spp + st;
-        stratum_ray(p.cam, s, ridu, p.in[0][lane], p.in[1][lane],
-                    (float)(st % (uint32_t)S), (float)(st / (uint32_t)S), o, d);
-        const Draws dr{p.ubuf, p.B, s.keys, ridu, lane};
-        trace_path(s, p.L, p.depth, dr, o[0], o[1], o[2], d[0], d[1], d[2],
-                   closest, sr, sg, sb);
+      const uint32_t spp = (uint32_t)(p.sqrt_spp * p.sqrt_spp);
+      for (uint32_t k = 0; k < spp; ++k) {
+        float sr, sg, sb;
+        sample(p, s, lane, rid, k, closest, sr, sg, sb);
         tot_r = tot_r + sr;
         tot_g = tot_g + sg;
         tot_b = tot_b + sb;
@@ -216,13 +237,31 @@ __global__ void __launch_bounds__(BLOCK, 5) pt_megakernel(const Params p) {
 }
 
 // Walk mode: each closest hit walks the BVH in global memory (the clustered
-// mode of bpt_tpu's megakernel, use_clusters: more than 512 triangles).
+// mode of bpt_tpu's megakernel, use_clusters: more than 512 triangles).  A
+// persistent grid, one sample a work item (walk_sched.cuh); each sample's
+// radiance is written on its own, and the wrapper adds a pixel's strata.
 __global__ void __launch_bounds__(BLOCK, WALK_MIN_BLOCKS) pt_megakernel_walk(const Params p) {
   __shared__ Tables s;
   stage_tables(p, s);
   __syncthreads();
   Counts cnt;
-  run_lane(p, s, WalkHit<Counts>{p.g, p.mat_id, cnt});
+  const WalkHit<Counts> closest{p.g, p.mat_id, cnt};
+  const int n = p.B * p.nk;
+  for (;;) {
+    const int base = warp_take(p.next);
+    if (base >= n) break;
+    const int item = base + (threadIdx.x & 31);
+    if (item >= n) continue;
+    const int lane = item / p.nk;
+    const int kk = item - lane * p.nk;
+    const int rid = p.rid[lane];
+    float r = 0.0f, g = 0.0f, b = 0.0f;
+    if (rid >= 0) sample(p, s, lane, rid, (uint32_t)(p.k0 + kk), closest, r, g, b);
+    const size_t o = (size_t)kk * p.B + lane;
+    p.out_r[o] = r;
+    p.out_g[o] = g;
+    p.out_b[o] = b;
+  }
   flush_counts(p, cnt);
 }
 
@@ -231,21 +270,27 @@ __global__ void __launch_bounds__(BLOCK, WALK_MIN_BLOCKS) pt_megakernel_walk(con
 extern "C" {
 
 // Launches the megakernel on `stream`; returns cudaGetLastError() after the
-// launch (0 = launched), or cudaErrorInvalidValue for a table size the
-// kernel does not take.  N > 0 selects the walk mode over the BVH (nodes,
-// tris, mat_id; tri unused), N == 0 the brute mode over tri (T <= 512).
-// All pointers are device pointers.
+// launch (0 = launched), or cudaErrorInvalidValue for a table size or work
+// split the kernel does not take.  N > 0 selects the walk mode over the BVH
+// (nodes, tris, mat_id; tri unused) on `grid` persistent blocks, with the
+// work counter `next` and, in pixels mode with spp_loop > 1, the strata
+// [k0, k0 + nk); N == 0 the brute mode over tri (T <= 512), a thread a
+// lane.  All pointers are device pointers.
 int bpt_pt_megakernel(int pixels, int B, int T, int L, int depth,
-                      int spp_loop, int sqrt_spp, int N, const float* tri,
-                      const float* nodes, const float* tris,
-                      const int* mat_id, const float* mat, const float* lgt,
-                      const uint32_t* keys, const float* cam,
+                      int spp_loop, int sqrt_spp, int N, int k0, int nk,
+                      int grid, const float* tri, const float* nodes,
+                      const float* tris, const int* mat_id, const float* mat,
+                      const float* lgt, const uint32_t* keys, const float* cam,
                       const float* in0, const float* in1, const float* in2,
                       const float* in3, const float* in4, const float* in5,
                       const int* rid, const float* ubuf, float* out_r,
                       float* out_g, float* out_b,
-                      unsigned long long* counters, void* stream) {
-  if (N < 0 || (N == 0 && (T < 0 || T > bpt::MAX_TRIS))) {
+                      unsigned long long* counters, int* next, void* stream) {
+  const bool strata = pixels && spp_loop > 1;
+  if (N < 0 || (N == 0 && (T < 0 || T > bpt::MAX_TRIS)) ||
+      (N > 0 && (grid < 1 || nk < 1 || k0 < 0 || (!strata && (k0 != 0 || nk != 1)) ||
+                 (strata && k0 + nk > sqrt_spp * sqrt_spp) ||
+                 (long long)B * nk > (1LL << 30)))) {
     return (int)cudaErrorInvalidValue;
   }
   bpt::Params p;
@@ -256,6 +301,9 @@ int bpt_pt_megakernel(int pixels, int B, int T, int L, int depth,
   p.depth = depth;
   p.spp_loop = spp_loop;
   p.sqrt_spp = sqrt_spp;
+  p.k0 = k0;
+  p.nk = nk;
+  p.next = next;
   p.tri = tri;
   p.g = bpt::Bvh{(const float4*)nodes, (const float4*)tris, N};
   p.mat_id = mat_id;
@@ -275,15 +323,22 @@ int bpt_pt_megakernel(int pixels, int B, int T, int L, int depth,
   p.out_g = out_g;
   p.out_b = out_b;
   p.counters = counters;
-  const int grid = (B + bpt::BLOCK - 1) / bpt::BLOCK;
-  if (grid > 0) {
+  if (B > 0) {
     if (N > 0) {
       bpt::pt_megakernel_walk<<<grid, bpt::BLOCK, 0, (cudaStream_t)stream>>>(p);
     } else {
-      bpt::pt_megakernel<<<grid, bpt::BLOCK, 0, (cudaStream_t)stream>>>(p);
+      bpt::pt_megakernel<<<(B + bpt::BLOCK - 1) / bpt::BLOCK, bpt::BLOCK, 0,
+                           (cudaStream_t)stream>>>(p);
     }
   }
   return (int)cudaGetLastError();
+}
+
+// Blocks of pt_megakernel_walk the current device holds at once (the walk
+// mode's persistent grid), or a negative CUDA error code.
+int bpt_pt_walk_blocks() {
+  static int cache[64];
+  return bpt::resident_blocks(bpt::pt_megakernel_walk, bpt::BLOCK, cache, 64);
 }
 
 const char* bpt_cuda_error_string(int code) {

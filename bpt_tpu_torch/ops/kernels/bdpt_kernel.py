@@ -18,7 +18,11 @@ shadow any-hit, and one accepted test a hit; the walk charges every node
 visit, box hit and triangle test of the closest and the shadow walks, and
 the accepted tests of the closest walks only (bpt_tpu's clustered kernel
 charges its shadow traversals to all but the triangle hits,
-bdpt_kernel.py:183-186, 239-250).
+bdpt_kernel.py:183-186, 239-250).  The walk mode schedules as the PT
+kernel's does (``pt_kernel.walk_launches``: one sample a work item on a
+persistent grid, stratum ranges in pixels mode), with the vertex scratch
+of its resident threads (``walk_scratch_bytes``) and each warp's shadow
+walks shared across its lanes.
 
 Dispatch is by device: a CPU tensor takes the plain PyTorch version (the
 ``models.bdpt`` wavefront on the kernel's threefry stream or on injected
@@ -40,13 +44,17 @@ from bpt_tpu_torch.models.camera import generate_rays
 from bpt_tpu_torch.ops.kernels import build
 from bpt_tpu_torch.ops.kernels.pt_kernel import (
     MAX_LIGHTS,
+    WALK_BLOCK,
     _camera_from_table,
     _checked,
     _device_of,
     _lane_inputs,
     _pack_tables,
     _scatter_active,
+    stratum_ranges,
     walk_args,
+    walk_grid,
+    walk_launches,
 )
 from bpt_tpu_torch.scene.types import SceneTensors
 
@@ -119,6 +127,23 @@ def bdpt_megakernel_plain(scene, o: Vec3, d: Vec3, ray_ids, key, depth: int,
 bdpt_megakernel_plain.calls = 0
 
 
+def stratum_plain(scene, i, j, pix_ids, cam13, key, depth: int, sqrt_spp: int,
+                  k: int, mis: bool = False):
+    """Stratum k of ``bdpt_megakernel_pixels_plain`` on the active lanes
+    (pix_ids >= 0): (radiance [n_active, 3], rays, shadow rays, extra) of
+    the samples pix*spp + k, on the kernel's jitter and stream."""
+    idx = torch.nonzero(pix_ids >= 0).squeeze(1)
+    iv, jv = i[idx], j[idx]
+    rid = pix_ids[idx].to(torch.int64) * (sqrt_spp * sqrt_spp) + k
+    u0, u1 = rng.bdpt_raygen_jitter(key, rid)
+    zero = torch.zeros_like(u0)
+    origins, dirs = generate_rays(
+        _camera_from_table(cam13), iv, jv, torch.full_like(iv, float(k % sqrt_spp)),
+        torch.full_like(iv, float(k // sqrt_spp)), torch.stack([u0, u1, zero, zero], -1))
+    sources = rng.bdpt_kernel_stream_uniforms_fn(key, rid, depth, origins.dtype)
+    return _radiance(scene, origins, dirs, depth, sources, mis)
+
+
 def bdpt_megakernel_pixels_plain(scene, i, j, pix_ids, cam13, key, depth: int,
                                  sqrt_spp: int, mis: bool = False):
     """Plain version of ``bdpt_megakernel_pixels``: for each stratum in
@@ -128,24 +153,13 @@ def bdpt_megakernel_pixels_plain(scene, i, j, pix_ids, cam13, key, depth: int,
     _check_depth(depth)
     B = pix_ids.shape[0]
     idx = torch.nonzero(pix_ids >= 0).squeeze(1)
-    cc = _camera_from_table(cam13)
-    iv, jv = i[idx], j[idx]
-    ids = pix_ids[idx].to(torch.int64)
-    spp = sqrt_spp * sqrt_spp
     total = None
     rays = torch.zeros((), dtype=torch.int64, device=i.device)
     shadow = torch.zeros((), dtype=torch.int64, device=i.device)
     extra = torch.zeros(4, dtype=torch.int64, device=i.device)
-    for s in range(spp):
-        rid = ids * spp + s
-        u0, u1 = rng.bdpt_raygen_jitter(key, rid)
-        zero = torch.zeros_like(u0)
-        origins, dirs = generate_rays(
-            cc, iv, jv, torch.full_like(iv, float(s % sqrt_spp)),
-            torch.full_like(iv, float(s // sqrt_spp)),
-            torch.stack([u0, u1, zero, zero], -1))
-        sources = rng.bdpt_kernel_stream_uniforms_fn(key, rid, depth, origins.dtype)
-        rad, r, sh, e = _radiance(scene, origins, dirs, depth, sources, mis)
+    for s in range(sqrt_spp * sqrt_spp):
+        rad, r, sh, e = stratum_plain(scene, i, j, pix_ids, cam13, key, depth, sqrt_spp, s,
+                                      mis)
         total = rad if total is None else total + rad
         rays, shadow, extra = rays + r, shadow + sh, extra + e
     return (*_scatter_active(total, idx, B), rays, shadow, extra)
@@ -157,7 +171,13 @@ bdpt_megakernel_pixels_plain.calls = 0
 # ---------------------------------------------------------------- kernel
 
 
-def _launch(scene, ins, ray_ids, keys, depth, mis, pixels, cam=None,
+def walk_scratch_bytes(threads: int, depth: int, mis: bool) -> int:
+    """Bytes of the walk mode's vertex scratch, [2][depth*stride][threads]
+    f32: a resident thread's camera and light vertex records."""
+    return 2 * depth * (VTX_STRIDE_MIS if mis else VTX_STRIDE) * 4 * threads
+
+
+def _launch(wrapper, scene, ins, ray_ids, keys, depth, mis, pixels, cam=None,
             ubuf=None, sqrt_spp=1):
     _check_depth(depth)
     dev, B, ins, rid, keys_t, cam_t = _lane_inputs(
@@ -167,22 +187,42 @@ def _launch(scene, ins, ray_ids, keys, depth, mis, pixels, cam=None,
     if ubuf is not None:
         ubuf = _checked(ubuf, (n_uniform_slots(depth), B), dev, "uniforms")
     stride = VTX_STRIDE_MIS if mis else VTX_STRIDE
-    vtx = torch.empty((2, depth * stride, B), dtype=torch.float32, device=dev)
-    out = torch.empty((3, B), dtype=torch.float32, device=dev)
+    spp = sqrt_spp * sqrt_spp if pixels else 1
     counters = torch.zeros(6, dtype=torch.int64, device=dev)
     lib = build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(k0, nk, out, vtx, grid=0, nxt=None):
         code = lib.bpt_bdpt_megakernel(
             int(pixels), int(mis), B, scene.num_tris, scene.num_lights,
-            int(depth), int(sqrt_spp), len(keys), N,
+            int(depth), int(sqrt_spp), len(keys), N, k0, nk, grid,
             tri.data_ptr(), nodes, tris, None if mat_id is None else mat_id.data_ptr(),
             mat.data_ptr(), lgt.data_ptr(), keys_t.data_ptr(),
             cam_t.data_ptr(), *(x.data_ptr() for x in ins), rid.data_ptr(),
             None if ubuf is None else ubuf.data_ptr(), vtx.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            counters.data_ptr(), stream)
-    build.check(code, "bdpt_megakernel")
+            counters.data_ptr(), nxt, stream)
+        build.check(code, "bdpt_megakernel")
+        wrapper.launches += 1
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if N:
+            # the vertex scratch of the largest launch's resident threads,
+            # which every launch of the call shares
+            nk_max = max(k1 - k0 for k0, k1 in stratum_ranges(B, spp))
+            threads = walk_grid(lib.bpt_bdpt_walk_blocks, B * nk_max) * WALK_BLOCK
+            vtx = torch.empty((2, depth * stride, threads), dtype=torch.float32, device=dev)
+
+            def launch_walk(k0, nk, out):
+                nxt = torch.zeros(1, dtype=torch.int32, device=dev)
+                launch(k0, nk, out, vtx, walk_grid(lib.bpt_bdpt_walk_blocks, B * nk),
+                       nxt.data_ptr())
+
+            out = walk_launches(B, pixels, spp, launch_walk, dev)
+        else:
+            vtx = torch.empty((2, depth * stride, B), dtype=torch.float32, device=dev)
+            out = torch.empty((3, B), dtype=torch.float32, device=dev)
+            launch(0, 1, out, vtx)
     return out[0], out[1], out[2], counters[0], counters[1], counters[2:]
 
 
@@ -198,11 +238,9 @@ def bdpt_megakernel(scene: SceneTensors, o: Vec3, d: Vec3, ray_ids, key,
     if _device_of(ray_ids).type == "cpu":
         return bdpt_megakernel_plain(scene, o, d, ray_ids, key, depth,
                                      uniforms, mis)
-    res = _launch(scene, [o.x, o.y, o.z, d.x, d.y, d.z], ray_ids,
-                  rng.subkeys_bdpt(key, depth), depth, mis, pixels=False,
-                  ubuf=uniforms)
-    bdpt_megakernel.launches += 1
-    return res
+    return _launch(bdpt_megakernel, scene, [o.x, o.y, o.z, d.x, d.y, d.z], ray_ids,
+                   rng.subkeys_bdpt(key, depth), depth, mis, pixels=False,
+                   ubuf=uniforms)
 
 
 bdpt_megakernel.launches = 0
@@ -218,10 +256,9 @@ def bdpt_megakernel_pixels(scene: SceneTensors, i, j, pix_ids, cam13, key,
     if _device_of(pix_ids).type == "cpu":
         return bdpt_megakernel_pixels_plain(scene, i, j, pix_ids, cam13, key,
                                             depth, sqrt_spp, mis)
-    res = _launch(scene, [i, j], pix_ids, rng.subkeys_bdpt_raygen(key, depth),
-                  depth, mis, pixels=True, cam=cam13, sqrt_spp=sqrt_spp)
-    bdpt_megakernel_pixels.launches += 1
-    return res
+    return _launch(bdpt_megakernel_pixels, scene, [i, j], pix_ids,
+                   rng.subkeys_bdpt_raygen(key, depth), depth, mis, pixels=True,
+                   cam=cam13, sqrt_spp=sqrt_spp)
 
 
 bdpt_megakernel_pixels.launches = 0

@@ -33,13 +33,15 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# bpt_pt_megakernel(pixels, B, T, L, depth, spp_loop, sqrt_spp, N,
-#                   tri, nodes, tris, mat_id, mat, lgt, keys, cam,
-#                   in0..in5, rid, ubuf, out_r, out_g, out_b, counters, stream)
-# bpt_bdpt_megakernel(pixels, mis, B, T, L, depth, sqrt_spp, nkeys, N,
-#                     tri, nodes, tris, mat_id, mat, lgt, keys, cam,
+# bpt_pt_megakernel(pixels, B, T, L, depth, spp_loop, sqrt_spp, N, k0, nk,
+#                   grid, tri, nodes, tris, mat_id, mat, lgt, keys, cam,
+#                   in0..in5, rid, ubuf, out_r, out_g, out_b, counters, next,
+#                   stream)
+# bpt_bdpt_megakernel(pixels, mis, B, T, L, depth, sqrt_spp, nkeys, N, k0,
+#                     nk, grid, tri, nodes, tris, mat_id, mat, lgt, keys, cam,
 #                     in0..in5, rid, ubuf, vtx, out_r, out_g, out_b, counters,
-#                     stream)
+#                     next, stream)
+# bpt_pt_walk_blocks(), bpt_bdpt_walk_blocks(): the walk kernels' resident blocks
 # bpt_closest_bvh(B, N, nodes, tris, ox, oy, oz, dx, dy, dz, active,
 #                 t, tri, u, v, counters, stream)
 # bpt_any_bvh(B, N, nodes, tris, ox, oy, oz, dx, dy, dz, tmax, hit,
@@ -53,10 +55,12 @@ _I = ctypes.c_int
 #                   tmin, tmax, t, tri, u, v, hit, counters, stream)
 # bpt_plucker_hit: the same arguments (S unused)
 _SIGNATURES = {
-    "bpt_pt_megakernel": ([_I] * 8 + [_P] * 8 + [_P] * 6 + [_P] * 2
-                          + [_P] * 4 + [_P], _I),
-    "bpt_bdpt_megakernel": ([_I] * 9 + [_P] * 8 + [_P] * 6 + [_P] * 3
-                            + [_P] * 4 + [_P], _I),
+    "bpt_pt_megakernel": ([_I] * 11 + [_P] * 8 + [_P] * 6 + [_P] * 2
+                          + [_P] * 4 + [_P] * 2, _I),
+    "bpt_bdpt_megakernel": ([_I] * 12 + [_P] * 8 + [_P] * 6 + [_P] * 3
+                            + [_P] * 4 + [_P] * 2, _I),
+    "bpt_pt_walk_blocks": ([], _I),
+    "bpt_bdpt_walk_blocks": ([], _I),
     "bpt_closest_bvh": ([_I] * 2 + [_P] * 2 + [_P] * 7 + [_P] * 4 + [_P] * 2, _I),
     "bpt_any_bvh": ([_I] * 2 + [_P] * 2 + [_P] * 7 + [_P] * 2 + [_P], _I),
     "bpt_pt_wave_bounce": ([_I] * 4 + [_P] * 6 + [_P] * 5 + [_P] * 2, _I),

@@ -14,6 +14,13 @@ hit provider's: node visits and box hits are 0 in the sweep, which counts
 T triangle tests a closest hit and one accepted test a hit; the walk
 counts as ``closest_bvh`` does.
 
+The walk mode runs one sample a work item on a persistent grid
+(``csrc/walk_sched.cuh``): in pixels mode with more than one stratum each
+launch writes its samples' radiance stratum by stratum and the wrapper
+adds them into the pixel totals in stratum order (``walk_launches``), over
+as many launches as ``stratum_ranges`` plans; a call can thus launch the
+kernel more than once, and counts each launch.
+
 Dispatch is by device: a CPU tensor takes the plain PyTorch version (the
 ``models.pt`` wavefront on the same threefry stream, over
 ``ops.soa.bvh_closest`` on a scene over ``MAX_TRIS`` triangles); a CUDA
@@ -271,28 +278,86 @@ def walk_args(scene):
     return int(nodes.shape[0]), nodes.data_ptr(), tris.data_ptr(), mat_id
 
 
-def _launch(scene, ins, ray_ids, keys, depth, pixels, cam=None, ubuf=None,
-            spp_loop=1, sqrt_spp=1):
+# The walk mode's per-sample radiance a launch may hold, [3, k1 - k0, B] f32
+# (stratum_ranges)
+STRATA_BYTES = 256 << 20
+WALK_BLOCK = 128  # threads a block of the walk kernels (csrc BLOCK)
+
+
+def stratum_ranges(B: int, spp: int, budget=None) -> list:
+    """The walk mode's launches of a pixels-mode call over B lanes and spp
+    strata: stratum ranges [k0, k1) in order, each as many strata as keep
+    its per-sample radiance, 12 bytes a sample, within ``budget`` bytes
+    (``STRATA_BYTES``); one stratum a range where even one is over it."""
+    budget = STRATA_BYTES if budget is None else budget
+    per = max(1, budget // (12 * max(1, B)))
+    return [(k0, min(spp, k0 + per)) for k0 in range(0, spp, per)]
+
+
+def walk_grid(resident_blocks, items: int) -> int:
+    """Persistent blocks of a walk-mode launch of ``items`` samples: as many
+    as the card holds at once (``resident_blocks()``, the C occupancy
+    query), and no more than the items fill."""
+    blocks = resident_blocks()
+    if blocks <= 0:
+        raise RuntimeError(f"walk kernel occupancy query failed: CUDA error {-blocks}")
+    return max(1, min(blocks, -(-items // WALK_BLOCK)))
+
+
+def walk_launches(B: int, pixels: bool, spp: int, launch, dev) -> torch.Tensor:
+    """The walk mode's launches of one call: one over B samples, or in
+    pixels mode with spp > 1 one a stratum range.  ``launch(k0, nk, out)``
+    runs the kernel on [k0, k0 + nk) into out [3, nk, B] on ``dev``.
+    Returns the lane totals [3, B]: each range's rows added one stratum
+    after another from zeros, the float-add sequence ((0 + s0) + s1) + ...
+    of a lane summing its strata in order, so no split changes a bit."""
+    if not pixels or spp == 1:
+        out = torch.empty((3, 1, B), dtype=torch.float32, device=dev)
+        launch(0, 1, out)
+        return out[:, 0]
+    tot = torch.zeros((3, B), dtype=torch.float32, device=dev)
+    for k0, k1 in stratum_ranges(B, spp):
+        rows = torch.empty((3, k1 - k0, B), dtype=torch.float32, device=dev)
+        launch(k0, k1 - k0, rows)
+        for k in range(k1 - k0):
+            tot += rows[:, k]
+    return tot
+
+
+def _launch(wrapper, scene, ins, ray_ids, keys, depth, pixels, cam=None,
+            ubuf=None, spp_loop=1, sqrt_spp=1):
     dev, B, ins, rid, keys_t, cam_t = _lane_inputs(scene, "pt", ins, ray_ids, keys, cam)
     _, tri, mat, lgt = _pack_tables(scene)
     N, nodes, tris, mat_id = walk_args(scene)
     if ubuf is not None:
         ubuf = _checked(ubuf, (depth * NU, B), dev, "uniforms")
-    out = torch.empty((3, B), dtype=torch.float32, device=dev)
     counters = torch.zeros(5, dtype=torch.int64, device=dev)
     lib = build.load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch(k0, nk, out, grid=0, nxt=None):
         code = lib.bpt_pt_megakernel(
             int(pixels), B, scene.num_tris, scene.num_lights, int(depth),
-            int(spp_loop), int(sqrt_spp), N,
+            int(spp_loop), int(sqrt_spp), N, k0, nk, grid,
             tri.data_ptr(), nodes, tris, None if mat_id is None else mat_id.data_ptr(),
             mat.data_ptr(), lgt.data_ptr(), keys_t.data_ptr(),
             cam_t.data_ptr(), *(x.data_ptr() for x in ins), rid.data_ptr(),
             None if ubuf is None else ubuf.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            counters.data_ptr(), stream)
-    build.check(code, "pt_megakernel")
+            counters.data_ptr(), nxt, stream)
+        build.check(code, "pt_megakernel")
+        wrapper.launches += 1
+
+    def launch_walk(k0, nk, out):
+        nxt = torch.zeros(1, dtype=torch.int32, device=dev)
+        launch(k0, nk, out, walk_grid(lib.bpt_pt_walk_blocks, B * nk), nxt.data_ptr())
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if N:
+            out = walk_launches(B, pixels, spp_loop, launch_walk, dev)
+        else:
+            out = torch.empty((3, B), dtype=torch.float32, device=dev)
+            launch(0, 1, out)
     return out[0], out[1], out[2], counters[0], counters[1:]
 
 
@@ -312,10 +377,8 @@ def pt_megakernel(scene: SceneTensors, o: Vec3, d: Vec3, ray_ids, key,
     extra int64[4] = (node_visits, aabb_hits, tri_tests, tri_hits))."""
     if _device_of(ray_ids).type == "cpu":
         return pt_megakernel_plain(scene, o, d, ray_ids, key, depth, uniforms)
-    res = _launch(scene, [o.x, o.y, o.z, d.x, d.y, d.z], ray_ids,
-                  rng.subkeys(key, NU), depth, pixels=False, ubuf=uniforms)
-    pt_megakernel.launches += 1
-    return res
+    return _launch(pt_megakernel, scene, [o.x, o.y, o.z, d.x, d.y, d.z], ray_ids,
+                   rng.subkeys(key, NU), depth, pixels=False, ubuf=uniforms)
 
 
 pt_megakernel.launches = 0
@@ -334,11 +397,9 @@ def pt_megakernel_pixels(scene: SceneTensors, i, j, sx, sy, ray_ids, cam13,
     if _device_of(ray_ids).type == "cpu":
         return pt_megakernel_pixels_plain(scene, i, j, sx, sy, ray_ids, cam13,
                                           key, depth, spp_loop, sqrt_spp)
-    res = _launch(scene, [i, j, sx, sy], ray_ids,
-                  rng.subkeys_with_raygen(key, NU), depth, pixels=True,
-                  cam=cam13, spp_loop=spp_loop, sqrt_spp=sqrt_spp)
-    pt_megakernel_pixels.launches += 1
-    return res
+    return _launch(pt_megakernel_pixels, scene, [i, j, sx, sy], ray_ids,
+                   rng.subkeys_with_raygen(key, NU), depth, pixels=True,
+                   cam=cam13, spp_loop=spp_loop, sqrt_spp=sqrt_spp)
 
 
 pt_megakernel_pixels.launches = 0

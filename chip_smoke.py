@@ -156,7 +156,10 @@
    against its plain version on the main path's own inputs (4 spp, depth
    80): every 16th pixel of the chunk with the plain estimator's walks
    over closest_bvh / any_bvh, and 4 of its pixels walking in torch; rtol
-   1e-4 / atol 1e-5 on >= 99.9% of lanes, every counter exact.
+   1e-4 / atol 1e-5 on >= 99.9% of lanes, every counter exact.  Prints
+   the kernel's ms and peak device memory, its persistent grid (the walk
+   kernels' resident blocks, csrc/walk_sched.cuh), its vertex scratch
+   bytes and the sha256 of the render's framebuffer.
 17. Coffee bdpt at 256x256, 1 spp, depth 10 (under 2^18 samples: fused),
    its wall beside the stratum loop's forced on the same config (the jnp
    stream over closest_bvh / any_bvh); the two images differ by stream
@@ -167,7 +170,9 @@
    through the fused loop forced, one pixels-mode launch each:
    rays_traced equal, >= 99.9% of pixels within rtol 1e-4 / atol 1e-6
    (the max difference printed); both walls, and both routes' walls at
-   32x32 / 1 spp, 64x64 / 4 spp and 128x128 / 16 spp.
+   32x32 / 1 spp, 64x64 / 4 spp and 128x128 / 16 spp.  Then coffee
+   bdpt-mis at 512x512 / 4 spp / depth 10 through the fused loop, forced,
+   three times, its median beside phase 10's BDPT wave route.
 19. Defocus on the coffee stand-in, bdpt and pt at 128x128, 4 spp, depth
    10: the stratum loop, one rays-mode launch in walk mode a wave, no
    other kernel and no plain version; each wave's launch timed.
@@ -208,6 +213,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -1208,8 +1214,9 @@ def main() -> int:
               f"of {strata} strata x {span} pixels a render; peak device memory "
               f"{peak / 2**30:.2f} GiB; closest_bvh {n_closest} and any_bvh {n_any} "
               f"launches, plain calls {n_plain}; wrote {path} ({card})")
-        if mis:  # the default route's render, for phase 21
+        if mis:  # the default route's render, for phases 18 and 21
             default_mis = (st.rays_traced, st.shadow_rays, fb.copy())
+            wave_mis_wall = wall
         check(abs(gaps[0]) <= 0.1, f"coffee {name}: subset rays {sub[0]} not within 0.1% "
               f"of {ref[0]}")
         check(abs(sh_gap) <= 1.0, f"coffee {name}: subset shadow rays {sub[1]} not within "
@@ -1697,8 +1704,19 @@ def main() -> int:
     pix16 = torch.arange(npx, dtype=torch.int64, device=dev)
     args16 = (coffee, (pix16 % 512).float(), (pix16 // 512).float(), pix16,
               pk.camera_table(camera_constants(cfg16, torch.float32, dev)), key, 80, 2)
+    torch.cuda.reset_peak_memory_stats(dev)
     out16, main_ms = timed(lambda: bk.bdpt_megakernel_pixels(*args16, mis=True))
+    kernel_peak16 = torch.cuda.max_memory_allocated(dev)
     c16 = counters(out16)
+    with torch.cuda.device(dev):
+        grid16 = build.load_library().bpt_bdpt_walk_blocks()
+    fb_sha = hashlib.sha256(np.ascontiguousarray(fb).tobytes()).hexdigest()
+    print(f"phase 16: bdpt_megakernel_pixels walk mode at the main path's chunk (512x512 "
+          f"pixels x 4 spp, depth 80): kernel {main_ms:.3f} ms, peak device memory "
+          f"{kernel_peak16 / 2**30:.3f} GiB; persistent grid {grid16} blocks x "
+          f"{pk.WALK_BLOCK} threads; vertex scratch "
+          f"{bk.walk_scratch_bytes(grid16 * pk.WALK_BLOCK, 80, True)} B; the render's "
+          f"framebuffer sha256 {fb_sha} ({card})")
     # the kernel against its plain version on the main path's own inputs:
     # every 16th pixel of the chunk with the plain estimator's walks over
     # closest_bvh / any_bvh (walks_on_kernels; the torch walks would take
@@ -1828,7 +1846,28 @@ def main() -> int:
     sweep.append(f"256x256 16 spp: pt_wave {wall18:.6f} s, fused {fwall18:.6f} s "
                  f"({fwall18 / wall18:.2f}x)")
     print(f"phase 18: coffee PT depth {depth}, medians of 3: {'; '.join(sweep)} ({card})")
-    pix18 = torch.arange(256 * 256, dtype=torch.int64, device=dev)
+    # coffee bdpt-mis at 512x512 / 4 spp / depth 10 (2^20 samples, the BDPT
+    # wave's side of bpt_tpu's 2^18 constant): the fused loop forced, beside
+    # the wave route's median of phase 10
+    cfg_m = coffee_camera(spp=4, integrator="bdpt-mis")
+    cc_m = camera_constants(cfg_m, torch.float32, dev)
+    fb_m = torch.zeros((512 * 512, 3), device=dev)
+
+    def fused_mis():
+        (r_, _, _), ms_ = timed(lambda: _render_chunks(
+            coffee, cfg_m, cc_m, "bdpt-mis", 0, fb_m.zero_(), default_chunk_size(512 * 512),
+            0, None, None))
+        return int(r_), ms_
+
+    fused_mis()  # warm-up
+    fm = [fused_mis() for _ in range(3)]
+    fm_wall = statistics.median(ms for _, ms in fm) / 1e3
+    print(f"phase 18: coffee bdpt-mis 512x512 4 spp depth {depth}: the fused loop (forced) "
+          f"walls {[round(ms / 1e3, 6) for _, ms in fm]} s, median {fm_wall:.6f} s, rays "
+          f"{fm[0][0]}; the BDPT wave route (render(), phase 10) median {wave_mis_wall:.6f} s "
+          f"(fused / wave {fm_wall / wave_mis_wall:.2f}x) ({card})")
+    del fb_m
+    pix18 =torch.arange(256 * 256, dtype=torch.int64, device=dev)
     args18 = (coffee, (pix18 % 256).float(), (pix18 // 256).float(), pix18 * 0.0, pix18 * 0.0,
               pix18, pk.camera_table(camera_constants(cfg18, torch.float32, dev)), key, depth)
     walk_ms["pt_megakernel_pixels_walk"] = time_ms(lambda: pk.pt_megakernel_pixels(
@@ -2131,7 +2170,9 @@ def main() -> int:
         "plain_shape": walk_plain_shape[k],
         "slice_ms": walk_slice_ms[k],
     } for k, (src, tpu, path_, shape) in walk_meta.items()]
-    walk_entries[-1]["depth80_64x64_ms"] = walk_d80_ms
+    walk_entries[-1].update(depth80_64x64_ms=walk_d80_ms, persistent_blocks=grid16,
+                            scratch_bytes=bk.walk_scratch_bytes(grid16 * pk.WALK_BLOCK, 80,
+                                                                True))
     cl_replaces = {"clustered_closest": "cluster_wave.py:212", "clustered_any": "cluster_wave.py:254",
                    "plucker_closest": "plucker.py:332", "plucker_any": "plucker.py:364"}
     cl_entries = [{

@@ -556,6 +556,62 @@ def test_walk_depth80_matches_plain():
     assert _walk_counters(got) == _walk_counters(want)
 
 
+@pytest.mark.parametrize("case, integrator", [
+    ("ranges", "pt"), ("ranges", "bdpt"), ("ranges", "bdpt-mis"),
+    ("B37", "pt"), ("B37", "bdpt"), ("B37", "bdpt-mis"),
+    ("inactive", "pt"), ("inactive", "bdpt-mis"),
+    ("depth80", "pt"), ("depth80", "bdpt-mis"),
+])
+def test_walk_schedule_matches_plain(case, integrator, monkeypatch):
+    """The walk kernels' persistent schedule against the plain versions on
+    the 964-triangle scene, counters exact: pixels mode with a budget of
+    one stratum a launch (4 stratum ranges, 4 launches); rays mode at
+    B = 37, under one block of the persistent grid; pixels mode with
+    inactive lanes (rid < 0) between live ones; pixels mode at depth 80."""
+    scene = big_scene(builder, device="cuda")
+    key, mis, pt = rng.prng_key(4), integrator == "bdpt-mis", integrator == "pt"
+    if case == "B37":
+        o, d, ids = _big_lanes(37, 21)
+        a = (scene, o, d, ids, key, 10)
+        mk = pk.pt_megakernel if pt else bk.bdpt_megakernel
+        n = mk.launches
+        got = mk(*a) if pt else mk(*a, mis=mis)
+        want = pk.pt_megakernel_plain(*a) if pt else bk.bdpt_megakernel_plain(*a, mis=mis)
+        live, launches = ids >= 0, 1
+    else:
+        W, S, depth = (8, 2, 80) if case == "depth80" else (16, 2, 10)
+        cfg = dataclasses.replace(presets.cornell_box_camera(), image_width=W,
+                                  samples_per_pixel=S * S, vfov=40.0,
+                                  lookfrom=(0.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0))
+        cam = pk.camera_table(camera_constants(cfg, torch.float32, "cuda"))
+        pix = torch.arange(W * W, dtype=torch.int32, device="cuda")
+        i, j = (pix % W).float(), (pix // W).float()
+        if case == "inactive":
+            pix[1::3] = -1
+        launches = 1
+        if case == "ranges":
+            monkeypatch.setattr(pk, "STRATA_BYTES", 12 * W * W)
+            launches = S * S
+        live = pix >= 0
+        if pt:
+            a = (scene, i, j, i * 0, j * 0, pix, cam, key, depth)
+            kw = dict(spp_loop=S * S, sqrt_spp=S)
+            mk, plain = pk.pt_megakernel_pixels, pk.pt_megakernel_pixels_plain
+        else:
+            a = (scene, i, j, pix, cam, key, depth, S)
+            kw = dict(mis=mis)
+            mk, plain = bk.bdpt_megakernel_pixels, bk.bdpt_megakernel_pixels_plain
+        n = mk.launches
+        got = mk(*a, **kw)
+        want = plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert mk.launches - n == launches
+    assert _frac_close(got, want) >= 0.999
+    assert all(float(c[~live].abs().sum()) == 0.0 for c in got[:3])
+    kc = _walk_counters(got)
+    assert kc == _walk_counters(want) and kc[2] > kc[3] > 0
+
+
 @pytest.mark.parametrize("integrator", ["pt", "bdpt-mis"])
 def test_render_fused_walk_on_card_matches_cpu(integrator, monkeypatch):
     """Under 2^18 samples large-scene BDPT takes the fused loop: one
