@@ -9,49 +9,69 @@
 // over [T_MIN, tmax] of BDPT's connection shadow rays, tmax <= 0 marking a
 // dead lane, early exit): out hit.
 // pt_wave_bounce replaces bpt_tpu/ops/pallas/pt_wave.py::_launch_bounce
-// (_bounce_kernel): one PT bounce per ray, the closest hit (its own
-// traversal, or closest_bvh's hit in paged mode) followed by make_bounce's
-// shade with kernel-stream draws keyed by (ray id, bounce).
+// (_bounce_kernel): make_bounce's shade of one PT bounce per ray over the
+// closest hits closest_bvh wrote, with kernel-stream draws keyed by (ray
+// id, bounce).  The wrapper launches closest_bvh over the state's rays
+// first, or takes its hits in paged mode.
 //
-// What bounds them on the H100: per-thread traversal divergence and the
-// dependent loads of the walk, not FP32 issue and not device-memory
-// bandwidth.  Each step of a lane's walk loads a 32-byte node whose address
-// depends on the previous step's slab test, and the lanes of a warp follow
-// different node sequences of different lengths.  The scene (32 B per node,
-// 48 B per triangle: about 3 MB + 4.4 MB for the 91k-triangle coffee
+// What bounds them on the H100: the walk, not FP32 throughput and not
+// device-memory bandwidth (one thread a ray, closest_bvh and
+// pt_wave_bounce ran at 1.7% and 7.0% of their bounds).
+// Each step of a lane's walk loads a 32-byte node whose address depends on
+// the previous step's slab test, and the lanes of a warp follow different
+// node sequences of different lengths: one thread a ray on a grid of B /
+// 128 blocks kept a warp until its longest walk ended, the other lanes idle
+// (light subpath rays: 20.7 ms at 1,048,576 lanes).  The scene (32 B a
+// node, 48 B a triangle: about 3 MB + 4.4 MB for the 91k-triangle coffee
 // stand-in) stays resident in the 50 MB L2 cache.
 //
-// Design: one thread per ray.  The thread runs bvh_walk.cuh's
-// threaded-DFS walk (no stack; the visit order, NaN slab rules and accept
-// rule of ops/soa.py::_bvh_walk), so kernel and plain version take the
-// same branch at every step and count the same node visits, box hits,
-// triangle tests and accepted tests.  One walk serves both hits
-// (bvh_walk<ANY>): the any hit keeps its interval and stops after the
-// first leaf with a hit, which makes its answer independent of the visit
-// order.  A shadow wave holds a
-// lane per (camera vertex, light vertex) pair and most pairs are dead
-// (tmax <= 0): a dead lane reads its tmax, writes a miss and returns.  The
-// TPU layout (128-lane tiles, the cluster blocks and their DMA double
-// buffer, the lane roll, the per-octant order table, the sort that parks
-// dead lanes in tail tiles) does not carry over.  The shade is
-// pt_shade.cuh's pt_bounce, shared with the PT megakernel; the material and
-// light tables and the slot keys sit in shared memory.  Ray state is a
-// [13, B] row-major f32 array (origin, direction, throughput, radiance,
-// alive: ops/kernels/pt_wave.py's STATE_ROWS) so a warp's access to one row
-// is coalesced.  Counters are exact 64-bit integers: warp sums, one atomic
-// per warp.
+// Design.  closest_bvh runs on a persistent grid (the blocks the card holds
+// at once) whose warps refill their finished lanes: every STEPS steps of
+// its lanes' walks a warp counts its free lanes, and at REFILL or more lane
+// 0 takes as many consecutive rays from the launch's work counter (a slot
+// of the wrapper's zeroed counters) with one atomic; each free lane takes
+// the next by its rank among them, so the new rays' loads are neighbours.
+// A lane that comes in inactive writes its miss at once.  The walk is
+// wave_walk.cuh's: bvh_walk's visit order, arithmetic, accept rule and
+// counts (so kernel and plain version take the same branch at every step
+// and count the same node visits, box hits, triangle tests and accepted
+// tests), with a slab test that leaves out the NaN checks for a ray whose
+// origin and 1/d are finite.  pt_wave_bounce shades one thread a lane
+// over closest_bvh's hits of its state's rows: a kernel that both walks
+// and shades holds the shade's registers through the walk, and at the
+// occupancy that leaves it lost more than refilling gained (PERF.md §6).
+// Counters are exact 64-bit integers: a thread's sums over its
+// rays, a warp's sum, one atomic a warp.  Also measured and left out
+// (PERF.md §6): while-while traversal, where a lane at a leaf waits for
+// the warp's other lanes to reach theirs; child-pair records, which test
+// the right child from its parent's load when the left one misses.
+//
+// any_bvh keeps one thread a ray: bvh_walk<true> (an any hit keeps its
+// interval and stops after the first leaf with a hit, which makes its
+// answer independent of the visit order).  A shadow wave holds a lane per
+// (camera vertex, light vertex) pair and most pairs are dead (tmax <= 0):
+// a dead lane reads its tmax, writes a miss and returns.  The TPU layout
+// (128-lane tiles, the cluster blocks and their DMA double buffer, the lane
+// roll, the per-octant order table, the sort that parks dead lanes in tail
+// tiles) does not carry over.  The shade is pt_shade.cuh's pt_bounce,
+// shared with the PT megakernel; the material and light tables and the
+// slot keys sit in shared memory.  Ray state is a [13, B] row-major f32
+// array (origin, direction, throughput, radiance, alive:
+// ops/kernels/pt_wave.py's STATE_ROWS) so a warp's access to one row is
+// coalesced.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "bvh_walk.cuh"
 #include "pt_shade.cuh"
+#include "wave_walk.cuh"
 
 namespace bpt {
 
 constexpr int WAVE_BLOCK = 128;
 
-// pt_bounce's provider in paged mode: the hit closest_bvh computed.
+// pt_bounce's provider: the hit closest_bvh computed.
 struct GivenHit {
   Bvh g;
   const int* mat_id;
@@ -72,6 +92,7 @@ struct GivenHit {
 struct ClosestParams {
   int B;
   Bvh g;
+  int bounds_ok;  // no node bound is NaN (WaveWalk::fast)
   const float* o[3];
   const float* d[3];
   const unsigned char* active;  // [B] bool
@@ -79,23 +100,49 @@ struct ClosestParams {
   int* tri;
   float* u;
   float* v;
-  unsigned long long* counters;  // [4] node visits, box hits, tri tests, tri hits
+  unsigned long long* counters;  // [5] node visits, box hits, tri tests, tri hits; work
 };
 
 __global__ void __launch_bounds__(WAVE_BLOCK) closest_bvh(const ClosestParams p) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   TraceCounts c;
-  if (lane < p.B) {
-    float t = inf_f(), u = 0.0f, v = 0.0f;
-    int tri = -1;
-    if (p.active[lane]) {
-      bvh_walk<false>(p.g, p.o[0][lane], p.o[1][lane], p.o[2][lane], p.d[0][lane],
-                      p.d[1][lane], p.d[2][lane], T_MIN, inf_f(), t, tri, u, v, c);
+  WaveWalk w;
+  int r = -1;        // the lane's ray; -1 when the lane is free
+  bool more = true;  // the launch's counter has rays left (warp-uniform)
+  while (true) {
+    __syncwarp();
+    const unsigned busy = __ballot_sync(0xffffffffu, r >= 0);
+    const int n_free = 32 - __popc(busy);
+    if (more && n_free >= REFILL) {
+      const long long base = warp_take_n(&p.counters[4], n_free);
+      more = base + n_free < p.B;
+      const long long k = base + rank_in(~busy);
+      if (r < 0 && k < p.B) {
+        if (p.active[k]) {
+          r = (int)k;
+          w.start(p.o[0][k], p.o[1][k], p.o[2][k], p.d[0][k], p.d[1][k], p.d[2][k],
+                  p.bounds_ok);
+        } else {  // an inactive lane misses without a walk
+          p.t[k] = inf_f();
+          p.tri[k] = -1;
+          p.u[k] = 0.0f;
+          p.v[k] = 0.0f;
+        }
+      }
+      continue;
     }
-    p.t[lane] = t;
-    p.tri[lane] = tri;
-    p.u[lane] = u;
-    p.v[lane] = v;
+    if (!busy) break;
+    if (r >= 0) {
+      for (int s = 0; s < STEPS; ++s) {
+        if (w.step(p.g, c)) {
+          p.t[r] = w.t();
+          p.tri[r] = w.tri;
+          p.u[r] = w.u;
+          p.v[r] = w.v;
+          r = -1;
+          break;
+        }
+      }
+    }
   }
   warp_add(c.nodes, &p.counters[0]);
   warp_add(c.boxes, &p.counters[1]);
@@ -141,13 +188,13 @@ struct WaveParams {
   const uint32_t* keys; // [2 * NU] slot keys
   const float* in;      // [STATE_ROWS, B]
   const int* rid;       // [B]
-  const float* hit_t;   // paged: [B] closest_bvh's t
-  const int* hit_tri;   // paged: [B] closest_bvh's tri
+  const float* hit_t;   // [B] closest_bvh's t
+  const int* hit_tri;   // [B] closest_bvh's tri
   float* out;           // [STATE_ROWS, B]
-  unsigned long long* counters;  // [5] rays, node visits, box hits, tri tests, tri hits
+  unsigned long long* counters;  // [1] rays
 };
 
-template <bool PAGED>
+// The shade of a PT bounce, over the closest hits closest_bvh wrote.
 __global__ void __launch_bounds__(WAVE_BLOCK) pt_wave_bounce(const WaveParams p) {
   __shared__ float s_mat[MAX_MATS * MAT_STRIDE];
   __shared__ float s_lgt[LGT_TAB];
@@ -158,7 +205,6 @@ __global__ void __launch_bounds__(WAVE_BLOCK) pt_wave_bounce(const WaveParams p)
   __syncthreads();
 
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  TraceCounts c;
   unsigned long long rays = 0;
   if (lane < p.B) {
     const size_t B = (size_t)p.B;
@@ -170,13 +216,8 @@ __global__ void __launch_bounds__(WAVE_BLOCK) pt_wave_bounce(const WaveParams p)
     if (in[12 * B] > 0.5f) {
       rays = 1;
       const Draws dr{nullptr, p.B, s_keys, (uint32_t)p.rid[lane], lane};
-      if constexpr (PAGED) {
-        GivenHit h{p.g, p.mat_id, p.hit_t[lane], p.hit_tri[lane]};
-        alive = pt_bounce(s_mat, s_lgt, p.L, dr, p.bounce, h, s);
-      } else {
-        WalkHit<TraceCounts> h{p.g, p.mat_id, c};
-        alive = pt_bounce(s_mat, s_lgt, p.L, dr, p.bounce, h, s);
-      }
+      GivenHit h{p.g, p.mat_id, p.hit_t[lane], p.hit_tri[lane]};
+      alive = pt_bounce(s_mat, s_lgt, p.L, dr, p.bounce, h, s);
       // at most one bounce of a path adds radiance: rr + 0 elsewhere
       rr = rr + s.ar;
       rg = rg + s.ag;
@@ -198,13 +239,19 @@ __global__ void __launch_bounds__(WAVE_BLOCK) pt_wave_bounce(const WaveParams p)
     out[12 * B] = alive ? 1.0f : 0.0f;
   }
   warp_add(rays, &p.counters[0]);
-  warp_add(c.nodes, &p.counters[1]);
-  warp_add(c.boxes, &p.counters[2]);
-  warp_add(c.tests, &p.counters[3]);
-  warp_add(c.hits, &p.counters[4]);
 }
 
 inline int grid_of(int B) { return (B + WAVE_BLOCK - 1) / WAVE_BLOCK; }
+
+// closest_bvh's persistent grid over B lanes: the blocks the card holds at
+// once, and no more than the lanes fill; a negative CUDA error code if the
+// occupancy query fails.
+inline int closest_grid(int B) {
+  static int cache[64];
+  const int blocks = resident_blocks(closest_bvh, WAVE_BLOCK, cache, 64);
+  const int fill = grid_of(B);
+  return blocks < 0 || blocks < fill ? blocks : fill;
+}
 
 }  // namespace bpt
 
@@ -212,14 +259,16 @@ extern "C" {
 
 // Launch on `stream`; each returns cudaGetLastError() after the launch
 // (0 = launched).  All pointers are device pointers.
-int bpt_closest_bvh(int B, int N, const float* nodes, const float* tris,
-                    const float* ox, const float* oy, const float* oz,
-                    const float* dx, const float* dy, const float* dz,
-                    const unsigned char* active, float* t, int* tri, float* u,
-                    float* v, unsigned long long* counters, void* stream) {
+int bpt_closest_bvh(int B, int N, int bounds_ok, const float* nodes,
+                    const float* tris, const float* ox, const float* oy,
+                    const float* oz, const float* dx, const float* dy,
+                    const float* dz, const unsigned char* active, float* t,
+                    int* tri, float* u, float* v, unsigned long long* counters,
+                    void* stream) {
   bpt::ClosestParams p;
   p.B = B;
   p.g = bpt::Bvh{(const float4*)nodes, (const float4*)tris, N};
+  p.bounds_ok = bounds_ok;
   p.o[0] = ox;
   p.o[1] = oy;
   p.o[2] = oz;
@@ -232,9 +281,10 @@ int bpt_closest_bvh(int B, int N, const float* nodes, const float* tris,
   p.u = u;
   p.v = v;
   p.counters = counters;
-  if (B > 0) {
-    bpt::closest_bvh<<<bpt::grid_of(B), bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
-  }
+  if (B <= 0) return (int)cudaGetLastError();
+  const int grid = bpt::closest_grid(B);
+  if (grid < 0) return -grid;
+  bpt::closest_bvh<<<grid, bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -261,6 +311,7 @@ int bpt_any_bvh(int B, int N, const float* nodes, const float* tris,
   return (int)cudaGetLastError();
 }
 
+// hit_t / hit_tri: closest_bvh's hits of the state's rays.
 int bpt_pt_wave_bounce(int B, int N, int L, int bounce, const float* nodes,
                        const float* tris, const int* mat_id, const float* mat,
                        const float* lgt, const uint32_t* keys,
@@ -284,13 +335,13 @@ int bpt_pt_wave_bounce(int B, int N, int L, int bounce, const float* nodes,
   p.out = state_out;
   p.counters = counters;
   if (B > 0) {
-    if (hit_t) {
-      bpt::pt_wave_bounce<true><<<bpt::grid_of(B), bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
-    } else {
-      bpt::pt_wave_bounce<false><<<bpt::grid_of(B), bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
-    }
+    bpt::pt_wave_bounce<<<bpt::grid_of(B), bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
   }
   return (int)cudaGetLastError();
 }
+
+// closest_bvh's persistent grid (resident blocks), or a negative CUDA
+// error code.
+int bpt_wave_blocks() { return bpt::closest_grid(1 << 30); }
 
 }  // extern "C"

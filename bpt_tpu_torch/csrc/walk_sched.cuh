@@ -1,6 +1,8 @@
 // Persistent scheduling of the walk-mode megakernels (pt_megakernel_walk,
 // bdpt_megakernel_walk): one lane per sample, as many blocks as the card
-// holds at once, each warp taking its next 32 samples from a counter.
+// holds at once, each warp taking its next 32 samples from a counter.  The
+// wave kernel closest_bvh (pt_wave.cu) runs on such a grid too, its warps
+// taking rays for their free lanes (warp_take_n).
 //
 // Why.  A walk-mode sample is a chain of BVH walks whose node loads depend
 // on each other, and its length depends on the path (a sample through the
@@ -31,6 +33,22 @@ __device__ __forceinline__ int warp_take(int* next) {
   int base = 0;
   if ((threadIdx.x & 31) == 0) base = atomicAdd(next, 32);
   return __shfl_sync(0xffffffffu, base, 0);
+}
+
+// The first of n consecutive work items for the warp's free lanes (the
+// wave kernels' refill, pt_wave.cu): lane 0 takes them from the launch's
+// 64-bit counter (zeroed by the wrapper) with one atomic, every lane reads
+// the base.  Called by every lane of the warp, after a __syncwarp.
+__device__ __forceinline__ long long warp_take_n(unsigned long long* next, int n) {
+  unsigned long long base = 0;
+  if ((threadIdx.x & 31) == 0) base = atomicAdd(next, (unsigned long long)n);
+  return (long long)__shfl_sync(0xffffffffu, base, 0);
+}
+
+// The number of lanes of `mask` below this one: a free lane's rank among
+// the warp's free lanes, and so its offset from warp_take_n's base.
+__device__ __forceinline__ int rank_in(unsigned mask) {
+  return __popc(mask & ((1u << (threadIdx.x & 31)) - 1u));
 }
 
 // Sum of v over the warp, in every lane.

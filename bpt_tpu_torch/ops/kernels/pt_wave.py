@@ -19,10 +19,11 @@ throughput, radiance, alive).  Between bounces a stable ``torch.sort`` of
 ``_coherence_key`` reorders the live rays and the state is gathered after
 it, as bpt_tpu sorts in XLA between launches; the permutation is undone
 at the end, and since every draw is keyed by (ray id, bounce) the sort
-changes no result bit.  One launch per bounce: ``pt_wave_bounce`` walks the
-BVH and shades; in paged mode (``paged=True``, the counterpart of
-``bpt_tpu``'s ``precomp``) ``closest_bvh`` computes the hits and
-``pt_wave_bounce`` only shades.
+changes no result bit.  Two launches per bounce: ``closest_bvh`` walks
+the live rays' BVH hits (on a persistent grid that refills finished lanes)
+and ``pt_wave_bounce`` shades them; the wrapper ``pt_wave_bounce`` calls
+``closest_bvh`` itself, or in paged mode (``paged=True``, the counterpart
+of ``bpt_tpu``'s ``precomp``) is given its hits.
 
 Dispatch is by device: a CPU tensor takes the plain PyTorch version
 (``ops.soa.bvh_closest``, ``ops.soa.bvh_any`` and ``models.pt.pt_bounce``);
@@ -82,6 +83,14 @@ def walk_tables(scene: SceneTensors) -> tuple[torch.Tensor, torch.Tensor]:
     tris = torch.cat([scene.v0, scene.e1, scene.e2, scene.normal],
                      dim=1).to(torch.float32).contiguous()
     return nodes, tris
+
+
+@per_scene
+def bounds_ok(scene: SceneTensors) -> bool:
+    """No node bound of the scene's BVH is NaN: then closest_bvh's slab test
+    of a ray with a finite origin and 1/d can leave out slab_axis's NaN
+    checks (csrc/wave_walk.cuh).  Read once a scene."""
+    return not bool(walk_tables(scene)[0][:, :6].isnan().any())
 
 
 def pack_bvh(scene: SceneTensors) -> BvhTables:
@@ -144,16 +153,16 @@ def closest_bvh(scene: SceneTensors, o: Vec3, d: Vec3, active):
     kw = dict(dtype=torch.float32, device=dev)
     t, u, v = (torch.empty(B, **kw) for _ in range(3))
     tri = torch.empty(B, dtype=torch.int32, device=dev)
-    counters = torch.zeros(4, dtype=torch.int64, device=dev)
+    counters = torch.zeros(5, dtype=torch.int64, device=dev)  # + the launch's work counter
     with torch.cuda.device(dev):
         code = build.load_library().bpt_closest_bvh(
-            B, int(nodes.shape[0]), nodes.data_ptr(), tris.data_ptr(),
-            *(x.data_ptr() for x in ins), act.data_ptr(),
+            B, int(nodes.shape[0]), int(bounds_ok(scene)), nodes.data_ptr(),
+            tris.data_ptr(), *(x.data_ptr() for x in ins), act.data_ptr(),
             t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
             counters.data_ptr(), _stream(dev))
     build.check(code, "closest_bvh")
     closest_bvh.launches += 1
-    return t, tri, u, v, counters
+    return t, tri, u, v, counters[:4]
 
 
 closest_bvh.launches = 0
@@ -238,7 +247,8 @@ def pt_wave_bounce(scene: SceneTensors, state, rid, key, bounce: int,
     """One PT bounce of every live lane: state [STATE_ROWS, B] f32 in
     (origin, direction, throughput, radiance, alive rows), rid [B] int32
     ray ids keying the draws with ``bounce``; ``hits`` = (t, tri) from
-    ``closest_bvh`` in paged mode, else the kernel walks the BVH itself.
+    ``closest_bvh`` in paged mode, else this calls ``closest_bvh`` on the
+    live lanes first.  The shade is one launch (``.launches``).
 
     Returns (the next state [STATE_ROWS, B] with this bounce's radiance
     added, counters int64[5] = (rays, node visits, AABB hits, triangle
@@ -254,22 +264,23 @@ def pt_wave_bounce(scene: SceneTensors, state, rid, key, bounce: int,
     B = int(state.shape[1]) if state.dim() == 2 else -1
     st = _checked(state, (STATE_ROWS, B), dev, "state")
     rid = _checked(rid, (B,), dev, "rid", torch.int32)
-    if hits is not None:
-        hits = (_checked(hits[0], (B,), dev, "hit t"),
-                _checked(hits[1], (B,), dev, "hit tri", torch.int32))
+    counters = torch.zeros(5, dtype=torch.int64, device=dev)
+    if hits is None:
+        t, tri, _, _, counters[1:] = closest_bvh(
+            scene, Vec3(*st[OX:OX + 3]), Vec3(*st[DX:DX + 3]), st[ALIVE] > 0.5)
+        hits = (t, tri)
+    hits = (_checked(hits[0], (B,), dev, "hit t"),
+            _checked(hits[1], (B,), dev, "hit tri", torch.int32))
     tables = tables if tables is not None else pack_bvh(scene)
     keys = _slot_keys(tuple(key), dev)
     out = torch.empty_like(st)
-    counters = torch.zeros(5, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         code = build.load_library().bpt_pt_wave_bounce(
             B, int(tables.nodes.shape[0]), scene.num_lights, int(bounce),
             tables.nodes.data_ptr(), tables.tris.data_ptr(),
             tables.mat_id.data_ptr(), tables.mat.data_ptr(), tables.lgt.data_ptr(),
-            keys.data_ptr(), st.data_ptr(), rid.data_ptr(),
-            None if hits is None else hits[0].data_ptr(),
-            None if hits is None else hits[1].data_ptr(),
-            out.data_ptr(), counters.data_ptr(), _stream(dev))
+            keys.data_ptr(), st.data_ptr(), rid.data_ptr(), hits[0].data_ptr(),
+            hits[1].data_ptr(), out.data_ptr(), counters.data_ptr(), _stream(dev))
     build.check(code, "pt_wave_bounce")
     pt_wave_bounce.launches += 1
     return out, counters

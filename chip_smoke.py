@@ -53,12 +53,14 @@
    scene's bounds with random tmax, one lane in eight dead.  Every lane's
    answer and the four counters exact; kernel and plain version timed.
 7. pt_wave against pt_wave_plain at B = 65,536 coffee rays, depth 4, in
-   both modes (the wave kernel walks the BVH; paged=True: closest_bvh, then
-   the shade-only wave kernel), rtol 1e-4 / atol 1e-6 on >= 99.9% of lanes,
+   both modes (each bounce closest_bvh's walk, then the wave kernel's
+   shade; paged=True: pt_wave calls closest_bvh and hands the hits to
+   pt_wave_bounce), rtol 1e-4 / atol 1e-6 on >= 99.9% of lanes,
    rays_traced and the four walk counters exact.
 8. The coffee PT main path: render() with PT at 512x512, 16 spp, depth 10,
    seed 0 (bench.py's coffee cell) — one warm-up and three timed renders.
-   The wave kernel's launches must be > 0 and every plain version's calls
+   The wave kernel's launches must be > 0, closest_bvh's equal to them
+   (its walk before each shade), any_bvh's and every plain version's calls
    0, the image finite, not black and bitwise identical across renders.
    rays_traced is printed beside the TPU bench's 11,110,273
    (BENCH_r03/r04.json), not checked against it: bpt_tpu's own Pallas
@@ -71,7 +73,10 @@
    one wave-kernel launch against its plain version at the main path's
    first bounce (B = 4,194,304): all 13 state rows (origin, direction and
    throughput on the lanes that stay alive) within rtol 1e-4 / atol 1e-6
-   on >= 99.9% of lanes, all five counters exact; both timed.
+   on >= 99.9% of lanes, all five counters exact; both timed (the walk
+   and the shade together, and the shade alone on the walk's hits).  Then
+   each of the 10 bounces of the warm-up render, on its own inputs, timed,
+   and their sum.
 9. The large-scene BDPT wave route against its plain traversals: the coffee
    stand-in's bdpt-mis render loop at 16x16, 4 spp, depth 6, once through
    closest_bvh / any_bvh and once through ops.soa.bvh_closest / bvh_any
@@ -97,8 +102,9 @@
    points of the floor plane, which carry no radiance.  The inputs
    of one closest_bvh and one any_bvh launch of the warm-up render (camera
    bounce 1; the shadow wave of camera vertex 1) are held against the
-   plain versions and timed at the main path's own shapes.  Writes
-   output/chip_smoke_coffee_bdpt{-mis,}.png.
+   plain versions and timed at the main path's own shapes, and each of the
+   warm-up render's 19 closest_bvh launches timed on its own inputs, with
+   their sum.  Writes output/chip_smoke_coffee_bdpt{-mis,}.png.
 
 11. closest_tri / any_tri (the brute-force hits of a scene without a
    BVH) against their plain versions (ops.soa.brute_closest / brute_any)
@@ -201,6 +207,14 @@
    differ from the default route's image and peak device memory; times
    each kernel at the main path's own shapes (camera bounce 1, B =
    1,048,576; the shadow wave of camera vertex 1, B = 10,485,760).
+22. The refilling wave kernels' edge cases on the 964-triangle scene of
+   tests/torch_parity.py (refill_cases): B = 1, 31 and 37, four times
+   closest_bvh's persistent grid and 5 lanes more, every lane inactive,
+   one live lane in ten scattered among 65,536.  closest_bvh equal to its
+   plain version to the bit (t, tri, u, v, counters); pt_wave_bounce in
+   both modes with its counters equal, dead lanes' rows copied to the bit,
+   live lanes equal to the bit to the same lanes launched alone, packed,
+   and within rtol 1e-4 / atol 1e-6 of the plain version.
 
 Each phase prints its seconds, and the script its total.  The second-to-last line is a JSON object
 describing the kernels, each with its bound: the larger of the bytes it
@@ -618,6 +632,87 @@ def wave_rays(cc, pix, strata, key, dev):
     return Vec3(*o3.unbind(1)), Vec3(*d3.unbind(1)), ids.to(torch.int32)
 
 
+def refill_cases(dev, card) -> dict:
+    """closest_bvh and pt_wave_bounce (both modes) on big_scene's lanes at
+    the shapes that exercise the persistent grid's refill: B = 1, 31 and
+    37; 4 x the resident grid's threads and 5 more; every lane inactive;
+    one live lane in ten scattered among 65,536, rays in random order.
+    closest_bvh: t, tri, u, v and the counters equal to the plain
+    version's to the bit.  pt_wave_bounce: the counters equal, a dead
+    lane's rows copied to the bit (alive 0), the live lanes' rows equal to
+    the bit to those of the same lanes launched alone, packed, and within
+    rtol 1e-4 / atol 1e-6 of the plain version on >= 99.9% of lanes."""
+    import numpy as np
+    import torch
+
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.core.vec3 import Vec3
+    from bpt_tpu_torch.ops.kernels import build
+    from bpt_tpu_torch.ops.kernels import pt_wave as pw
+
+    scene = big_scene(dev)
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        blocks = lib.bpt_wave_blocks()
+    check(blocks > 0, f"closest_bvh's occupancy query failed: CUDA error {-blocks}")
+    key = rng.prng_key(6)
+    cases = {"B=1": 1, "B=31": 31, "B=37": 37, "several refills": 4 * blocks * 128 + 5,
+             "all inactive": 4096, "scattered": 65536}
+    for seed, (name, B) in enumerate(cases.items()):
+        g = np.random.default_rng(seed)
+        o = (g.uniform(-3, 3, (B, 3)) * [1, 0.5, 1] + [0, 2.5, 0]).astype(np.float32)
+        d = g.normal(size=(B, 3)).astype(np.float32)
+        d[:8, 0] = 0.0  # the slab test's NaN terms
+        o[:4, 0] = 0.0
+        o, d = (torch.from_numpy(x).to(dev) for x in (o, d))
+        if name == "scattered":
+            active = torch.from_numpy(g.uniform(size=B) < 0.1).to(dev)
+        else:
+            active = torch.arange(B, device=dev) % 13 != 5
+        if name == "all inactive":
+            active[:] = False
+        ov, dv = Vec3(*o.unbind(1)), Vec3(*d.unbind(1))
+        kout = pw.closest_bvh(scene, ov, dv, active)
+        pout = pw.closest_bvh_plain(scene, ov, dv, active)
+        check(all(torch.equal(k, p_) for k, p_ in zip(kout[:4], pout[:4])),
+              f"closest_bvh {name}: t, tri, u or v differ from the plain version's")
+        check(kout[4].tolist() == pout[4].tolist(), f"closest_bvh {name}: counters differ")
+        state = torch.zeros((pw.STATE_ROWS, B), device=dev)
+        state[pw.OX:pw.DX + 3] = torch.cat([o.T, d.T])
+        state[pw.THR:pw.THR + 3] = 0.5
+        state[pw.RAD:pw.RAD + 3] = 0.25
+        state[pw.ALIVE] = active.float()
+        rid = torch.arange(B, dtype=torch.int32, device=dev)
+        live = active.nonzero()[:, 0]
+        fracs = []
+        for hits in (None, kout[:2]):
+            got, gc = pw.pt_wave_bounce(scene, state, rid, key, 2, hits)
+            want, wc = pw.pt_wave_bounce_plain(scene, state, rid, key, 2, hits)
+            packed = pw.pt_wave_bounce(scene, state[:, live].contiguous(), rid[live], key, 2,
+                                       None if hits is None else tuple(h[live] for h in hits))[0]
+            mode = "paged" if hits else "walk"
+            check(gc.tolist() == wc.tolist(), f"pt_wave_bounce {mode} {name}: counters differ")
+            check(torch.equal(got[:pw.ALIVE, ~active], state[:pw.ALIVE, ~active])
+                  and not bool(got[pw.ALIVE, ~active].any()),
+                  f"pt_wave_bounce {mode} {name}: a dead lane's rows changed")
+            check(torch.equal(got[:, live], packed),
+                  f"pt_wave_bounce {mode} {name}: a live lane differs from its packed launch")
+            keep = want[pw.ALIVE] > 0.5
+            rows, prows = (torch.cat([torch.where(keep, x[:pw.RAD], 0.0), x[pw.RAD:]]).T
+                           for x in (got, want))
+            f, e, worst = agreement(rows, prows) if B else (1.0, 0.0, 0)
+            check(f >= MIN_FRAC, f"pt_wave_bounce {mode} {name}: only {f:.5f} of lanes agree")
+            fracs.append(f)
+        print(f"phase 22: {name} (B={B}, {live.numel()} live): closest_bvh equals its plain "
+              f"version to the bit, counters {kout[4].tolist()}; pt_wave_bounce walk / paged: "
+              f"counters equal, dead lanes copied, live lanes equal to their packed launch, "
+              f"{fracs[0] * 100:.4f}% / {fracs[1] * 100:.4f}% within rtol {RTOL} / atol {ATOL} "
+              f"of the plain version ({card})")
+    print(f"phase 22: closest_bvh's persistent grid (pt_wave_bounce's walk too): {blocks} "
+          f"blocks of 128 threads ({card})")
+    return {"blocks": blocks, "cases": list(cases)}
+
+
 class Laps:
     """Prints the seconds since the previous lap."""
 
@@ -997,11 +1092,10 @@ def main() -> int:
         torch.cuda.synchronize()
         a_launches, b_launches = pw.closest_bvh.launches, pw.pt_wave_bounce.launches
         n_plain = pw.closest_bvh_plain.calls + pw.pt_wave_bounce_plain.calls
-        mode = "paged (closest_bvh + shade-only wave kernel)" if paged else "walk"
+        mode = "paged (hits from pt_wave's closest_bvh call)" if paged else "walk"
         f, e = compare(f"phase 7: pt_wave {mode} B={B} depth={depth_w}", kout, wplain,
                        exact_counts=True)
-        check(b_launches == depth_w and a_launches == (depth_w if paged else 0)
-              and not n_plain,
+        check(b_launches == a_launches == depth_w and not n_plain,
               f"pt_wave {mode}: launches {a_launches} / {b_launches}, plain calls {n_plain}")
         wave_err, wave_frac = max(wave_err, e), min(wave_frac, f)
         wave_ms[paged] = time_ms(lambda: pw.pt_wave(*wave_args, paged=paged), reps=5)
@@ -1012,7 +1106,9 @@ def main() -> int:
 
     # ---- phase 8: the coffee PT main path, through pt_wave
     cfg = coffee_camera()
-    render(coffee, cfg, seed=0)  # warm-up
+    with capture(pw, "pt_wave_bounce") as bounces:  # the warm-up records its launches
+        render(coffee, cfg, seed=0)
+    check(len(bounces) == depth, f"coffee PT: {len(bounces)} wave-kernel launches, not {depth}")
     plains = (pk.pt_megakernel_plain, pk.pt_megakernel_pixels_plain,
               bk.bdpt_megakernel_plain, bk.bdpt_megakernel_pixels_plain,
               pw.closest_bvh_plain, pw.any_bvh_plain, pw.pt_wave_bounce_plain,
@@ -1025,9 +1121,10 @@ def main() -> int:
     n_plain = sum(fn.calls for fn in plains)
     check(wave_launches > 0, "coffee main path launched no wave kernel")
     check(n_plain == 0, f"coffee main path called a plain version {n_plain} times")
-    check(pw.closest_bvh.launches == pw.any_bvh.launches == 0,
-          f"coffee PT launched the BVH hit kernels {pw.closest_bvh.launches} / "
-          f"{pw.any_bvh.launches} times")
+    pt_walk_launches = pw.closest_bvh.launches
+    check(pt_walk_launches == wave_launches and pw.any_bvh.launches == 0,
+          f"coffee PT launched closest_bvh {pt_walk_launches} times, the wave kernel "
+          f"{wave_launches}, any_bvh {pw.any_bvh.launches}")
     walls = [r.stats.wall_seconds for r in results]
     wall = statistics.median(walls)
     res = results[0]
@@ -1058,8 +1155,8 @@ def main() -> int:
           f"{(sub_rays - CPU_BVH_COFFEE_SUBSET) / CPU_BVH_COFFEE_SUBSET * 100:+.4f}%; "
           f"its Pallas pt_wave {CPU_PALLAS_COFFEE_SUBSET}); node visits "
           f"{st.bvh_node_visits}, box hits {st.aabb_hits}, tri tests {st.triangle_tests}, "
-          f"tri hits {st.triangle_hits}; wave kernel launches {wave_launches}, plain "
-          f"calls {n_plain}; wrote {path} ({card})")
+          f"tri hits {st.triangle_hits}; wave kernel launches {wave_launches}, closest_bvh "
+          f"launches {pt_walk_launches}, plain calls {n_plain}; wrote {path} ({card})")
 
     del results, res, fb
 
@@ -1075,6 +1172,11 @@ def main() -> int:
     b_out, b_counts = pw.pt_wave_bounce(coffee, state, ids_m, key_pt, 0, tables=tables)
     b_ms = time_ms(lambda: pw.pt_wave_bounce(coffee, state, ids_m, key_pt, 0,
                                              tables=tables), reps=5)
+    # the shade alone, on closest_bvh's hits of these rays
+    hits_m = pw.closest_bvh(coffee, Vec3(*state[pw.OX:pw.OX + 3]),
+                            Vec3(*state[pw.DX:pw.DX + 3]), state[pw.ALIVE] > 0.5)[:2]
+    b_shade_ms = time_ms(lambda: pw.pt_wave_bounce(coffee, state, ids_m, key_pt, 0, hits_m,
+                                                   tables=tables), reps=5)
     (p_out, p_counts), b_plain_ms = timed(
         lambda: pw.pt_wave_bounce_plain(coffee, state, ids_m, key_pt, 0))
     # every state row; a dead lane's origin, direction and throughput are
@@ -1090,15 +1192,28 @@ def main() -> int:
           f"lane {worst}: kernel {rows[worst].tolist()} plain {prows[worst].tolist()}")
     check(b_counts == p_counts, f"wave kernel at bounce 0: counters {b_counts} vs {p_counts}")
     wave_err, wave_frac = max(wave_err, e), min(wave_frac, f)
+    b_lanes = Bm
     b_bound, b_by = bound(Bm * (2 * pw.STATE_ROWS * 4 + 4) + scene_bytes,
                           b_counts[1] * SLAB_OPS + b_counts[3] * MT_OPS)
-    print(f"phase 8: wave kernel, first bounce of the main path (B={Bm}): kernel "
-          f"{b_ms:.3f} ms, plain {b_plain_ms:.3f} ms (one call), bound {b_bound:.4f} ms "
+    # every launch of one render, each on its own inputs, and their bound
+    b_render = [(int((a[1][pw.ALIVE] > 0.5).sum()),
+                 time_ms(lambda: pw.pt_wave_bounce(*a, **kw), reps=3),
+                 pw.pt_wave_bounce(*a, **kw)[1].tolist()) for a, kw in bounces.values()]
+    b_render_bound = sum(bound(Bm * (2 * pw.STATE_ROWS * 4 + 4) + scene_bytes,
+                               c[1] * SLAB_OPS + c[3] * MT_OPS)[0] for _, _, c in b_render)
+    b_render_ms = sum(ms for _, ms, _ in b_render)
+    del bounces
+    print(f"phase 8: wave kernel, first bounce of the main path (B={Bm}): kernels "
+          f"(closest_bvh's walk + the shade) {b_ms:.3f} ms, the shade alone {b_shade_ms:.3f} "
+          f"ms, plain {b_plain_ms:.3f} ms (one call), bound {b_bound:.4f} ms "
           f"({b_by}); all {pw.STATE_ROWS} state rows within rtol {RTOL} / atol {ATOL} "
           f"on {f * 100:.4f}% of lanes ({int(live.sum())} alive), max abs err {e:.3e}; counters "
           f"(rays, node visits, box hits, tri tests, tri hits) kernel {b_counts} plain "
           f"{p_counts} ({card})")
-    del state, b_out, p_out, rows, prows
+    print(f"phase 8: walk + shade, the {len(b_render)} bounces of one render (live lanes: "
+          f"ms): {', '.join(f'{n}: {ms:.3f}' for n, ms, _ in b_render)}; sum {b_render_ms:.3f} "
+          f"ms, bound {b_render_bound:.4f} ms ({card})")
+    del state, b_out, p_out, rows, prows, hits_m
     lap("phase 8")
 
     # ---- phase 9: the large-scene BDPT route against its plain traversals
@@ -1151,11 +1266,10 @@ def main() -> int:
     for name in ("bdpt-mis", "bdpt"):
         mis = name == "bdpt-mis"
         cfg = coffee_camera(spp=4, integrator=name)
-        if mis:  # the warm-up records one closest-hit and one shadow wave
-            with capture(soa, "closest_hit", keep={1}) as cl, \
-                    capture(soa, "any_hit", keep={1}) as an:
+        if mis:  # the warm-up records its closest-hit launches and one shadow wave
+            with capture(pw, "closest_bvh") as cl, capture(soa, "any_hit", keep={1}) as an:
                 render(coffee, cfg, seed=0)
-            main_closest, main_shadow = cl[1], an[1]
+            main_closest, main_shadow = cl, an[1]
         else:
             render(coffee, cfg, seed=0)  # warm-up
         strata, span = _bdpt_wave_shape(512 * 512, 4, depth, mis)
@@ -1226,8 +1340,9 @@ def main() -> int:
 
     # closest_bvh and any_bvh at the main path's own shapes: the warm-up
     # render's camera bounce 1 and its shadow wave of camera vertex 1
-    args, kw = main_closest
-    o_m, d_m, act_m = args[1], args[2], kw["mask"]
+    check(len(main_closest) == 2 * depth - 1,
+          f"coffee bdpt-mis: {len(main_closest)} closest_bvh launches a wave")
+    o_m, d_m, act_m = main_closest[1][0][1:4]
     Bc = int(act_m.shape[0])
     kout = pw.closest_bvh(coffee, o_m, d_m, act_m)
     pout, cm_plain_ms = timed(lambda: pw.closest_bvh_plain(coffee, o_m, d_m, act_m))
@@ -1246,6 +1361,16 @@ def main() -> int:
           f"call), bound {cm_bound:.4f} ms ({cm_by}); hit, tri and t equal on "
           f"{cm_frac * 100:.4f}% of lanes; counters kernel {cm_counts} plain "
           f"{pout[4].tolist()} ({card})")
+    # every launch of one render, each on its own inputs, and their bound
+    cm_render = [(int(a[3].sum()), time_ms(lambda: pw.closest_bvh(*a), reps=3),
+                  pw.closest_bvh(*a)[4].tolist()) for a, _ in main_closest.values()]
+    cm_render_bound = sum(bound(closest_bytes(a[3]) + walk_bytes,
+                                c[0] * SLAB_OPS + c[2] * MT_OPS)[0]
+                          for (a, _), (_, _, c) in zip(main_closest.values(), cm_render))
+    cm_render_ms = sum(ms for _, ms, _ in cm_render)
+    print(f"phase 10: closest_bvh, the {len(cm_render)} launches of one bdpt-mis render (live "
+          f"lanes: ms): {', '.join(f'{n}: {ms:.3f}' for n, ms, _ in cm_render)}; sum "
+          f"{cm_render_ms:.3f} ms, bound {cm_render_bound:.4f} ms ({card})")
     del kout, pout, same, both, main_closest, o_m, d_m, act_m
     o_w, d_w, t_w = shadow_lanes(*main_shadow)
     Bs = int(t_w.shape[0])
@@ -1800,14 +1925,15 @@ def main() -> int:
     for fn in (*everything, *tri_kernels):
         fn.launches = 0
     r18 = [render(coffee, cfg18, seed=0) for _ in range(3)]
-    n_wave = pw.pt_wave_bounce.launches
-    n_other = sum(fn.launches for fn in (*everything, *tri_kernels)) - n_wave
+    n_wave, n_walk = pw.pt_wave_bounce.launches, pw.closest_bvh.launches
+    n_other = sum(fn.launches for fn in (*everything, *tri_kernels)) - n_wave - n_walk
     n_plain = sum(fn.calls for fn in all_plains)
-    check(n_wave == 3 * depth and n_other == 0 and n_plain == 0,
-          f"coffee PT 256x256: {n_wave} wave-kernel launches, {n_other} other, {n_plain} plain")
+    check(n_wave == n_walk == 3 * depth and n_other == 0 and n_plain == 0,
+          f"coffee PT 256x256: {n_wave} wave-kernel and {n_walk} closest_bvh launches, "
+          f"{n_other} other, {n_plain} plain")
     fused18 = [fused_pt(cfg18, fb18) for _ in range(3)]
     pt_main = pk.pt_megakernel_pixels.launches
-    n_other = sum(fn.launches for fn in (*everything, *tri_kernels)) - pt_main - n_wave
+    n_other = sum(fn.launches for fn in (*everything, *tri_kernels)) - pt_main - n_wave - n_walk
     n_plain = sum(fn.calls for fn in all_plains)
     check(pt_main == 3 and n_other == 0 and n_plain == 0,
           f"coffee PT 256x256 fused: {pt_main} pixels-mode launches, {n_other} other, "
@@ -2122,6 +2248,10 @@ def main() -> int:
         del cl21, an21, args, kw
         lap(f"phase 21 ({impl})")
 
+    # ---- phase 22: the refilling wave kernels' edge cases, exact
+    refill = refill_cases(dev, card)
+    lap("phase 22")
+
     # lanes in (pixels: i, j, sx, sy, id; rays: o, d, id), radiance out
     pt_tab = sum(t.numel() * t.element_size() for t in pk._pack_tables(scene))
     bdpt_tab = sum(t.numel() * t.element_size() for t in bk._pack_tables_bdpt(scene))
@@ -2254,6 +2384,13 @@ def main() -> int:
         "bound_by": cm_by,
         "library_ms": None,
         "shape": f"camera bounce 1 of the bdpt-mis wave, B={Bc}",
+        "render_ms": cm_render_ms,
+        "render_bound_ms": cm_render_bound,
+        "render_launches": [{"live": n, "ms": ms} for n, ms, _ in cm_render],
+        "render_shape": "the 19 launches of one coffee bdpt-mis render, 512x512, 4 spp, "
+                        "depth 10, each on its own inputs",
+        "persistent_blocks": refill["blocks"],
+        "refill_cases": refill["cases"],
         "primaries_65536_ms": a_ms,
         "primaries_65536_plain_ms": a_plain_primary_ms,
         "primaries_65536_bound_ms": a_bound,
@@ -2289,6 +2426,18 @@ def main() -> int:
         "bound_ms": b_bound,
         "bound_by": b_by,
         "library_ms": None,
+        "shape": f"the coffee PT render's first bounce, B={b_lanes}",
+        "render_ms": b_render_ms,
+        "render_bound_ms": b_render_bound,
+        "render_launches": [{"live": n, "ms": ms} for n, ms, _ in b_render],
+        "render_shape": "the 10 launches of one coffee PT render, 512x512, 16 spp, depth 10, "
+                        "each on its own inputs",
+        "walk_launches": pt_walk_launches,
+        "walk_launches_note": "a bounce is two launches: closest_bvh's walk of the live "
+                              "rays, then this kernel's shade; ms, render_ms and plain_ms "
+                              "cover both, shade_ms the shade alone",
+        "shade_ms": b_shade_ms,
+        "refill_cases": refill["cases"],
         "pt_wave_ms": wave_ms[False],
         "pt_wave_paged_ms": wave_ms[True],
         "pt_wave_plain_ms": wave_plain_ms,

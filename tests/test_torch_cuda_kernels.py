@@ -294,11 +294,12 @@ def test_render_bdpt_wave_on_card_matches_cpu(integrator, monkeypatch):
 def test_pt_wave_matches_plain(paged):
     scene = big_scene(builder, device="cuda")
     o, d, ids = _big_lanes(8192, 8)
-    n = pw.pt_wave_bounce.launches
+    n = pw.pt_wave_bounce.launches, pw.closest_bvh.launches
     got = pw.pt_wave(scene, o, d, ids, rng.prng_key(4), 6, paged=paged)
     want = pw.pt_wave_plain(scene, o, d, ids, rng.prng_key(4), 6, paged=paged)
     torch.cuda.synchronize()
-    assert pw.pt_wave_bounce.launches == n + 6
+    # each bounce: closest_bvh's walk, then the shade
+    assert (pw.pt_wave_bounce.launches, pw.closest_bvh.launches) == (n[0] + 6, n[1] + 6)
     assert _frac_close(got, want) >= 0.999
     assert int(got[3]) == int(want[3])
     assert got[4].tolist() == want[4].tolist()
@@ -720,3 +721,88 @@ def test_clustered_dispatch_on_card_matches_plain(switch, monkeypatch):
     for k, p in zip(got, want):
         assert torch.equal(k, p)
     assert torch.equal(hit, hit_p) and bool(got.hit.any()) and not bool(got.hit[~mask].any())
+
+
+# ---- the refilling wave kernels: closest_bvh and pt_wave_bounce on a
+# persistent grid whose warps take new lanes as old ones finish
+
+REFILL_CASES = ["B=1", "B=31", "B=37", "several refills", "all inactive", "scattered"]
+
+
+def _refill_lanes(case, seed):
+    """(o, d, active) of a refill edge case on big_scene: a lane in 13 dead;
+    "several refills" holds 4 x the resident grid's threads and 5 more,
+    "all inactive" no live lane, "scattered" one live lane in ten at
+    random places among 65,536, its rays in random order."""
+    from bpt_tpu_torch.ops.kernels import build
+
+    if case.startswith("B="):
+        B = int(case[2:])
+    elif case == "several refills":
+        B = 4 * build.load_library().bpt_wave_blocks() * 128 + 5
+    else:
+        B = 65536 if case == "scattered" else 4096
+    o, d, _ = _big_lanes(B, seed)
+    g = np.random.default_rng(seed)
+    if case == "scattered":
+        perm = torch.from_numpy(g.permutation(B)).cuda()
+        o, d = (Vec3(*(c[perm] for c in v)) for v in (o, d))
+        active = torch.from_numpy(g.uniform(size=B) < 0.1).cuda()
+    else:
+        active = torch.arange(B, device="cuda") % 13 != 5
+    if case == "all inactive":
+        active[:] = False
+    return o, d, active
+
+
+@pytest.mark.parametrize("case", REFILL_CASES)
+def test_closest_bvh_refill_matches_plain_bitwise(case):
+    """t, tri, u, v to the bit and all four counters, whatever the lanes'
+    count and liveness; an inactive lane misses."""
+    scene = big_scene(builder, device="cuda")
+    o, d, active = _refill_lanes(case, 21)
+    got = pw.closest_bvh(scene, o, d, active)
+    want = pw.closest_bvh_plain(scene, o, d, active)
+    torch.cuda.synchronize()
+    for k, p in zip(got[:4], want[:4]):
+        assert torch.equal(k, p)
+    assert got[4].tolist() == want[4].tolist()
+    assert bool((got[1][~active] == -1).all()) and bool(got[0][~active].isinf().all())
+    if int(active.sum()) > 1000:
+        assert bool((got[1] >= 0).any())
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["walk", "paged"])
+@pytest.mark.parametrize("case", REFILL_CASES)
+def test_pt_wave_bounce_refill_matches_plain(case, paged):
+    """All five counters exact; a dead lane's rows copied to the bit (alive
+    0); the live lanes' rows to the bit those of the same lanes launched
+    alone, packed together (the schedule changes no bit), and within the
+    shade's tolerance of the plain version (origin, direction and
+    throughput on the lanes that stay alive)."""
+    scene = big_scene(builder, device="cuda")
+    o, d, active = _refill_lanes(case, 23)
+    B = int(active.shape[0])
+    state = torch.zeros((pw.STATE_ROWS, B), device="cuda")
+    state[pw.OX:pw.DX + 3] = torch.stack([*o, *d])
+    state[pw.THR:pw.THR + 3] = 0.5
+    state[pw.RAD:pw.RAD + 3] = 0.25
+    state[pw.ALIVE] = active.float()
+    rid = torch.arange(B, dtype=torch.int32, device="cuda")
+    key = rng.prng_key(6)
+    hits = pw.closest_bvh(scene, o, d, active)[:2] if paged else None
+    got, gc = pw.pt_wave_bounce(scene, state, rid, key, 2, hits)
+    want, wc = pw.pt_wave_bounce_plain(scene, state, rid, key, 2, hits)
+    live = active.nonzero()[:, 0]
+    packed = pw.pt_wave_bounce(scene, state[:, live].contiguous(), rid[live], key, 2,
+                               None if hits is None else tuple(h[live] for h in hits))[0]
+    torch.cuda.synchronize()
+    assert gc.tolist() == wc.tolist() and int(gc[0]) == live.numel()
+    assert torch.equal(got[:pw.ALIVE, ~active], state[:pw.ALIVE, ~active])
+    assert not bool(got[pw.ALIVE, ~active].any())
+    assert torch.equal(got[:, live], packed)
+    keep = want[pw.ALIVE] > 0.5
+    got, want = (torch.cat([torch.where(keep, x[:pw.RAD], 0.0), x[pw.RAD:]])
+                 for x in (got, want))
+    ok = torch.isclose(got, want, rtol=1e-4, atol=1e-6).all(dim=0)
+    assert float(ok.double().mean()) >= 0.999

@@ -1,0 +1,255 @@
+"""A/B of the BVH wave kernels ``closest_bvh`` and ``pt_wave_bounce``
+(csrc/pt_wave.cu) between copies of bpt_tpu_torch, on one card.
+
+Each argument is a directory holding a ``bpt_tpu_torch`` package and its
+``chip_smoke.py`` (this checkout, or another commit unpacked with ``git
+archive``).  The copies' kernels are built first, all at once; then, in the
+order given, each copy runs in its own process: it builds the coffee
+stand-in from this checkout's ``scenes/coffee`` with that copy's
+``chip_smoke.coffee_builder`` and times with CUDA events (mean of 5 calls
+after a warm-up; 3 for the bounces), seed 0:
+
+- ``closest_bvh`` on each of the 19 launches of one coffee bdpt-mis
+  512x512 / 4 spp / depth 10 render on the BDPT wave route (camera bounce 1
+  is launch 1, B = 1,048,576), their sum, and on 1,048,576 random rays in
+  the scene's bounds;
+- the wrapper ``pt_wave_bounce`` (the walk and the shade of a bounce) on
+  each of the 10 bounces of one coffee PT 512x512 / 16 spp / depth 10
+  render and their sum, at bounce 0 on chip_smoke.py
+  phase 8's state (B = 4,194,304), and in paged mode there (over
+  ``closest_bvh``'s hits);
+- the two renders' walls (median of 3 after a warm-up) and framebuffer
+  sha256;
+- ``any_bvh`` on the bdpt-mis render's shadow wave of camera vertex 1, and
+  the walk-mode megakernels on coffee (PT pixels 128x128 x 4 spp, depth 10;
+  bdpt-mis pixels 64x64 x 1 spp, depth 80), which this A/B leaves as they
+  are;
+
+and prints for each case its ms, live lanes and a sha256 of its outputs and
+counters, then ptxas's registers and spills of both kernels and, where the
+copy has it, closest_bvh's persistent grid.  Equal hashes
+across copies mean bitwise equal outputs.  Give the copies as A B B A to
+see the spread:
+
+    mkdir -p build/ab/parent && git archive <commit> bpt_tpu_torch chip_smoke.py \\
+        | tar -x -C build/ab/parent
+    python tools/ab_wave_kernels.py build/ab/parent . . build/ab/parent
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+
+_BUILD = "from bpt_tpu_torch.ops.kernels import build; build.build()"
+
+_RUN = r"""
+import hashlib, os, statistics, sys
+import numpy as np, torch
+
+DATA = sys.argv[1]
+from chip_smoke import coffee_builder, coffee_camera, wave_rays
+from bpt_tpu_torch.core import rng
+from bpt_tpu_torch.models.camera import camera_constants
+from bpt_tpu_torch.models.render import render
+from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
+from bpt_tpu_torch.ops.kernels import build
+from bpt_tpu_torch.ops.kernels import pt_kernel as pk
+from bpt_tpu_torch.ops.kernels import pt_wave as pw
+from bpt_tpu_torch.core.vec3 import Vec3
+
+log = build.build().with_suffix(".log").read_text().splitlines()
+lib = build.load_library()
+
+
+def ptxas(entry):  # ptxas's stack / spill and register lines of the kernels named so
+    found = []
+    for k, l in enumerate(log):
+        if "entry function" in l and entry in l:
+            name = l.split("'")[1]
+            lines = [x.strip() for x in log[k + 1:k + 5] if "spill" in x or "Used" in x]
+            found.append(f"{name}: " + " / ".join(lines))
+    return "; ".join(found)
+
+
+def timed(fn, reps):
+    out = fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop) / reps
+
+
+def digest(out):
+    h = hashlib.sha256()
+    for x in out:
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def recording(name, pick):
+    # records pick(args, kw) of every call of pw.<name> (copies of its
+    # tensors); the calls go through
+    fn, calls = getattr(pw, name), []
+
+    def spy(*args, **kw):
+        calls.append(pick(args, kw))
+        return fn(*args, **kw)
+
+    spy.__dict__.update(fn.__dict__)
+    setattr(pw, name, spy)
+    return fn, calls
+
+
+def renders(cfg):
+    render(coffee, cfg, seed=0)  # warm-up
+    rs = [render(coffee, cfg, seed=0) for _ in range(3)]
+    fb = hashlib.sha256(np.ascontiguousarray(rs[0].framebuffer_sum).tobytes()).hexdigest()[:16]
+    same = all(np.array_equal(r.framebuffer_sum, rs[0].framebuffer_sum) for r in rs[1:])
+    walls = [r.stats.wall_seconds for r in rs]
+    return (f"wall median {statistics.median(walls):.6f} s {[round(w, 6) for w in walls]}, "
+            f"rays {rs[0].stats.rays_traced}, framebuffer sha256 {fb}"
+            + ("" if same else " (renders differ)"))
+
+
+dev = torch.device("cuda", 0)
+key = rng.prng_key(0)
+os.chdir(DATA)
+coffee = coffee_builder().build(device=dev)
+out = []
+
+# ---- coffee bdpt-mis 512x512 / 4 spp / d10: its 19 closest_bvh launches
+cfg_b = coffee_camera(spp=4, integrator="bdpt-mis")
+render(coffee, cfg_b, seed=0)
+clone = lambda vs: tuple(x.clone() for x in vs)
+fc, closest_calls = recording("closest_bvh", lambda a, kw: (clone(a[1]), clone(a[2]),
+                                                            a[3].clone()))
+fa, any_calls = recording("any_bvh", lambda a, kw: (clone(a[1]), clone(a[2]), a[3].clone()))
+render(coffee, cfg_b, seed=0)
+pw.closest_bvh, pw.any_bvh = fc, fa
+out.append(f"coffee bdpt-mis 512x512x4spp d10 render: {renders(cfg_b)}")
+total, lines = 0.0, []
+for n, (o, d, act) in enumerate(closest_calls):
+    res, ms = timed(lambda: pw.closest_bvh(coffee, Vec3(*o), Vec3(*d), act), 5)
+    total += ms
+    lines.append(f"  closest_bvh launch {n}: B={act.numel()} live {int(act.sum())}: "
+                 f"{ms:.3f} ms, counters {res[4].tolist()}, sha256 {digest(res)}")
+out.append(f"closest_bvh, the render's {len(closest_calls)} launches: sum {total:.3f} ms")
+out += lines
+o, d, tmax = any_calls[1]
+res, ms = timed(lambda: pw.any_bvh(coffee, Vec3(*o), Vec3(*d), tmax), 5)
+out.append(f"any_bvh, the shadow wave of camera vertex 1 (B={tmax.numel()}, "
+           f"{int((tmax > 0).sum())} live): {ms:.3f} ms, counters {res[1].tolist()}, "
+           f"sha256 {digest(res)}")
+del closest_calls, any_calls
+g = np.random.default_rng(0)
+B = 1 << 20
+lo, hi = (x.cpu().numpy() for x in (coffee.bvh_min[0], coffee.bvh_max[0]))
+o_r = Vec3(*torch.from_numpy(g.uniform(lo, hi, (B, 3)).astype(np.float32)).to(dev).unbind(1))
+d_r = Vec3(*torch.from_numpy(g.normal(size=(B, 3)).astype(np.float32)).to(dev).unbind(1))
+act = torch.ones(B, dtype=torch.bool, device=dev)
+res, ms = timed(lambda: pw.closest_bvh(coffee, o_r, d_r, act), 5)
+out.append(f"closest_bvh, {B} random rays in the scene's bounds: {ms:.3f} ms, counters "
+           f"{res[4].tolist()}, sha256 {digest(res)}")
+del o_r, d_r, act, res
+
+# ---- coffee PT 512x512 / 16 spp / d10: its 10 pt_wave_bounce launches
+cfg_p = coffee_camera()
+key_pt = rng.fold_in(key, 1)
+render(coffee, cfg_p, seed=0)
+fb_, bounce_calls = recording("pt_wave_bounce", lambda a, kw: (a[1].clone(), a[2].clone(),
+                                                               a[3], a[4], kw.get("tables")))
+render(coffee, cfg_p, seed=0)
+pw.pt_wave_bounce = fb_
+out.append(f"coffee pt 512x512x16spp d10 render: {renders(cfg_p)}")
+total, lines = 0.0, []
+for n, (state, rid, k_, b_, tab) in enumerate(bounce_calls):
+    res, ms = timed(lambda: pw.pt_wave_bounce(coffee, state, rid, k_, b_, tables=tab), 3)
+    total += ms
+    lines.append(f"  pt_wave_bounce bounce {b_}: B={rid.numel()} live "
+                 f"{int((state[pw.ALIVE] > 0.5).sum())}: {ms:.3f} ms, counters "
+                 f"{res[1].tolist()}, sha256 {digest(res)}")
+out.append(f"pt_wave_bounce, the render's {len(bounce_calls)} launches: sum {total:.3f} ms")
+out += lines
+del bounce_calls
+# bounce 0 on chip_smoke.py phase 8's state, walking and paged
+ccc = camera_constants(coffee_camera(), torch.float32, dev)
+o_m, d_m, ids_m = wave_rays(ccc, torch.arange(512 * 512, device=dev), 16, key, dev)
+state = torch.empty((pw.STATE_ROWS, ids_m.numel()), device=dev)
+state[pw.OX:pw.DX + 3] = torch.stack([*o_m, *d_m])
+state[pw.THR:pw.THR + 3] = 1.0
+state[pw.RAD:pw.RAD + 3] = 0.0
+state[pw.ALIVE] = 1.0
+tables = pw.pack_bvh(coffee)
+res, ms = timed(lambda: pw.pt_wave_bounce(coffee, state, ids_m, key_pt, 0, tables=tables), 5)
+out.append(f"pt_wave_bounce at the main path's bounce 0 (B={ids_m.numel()}): {ms:.3f} ms, "
+           f"counters {res[1].tolist()}, sha256 {digest(res)}")
+t, tri = pw.closest_bvh(coffee, o_m, d_m, state[pw.ALIVE] > 0.5)[:2]
+res, ms = timed(lambda: pw.pt_wave_bounce(coffee, state, ids_m, key_pt, 0, (t, tri),
+                                          tables=tables), 5)
+out.append(f"pt_wave_bounce paged at bounce 0: {ms:.3f} ms, counters {res[1].tolist()}, "
+           f"sha256 {digest(res)}")
+del state, res, t, tri, o_m, d_m
+
+
+# ---- the walk-mode megakernels (untouched by this A/B)
+def pixels(cfg):
+    cc = camera_constants(cfg, torch.float32, dev)
+    pix = torch.arange(cc.width * cc.height, dtype=torch.int64, device=dev)
+    return (pix % cc.width).float(), (pix // cc.width).float(), pix, pk.camera_table(cc)
+
+
+i, j, pix, cam = pixels(coffee_camera(width=128, spp=4, depth=10))
+res, ms = timed(lambda: pk.pt_megakernel_pixels(coffee, i, j, i * 0, j * 0, pix, cam, key, 10,
+                                                spp_loop=4, sqrt_spp=2), 3)
+out.append(f"pt_megakernel_pixels walk mode, coffee 128x128x4spp d10: {ms:.3f} ms, "
+           f"sha256 {digest(res)}")
+i, j, pix, cam = pixels(coffee_camera(width=64, spp=1, depth=80, integrator="bdpt-mis"))
+res, ms = timed(lambda: bk.bdpt_megakernel_pixels(coffee, i, j, pix, cam, key, 80, 1,
+                                                  mis=True), 3)
+out.append(f"bdpt_megakernel_pixels walk mode, coffee bdpt-mis 64x64x1spp d80: {ms:.3f} ms, "
+           f"sha256 {digest(res)}")
+
+extra = ["ptxas: " + "; ".join(ptxas(e) for e in ("11closest_bvhE", "14pt_wave_bounce"))]
+if hasattr(lib, "bpt_wave_blocks"):
+    with torch.cuda.device(dev):
+        blocks = lib.bpt_wave_blocks()
+    extra.append(f"closest_bvh's persistent grid: {blocks} blocks of 128 threads")
+print("\n".join(out + extra))
+"""
+
+
+def main(argv=None) -> int:
+    dirs = sys.argv[1:] if argv is None else argv
+    data = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    copies = {os.path.abspath(d): None for d in dirs}
+    for d in copies:  # every copy's kernels at once: nvcc runs in parallel
+        copies[d] = subprocess.Popen([sys.executable, "-c", _BUILD], cwd=d,
+                                     env=dict(os.environ, PYTHONPATH=d),
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for d, proc in copies.items():
+        text = proc.communicate()[0]
+        if proc.returncode:
+            print(f"== {d}: build failed\n{text}", file=sys.stderr)
+            return proc.returncode
+    for d in dirs:
+        path = os.path.abspath(d)
+        proc = subprocess.run([sys.executable, "-c", _RUN, data], cwd=path,
+                              env=dict(os.environ, PYTHONPATH=path),
+                              capture_output=True, text=True)
+        if proc.returncode:
+            print(proc.stderr, file=sys.stderr)
+            return proc.returncode
+        print(f"== {d} ({card})\n{proc.stdout.strip()}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
