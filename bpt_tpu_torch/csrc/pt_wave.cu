@@ -15,8 +15,8 @@
 // first, or takes its hits in paged mode.
 //
 // What bounds them on the H100: the walk, not FP32 throughput and not
-// device-memory bandwidth (one thread a ray, closest_bvh and
-// pt_wave_bounce ran at 1.7% and 7.0% of their bounds).
+// device-memory bandwidth (one thread a ray, closest_bvh, pt_wave_bounce
+// and any_bvh ran at 1.7%, 7.0% and 0.45% of their bounds).
 // Each step of a lane's walk loads a 32-byte node whose address depends on
 // the previous step's slab test, and the lanes of a warp follow different
 // node sequences of different lengths: one thread a ray on a grid of B /
@@ -25,32 +25,36 @@
 // node, 48 B a triangle: about 3 MB + 4.4 MB for the 91k-triangle coffee
 // stand-in) stays resident in the 50 MB L2 cache.
 //
-// Design.  closest_bvh runs on a persistent grid (the blocks the card holds
-// at once) whose warps refill their finished lanes: every STEPS steps of
-// its lanes' walks a warp counts its free lanes, and at REFILL or more lane
-// 0 takes as many consecutive rays from the launch's work counter (a slot
-// of the wrapper's zeroed counters) with one atomic; each free lane takes
-// the next by its rank among them, so the new rays' loads are neighbours.
-// A lane that comes in inactive writes its miss at once.  The walk is
-// wave_walk.cuh's: bvh_walk's visit order, arithmetic, accept rule and
-// counts (so kernel and plain version take the same branch at every step
-// and count the same node visits, box hits, triangle tests and accepted
-// tests), with a slab test that leaves out the NaN checks for a ray whose
-// origin and 1/d are finite.  pt_wave_bounce shades one thread a lane
-// over closest_bvh's hits of its state's rows: a kernel that both walks
-// and shades holds the shade's registers through the walk, and at the
-// occupancy that leaves it lost more than refilling gained (PERF.md §6).
-// Counters are exact 64-bit integers: a thread's sums over its
-// rays, a warp's sum, one atomic a warp.  Also measured and left out
+// Design.  closest_bvh and any_bvh run on a persistent grid (the blocks
+// the card holds at once) whose warps refill their finished lanes: every
+// STEPS steps of its lanes' walks a warp counts its free lanes, and at
+// REFILL or more lane 0 takes as many consecutive rays from the launch's
+// work counter (a slot of the wrapper's zeroed counters) with one atomic;
+// each free lane takes the next by its rank among them, so the new rays'
+// loads are neighbours.  A lane that comes in inactive (any_bvh: dead,
+// tmax <= 0) writes its miss at once and stays free, so only live rays
+// hold lanes: a BDPT shadow wave has a lane per (camera vertex, light
+// vertex) pair and under 2% of them live.  A wave that sparse takes about
+// as long as its longest walk, a chain of dependent node loads (PERF.md
+// §6): claims of many lanes an atomic, sized to the live share a warp had
+// seen, did not shorten it and left the live rays of a sparse closest-hit
+// wave on too few warps.  The walk is wave_walk.cuh's: bvh_walk's visit
+// order, arithmetic, accept rule and counts (so kernel and plain version
+// take the same branch at every step and count the same node visits, box
+// hits, triangle tests and accepted tests), with a slab test that leaves
+// out the NaN checks for a ray whose origin and 1/d are finite.
+// pt_wave_bounce shades one thread a lane over closest_bvh's hits of its
+// state's rows: a kernel that both walks and shades holds the shade's
+// registers through the walk, and at the occupancy that leaves it lost
+// more than refilling gained (PERF.md §6).  Counters are exact 64-bit
+// integers: a thread's sums over its rays, a warp's sum, one atomic a warp.  Also measured and left out
 // (PERF.md §6): while-while traversal, where a lane at a leaf waits for
 // the warp's other lanes to reach theirs; child-pair records, which test
 // the right child from its parent's load when the left one misses.
 //
-// any_bvh keeps one thread a ray: bvh_walk<true> (an any hit keeps its
-// interval and stops after the first leaf with a hit, which makes its
-// answer independent of the visit order).  A shadow wave holds a lane per
-// (camera vertex, light vertex) pair and most pairs are dead (tmax <= 0):
-// a dead lane reads its tmax, writes a miss and returns.  The TPU layout
+// any_bvh's walk is bvh_walk<true>'s: an any hit keeps its interval and
+// stops after the first leaf with a hit, which makes its answer
+// independent of the visit order.  The TPU layout
 // (128-lane tiles, the cluster blocks and their DMA double buffer, the lane
 // roll, the per-octant order table, the sort that parks dead lanes in tail
 // tiles) does not carry over.  The shade is pt_shade.cuh's pt_bounce,
@@ -103,9 +107,13 @@ struct ClosestParams {
   unsigned long long* counters;  // [5] node visits, box hits, tri tests, tri hits; work
 };
 
+// The refill loop is written out in each of the two kernels: through one
+// template that took the lanes' loads and stores as callbacks,
+// closest_bvh kept 56 registers and spilled 8 B, and ran 3% slower
+// (PERF.md §6).
 __global__ void __launch_bounds__(WAVE_BLOCK) closest_bvh(const ClosestParams p) {
   TraceCounts c;
-  WaveWalk w;
+  WaveWalk<false> w;
   int r = -1;        // the lane's ray; -1 when the lane is free
   bool more = true;  // the launch's counter has rays left (warp-uniform)
   while (true) {
@@ -119,7 +127,7 @@ __global__ void __launch_bounds__(WAVE_BLOCK) closest_bvh(const ClosestParams p)
       if (r < 0 && k < p.B) {
         if (p.active[k]) {
           r = (int)k;
-          w.start(p.o[0][k], p.o[1][k], p.o[2][k], p.d[0][k], p.d[1][k], p.d[2][k],
+          w.start(p.o[0][k], p.o[1][k], p.o[2][k], p.d[0][k], p.d[1][k], p.d[2][k], inf_f(),
                   p.bounds_ok);
         } else {  // an inactive lane misses without a walk
           p.t[k] = inf_f();
@@ -153,25 +161,49 @@ __global__ void __launch_bounds__(WAVE_BLOCK) closest_bvh(const ClosestParams p)
 struct AnyParams {
   int B;
   Bvh g;
+  int bounds_ok;
   const float* o[3];
   const float* d[3];
   const float* tmax;             // [B]; <= 0 marks a dead lane
   unsigned char* hit;            // [B] bool
-  unsigned long long* counters;  // [4] node visits, box hits, tri tests, tri hits
+  unsigned long long* counters;  // [5] node visits, box hits, tri tests, tri hits; work
 };
 
 __global__ void __launch_bounds__(WAVE_BLOCK) any_bvh(const AnyParams p) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   TraceCounts c;
-  if (lane < p.B) {
-    const float tmax = p.tmax[lane];
-    int tri = -1;
-    if (tmax > 0.0f) {  // a dead lane (tmax <= 0) never reaches the root
-      float t, u, v;
-      bvh_walk<true>(p.g, p.o[0][lane], p.o[1][lane], p.o[2][lane], p.d[0][lane],
-                     p.d[1][lane], p.d[2][lane], T_MIN, tmax, t, tri, u, v, c);
+  WaveWalk<true> w;
+  int r = -1;
+  bool more = true;
+  while (true) {
+    __syncwarp();
+    const unsigned busy = __ballot_sync(0xffffffffu, r >= 0);
+    const int n_free = 32 - __popc(busy);
+    if (more && n_free >= REFILL) {
+      const long long base = warp_take_n(&p.counters[4], n_free);
+      more = base + n_free < p.B;
+      const long long k = base + rank_in(~busy);
+      if (r < 0 && k < p.B) {
+        const float tmax = p.tmax[k];
+        if (tmax > 0.0f) {
+          r = (int)k;
+          w.start(p.o[0][k], p.o[1][k], p.o[2][k], p.d[0][k], p.d[1][k], p.d[2][k], tmax,
+                  p.bounds_ok);
+        } else {  // a dead lane never reaches the root; the lane stays free
+          p.hit[k] = 0;
+        }
+      }
+      continue;
     }
-    p.hit[lane] = tri >= 0;
+    if (!busy) break;
+    if (r >= 0) {
+      for (int s = 0; s < STEPS; ++s) {
+        if (w.step(p.g, c)) {
+          p.hit[r] = w.tri >= 0;
+          r = -1;
+          break;
+        }
+      }
+    }
   }
   warp_add(c.nodes, &p.counters[0]);
   warp_add(c.boxes, &p.counters[1]);
@@ -243,14 +275,24 @@ __global__ void __launch_bounds__(WAVE_BLOCK) pt_wave_bounce(const WaveParams p)
 
 inline int grid_of(int B) { return (B + WAVE_BLOCK - 1) / WAVE_BLOCK; }
 
-// closest_bvh's persistent grid over B lanes: the blocks the card holds at
-// once, and no more than the lanes fill; a negative CUDA error code if the
-// occupancy query fails.
-inline int closest_grid(int B) {
-  static int cache[64];
-  const int blocks = resident_blocks(closest_bvh, WAVE_BLOCK, cache, 64);
+// A refilling kernel's persistent grid over B lanes: the blocks the card
+// holds at once, and no more than the lanes fill; a negative CUDA error
+// code if the occupancy query fails.
+template <class Kernel>
+int refill_grid(Kernel kernel, int* cache, int B) {
+  const int blocks = resident_blocks(kernel, WAVE_BLOCK, cache, 64);
   const int fill = grid_of(B);
   return blocks < 0 || blocks < fill ? blocks : fill;
+}
+
+inline int closest_grid(int B) {
+  static int cache[64];
+  return refill_grid(closest_bvh, cache, B);
+}
+
+inline int any_grid(int B) {
+  static int cache[64];
+  return refill_grid(any_bvh, cache, B);
 }
 
 }  // namespace bpt
@@ -288,7 +330,7 @@ int bpt_closest_bvh(int B, int N, int bounds_ok, const float* nodes,
   return (int)cudaGetLastError();
 }
 
-int bpt_any_bvh(int B, int N, const float* nodes, const float* tris,
+int bpt_any_bvh(int B, int N, int bounds_ok, const float* nodes, const float* tris,
                 const float* ox, const float* oy, const float* oz,
                 const float* dx, const float* dy, const float* dz,
                 const float* tmax, unsigned char* hit,
@@ -296,6 +338,7 @@ int bpt_any_bvh(int B, int N, const float* nodes, const float* tris,
   bpt::AnyParams p;
   p.B = B;
   p.g = bpt::Bvh{(const float4*)nodes, (const float4*)tris, N};
+  p.bounds_ok = bounds_ok;
   p.o[0] = ox;
   p.o[1] = oy;
   p.o[2] = oz;
@@ -305,9 +348,10 @@ int bpt_any_bvh(int B, int N, const float* nodes, const float* tris,
   p.tmax = tmax;
   p.hit = hit;
   p.counters = counters;
-  if (B > 0) {
-    bpt::any_bvh<<<bpt::grid_of(B), bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
-  }
+  if (B <= 0) return (int)cudaGetLastError();
+  const int grid = bpt::any_grid(B);
+  if (grid < 0) return -grid;
+  bpt::any_bvh<<<grid, bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -340,8 +384,9 @@ int bpt_pt_wave_bounce(int B, int N, int L, int bounce, const float* nodes,
   return (int)cudaGetLastError();
 }
 
-// closest_bvh's persistent grid (resident blocks), or a negative CUDA
-// error code.
+// closest_bvh's and any_bvh's persistent grids (resident blocks), or a
+// negative CUDA error code.
 int bpt_wave_blocks() { return bpt::closest_grid(1 << 30); }
+int bpt_any_blocks() { return bpt::any_grid(1 << 30); }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // Persistent scheduling of the walk-mode megakernels (pt_megakernel_walk,
-// bdpt_megakernel_walk): one lane per sample, as many blocks as the card
-// holds at once, each warp taking its next 32 samples from a counter.  The
-// wave kernel closest_bvh (pt_wave.cu) runs on such a grid too, its warps
-// taking rays for their free lanes (warp_take_n).
+// bdpt_megakernel_walk) and of the brute-force BDPT megakernel
+// (bdpt_megakernel): one lane per sample, as many blocks as the card holds
+// at once, each warp taking its next 32 samples from a counter.  The wave
+// kernels closest_bvh and any_bvh (pt_wave.cu) run on such a grid too,
+// their warps taking rays for their free lanes (warp_take_n).
 //
 // Why.  A walk-mode sample is a chain of BVH walks whose node loads depend
 // on each other, and its length depends on the path (a sample through the
@@ -69,11 +70,12 @@ __device__ __forceinline__ int warp_exclusive_sum(int v) {
 }
 
 // Blocks of `kernel` (block threads, no dynamic shared memory) that the
-// current device holds at once: cudaOccupancyMaxActiveBlocksPerMultiprocessor
-// times the SM count, queried once a process and device (cache[device],
-// 0 = not yet).  Returns a negative CUDA error code on failure.
+// current device holds at once: cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// at most max_per_sm where that is given (> 0), times the SM count, queried
+// once a process and device (cache[device], 0 = not yet).  Returns a
+// negative CUDA error code on failure.
 template <class Kernel>
-int resident_blocks(Kernel kernel, int block, int* cache, int n_cache) {
+int resident_blocks(Kernel kernel, int block, int* cache, int n_cache, int max_per_sm = 0) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return -(int)err;
@@ -82,6 +84,7 @@ int resident_blocks(Kernel kernel, int block, int* cache, int n_cache) {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block, 0);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return -(int)err;
+  if (max_per_sm > 0 && per_sm > max_per_sm) per_sm = max_per_sm;
   const int blocks = per_sm * sms;
   if (blocks < 1) return -(int)cudaErrorInvalidConfiguration;
   if (dev < n_cache) cache[dev] = blocks;

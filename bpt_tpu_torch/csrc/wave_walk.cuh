@@ -1,16 +1,18 @@
-// The BVH walk of the refilling wave kernel closest_bvh (pt_wave.cu): one
-// lane's closest hit over (T_MIN, inf), stepped by a persistent warp that
-// refills its finished lanes (walk_sched.cuh::warp_take_n).
+// The BVH walk of the refilling wave kernels closest_bvh and any_bvh
+// (pt_wave.cu): one lane's closest hit over (T_MIN, inf) or any hit over
+// [T_MIN, tmax], stepped by a persistent warp that refills its finished
+// lanes (pt_wave.cu; walk_sched.cuh::warp_take_n).
 //
-// It visits the nodes of bvh_walk.cuh::bvh_walk<false> in the same order,
+// It visits the nodes of bvh_walk.cuh::bvh_walk<ANY> in the same order,
 // with the same Möller–Trumbore arithmetic, the same `t <= t_best` accept
-// rule and the same counts, so every lane's hit and every counter is
-// bitwise that of bvh_walk (and of ops/soa.py::_bvh_walk's).  A step is one
-// pass of bvh_walk's loop body: a node, and its triangles if it is a leaf
-// whose box the lane entered.  The one difference is the slab test of a ray
-// whose origin and 1/d are finite (decided once a ray) in a scene whose node
-// bounds hold no NaN: inv is then not 0, so (lo - o) * inv cannot be NaN and
-// slab_axis's NaN selects would be dead code.  Other rays take slab_axis.
+// rule and the same counts, so every lane's answer and every counter is
+// bitwise that of bvh_walk (and of ops/soa.py::_bvh_walk's or bvh_any's).
+// A step is one pass of bvh_walk's loop body: a node, and its triangles if
+// it is a leaf whose box the lane entered.  The one difference is the slab
+// test of a ray whose origin and 1/d are finite (decided once a ray) in a
+// scene whose node bounds hold no NaN: inv is then not 0, so (lo - o) * inv
+// cannot be NaN and slab_axis's NaN selects would be dead code.  Other
+// rays take slab_axis.
 #pragma once
 
 #include "bvh_walk.cuh"
@@ -34,6 +36,10 @@ __device__ __forceinline__ void slab_finite(float lo_b, float hi_b, float o,
   hi = fmaxf(t0, t1);
 }
 
+// ANY = false: the closest hit (an accepted test shrinks the interval).
+// ANY = true: the interval stays, a leaf tests all its triangles and a hit
+// among them ends the walk after that leaf (tri >= 0 on a hit).
+template <bool ANY>
 struct WaveWalk {
   float ox, oy, oz, dx, dy, dz, ix, iy, iz;
   float t_best, u, v;
@@ -42,7 +48,7 @@ struct WaveWalk {
   bool fast;  // slab_finite: origin and 1/d finite, node bounds without NaN
 
   __device__ __forceinline__ void start(float ox_, float oy_, float oz_, float dx_,
-                                        float dy_, float dz_, bool bounds_ok) {
+                                        float dy_, float dz_, float tmax, bool bounds_ok) {
     ox = ox_;
     oy = oy_;
     oz = oz_;
@@ -52,7 +58,7 @@ struct WaveWalk {
     ix = 1.0f / dx;
     iy = 1.0f / dy;
     iz = 1.0f / dz;
-    t_best = inf_f();
+    t_best = tmax;
     u = 0.0f;
     v = 0.0f;
     tri = -1;
@@ -104,11 +110,14 @@ struct WaveWalk {
       if (valid && t >= T_MIN && t <= t_best) {
         c.hits += 1;
         tri = k;
-        t_best = t;
-        u = tu;
-        v = tw;
+        if constexpr (!ANY) {
+          t_best = t;
+          u = tu;
+          v = tw;
+        }
       }
     }
+    if (ANY && tri >= 0) return true;
     i = skip;
     return i >= g.N;
   }

@@ -18,11 +18,12 @@ shadow any-hit, and one accepted test a hit; the walk charges every node
 visit, box hit and triangle test of the closest and the shadow walks, and
 the accepted tests of the closest walks only (bpt_tpu's clustered kernel
 charges its shadow traversals to all but the triangle hits,
-bdpt_kernel.py:183-186, 239-250).  The walk mode schedules as the PT
-kernel's does (``pt_kernel.walk_launches``: one sample a work item on a
-persistent grid, stratum ranges in pixels mode), with the vertex scratch
-of its resident threads (``walk_scratch_bytes``) and each warp's shadow
-walks shared across its lanes.
+bdpt_kernel.py:183-186, 239-250).  Both modes schedule as the PT
+kernel's walk mode does (``pt_kernel.walk_launches``: one sample a work
+item on a persistent grid, stratum ranges in pixels mode), with the vertex
+scratch of their resident threads (``walk_scratch_bytes``,
+``scratch_shape``).  The walk mode shares each warp's shadow walks across
+its lanes; the brute mode sweeps each shadow ray where it comes up.
 
 Dispatch is by device: a CPU tensor takes the plain PyTorch version (the
 ``models.bdpt`` wavefront on the kernel's threefry stream or on injected
@@ -60,7 +61,7 @@ from bpt_tpu_torch.scene.types import SceneTensors
 
 MAX_DEPTH = 80  # the kernel's bound on the runtime depth
 VTX_STRIDE = 14  # p(3) n(3) thr(3) emit(3) mat(1) flags(1)
-VTX_STRIDE_MIS = 16  # + pfwd, rat2
+VTX_STRIDE_MIS = 17  # + pfwd, rat2, the suffix sum to slot 0
 NT, NLS = mb.NT, mb.NLS
 n_uniform_slots = rng.n_uniform_slots
 
@@ -172,9 +173,19 @@ bdpt_megakernel_pixels_plain.calls = 0
 
 
 def walk_scratch_bytes(threads: int, depth: int, mis: bool) -> int:
-    """Bytes of the walk mode's vertex scratch, [2][depth*stride][threads]
-    f32: a resident thread's camera and light vertex records."""
+    """Bytes of the vertex scratch, [threads][2][depth*stride] f32: a
+    resident thread's camera and light vertex records."""
     return 2 * depth * (VTX_STRIDE_MIS if mis else VTX_STRIDE) * 4 * threads
+
+
+def scratch_shape(B: int, spp: int, resident_blocks, depth: int, mis: bool):
+    """The vertex scratch [threads, 2, depth*stride] of one call over B
+    lanes and spp strata (1 in rays mode), both modes: the resident threads
+    of its largest launch (the first stratum range's), shared by all of
+    its launches.  ``resident_blocks()``: the kernel's occupancy query."""
+    k0, k1 = stratum_ranges(B, spp)[0]
+    stride = VTX_STRIDE_MIS if mis else VTX_STRIDE
+    return walk_grid(resident_blocks, B * (k1 - k0)) * WALK_BLOCK, 2, depth * stride
 
 
 def _launch(wrapper, scene, ins, ray_ids, keys, depth, mis, pixels, cam=None,
@@ -186,43 +197,31 @@ def _launch(wrapper, scene, ins, ray_ids, keys, depth, mis, pixels, cam=None,
     N, nodes, tris, mat_id = walk_args(scene)
     if ubuf is not None:
         ubuf = _checked(ubuf, (n_uniform_slots(depth), B), dev, "uniforms")
-    stride = VTX_STRIDE_MIS if mis else VTX_STRIDE
     spp = sqrt_spp * sqrt_spp if pixels else 1
     counters = torch.zeros(6, dtype=torch.int64, device=dev)
     lib = build.load_library()
 
-    def launch(k0, nk, out, vtx, grid=0, nxt=None):
-        code = lib.bpt_bdpt_megakernel(
-            int(pixels), int(mis), B, scene.num_tris, scene.num_lights,
-            int(depth), int(sqrt_spp), len(keys), N, k0, nk, grid,
-            tri.data_ptr(), nodes, tris, None if mat_id is None else mat_id.data_ptr(),
-            mat.data_ptr(), lgt.data_ptr(), keys_t.data_ptr(),
-            cam_t.data_ptr(), *(x.data_ptr() for x in ins), rid.data_ptr(),
-            None if ubuf is None else ubuf.data_ptr(), vtx.data_ptr(),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            counters.data_ptr(), nxt, stream)
-        build.check(code, "bdpt_megakernel")
-        wrapper.launches += 1
-
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if N:
-            # the vertex scratch of the largest launch's resident threads,
-            # which every launch of the call shares
-            nk_max = max(k1 - k0 for k0, k1 in stratum_ranges(B, spp))
-            threads = walk_grid(lib.bpt_bdpt_walk_blocks, B * nk_max) * WALK_BLOCK
-            vtx = torch.empty((2, depth * stride, threads), dtype=torch.float32, device=dev)
+        blocks = lib.bpt_bdpt_walk_blocks if N else lib.bpt_bdpt_brute_blocks
+        vtx = torch.empty(scratch_shape(B, spp, blocks, depth, mis), dtype=torch.float32,
+                          device=dev)
 
-            def launch_walk(k0, nk, out):
-                nxt = torch.zeros(1, dtype=torch.int32, device=dev)
-                launch(k0, nk, out, vtx, walk_grid(lib.bpt_bdpt_walk_blocks, B * nk),
-                       nxt.data_ptr())
+        def launch(k0, nk, out):
+            nxt = torch.zeros(1, dtype=torch.int32, device=dev)
+            code = lib.bpt_bdpt_megakernel(
+                int(pixels), int(mis), B, scene.num_tris, scene.num_lights,
+                int(depth), int(sqrt_spp), len(keys), N, k0, nk, walk_grid(blocks, B * nk),
+                tri.data_ptr(), nodes, tris, None if mat_id is None else mat_id.data_ptr(),
+                mat.data_ptr(), lgt.data_ptr(), keys_t.data_ptr(),
+                cam_t.data_ptr(), *(x.data_ptr() for x in ins), rid.data_ptr(),
+                None if ubuf is None else ubuf.data_ptr(), vtx.data_ptr(),
+                out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+                counters.data_ptr(), nxt.data_ptr(), stream)
+            build.check(code, "bdpt_megakernel")
+            wrapper.launches += 1
 
-            out = walk_launches(B, pixels, spp, launch_walk, dev)
-        else:
-            vtx = torch.empty((2, depth * stride, B), dtype=torch.float32, device=dev)
-            out = torch.empty((3, B), dtype=torch.float32, device=dev)
-            launch(0, 1, out, vtx)
+        out = walk_launches(B, pixels, spp, launch, dev)
     return out[0], out[1], out[2], counters[0], counters[1], counters[2:]
 
 

@@ -87,7 +87,7 @@ def walk_tables(scene: SceneTensors) -> tuple[torch.Tensor, torch.Tensor]:
 
 @per_scene
 def bounds_ok(scene: SceneTensors) -> bool:
-    """No node bound of the scene's BVH is NaN: then closest_bvh's slab test
+    """No node bound of the scene's BVH is NaN: then the refilling walks' slab test
     of a ray with a finite origin and 1/d can leave out slab_axis's NaN
     checks (csrc/wave_walk.cuh).  Read once a scene."""
     return not bool(walk_tables(scene)[0][:, :6].isnan().any())
@@ -199,15 +199,15 @@ def any_bvh(scene: SceneTensors, o: Vec3, d: Vec3, tmax):
     tm = _checked(tmax, (B,), dev, "tmax")
     nodes, tris = walk_tables(scene)
     hit = torch.empty(B, dtype=torch.bool, device=dev)
-    counters = torch.zeros(4, dtype=torch.int64, device=dev)
+    counters = torch.zeros(5, dtype=torch.int64, device=dev)  # + the launch's work counter
     with torch.cuda.device(dev):
         code = build.load_library().bpt_any_bvh(
-            B, int(nodes.shape[0]), nodes.data_ptr(), tris.data_ptr(),
-            *(x.data_ptr() for x in ins), tm.data_ptr(),
+            B, int(nodes.shape[0]), int(bounds_ok(scene)), nodes.data_ptr(),
+            tris.data_ptr(), *(x.data_ptr() for x in ins), tm.data_ptr(),
             hit.data_ptr(), counters.data_ptr(), _stream(dev))
     build.check(code, "any_bvh")
     any_bvh.launches += 1
-    return hit, counters
+    return hit, counters[:4]
 
 
 any_bvh.launches = 0

@@ -103,8 +103,9 @@
    of one closest_bvh and one any_bvh launch of the warm-up render (camera
    bounce 1; the shadow wave of camera vertex 1) are held against the
    plain versions and timed at the main path's own shapes, and each of the
-   warm-up render's 19 closest_bvh launches timed on its own inputs, with
-   their sum.  Writes output/chip_smoke_coffee_bdpt{-mis,}.png.
+   warm-up render's 19 closest_bvh and 10 any_bvh launches timed on its
+   own inputs, with their sums.  Writes
+   output/chip_smoke_coffee_bdpt{-mis,}.png.
 
 11. closest_tri / any_tri (the brute-force hits of a scene without a
    BVH) against their plain versions (ops.soa.brute_closest / brute_any)
@@ -132,7 +133,12 @@
    defocus angle 1 focused at the room's centre, with pt and with bdpt —
    one warm-up and three timed renders each through the stratum loop,
    launching pt_megakernel / bdpt_megakernel in rays mode only, no plain
-   version; walls and Mrays/s printed.
+   version; walls and Mrays/s printed.  The bdpt warm-up's one
+   bdpt_megakernel launch (B = 4,194,304) timed on its own inputs and
+   held against its plain version there (defocus_wave_vs_plain): its
+   radiance on every 16th lane equal to the bit to that slice's own
+   launch, and the slice within rtol 1e-4 / atol 1e-5 of
+   bdpt_megakernel_plain on >= 99.9% of lanes, all six counters exact.
 14. The CLI's --f64 (64x64, 4 spp; its BDPT default) in this process:
    exit 0, the float64 closest_tri / any_tri launched, no plain version.
 15. The megakernels' walk mode (scenes over 512 triangles, the clustered
@@ -214,7 +220,18 @@
    plain version to the bit (t, tri, u, v, counters); pt_wave_bounce in
    both modes with its counters equal, dead lanes' rows copied to the bit,
    live lanes equal to the bit to the same lanes launched alone, packed,
-   and within rtol 1e-4 / atol 1e-6 of the plain version.
+   and within rtol 1e-4 / atol 1e-6 of the plain version.  The brute-force
+   BDPT kernel on its persistent grid (brute_bdpt_cases), bdpt and
+   bdpt-mis: rays mode on cornell camera rays at B = 1, 31, 37, four times
+   its persistent grid and 5 lanes more, every lane inactive, one live
+   lane in ten scattered; pixels mode at depth 1 and at depth 80 (the
+   mixed scene, 1 spp); rays mode with injected uniforms; pixels mode over 4
+   stratum ranges: within rtol 1e-4 / atol 1e-5 of the plain version on
+   >= 99.9% of lanes, all six counters exact, live lanes equal to the bit
+   to their packed launch.  any_bvh on its refilling grid (any_cases) on
+   the 964-triangle scene: B = 1, 31, 37, 65,536 dead lanes, one live lane
+   among 1,048,576, 65,536 live lanes: answers and counters equal to the
+   plain version's.
 
 Each phase prints its seconds, and the script its total.  The second-to-last line is a JSON object
 describing the kernels, each with its bound: the larger of the bytes it
@@ -713,6 +730,231 @@ def refill_cases(dev, card) -> dict:
     return {"blocks": blocks, "cases": list(cases)}
 
 
+def mixed_scene(dev):
+    """tests/torch_parity.py::mixed_scene: the cornell box with a fuzzy
+    metal quad, a glass box and an isotropic quad (every material type)."""
+    from bpt_tpu_torch.scene.builder import MaterialSpec as MS
+    from bpt_tpu_torch.scene.presets import cornell_box_builder
+
+    mb = cornell_box_builder()
+    mb.add_quad((60, 20, 60), (150, 0, 0), (0, 150, 40), MS.metal((0.8, 0.85, 0.9), 0.3))
+    mb.add_box((340, 0, 80), (460, 120, 200), MS.dielectric(1.5))
+    mb.add_quad((100, 400, 400), (120, 0, 0), (0, 0, 100), MS.isotropic((0.6, 0.7, 0.5)))
+    return mb.build(device=dev)
+
+
+def brute_bdpt_cases(dev, card) -> dict:
+    """The brute-force BDPT kernel on its persistent grid against its plain
+    version, bdpt and bdpt-mis: rays mode at depth 10 on the cornell
+    camera's rays through random points of a 512x512 image, B = 1, 31 and
+    37, 4 x the persistent grid's threads and 5 more, every lane inactive,
+    one live lane in ten scattered among 4096 (else one in 13 inactive):
+    radiance within rtol 1e-4 / atol 1e-5 on >= 99.9% of lanes, all six
+    counters exact, inactive lanes 0, live lanes equal to the bit to the
+    same lanes launched alone, packed.  Then pixels mode at depth 1
+    (cornell, 16x16 x 4 spp) and 80 (the mixed scene, 32x32 x 1 spp), rays
+    mode with injected uniforms, and pixels mode over 4 stratum ranges
+    (pt_kernel.STRATA_BYTES patched to one stratum a launch): the same
+    tolerance, counters exact."""
+    import numpy as np
+    import torch
+
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.core.vec3 import Vec3
+    from bpt_tpu_torch.models.camera import camera_constants, generate_rays
+    from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
+    from bpt_tpu_torch.ops.kernels import build
+    from bpt_tpu_torch.ops.kernels import pt_kernel as pk
+    from bpt_tpu_torch.scene.presets import cornell_box, cornell_box_camera
+
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        blocks = lib.bpt_bdpt_brute_blocks()
+    check(blocks > 0, f"bdpt_megakernel's occupancy query failed: CUDA error {-blocks}")
+    cornell, mixed = cornell_box(device=dev), mixed_scene(dev)
+    cc = camera_constants(dataclasses.replace(cornell_box_camera(), image_width=512),
+                          torch.float32, dev)
+    key = rng.prng_key(7)
+
+    def lanes(name, B, seed):
+        g = np.random.default_rng(seed)
+        px = torch.from_numpy(g.integers(0, 512, (2, B)).astype(np.float32)).to(dev)
+        u = torch.from_numpy(g.uniform(size=(B, 4)).astype(np.float32)).to(dev)
+        o, d = generate_rays(cc, px[0], px[1], px[0] * 0, px[1] * 0, u)
+        ids = torch.arange(B, dtype=torch.int32, device=dev)
+        if name == "scattered":
+            ids = torch.where(torch.from_numpy(g.uniform(size=B) < 0.1).to(dev), ids, -1)
+        else:
+            ids[5::13] = -1
+        if name == "all inactive":
+            ids[:] = -1
+        return Vec3(*o.unbind(1)), Vec3(*d.unbind(1)), ids
+
+    def held(name, kout, pout, launched, want_launches):
+        got, want = (torch.stack(x[:3], 1) for x in (kout, pout))
+        f, e, _ = agreement(got, want, BDPT_ATOL) if got.shape[0] else (1.0, 0.0, 0)
+        kc, pc = counters(kout), counters(pout)
+        check(launched == want_launches, f"{name}: {launched} launches, not {want_launches}")
+        check(f >= MIN_FRAC, f"{name}: only {f:.5f} of lanes agree with the plain version")
+        check(kc == pc, f"{name}: counters kernel {kc} plain {pc}")
+        return f, e, kc
+
+    cases = {"B=1": 1, "B=31": 31, "B=37": 37, "past 4 grids": 4 * blocks * 128 + 5,
+             "all inactive": 4096, "scattered": 4096}
+    worst = 0.0
+    for seed, (name, B) in enumerate(cases.items()):
+        o, d, ids = lanes(name, B, seed)
+        live = ids >= 0
+        for mis in (False, True):
+            t0 = time.monotonic()
+            n = bk.bdpt_megakernel.launches
+            kout = bk.bdpt_megakernel(cornell, o, d, ids, key, 10, mis=mis)
+            launched = bk.bdpt_megakernel.launches - n
+            pout = bk.bdpt_megakernel_plain(cornell, o, d, ids, key, 10, mis=mis)
+            packed = bk.bdpt_megakernel(cornell, Vec3(*(x[live] for x in o)),
+                                        Vec3(*(x[live] for x in d)), ids[live], key, 10, mis=mis)
+            what = f"bdpt_megakernel {'bdpt-mis' if mis else 'bdpt'} {name} (B={B})"
+            f, e, kc = held(what, kout, pout, launched, 1)
+            check(all(float(c[~live].abs().sum()) == 0.0 for c in kout[:3]),
+                  f"{what}: an inactive lane has radiance")
+            check(all(torch.equal(c[live], pc) for c, pc in zip(kout[:3], packed[:3]))
+                  and counters(packed) == kc, f"{what}: differs from its live lanes packed")
+            worst = max(worst, e)
+            print(f"phase 22: {what}, {int(live.sum())} live: {f * 100:.4f}% of lanes within "
+                  f"rtol {RTOL} / atol {BDPT_ATOL}, max abs err {e:.3e}; counters {kc} exact; "
+                  f"live lanes equal to their packed launch; {time.monotonic() - t0:.1f} s "
+                  f"({card})")
+    for name in ("depth 1", "depth 80", "injected", "ranges"):
+        for mis in (False, True):
+            t0 = time.monotonic()
+            with contextlib.ExitStack() as stack:
+                if name == "injected":
+                    o, d, ids = lanes(name, 4096, 9)
+                    u = torch.from_numpy(np.random.default_rng(10).uniform(
+                        size=(bk.n_uniform_slots(10), 4096)).astype(np.float32)).to(dev)
+                    a, kw = (cornell, o, d, ids, key, 10), dict(uniforms=u, mis=mis)
+                    mk, plain, want_launches = bk.bdpt_megakernel, bk.bdpt_megakernel_plain, 1
+                else:
+                    # depth 80 at 1 spp: the plain version runs a pixel's
+                    # strata one after another, each a wave of 80 bounces
+                    W, S = (32, 1) if name == "depth 80" else (16, 2)
+                    depth = {"depth 1": 1, "depth 80": 80}.get(name, 10)
+                    cc16 = camera_constants(dataclasses.replace(
+                        cornell_box_camera(), image_width=W, samples_per_pixel=S * S),
+                        torch.float32, dev)
+                    pix = torch.arange(W * W, dtype=torch.int32, device=dev)
+                    pix[3::7] = -1
+                    i, j = (pix.clamp_min(0) % W).float(), (pix.clamp_min(0) // W).float()
+                    want_launches = 1
+                    if name == "ranges":
+                        budget = pk.STRATA_BYTES
+                        pk.STRATA_BYTES = 12 * W * W
+                        stack.callback(setattr, pk, "STRATA_BYTES", budget)
+                        want_launches = S * S
+                    a = (mixed if name == "depth 80" else cornell, i, j, pix,
+                         pk.camera_table(cc16), key, depth, S)
+                    kw = dict(mis=mis)
+                    mk, plain = bk.bdpt_megakernel_pixels, bk.bdpt_megakernel_pixels_plain
+                n = mk.launches
+                kout = mk(*a, **kw)
+                launched = mk.launches - n
+                pout = plain(*a, **kw)
+            what = f"{mk.__name__} {'bdpt-mis' if mis else 'bdpt'} {name}"
+            f, e, kc = held(what, kout, pout, launched, want_launches)
+            worst = max(worst, e)
+            print(f"phase 22: {what}: {launched} launch(es), {f * 100:.4f}% of lanes within "
+                  f"rtol {RTOL} / atol {BDPT_ATOL}, max abs err {e:.3e}; counters {kc} exact; "
+                  f"{time.monotonic() - t0:.1f} s ({card})")
+    print(f"phase 22: bdpt_megakernel's persistent grid: {blocks} blocks of 128 threads ({card})")
+    return {"blocks": blocks, "max_abs_err": worst,
+            "cases": list(cases) + ["depth 1", "depth 80", "injected", "ranges"]}
+
+
+def defocus_wave_vs_plain(args, kw, stride=16):
+    """The cornell defocus BDPT wave's launch (rays mode; ``args``, ``kw``
+    as the render made it) against its plain version.  The plain version
+    holds every lane's subpaths at once, too much for all 4,194,304 lanes,
+    so it runs on every ``stride``-th lane, after the whole launch's
+    radiance on those lanes is shown equal to the bit to that slice's own
+    launch (a lane's sample depends on its ray and id only).  The slice against
+    ``bdpt_megakernel_plain``: rtol 1e-4 / atol 1e-5 on >= 99.9% of lanes,
+    all six counters exact.  Returns (the whole launch's outputs, fraction
+    within tolerance, max abs err, plain ms, lanes compared)."""
+    import torch
+
+    from bpt_tpu_torch.core.vec3 import Vec3
+    from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
+
+    scene, o, d, ids, *rest = args
+    full = bk.bdpt_megakernel(*args, **kw)
+    sl = torch.arange(0, ids.shape[0], stride, device=ids.device)
+    s_args = (scene, Vec3(*(x[sl] for x in o)), Vec3(*(x[sl] for x in d)), ids[sl], *rest)
+    kout = bk.bdpt_megakernel(*s_args, **kw)
+    check(all(torch.equal(a[sl], b) for a, b in zip(full[:3], kout[:3])),
+          f"defocus bdpt wave: its launch on every {stride}th lane differs from the whole "
+          "launch on those lanes")
+    pout, p_ms = timed(lambda: bk.bdpt_megakernel_plain(*s_args, **kw))
+    f, e = compare(f"phase 13: bdpt_megakernel on every {stride}th lane of the defocus bdpt "
+                   f"wave (B={int(sl.numel())})", kout, pout, exact_counts=True,
+                   atol=BDPT_ATOL)
+    return full, f, e, p_ms, int(sl.numel())
+
+
+def any_cases(dev, card) -> dict:
+    """any_bvh on its refilling grid against its plain version on the
+    964-triangle scene: B = 1, 31 and 37 (one lane in five dead), 65,536
+    dead lanes, one live lane among 1,048,576 dead ones (held against the
+    plain walk of that lane), 65,536 live lanes: every answer and the four
+    counters equal, every dead lane a miss."""
+    import numpy as np
+    import torch
+
+    from bpt_tpu_torch.core.vec3 import Vec3
+    from bpt_tpu_torch.ops.kernels import build
+    from bpt_tpu_torch.ops.kernels import pt_wave as pw
+
+    scene = big_scene(dev)
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        blocks = lib.bpt_any_blocks()
+    check(blocks > 0, f"any_bvh's occupancy query failed: CUDA error {-blocks}")
+    cases = {"B=1": 1, "B=31": 31, "B=37": 37, "all dead": 65536, "one live lane": 1 << 20,
+             "all live": 65536}
+    for seed, (name, B) in enumerate(cases.items()):
+        t0 = time.monotonic()
+        g = np.random.default_rng(40 + seed)
+        o = (g.uniform(-3, 3, (B, 3)) * [1, 0.5, 1] + [0, 2.5, 0]).astype(np.float32)
+        d = g.normal(size=(B, 3)).astype(np.float32)
+        tmax = g.uniform(0.1, 6.0, B).astype(np.float32)
+        at = int(g.integers(0, B))
+        if name == "all dead":
+            tmax[:] = 0.0
+        elif name == "one live lane":
+            tmax[np.arange(B) != at] = -1.0
+        elif name != "all live":
+            tmax[2::5] = 0.0
+        o, d, tmax = (torch.from_numpy(x).to(dev) for x in (o, d, tmax))
+        ov, dv = Vec3(*o.unbind(1)), Vec3(*d.unbind(1))
+        hit, c = pw.any_bvh(scene, ov, dv, tmax)
+        live = tmax > 0
+        if name == "one live lane":
+            sel = torch.tensor([at], device=dev)
+            want, wc = pw.any_bvh_plain(scene, Vec3(*(x[sel] for x in ov)),
+                                        Vec3(*(x[sel] for x in dv)), tmax[sel])
+            same = bool(hit[at]) == bool(want[0])
+        else:
+            want, wc = pw.any_bvh_plain(scene, ov, dv, tmax)
+            same = torch.equal(hit, want)
+        check(same and c.tolist() == wc.tolist() and not bool(hit[~live].any()),
+              f"any_bvh {name}: answers or counters {c.tolist()} differ from the plain "
+              f"version's {wc.tolist()}")
+        print(f"phase 22: any_bvh {name} (B={B}, {int(live.sum())} live, {int(hit.sum())} "
+              f"hits): answers and counters {c.tolist()} equal to the plain version's; "
+              f"{time.monotonic() - t0:.1f} s ({card})")
+    print(f"phase 22: any_bvh's persistent grid: {blocks} blocks of 128 threads ({card})")
+    return {"blocks": blocks, "cases": list(cases)}
+
+
 class Laps:
     """Prints the seconds since the previous lap."""
 
@@ -830,12 +1072,7 @@ def main() -> int:
 
     # ---- phase 2, BDPT: bdpt_megakernel vs its plain version
     # the mixed-material scene of tests/torch_parity.py::mixed_scene
-    MS = builder.MaterialSpec
-    mb = cornell_box_builder()
-    mb.add_quad((60, 20, 60), (150, 0, 0), (0, 150, 40), MS.metal((0.8, 0.85, 0.9), 0.3))
-    mb.add_box((340, 0, 80), (460, 120, 200), MS.dielectric(1.5))
-    mb.add_quad((100, 400, 400), (120, 0, 0), (0, 0, 100), MS.isotropic((0.6, 0.7, 0.5)))
-    mixed = mb.build(device=dev)
+    mixed = mixed_scene(dev)
     n_slots = bk.n_uniform_slots(depth)
     bdpt_err, bdpt_frac = 0.0, 1.0
     for sc_name, sc, nb in (("cornell", scene, B), ("mixed", mixed, 16384)):
@@ -1267,9 +1504,9 @@ def main() -> int:
         mis = name == "bdpt-mis"
         cfg = coffee_camera(spp=4, integrator=name)
         if mis:  # the warm-up records its closest-hit launches and one shadow wave
-            with capture(pw, "closest_bvh") as cl, capture(soa, "any_hit", keep={1}) as an:
+            with capture(pw, "closest_bvh") as cl, capture(soa, "any_hit") as an:
                 render(coffee, cfg, seed=0)
-            main_closest, main_shadow = cl, an[1]
+            main_closest, main_shadows = cl, an
         else:
             render(coffee, cfg, seed=0)  # warm-up
         strata, span = _bdpt_wave_shape(512 * 512, 4, depth, mis)
@@ -1372,7 +1609,8 @@ def main() -> int:
           f"lanes: ms): {', '.join(f'{n}: {ms:.3f}' for n, ms, _ in cm_render)}; sum "
           f"{cm_render_ms:.3f} ms, bound {cm_render_bound:.4f} ms ({card})")
     del kout, pout, same, both, main_closest, o_m, d_m, act_m
-    o_w, d_w, t_w = shadow_lanes(*main_shadow)
+    check(len(main_shadows) == depth, f"coffee bdpt-mis: {len(main_shadows)} shadow waves")
+    o_w, d_w, t_w = shadow_lanes(*main_shadows[1])
     Bs = int(t_w.shape[0])
     hit_k, c_k = pw.any_bvh(coffee, o_w, d_w, t_w)
     (hit_p, c_p), am_plain_ms = timed(lambda: pw.any_bvh_plain(coffee, o_w, d_w, t_w))
@@ -1388,7 +1626,21 @@ def main() -> int:
           f"{int((t_w > 0).sum())} live): kernel {am_ms:.3f} ms, plain {am_plain_ms:.3f} ms "
           f"(one call), bound {am_bound:.4f} ms ({am_by}); answers and counters {am_counts} "
           f"equal ({card})")
-    del main_shadow, o_w, d_w, t_w, hit_k, hit_p
+    del o_w, d_w, t_w, hit_k, hit_p
+    # every shadow wave of one render, each on its own inputs, and their bound
+    am_render, am_render_bound = [], 0.0
+    for args, kw in main_shadows.values():
+        lanes_w = shadow_lanes(args, kw)
+        c_w = pw.any_bvh(coffee, *lanes_w)[1].tolist()
+        am_render.append((int((lanes_w[2] > 0).sum()),
+                          time_ms(lambda: pw.any_bvh(coffee, *lanes_w), reps=3)))
+        am_render_bound += bound(any_bytes(lanes_w[2]) + walk_bytes,
+                                 c_w[0] * SLAB_OPS + c_w[2] * MT_OPS)[0]
+    am_render_ms = sum(ms for _, ms in am_render)
+    print(f"phase 10: any_bvh, the {len(am_render)} shadow waves of one bdpt-mis render (live "
+          f"lanes: ms): {', '.join(f'{n}: {ms:.3f}' for n, ms in am_render)}; sum "
+          f"{am_render_ms:.3f} ms, bound {am_render_bound:.4f} ms ({card})")
+    del main_shadows, lanes_w
     lap("phase 10")
 
     # ---- phase 11: closest_tri / any_tri vs brute_closest / brute_any
@@ -1573,7 +1825,8 @@ def main() -> int:
         cfg13 = dataclasses.replace(cam, image_width=512, samples_per_pixel=16, max_depth=depth,
                                     integrator=name, defocus_angle=1.0,
                                     focus_dist=math.dist(cam.lookfrom, centre))
-        render(scene, cfg13, seed=0)  # warm-up
+        with capture(bk, "bdpt_megakernel") as wave13:  # warm-up; records the BDPT wave
+            render(scene, cfg13, seed=0)
         mk = pk.pt_megakernel if name == "pt" else bk.bdpt_megakernel
         waves = (math.ceil(16 / _wave_spp_batch(512 * 512, 16)) if name == "pt"
                  else math.ceil(16 / _bdpt_wave_shape(512 * 512, 16, depth, False)[0]))
@@ -1605,6 +1858,21 @@ def main() -> int:
               f"shadow_rays {st.shadow_rays}; {mk.__name__} rays-mode launches {n_mk}, other "
               f"launches {n_other}, plain calls {n_plain}; wrote {path} ({card})")
         del results, fb
+    # the BDPT wave's launch (B = 4,194,304) timed on its own inputs
+    check(len(wave13) == 1, f"defocus bdpt: {len(wave13)} rays-mode launches a render")
+    args13, kw13 = wave13[0]
+    B13 = int(args13[3].shape[0])
+    out13, defocus_frac, defocus_err, defocus_plain_ms, n13 = defocus_wave_vs_plain(args13, kw13)
+    bdpt_err, bdpt_frac = max(bdpt_err, defocus_err), min(bdpt_frac, defocus_frac)
+    c13 = counters(out13)
+    defocus_ms = time_ms(lambda: bk.bdpt_megakernel(*args13, **kw13), reps=3)
+    defocus_bound = bound(B13 * 40 + sum(t.numel() * t.element_size()
+                                         for t in bk._pack_tables_bdpt(scene)), c13[4] * MT_OPS)
+    print(f"phase 13: bdpt_megakernel rays mode on the defocus bdpt wave (B={B13}): kernel "
+          f"{defocus_ms:.3f} ms, bound {defocus_bound[0]:.4f} ms ({defocus_bound[1]}); "
+          f"counters {c13}; plain version on every 16th lane ({n13}) {defocus_plain_ms:.3f} ms "
+          f"({card})")
+    del wave13, args13, kw13, out13
     lap("phase 13")
 
     # ---- phase 14: the CLI's --f64 through the float64 instantiation
@@ -2248,8 +2516,12 @@ def main() -> int:
         del cl21, an21, args, kw
         lap(f"phase 21 ({impl})")
 
-    # ---- phase 22: the refilling wave kernels' edge cases, exact
+    # ---- phase 22: the refilling wave kernels' edge cases, exact; the brute
+    # BDPT kernel's persistent grid; any_bvh's refilling grid
     refill = refill_cases(dev, card)
+    brute22 = brute_bdpt_cases(dev, card)
+    bdpt_err = max(bdpt_err, brute22["max_abs_err"])
+    any22 = any_cases(dev, card)
     lap("phase 22")
 
     # lanes in (pixels: i, j, sx, sy, id; rays: o, d, id), radiance out
@@ -2368,6 +2640,18 @@ def main() -> int:
         "rays_mode_launches_path": "three cornell BDPT renders with defocus, 512x512, 16 spp, "
                                    "depth 10",
         "depth80_ms": d80_ms,
+        "render_ms": bdpt_ms["bdpt"],
+        "render_launches": [{"live": 512 * 512, "ms": bdpt_ms["bdpt"]}],
+        "render_shape": "the one launch of a cornell bdpt render, 512x512, 16 spp, depth 10",
+        "defocus_wave_ms": defocus_ms,
+        "defocus_wave_bound_ms": defocus_bound[0],
+        "defocus_wave_shape": f"the cornell defocus bdpt wave, rays mode, B={B13}",
+        "defocus_wave_within_tol": defocus_frac,
+        "defocus_wave_max_abs_err": defocus_err,
+        "defocus_wave_plain_ms": defocus_plain_ms,
+        "defocus_wave_plain_shape": f"every 16th lane of that wave, {n13} lanes",
+        "persistent_blocks": brute22["blocks"],
+        "edge_cases": brute22["cases"],
     }, {
         "name": "closest_bvh",
         "route": "cuda",
@@ -2410,6 +2694,13 @@ def main() -> int:
         "bound_by": am_by,
         "library_ms": None,
         "shape": f"the bdpt-mis wave's shadow wave of camera vertex 1, B={Bs}",
+        "render_ms": am_render_ms,
+        "render_bound_ms": am_render_bound,
+        "render_launches": [{"live": n, "ms": ms} for n, ms in am_render],
+        "render_shape": "the 10 launches of one coffee bdpt-mis render, 512x512, 4 spp, "
+                        "depth 10, each on its own inputs",
+        "persistent_blocks": any22["blocks"],
+        "refill_cases": any22["cases"],
         "mixed_65536_ms": s_ms,
         "mixed_65536_plain_ms": s_plain_ms,
         "mixed_65536_bound_ms": s_bound,

@@ -112,6 +112,37 @@ def test_bvh_any_matches_bpt_tpu(dt):
     assert nv > ah > tt >= th >= int(want.sum()) > 0
 
 
+@pytest.mark.parametrize("case", ["B=1", "all dead", "one live lane", "all live"])
+def test_any_bvh_wrapper_lanes_match_bpt_tpu(case):
+    """``any_bvh`` on a CPU tensor (its plain version) on the lane shapes
+    the card's refilling grid is tested at: answers equal to bpt_tpu's
+    bvh_any, a dead lane a miss that counts nothing, so the counters are
+    those of the live lanes alone."""
+    B = 1 if case == "B=1" else 257
+    o, d, tmax = _shadow_lanes(B, 17, np.float32)
+    if case == "all dead":
+        tmax[:] = 0.0
+    elif case == "one live lane":
+        tmax[np.arange(B) != 100] = -1.0
+    else:
+        tmax[:] = np.abs(tmax) + 0.5
+    want = np.asarray(jsoa.bvh_any(big_scene(jbuilder, dtype=jnp.float32), _jvec(o), _jvec(d),
+                                   T_MIN, jnp.asarray(tmax)))
+    ts = big_scene(tbuilder, device="cpu")
+    n, k = tw.any_bvh_plain.calls, tw.any_bvh.launches
+    hit, counters = tw.any_bvh(ts, _tvec(o), _tvec(d), torch.from_numpy(tmax))
+    assert tw.any_bvh_plain.calls == n + 1 and tw.any_bvh.launches == k
+    np.testing.assert_array_equal(hit.numpy(), want)
+    live = tmax > 0.0
+    assert not hit.numpy()[~live].any()
+    if live.any():
+        _, c_live = tsoa.bvh_any(ts, _tvec(o[live]), _tvec(d[live]), T_MIN,
+                                 torch.from_numpy(tmax[live]))
+        assert counters.tolist() == c_live.tolist() and counters[0] > 0
+    else:
+        assert counters.tolist() == [0, 0, 0, 0]
+
+
 def test_any_hit_takes_the_bvh(monkeypatch):
     """soa.any_hit on a use_bvh scene walks the BVH (the wrapper's plain
     version on a CPU tensor), masks lanes as bpt_tpu's any_hit does, and

@@ -806,3 +806,147 @@ def test_pt_wave_bounce_refill_matches_plain(case, paged):
                  for x in (got, want))
     ok = torch.isclose(got, want, rtol=1e-4, atol=1e-6).all(dim=0)
     assert float(ok.double().mean()) >= 0.999
+
+
+# ---- the brute-force BDPT kernel on its persistent grid, and any_bvh's
+# refilling grid, at the shapes that exercise the schedule
+
+BRUTE_CASES = ["B=1", "B=31", "B=37", "past 4 grids", "all inactive", "scattered"]
+
+
+def _cornell_lanes(case, seed):
+    """(o, d, ids) of a brute-force edge case: the cornell camera's rays
+    through random points of a 512x512 image; a lane in 13 inactive, "past
+    4 grids" 4 x the persistent grid's threads and 5 more, "all inactive"
+    no live lane, "scattered" one live lane in ten at random places; 4096
+    lanes where the name gives no count."""
+    from bpt_tpu_torch.models.camera import generate_rays
+    from bpt_tpu_torch.ops.kernels import build
+
+    if case.startswith("B="):
+        B = int(case[2:])
+    elif case == "past 4 grids":
+        B = 4 * build.load_library().bpt_bdpt_brute_blocks() * 128 + 5
+    else:
+        B = 4096
+    g = np.random.default_rng(seed)
+    cc = camera_constants(dataclasses.replace(presets.cornell_box_camera(), image_width=512),
+                          torch.float32, "cuda")
+    px = torch.from_numpy(g.integers(0, 512, (2, B)).astype(np.float32)).cuda()
+    u = torch.from_numpy(g.uniform(size=(B, 4)).astype(np.float32)).cuda()
+    o, d = generate_rays(cc, px[0], px[1], px[0] * 0, px[1] * 0, u)
+    ids = torch.arange(B, dtype=torch.int32, device="cuda")
+    if case == "scattered":
+        ids = torch.where(torch.from_numpy(g.uniform(size=B) < 0.1).cuda(), ids, -1)
+    else:
+        ids[5::13] = -1
+    if case == "all inactive":
+        ids[:] = -1
+    return Vec3(*o.unbind(1)), Vec3(*d.unbind(1)), ids
+
+
+@pytest.mark.parametrize("mis", [False, True], ids=["bdpt", "bdpt-mis"])
+@pytest.mark.parametrize("case", BRUTE_CASES)
+def test_brute_bdpt_schedule_matches_plain(case, mis):
+    """Rays mode at depth 10: radiance on >= 99.9% of lanes, all six
+    counters exact, inactive lanes 0, and each live lane's radiance to the
+    bit that of the same lanes launched alone, packed (the schedule changes
+    no bit)."""
+    scene = presets.cornell_box(device="cuda")
+    o, d, ids = _cornell_lanes(case, 31)
+    key = rng.prng_key(7)
+    n = bk.bdpt_megakernel.launches
+    got = bk.bdpt_megakernel(scene, o, d, ids, key, 10, mis=mis)
+    want = bk.bdpt_megakernel_plain(scene, o, d, ids, key, 10, mis=mis)
+    live = ids >= 0
+    packed = bk.bdpt_megakernel(scene, Vec3(*(x[live] for x in o)), Vec3(*(x[live] for x in d)),
+                                ids[live], key, 10, mis=mis)
+    torch.cuda.synchronize()
+    assert bk.bdpt_megakernel.launches == n + 2
+    assert _frac_close(got, want) >= 0.999
+    assert _counters(got) == _counters(want)
+    assert all(float(c[~live].abs().sum()) == 0.0 for c in got[:3])
+    assert all(torch.equal(c[live], pc) for c, pc in zip(got[:3], packed[:3]))
+    assert _counters(packed) == _counters(got)
+    if int(live.sum()) > 100:
+        assert _counters(got)[1] > 0
+
+
+@pytest.mark.parametrize("mis", [False, True], ids=["bdpt", "bdpt-mis"])
+@pytest.mark.parametrize("case", ["depth 1", "depth 80", "injected", "ranges"])
+def test_brute_bdpt_modes_match_plain(case, mis, monkeypatch):
+    """Pixels mode at depth 1 (cornell) and 80 (the mixed scene), rays mode
+    with injected uniforms, and pixels mode over 4 stratum ranges (4
+    launches, a budget of one stratum each): radiance on >= 99.9% of
+    lanes, all six counters exact."""
+    scene = _scene("mixed" if case == "depth 80" else "cornell")
+    key = rng.prng_key(8)
+    if case == "injected":
+        o, d, ids = _cornell_lanes("injected", 9)
+        u = torch.from_numpy(np.random.default_rng(10).uniform(
+            size=(bk.n_uniform_slots(10), ids.numel())).astype(np.float32)).cuda()
+        a, kw = (scene, o, d, ids, key, 10), dict(uniforms=u, mis=mis)
+        mk, plain, launches = bk.bdpt_megakernel, bk.bdpt_megakernel_plain, 1
+    else:
+        W, S = 16, 2
+        depth = {"depth 1": 1, "depth 80": 80}.get(case, 10)
+        cc = camera_constants(dataclasses.replace(presets.cornell_box_camera(), image_width=W,
+                                                  samples_per_pixel=S * S),
+                              torch.float32, "cuda")
+        pix = torch.arange(W * W, dtype=torch.int32, device="cuda")
+        pix[3::7] = -1
+        i, j = (pix.clamp_min(0) % W).float(), (pix.clamp_min(0) // W).float()
+        launches = 1
+        if case == "ranges":
+            monkeypatch.setattr(pk, "STRATA_BYTES", 12 * W * W)
+            launches = S * S
+        a, kw = (scene, i, j, pix, pk.camera_table(cc), key, depth, S), dict(mis=mis)
+        mk, plain = bk.bdpt_megakernel_pixels, bk.bdpt_megakernel_pixels_plain
+    n = mk.launches
+    got = mk(*a, **kw)
+    want = plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert mk.launches - n == launches
+    assert _frac_close(got, want) >= 0.999
+    assert _counters(got) == _counters(want) and _counters(got)[0] > 0
+
+
+ANY_CASES = ["B=1", "B=31", "B=37", "all dead", "one live lane", "all live"]
+
+
+@pytest.mark.parametrize("case", ANY_CASES)
+def test_any_bvh_refill_matches_plain_bitwise(case):
+    """Every answer and all four counters on the 964-triangle scene, the
+    plain walk's: B = 1, 31, 37; 65,536 dead lanes; one live lane among
+    1,048,576 dead ones; every lane of 65,536 live.  A dead lane misses."""
+    scene = big_scene(builder, device="cuda")
+    B = {"one live lane": 1 << 20, "all dead": 65536, "all live": 65536}.get(
+        case, int(case[2:]) if case.startswith("B=") else 0)
+    g = np.random.default_rng(41)
+    live_at = int(g.integers(0, B))
+    o, d, _ = _big_lanes(B, 41)
+    tmax = torch.from_numpy(g.uniform(0.1, 6.0, B).astype(np.float32)).cuda()
+    if case == "all dead":
+        tmax[:] = 0.0
+    elif case == "one live lane":
+        keep = tmax[live_at].clone()
+        tmax[:] = -1.0
+        tmax[live_at] = keep
+    elif case != "all live":
+        tmax[2::5] = 0.0
+    live = tmax > 0
+    got = pw.any_bvh(scene, o, d, tmax)
+    if case == "one live lane":  # the plain walk of the live lane alone
+        sel = torch.tensor([live_at], device="cuda")
+        want = pw.any_bvh_plain(scene, Vec3(*(x[sel] for x in o)), Vec3(*(x[sel] for x in d)),
+                                tmax[sel])
+        assert bool(got[0][live_at]) == bool(want[0][0])
+        assert not bool(got[0][~live].any())
+    else:
+        want = pw.any_bvh_plain(scene, o, d, tmax)
+        assert torch.equal(got[0], want[0])
+    torch.cuda.synchronize()
+    assert got[1].tolist() == want[1].tolist()
+    assert not bool(got[0][~live].any())
+    if int(live.sum()) > 1000:
+        assert bool(got[0].any())

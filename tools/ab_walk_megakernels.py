@@ -1,13 +1,13 @@
-"""A/B of the walk-mode megakernels between copies of bpt_tpu_torch, on one
-card, with the brute-force kernels timed beside them.
+"""A/B of the persistent megakernels between copies of bpt_tpu_torch, on one
+card: the walk mode, and the brute-force kernels.
 
 Each argument is a directory holding a ``bpt_tpu_torch`` package and its
 ``chip_smoke.py`` (this checkout, or another commit unpacked with ``git
-archive``).  In the order given, each runs in its own process: it builds
-that copy's kernels, builds the coffee stand-in from this checkout's
-``scenes/coffee`` with that copy's ``chip_smoke.coffee_builder``, and
-times with CUDA events (mean of 3 calls after a warm-up; 10 for the brute
-kernels), seed 0:
+archive``).  The copies' kernels are built first, all at once; then, in the
+order given, each copy runs in its own process: it builds the coffee
+stand-in from this checkout's ``scenes/coffee`` with that copy's
+``chip_smoke.coffee_builder``, and times with CUDA events (mean of 3 calls
+after a warm-up; 10 for the brute kernels at 512x512), seed 0:
 
 - 2c: ``pt_megakernel_pixels`` walk mode, coffee 256x256 x 16 spp, depth 10;
 - 6c: ``bdpt_megakernel_pixels`` walk mode, coffee bdpt-mis 512x512 x 4
@@ -20,14 +20,22 @@ kernels), seed 0:
   defocus angle 1, as chip_smoke.py phase 19 builds them);
 - 2 / 6: the brute-force kernels on the cornell box at 512x512 x 16 spp,
   depth 10 (PT, bdpt, bdpt-mis);
+- 5: ``bdpt_megakernel`` brute force in rays mode on the cornell defocus
+  BDPT wave (512x512 x 16 spp, depth 10, defocus angle 1: B = 4,194,304,
+  the arguments of chip_smoke.py phase 13's launch, recorded);
+- 5 on random rays: ``bdpt_megakernel`` bdpt at B = 65,536, depth 10,
+  origins uniform in [50, 500]^3 (chip_smoke.py phase 2's timed case);
+- 6 at depth 80: ``bdpt_megakernel_pixels`` bdpt-mis on the mixed-material
+  scene at 64x64 x 4 spp (chip_smoke.py phase 2's case);
 
 and prints for each case its ms, rays, shadow rays and walk counters and a
-sha256 of its outputs (radiance and counters), then the walk kernels'
-ptxas registers and spills, and, where the copy has them, the persistent
-grid and the BDPT vertex scratch bytes.  Equal hashes across copies mean
+sha256 of its outputs (radiance and counters), then the kernels' ptxas
+registers and spills, and, where the copy has them, the persistent grids
+and the BDPT vertex scratch bytes.  Equal hashes across copies mean
 bitwise equal outputs.  Give the copies as A B B A to see the spread:
 
     python tools/ab_walk_megakernels.py DIR_A DIR_B DIR_B DIR_A
+    python tools/ab_walk_megakernels.py --brute DIR_A DIR_B DIR_B DIR_A   # the brute cases only
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ _RUN = r"""
 import dataclasses, hashlib, math, os, sys
 import numpy as np, torch
 
-DATA = sys.argv[1]
+DATA, BRUTE_ONLY = sys.argv[1], sys.argv[2] == "brute"
 from chip_smoke import coffee_builder, coffee_camera
 from bpt_tpu_torch.core import rng
 from bpt_tpu_torch.core.vec3 import Vec3
@@ -49,7 +57,8 @@ from bpt_tpu_torch.models.render import jnp_raygen, render
 from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
 from bpt_tpu_torch.ops.kernels import build
 from bpt_tpu_torch.ops.kernels import pt_kernel as pk
-from bpt_tpu_torch.scene.presets import cornell_box, cornell_box_camera
+from bpt_tpu_torch.scene import builder
+from bpt_tpu_torch.scene.presets import cornell_box, cornell_box_builder, cornell_box_camera
 
 log = build.build().with_suffix(".log").read_text().splitlines()
 lib = build.load_library()
@@ -88,37 +97,38 @@ def pixels(cfg):
 dev = torch.device("cuda", 0)
 key = rng.prng_key(0)
 os.chdir(DATA)
-coffee = coffee_builder().build(device=dev)
 runs = {}
-i, j, pix, cam = pixels(coffee_camera(width=256, spp=16, depth=10))
-runs["2c coffee pt pixels 256x256x16spp d10"] = (lambda: pk.pt_megakernel_pixels(
-    coffee, i, j, i * 0, j * 0, pix, cam, key, 10, spp_loop=16, sqrt_spp=4), 3)
-i80, j80, pix80, cam80 = pixels(coffee_camera(spp=4, depth=80, integrator="bdpt-mis"))
-runs["6c coffee bdpt-mis pixels 512x512x4spp d80"] = (lambda: bk.bdpt_megakernel_pixels(
-    coffee, i80, j80, pix80, cam80, key, 80, 2, mis=True), 3)
-i64, j64, pix64, cam64 = pixels(coffee_camera(width=64, spp=1, depth=80, integrator="bdpt-mis"))
-for mis in (True, False):
-    runs[f"coffee {'bdpt-mis' if mis else 'bdpt'} pixels 64x64x1spp d80"] = (
-        lambda mis=mis: bk.bdpt_megakernel_pixels(coffee, i64, j64, pix64, cam64, key, 80, 1,
-                                                  mis=mis), 3)
-for name in ("pt", "bdpt"):  # the coffee defocus waves (chip_smoke.py phase 19)
-    cam19 = coffee_camera(width=128, spp=4, depth=10, integrator=name)
-    cfg19 = dataclasses.replace(cam19, defocus_angle=1.0,
-                                focus_dist=math.dist(cam19.lookfrom, cam19.lookat))
-    cc19 = camera_constants(cfg19, torch.float32, dev)
-    p19 = torch.arange(128 * 128, dtype=torch.int64, device=dev).repeat(4)
-    s19 = torch.arange(4, device=dev).repeat_interleave(128 * 128)
-    if name == "pt":
-        ids19 = p19 * 4 + s19
-        u = rng.wave_uniforms(rng.fold_in(key, 0), ids19, 0, 4, torch.float32)
-        o, d = generate_rays(cc19, (p19 % 128).float(), (p19 // 128).float(),
-                             (s19 % 2).float(), (s19 // 2).float(), u)
-        a1 = (coffee, Vec3(*o.unbind(1)), Vec3(*d.unbind(1)), ids19, rng.fold_in(key, 1), 10)
-        runs["1c coffee pt rays defocus B=65536 d10"] = (lambda: pk.pt_megakernel(*a1), 3)
-    else:
-        o, d, ids19 = jnp_raygen(cc19, p19, s19, key, torch.float32)
-        a5 = (coffee, Vec3(*o.unbind(1)), Vec3(*d.unbind(1)), ids19, key, 10)
-        runs["5c coffee bdpt rays defocus B=65536 d10"] = (lambda: bk.bdpt_megakernel(*a5), 3)
+if not BRUTE_ONLY:
+    coffee = coffee_builder().build(device=dev)
+    i, j, pix, cam = pixels(coffee_camera(width=256, spp=16, depth=10))
+    runs["2c coffee pt pixels 256x256x16spp d10"] = (lambda: pk.pt_megakernel_pixels(
+        coffee, i, j, i * 0, j * 0, pix, cam, key, 10, spp_loop=16, sqrt_spp=4), 3)
+    i80, j80, pix80, cam80 = pixels(coffee_camera(spp=4, depth=80, integrator="bdpt-mis"))
+    runs["6c coffee bdpt-mis pixels 512x512x4spp d80"] = (lambda: bk.bdpt_megakernel_pixels(
+        coffee, i80, j80, pix80, cam80, key, 80, 2, mis=True), 3)
+    i64, j64, pix64, cam64 = pixels(coffee_camera(width=64, spp=1, depth=80, integrator="bdpt-mis"))
+    for mis in (True, False):
+        runs[f"coffee {'bdpt-mis' if mis else 'bdpt'} pixels 64x64x1spp d80"] = (
+            lambda mis=mis: bk.bdpt_megakernel_pixels(coffee, i64, j64, pix64, cam64, key, 80, 1,
+                                                      mis=mis), 3)
+    for name in ("pt", "bdpt"):  # the coffee defocus waves (chip_smoke.py phase 19)
+        cam19 = coffee_camera(width=128, spp=4, depth=10, integrator=name)
+        cfg19 = dataclasses.replace(cam19, defocus_angle=1.0,
+                                    focus_dist=math.dist(cam19.lookfrom, cam19.lookat))
+        cc19 = camera_constants(cfg19, torch.float32, dev)
+        p19 = torch.arange(128 * 128, dtype=torch.int64, device=dev).repeat(4)
+        s19 = torch.arange(4, device=dev).repeat_interleave(128 * 128)
+        if name == "pt":
+            ids19 = p19 * 4 + s19
+            u = rng.wave_uniforms(rng.fold_in(key, 0), ids19, 0, 4, torch.float32)
+            o, d = generate_rays(cc19, (p19 % 128).float(), (p19 // 128).float(),
+                                 (s19 % 2).float(), (s19 // 2).float(), u)
+            a1 = (coffee, Vec3(*o.unbind(1)), Vec3(*d.unbind(1)), ids19, rng.fold_in(key, 1), 10)
+            runs["1c coffee pt rays defocus B=65536 d10"] = (lambda: pk.pt_megakernel(*a1), 3)
+        else:
+            o, d, ids19 = jnp_raygen(cc19, p19, s19, key, torch.float32)
+            a5 = (coffee, Vec3(*o.unbind(1)), Vec3(*d.unbind(1)), ids19, key, 10)
+            runs["5c coffee bdpt rays defocus B=65536 d10"] = (lambda: bk.bdpt_megakernel(*a5), 3)
 cornell = cornell_box(device=dev)
 ic, jc, pixc, camc = pixels(dataclasses.replace(cornell_box_camera(), image_width=512,
                                                 samples_per_pixel=16))
@@ -128,19 +138,67 @@ for mis in (False, True):
     runs[f"6 cornell {'bdpt-mis' if mis else 'bdpt'} pixels 512x512x16spp d10"] = (
         lambda mis=mis: bk.bdpt_megakernel_pixels(cornell, ic, jc, pixc, camc, key, 10, 4,
                                                   mis=mis), 10)
+# 5: the cornell defocus BDPT wave, as render() launches it (chip_smoke.py phase 13)
+cam5 = cornell_box_camera()
+cfg5 = dataclasses.replace(cam5, image_width=512, samples_per_pixel=16, max_depth=10,
+                           integrator="bdpt", defocus_angle=1.0,
+                           focus_dist=math.dist(cam5.lookfrom, (277.5, 277.5, 277.5)))
+fn5, calls5 = bk.bdpt_megakernel, []
+
+
+def spy5(*a, **kw):
+    calls5.append((a, kw))
+    return fn5(*a, **kw)
+
+
+spy5.__dict__.update(fn5.__dict__)  # the wrapper counts its launches on its own name
+bk.bdpt_megakernel = spy5
+render(cornell, cfg5, seed=0)
+bk.bdpt_megakernel = fn5
+args5, kwargs5 = calls5[0]
+runs[f"5 cornell bdpt rays defocus B={args5[3].numel()} d10"] = (
+    lambda: fn5(*args5, **kwargs5), 3)
+# 5 on chip_smoke.py phase 2's random rays
+g2 = np.random.default_rng(0)
+o2 = torch.from_numpy(g2.uniform(50, 500, (65536, 3)).astype(np.float32)).to(dev)
+d2 = torch.from_numpy(g2.normal(size=(65536, 3)).astype(np.float32)).to(dev)
+a2 = (cornell, Vec3(*o2.unbind(1)), Vec3(*d2.unbind(1)),
+      torch.arange(65536, dtype=torch.int32, device=dev), key, 10)
+runs["5 cornell bdpt rays random B=65536 d10"] = (lambda: bk.bdpt_megakernel(*a2), 10)
+# 6 at depth 80: chip_smoke.py phase 2's mixed-material scene
+MS = builder.MaterialSpec
+mb = cornell_box_builder()
+mb.add_quad((60, 20, 60), (150, 0, 0), (0, 150, 40), MS.metal((0.8, 0.85, 0.9), 0.3))
+mb.add_box((340, 0, 80), (460, 120, 200), MS.dielectric(1.5))
+mb.add_quad((100, 400, 400), (120, 0, 0), (0, 0, 100), MS.isotropic((0.6, 0.7, 0.5)))
+mixed = mb.build(device=dev)
+im, jm, pixm, camm = pixels(dataclasses.replace(cornell_box_camera(), image_width=64,
+                                                samples_per_pixel=4))
+runs["6 mixed bdpt-mis pixels 64x64x4spp d80"] = (lambda: bk.bdpt_megakernel_pixels(
+    mixed, im, jm, pixm, camm, key, 80, 2, mis=True), 10)
 out = []
 for name, (fn, reps) in runs.items():
     res, ms = timed(fn, reps)
     counts = [int(x) for x in res[3:-1]] + res[-1].tolist()
     out.append(f"{name}: {ms:.3f} ms, counters {counts}, sha256 {digest(res)}")
-cfg16 = coffee_camera(spp=4, depth=80, integrator="bdpt-mis")
-render(coffee, cfg16, seed=0)
-torch.cuda.reset_peak_memory_stats(dev)
-r = render(coffee, cfg16, seed=0)
-peak = torch.cuda.max_memory_allocated(dev)
-fb = hashlib.sha256(np.ascontiguousarray(r.framebuffer_sum).tobytes()).hexdigest()[:16]
-out.append(f"6c main path render: wall {r.stats.wall_seconds:.6f} s, peak {peak / 2**30:.3f} "
-           f"GiB, framebuffer sha256 {fb}")
+if not BRUTE_ONLY:
+    cfg16 = coffee_camera(spp=4, depth=80, integrator="bdpt-mis")
+    render(coffee, cfg16, seed=0)
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = render(coffee, cfg16, seed=0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    fb = hashlib.sha256(np.ascontiguousarray(r.framebuffer_sum).tobytes()).hexdigest()[:16]
+    out.append(f"6c main path render: wall {r.stats.wall_seconds:.6f} s, peak "
+               f"{peak / 2**30:.3f} GiB, framebuffer sha256 {fb}")
+for mis in (False, True):  # the cornell main path, render() as the CLI runs it
+    cfg3 = dataclasses.replace(cornell_box_camera(), image_width=512, samples_per_pixel=16,
+                               max_depth=10, integrator="bdpt-mis" if mis else "bdpt")
+    render(cornell, cfg3, seed=0)
+    rs = [render(cornell, cfg3, seed=0) for _ in range(3)]
+    fb = hashlib.sha256(np.ascontiguousarray(rs[0].framebuffer_sum).tobytes()).hexdigest()[:16]
+    walls = sorted(r.stats.wall_seconds for r in rs)
+    out.append(f"6 cornell {cfg3.integrator} main path render: wall median {walls[1]:.6f} s "
+               f"{[round(w, 6) for w in walls]}, framebuffer sha256 {fb}")
 extra = ["ptxas: " + "; ".join(ptxas(e) for e in ("18pt_megakernel_walkE",
                                                  "20bdpt_megakernel_walkE",
                                                  "13pt_megakernelE", "15bdpt_megakernelE"))]
@@ -149,18 +207,38 @@ if hasattr(lib, "bpt_bdpt_walk_blocks"):
         pb, bb = lib.bpt_pt_walk_blocks(), lib.bpt_bdpt_walk_blocks()
     extra.append(f"persistent grid: pt {pb} blocks, bdpt {bb} blocks of {pk.WALK_BLOCK}; "
                  f"d80 bdpt-mis vertex scratch {bk.walk_scratch_bytes(bb * pk.WALK_BLOCK, 80, True)} B")
+if hasattr(lib, "bpt_bdpt_brute_blocks"):
+    with torch.cuda.device(dev):
+        rb = lib.bpt_bdpt_brute_blocks()
+    extra.append(f"brute bdpt persistent grid: {rb} blocks of {pk.WALK_BLOCK}; d10 bdpt-mis "
+                 f"vertex scratch {bk.walk_scratch_bytes(rb * pk.WALK_BLOCK, 10, True)} B")
 print("\n".join(out + extra))
 """
 
 
+_BUILD = "from bpt_tpu_torch.ops.kernels import build; build.build()"
+
+
 def main(argv=None) -> int:
-    dirs = sys.argv[1:] if argv is None else argv
+    args = sys.argv[1:] if argv is None else argv
+    cases = "brute" if args[:1] == ["--brute"] else "all"
+    dirs = args[1:] if cases == "brute" else args
     data = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    copies = {os.path.abspath(d): None for d in dirs}
+    for d in copies:  # every copy's kernels at once: nvcc runs in parallel
+        copies[d] = subprocess.Popen([sys.executable, "-c", _BUILD], cwd=d,
+                                     env=dict(os.environ, PYTHONPATH=d),
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for d, proc in copies.items():
+        text = proc.communicate()[0]
+        if proc.returncode:
+            print(f"== {d}: build failed\n{text}", file=sys.stderr)
+            return proc.returncode
     for d in dirs:
-        proc = subprocess.run([sys.executable, "-c", _RUN, data], cwd=os.path.abspath(d),
+        proc = subprocess.run([sys.executable, "-c", _RUN, data, cases], cwd=os.path.abspath(d),
                               env=dict(os.environ, PYTHONPATH=os.path.abspath(d)),
                               capture_output=True, text=True)
         if proc.returncode:

@@ -1,5 +1,6 @@
-"""A/B of the BVH wave kernels ``closest_bvh`` and ``pt_wave_bounce``
-(csrc/pt_wave.cu) between copies of bpt_tpu_torch, on one card.
+"""A/B of the BVH wave kernels ``closest_bvh``, ``any_bvh`` and
+``pt_wave_bounce`` (csrc/pt_wave.cu) between copies of bpt_tpu_torch, on
+one card.
 
 Each argument is a directory holding a ``bpt_tpu_torch`` package and its
 ``chip_smoke.py`` (this checkout, or another commit unpacked with ``git
@@ -20,14 +21,16 @@ after a warm-up; 3 for the bounces), seed 0:
   ``closest_bvh``'s hits);
 - the two renders' walls (median of 3 after a warm-up) and framebuffer
   sha256;
-- ``any_bvh`` on the bdpt-mis render's shadow wave of camera vertex 1, and
-  the walk-mode megakernels on coffee (PT pixels 128x128 x 4 spp, depth 10;
+- ``any_bvh`` on each of the 10 shadow waves of the same bdpt-mis render
+  (the shadow wave of camera vertex 1 is launch 1, B = 10,485,760) and
+  their sum;
+- the walk-mode megakernels on coffee (PT pixels 128x128 x 4 spp, depth 10;
   bdpt-mis pixels 64x64 x 1 spp, depth 80), which this A/B leaves as they
   are;
 
 and prints for each case its ms, live lanes and a sha256 of its outputs and
-counters, then ptxas's registers and spills of both kernels and, where the
-copy has it, closest_bvh's persistent grid.  Equal hashes
+counters, then ptxas's registers and spills of the three kernels and,
+where the copy has them, closest_bvh's and any_bvh's persistent grids.  Equal hashes
 across copies mean bitwise equal outputs.  Give the copies as A B B A to
 see the spread:
 
@@ -140,11 +143,14 @@ for n, (o, d, act) in enumerate(closest_calls):
                  f"{ms:.3f} ms, counters {res[4].tolist()}, sha256 {digest(res)}")
 out.append(f"closest_bvh, the render's {len(closest_calls)} launches: sum {total:.3f} ms")
 out += lines
-o, d, tmax = any_calls[1]
-res, ms = timed(lambda: pw.any_bvh(coffee, Vec3(*o), Vec3(*d), tmax), 5)
-out.append(f"any_bvh, the shadow wave of camera vertex 1 (B={tmax.numel()}, "
-           f"{int((tmax > 0).sum())} live): {ms:.3f} ms, counters {res[1].tolist()}, "
-           f"sha256 {digest(res)}")
+total, lines = 0.0, []
+for n, (o, d, tmax) in enumerate(any_calls):
+    res, ms = timed(lambda: pw.any_bvh(coffee, Vec3(*o), Vec3(*d), tmax), 5)
+    total += ms
+    lines.append(f"  any_bvh launch {n}: B={tmax.numel()} live {int((tmax > 0).sum())}: "
+                 f"{ms:.3f} ms, counters {res[1].tolist()}, sha256 {digest(res)}")
+out.append(f"any_bvh, the render's {len(any_calls)} launches: sum {total:.3f} ms")
+out += lines
 del closest_calls, any_calls
 g = np.random.default_rng(0)
 B = 1 << 20
@@ -214,11 +220,14 @@ res, ms = timed(lambda: bk.bdpt_megakernel_pixels(coffee, i, j, pix, cam, key, 8
 out.append(f"bdpt_megakernel_pixels walk mode, coffee bdpt-mis 64x64x1spp d80: {ms:.3f} ms, "
            f"sha256 {digest(res)}")
 
-extra = ["ptxas: " + "; ".join(ptxas(e) for e in ("11closest_bvhE", "14pt_wave_bounce"))]
-if hasattr(lib, "bpt_wave_blocks"):
-    with torch.cuda.device(dev):
-        blocks = lib.bpt_wave_blocks()
-    extra.append(f"closest_bvh's persistent grid: {blocks} blocks of 128 threads")
+extra = ["ptxas: " + "; ".join(ptxas(e) for e in ("11closest_bvhE", "7any_bvhE",
+                                                 "14pt_wave_bounce"))]
+for name in ("closest_bvh", "any_bvh"):
+    query = {"closest_bvh": "bpt_wave_blocks", "any_bvh": "bpt_any_blocks"}[name]
+    if hasattr(lib, query):
+        with torch.cuda.device(dev):
+            blocks = getattr(lib, query)()
+        extra.append(f"{name}'s persistent grid: {blocks} blocks of 128 threads")
 print("\n".join(out + extra))
 """
 
