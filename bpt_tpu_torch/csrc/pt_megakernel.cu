@@ -15,29 +15,39 @@
 // What bounds it on the H100.  Brute mode: FP32 issue and warp divergence,
 // not memory.  A lane reads its inputs once and writes three floats; per
 // bounce it runs ~40 flops for each of the T triangles and each of the L
-// lights, and paths end after a data-dependent number of bounces (2.7 on
-// average on the cornell box at depth 10), so the lanes of a warp finish
-// at different times.  Walk mode: the walk's dependent node loads and the
-// divergence of the lanes' node sequences (pt_wave.cu), on top of the
-// paths' own divergence.
+// lights, and paths end after a data-dependent number of bounces (2.73 on
+// average on the cornell box at depth 10, 10% of them past 4), so the
+// lanes of a warp finish at different times: a thread a pixel that ran
+// its strata one after another, the warp reconverging after each, took
+// 113 bounce iterations a warp for 44 useful ones (PERF.md §6).
+// Walk mode: the walk's dependent node loads and the divergence of the
+// lanes' node sequences (pt_wave.cu), on top of the paths' own divergence.
 //
-// Design: the brute mode takes one thread per lane (a ray, or a pixel that
-// walks all its strata one after another: the persistent-sample idea of
-// the TPU kernel without its lockstep); the walk mode one lane per sample
-// on a persistent grid (walk_sched.cuh), since its samples' walk chains
-// differ in length far more.  Each path runs to termination with real
-// branches instead of masked selects, and the material / light tables (and in brute mode
-// the triangle table) sit in shared memory, where every thread of a
-// converged warp reads the same word (a broadcast).  The walk reads the
-// BVH from global memory through the read-only path, so the mode has no
-// table budget (bpt_tpu's 480 KB single-table limit, clusters.py:92-102,
-// is a TPU SMEM bound).  Direct mat_tab[mat_id] indexing replaces the TPU
+// Design: both modes run one sample a work item on a persistent grid
+// (walk_sched.cuh).  The brute mode's lanes run a flat bounce loop, the
+// TPU kernel's persistent-sample lanes without their lockstep: an
+// iteration is one bounce of each busy lane's sample, a lane whose path
+// ends writes its radiance and is free, and the warp takes new samples
+// for its free lanes (warp_take_n) once PT_REFILL of them are free, so a
+// warp is held for one bounce at a time, not for its longest path; the
+// triangle sweep stays converged, every lane sweeping every triangle.
+// The walk mode's warps take 32 samples at a time, since its samples'
+// walk chains differ far more than a bounce.  In pixels mode each sample's
+// radiance goes to a stratum-major buffer, which the wrapper adds into
+// the pixel totals in stratum order (strata_sum.cu).  Each path runs to
+// termination with real branches instead of masked selects, and the
+// material / light tables (and in brute mode the triangle table) sit in
+// shared memory, where every thread of a converged warp reads the same
+// word (a broadcast).  The walk reads the BVH from global memory through
+// the read-only path, so the mode has no table budget (bpt_tpu's 480 KB
+// single-table limit, clusters.py:92-102, is a TPU SMEM bound).  Direct mat_tab[mat_id] indexing replaces the TPU
 // kernel's masked scans.  Draws are threefry2x32 keyed per slot with the
-// bounce in the counter, so a lane's stream does not depend on launch
-// shape.  Counters are exact 64-bit integers: rays, then the hit
-// provider's node visits, box hits, triangle tests and accepted tests
-// (bvh_walk.cuh).  The bounce itself is pt_shade.cuh's pt_bounce, which
-// the per-bounce wave kernel shares.
+// bounce in the counter and the absolute sample id pix * spp + k, so a
+// sample's stream does not depend on the lane or launch that runs it.
+// Counters are exact 64-bit integers: rays, then the hit provider's node
+// visits, box hits, triangle tests and accepted tests (bvh_walk.cuh).  The
+// bounce itself is pt_shade.cuh's pt_bounce, which the per-bounce wave
+// kernel shares.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -60,8 +70,10 @@ struct Params {
   int B, T, L, depth;
   int spp_loop;  // pixels mode: > 1 runs the strata of a pixel
   int sqrt_spp;
-  int k0, nk;    // walk mode, spp_loop > 1: the launch's strata [k0, k0 + nk)
-  int* next;     // walk mode: the work counter (walk_sched.cuh)
+  int k0, nk;    // pixels mode, spp_loop > 1: the launch's strata [k0, k0 + nk)
+  // the work counter, zeroed by the wrapper: walk mode int (warp_take),
+  // brute mode unsigned long long (warp_take_n)
+  void* next;
   const float* tri;   // brute mode: [MAX_TRIS * 13]
   Bvh g;              // walk mode: the BVH (g.N > 0)
   const int* mat_id;  // walk mode: [T]
@@ -73,8 +85,8 @@ struct Params {
   const float* in[6];
   const int* rid;     // [B] ray / sample / pixel id; < 0 = inactive lane
   const float* ubuf;  // optional [depth*NU, B] injected uniforms
-  // [B], or in the walk mode's pixels mode with spp_loop > 1 [nk][B]: the
-  // radiance of sample (lane, k) at (k - k0) * B + lane
+  // [B], or in pixels mode with spp_loop > 1 [nk][B]: the radiance of
+  // sample (lane, k) at (k - k0) * B + lane
   float* out_r;
   float* out_g;
   float* out_b;
@@ -95,16 +107,14 @@ struct Counts : TraceCounts {
   unsigned long long rays = 0;
 };
 
-// One path from (o, d) to termination: make_bounce's estimator
+// One path from its start `st` to termination: make_bounce's estimator
 // (pt_kernel.py:230-675) bounce after bounce, its closest hits from the
-// provider (bvh_walk.cuh: BruteHit or WalkHit over Counts), passed by
-// value; the rays count in the provider's counters.
+// provider (bvh_walk.cuh: WalkHit over Counts), passed by value; the rays
+// count in the provider's counters.
 template <class Closest>
 __device__ void trace_path(const Tables& s, int L, int depth, const Draws dr,
-                           float cox, float coy, float coz, float cdx,
-                           float cdy, float cdz, Closest closest, float& ar,
-                           float& ag, float& ab) {
-  PathState st{cox, coy, coz, cdx, cdy, cdz, 1.0f, 1.0f, 1.0f, 0.0f, 0.0f, 0.0f};
+                           PathState st, Closest closest, float& ar, float& ag,
+                           float& ab) {
   bool alive = true;
   for (int b = 0; b < depth; ++b) {
     closest.c.rays += 1;
@@ -150,19 +160,30 @@ __device__ __forceinline__ void stage_tables(const Params& p, Tables& s) {
   for (int k = threadIdx.x; k < nkeys; k += blockDim.x) s.keys[k] = p.keys[k];
 }
 
-// One sample of `lane`: its ray (rays mode), its stratum (pixels mode with
-// spp_loop 1: rid is the absolute sample id, the stratum in sx, sy), or
-// stratum k of its pixel (spp_loop > 1: rid is the pixel id, the sample id
-// pix*spp + k), traced with the provider `closest`.
-template <class Closest>
-__device__ __forceinline__ void sample(const Params& p, const Tables& s,
-                                       int lane, int rid, uint32_t k,
-                                       Closest closest, float& r, float& g,
-                                       float& b) {
+// A sample in flight: its path, the bounce it is at and the id its draws
+// are keyed by.
+struct Flight {
+  PathState st;
+  uint32_t ridu;
+  int b;
+};
+
+// Starts sample k of lane (rays mode: the lane's ray; pixels mode: the
+// stratum k of its pixel, or with spp_loop 1 the stratum in sx, sy).
+__device__ __forceinline__ void start_sample(const Params& p, const Tables& s,
+                                             int lane, int rid, uint32_t k,
+                                             Flight& f) {
+  f.b = 0;
+  f.st.tr = f.st.tg = f.st.tb = 1.0f;
+  f.st.ar = f.st.ag = f.st.ab = 0.0f;
   if (!p.pixels) {
-    const Draws dr{p.ubuf, p.B, s.keys, (uint32_t)rid, lane};
-    trace_path(s, p.L, p.depth, dr, p.in[0][lane], p.in[1][lane], p.in[2][lane],
-               p.in[3][lane], p.in[4][lane], p.in[5][lane], closest, r, g, b);
+    f.ridu = (uint32_t)rid;
+    f.st.ox = p.in[0][lane];
+    f.st.oy = p.in[1][lane];
+    f.st.oz = p.in[2][lane];
+    f.st.dx = p.in[3][lane];
+    f.st.dy = p.in[4][lane];
+    f.st.dz = p.in[5][lane];
     return;
   }
   uint32_t ridu = (uint32_t)rid;
@@ -178,37 +199,26 @@ __device__ __forceinline__ void sample(const Params& p, const Tables& s,
   }
   float o[3], d[3];
   stratum_ray(p.cam, s, ridu, p.in[0][lane], p.in[1][lane], sx, sy, o, d);
-  const Draws dr{p.ubuf, p.B, s.keys, ridu, lane};
-  trace_path(s, p.L, p.depth, dr, o[0], o[1], o[2], d[0], d[1], d[2], closest,
-             r, g, b);
+  f.ridu = ridu;
+  f.st.ox = o[0];
+  f.st.oy = o[1];
+  f.st.oz = o[2];
+  f.st.dx = d[0];
+  f.st.dy = d[1];
+  f.st.dz = d[2];
 }
 
-// The brute mode's lane: its ray, or its pixel's strata one after another,
-// each sample's radiance added into the pixel total in stratum order.
+// One sample of `lane` (start_sample) traced to termination with the
+// provider `closest` (the walk mode).
 template <class Closest>
-__device__ __forceinline__ void run_lane(const Params& p, const Tables& s,
-                                         Closest closest) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= p.B) return;
-  const int rid = p.rid[lane];
-  float tot_r = 0.0f, tot_g = 0.0f, tot_b = 0.0f;
-  if (rid >= 0) {
-    if (!p.pixels || p.spp_loop == 1) {
-      sample(p, s, lane, rid, 0u, closest, tot_r, tot_g, tot_b);
-    } else {
-      const uint32_t spp = (uint32_t)(p.sqrt_spp * p.sqrt_spp);
-      for (uint32_t k = 0; k < spp; ++k) {
-        float sr, sg, sb;
-        sample(p, s, lane, rid, k, closest, sr, sg, sb);
-        tot_r = tot_r + sr;
-        tot_g = tot_g + sg;
-        tot_b = tot_b + sb;
-      }
-    }
-  }
-  p.out_r[lane] = tot_r;
-  p.out_g[lane] = tot_g;
-  p.out_b[lane] = tot_b;
+__device__ __forceinline__ void sample(const Params& p, const Tables& s,
+                                       int lane, int rid, uint32_t k,
+                                       Closest closest, float& r, float& g,
+                                       float& b) {
+  Flight f;
+  start_sample(p, s, lane, rid, k, f);
+  const Draws dr{p.ubuf, p.B, s.keys, f.ridu, lane};
+  trace_path(s, p.L, p.depth, dr, f.st, closest, r, g, b);
 }
 
 // exact counters: warp sums, one 64-bit atomic per warp and counter
@@ -220,19 +230,86 @@ __device__ __forceinline__ void flush_counts(const Params& p, const Counts& c) {
   warp_add(c.hits, &p.counters[4]);
 }
 
+// A warp refills when at least PT_REFILL of its lanes are free: chosen on
+// the card (PERF.md §6).
+constexpr int PT_REFILL = 4;
+// The brute mode's register bound, __launch_bounds__(BLOCK, BRUTE_BLOCKS):
+// the kernel takes fewer registers, and its persistent grid holds as many
+// blocks an SM as the occupancy query finds (PERF.md §6).
+constexpr int BRUTE_BLOCKS = 5;
+
+// The brute mode's lanes: a persistent grid whose warps refill their free
+// lanes (walk_sched.cuh::warp_take_n), each lane running one bounce of
+// its sample an iteration: the TPU kernel's persistent-sample lanes
+// (pt_kernel.py:838-928) without the lockstep.  A work item is a sample:
+// item w = kk * B + lane is stratum k0 + kk of lane (rays mode, and pixels
+// mode with spp_loop 1: kk = 0), its radiance written to out[w]: a
+// stratum-major [nk][B], which the wrapper adds into the pixel totals in
+// stratum order.
+template <class Closest>
+__device__ __forceinline__ void brute_lanes(const Params& p, const Tables& s,
+                                            Closest closest,
+                                            unsigned long long* work) {
+  const long long n = (long long)p.B * p.nk;
+  int item = -1;  // the lane's work item; -1 when the lane is free
+  int lane = 0;
+  Flight f;
+  bool more = true;  // the launch's counter has items left (warp-uniform)
+  for (;;) {
+    __syncwarp();
+    unsigned busy = __ballot_sync(0xffffffffu, item >= 0);
+    const int n_free = 32 - __popc(busy);
+    if (more && n_free >= PT_REFILL) {
+      const long long base = warp_take_n(work, n_free);
+      more = base + n_free < n;
+      const long long w = base + rank_in(~busy);
+      if (item < 0 && w < n) {
+        const int kk = (int)(w / p.B);
+        lane = (int)(w - (long long)kk * p.B);
+        const int rid = p.rid[lane];
+        if (rid < 0) {  // an inactive lane writes 0 and stays free
+          p.out_r[w] = 0.0f;
+          p.out_g[w] = 0.0f;
+          p.out_b[w] = 0.0f;
+        } else {
+          item = (int)w;
+          start_sample(p, s, lane, rid, (uint32_t)(p.k0 + kk), f);
+        }
+      }
+      busy = __ballot_sync(0xffffffffu, item >= 0);
+    }
+    if (!busy) {
+      if (!more) break;
+      continue;
+    }
+    if (item < 0) continue;
+    bool alive = true;
+    if (f.b < p.depth) {  // depth 0: the path ends at its entry
+      closest.c.rays += 1;
+      const Draws dr{p.ubuf, p.B, s.keys, f.ridu, lane};
+      alive = pt_bounce(s.mat, s.lgt, p.L, dr, f.b, closest, f.st);
+      f.b += 1;
+      if (alive && f.b < p.depth) continue;
+    }
+    // depth-exhausted entry still counts (camera.h:256)
+    if (alive) closest.c.rays += 1;
+    p.out_r[item] = f.st.ar;
+    p.out_g[item] = f.st.ag;
+    p.out_b[item] = f.st.ab;
+    item = -1;
+  }
+}
+
 // Brute mode: the triangle table in shared memory, where every thread of a
-// converged warp reads the same word.  Five blocks an SM (20 warps): the
-// cap holds the kernel to 96 registers and a 32-byte stack.  Uncapped, the
-// shared bounce takes 110 registers and leaves 4 blocks, which measured
-// 9-18% slower at 512x512 x 16 spp (tools/ab_pt_megakernel.py).
-__global__ void __launch_bounds__(BLOCK, 5) pt_megakernel(const Params p) {
+// converged warp reads the same word, on a persistent grid (brute_lanes).
+__global__ void __launch_bounds__(BLOCK, BRUTE_BLOCKS) pt_megakernel(const Params p) {
   __shared__ Tables s;
   __shared__ float s_tri[MAX_TRIS * TRI_STRIDE];
   for (int k = threadIdx.x; k < p.T * TRI_STRIDE; k += blockDim.x) s_tri[k] = p.tri[k];
   stage_tables(p, s);
   __syncthreads();
   Counts cnt;
-  run_lane(p, s, BruteHit<Counts>{s_tri, p.T, cnt});
+  brute_lanes(p, s, BruteHit<Counts>{s_tri, p.T, cnt}, (unsigned long long*)p.next);
   flush_counts(p, cnt);
 }
 
@@ -248,7 +325,7 @@ __global__ void __launch_bounds__(BLOCK, WALK_MIN_BLOCKS) pt_megakernel_walk(con
   const WalkHit<Counts> closest{p.g, p.mat_id, cnt};
   const int n = p.B * p.nk;
   for (;;) {
-    const int base = warp_take(p.next);
+    const int base = warp_take((int*)p.next);
     if (base >= n) break;
     const int item = base + (threadIdx.x & 31);
     if (item >= n) continue;
@@ -269,13 +346,14 @@ __global__ void __launch_bounds__(BLOCK, WALK_MIN_BLOCKS) pt_megakernel_walk(con
 
 extern "C" {
 
-// Launches the megakernel on `stream`; returns cudaGetLastError() after the
-// launch (0 = launched), or cudaErrorInvalidValue for a table size or work
-// split the kernel does not take.  N > 0 selects the walk mode over the BVH
-// (nodes, tris, mat_id; tri unused) on `grid` persistent blocks, with the
-// work counter `next` and, in pixels mode with spp_loop > 1, the strata
-// [k0, k0 + nk); N == 0 the brute mode over tri (T <= 512), a thread a
-// lane.  All pointers are device pointers.
+// Launches the megakernel on `stream` on `grid` persistent blocks with the
+// work counter `next` (zeroed by the caller); returns cudaGetLastError()
+// after the launch (0 = launched), or cudaErrorInvalidValue for a table
+// size or work split the kernel does not take.  N > 0 selects the walk
+// mode over the BVH (nodes, tris, mat_id; tri unused; `next` an int), N ==
+// 0 the brute mode over tri (T <= 512; `next` an unsigned long long).  A
+// sample a work item: in pixels mode with spp_loop > 1 the strata
+// [k0, k0 + nk), else k0 = 0, nk = 1.  All pointers are device pointers.
 int bpt_pt_megakernel(int pixels, int B, int T, int L, int depth,
                       int spp_loop, int sqrt_spp, int N, int k0, int nk,
                       int grid, const float* tri, const float* nodes,
@@ -285,12 +363,11 @@ int bpt_pt_megakernel(int pixels, int B, int T, int L, int depth,
                       const float* in3, const float* in4, const float* in5,
                       const int* rid, const float* ubuf, float* out_r,
                       float* out_g, float* out_b,
-                      unsigned long long* counters, int* next, void* stream) {
+                      unsigned long long* counters, void* next, void* stream) {
   const bool strata = pixels && spp_loop > 1;
-  if (N < 0 || (N == 0 && (T < 0 || T > bpt::MAX_TRIS)) ||
-      (N > 0 && (grid < 1 || nk < 1 || k0 < 0 || (!strata && (k0 != 0 || nk != 1)) ||
-                 (strata && k0 + nk > sqrt_spp * sqrt_spp) ||
-                 (long long)B * nk > (1LL << 30)))) {
+  if (N < 0 || (N == 0 && (T < 0 || T > bpt::MAX_TRIS)) || grid < 1 || nk < 1 || k0 < 0 ||
+      (!strata && (k0 != 0 || nk != 1)) || (strata && k0 + nk > sqrt_spp * sqrt_spp) ||
+      (long long)B * nk > (1LL << 30)) {
     return (int)cudaErrorInvalidValue;
   }
   bpt::Params p;
@@ -327,8 +404,7 @@ int bpt_pt_megakernel(int pixels, int B, int T, int L, int depth,
     if (N > 0) {
       bpt::pt_megakernel_walk<<<grid, bpt::BLOCK, 0, (cudaStream_t)stream>>>(p);
     } else {
-      bpt::pt_megakernel<<<(B + bpt::BLOCK - 1) / bpt::BLOCK, bpt::BLOCK, 0,
-                           (cudaStream_t)stream>>>(p);
+      bpt::pt_megakernel<<<grid, bpt::BLOCK, 0, (cudaStream_t)stream>>>(p);
     }
   }
   return (int)cudaGetLastError();
@@ -339,6 +415,12 @@ int bpt_pt_megakernel(int pixels, int B, int T, int L, int depth,
 int bpt_pt_walk_blocks() {
   static int cache[64];
   return bpt::resident_blocks(bpt::pt_megakernel_walk, bpt::BLOCK, cache, 64);
+}
+
+// The same for pt_megakernel (the brute mode's persistent grid).
+int bpt_pt_brute_blocks() {
+  static int cache[64];
+  return bpt::resident_blocks(bpt::pt_megakernel, bpt::BLOCK, cache, 64);
 }
 
 const char* bpt_cuda_error_string(int code) {

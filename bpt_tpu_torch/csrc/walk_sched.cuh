@@ -2,8 +2,9 @@
 // bdpt_megakernel_walk) and of the brute-force BDPT megakernel
 // (bdpt_megakernel): one lane per sample, as many blocks as the card holds
 // at once, each warp taking its next 32 samples from a counter.  The wave
-// kernels closest_bvh and any_bvh (pt_wave.cu) run on such a grid too,
-// their warps taking rays for their free lanes (warp_take_n).
+// kernels closest_bvh and any_bvh (pt_wave.cu) and the brute-force PT
+// megakernel (pt_megakernel) run on such a grid too, their warps taking
+// rays or samples for their free lanes (warp_take_n).
 //
 // Why.  A walk-mode sample is a chain of BVH walks whose node loads depend
 // on each other, and its length depends on the path (a sample through the

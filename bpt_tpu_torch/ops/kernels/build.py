@@ -41,8 +41,8 @@ _I = ctypes.c_int
 #                     nk, grid, tri, nodes, tris, mat_id, mat, lgt, keys, cam,
 #                     in0..in5, rid, ubuf, vtx, out_r, out_g, out_b, counters,
 #                     next, stream)
-# bpt_pt_walk_blocks(), bpt_bdpt_walk_blocks(), bpt_bdpt_brute_blocks(): the
-# persistent megakernels' resident blocks
+# bpt_pt_walk_blocks(), bpt_pt_brute_blocks(), bpt_bdpt_walk_blocks(),
+# bpt_bdpt_brute_blocks(): the persistent megakernels' resident blocks
 # bpt_closest_bvh(B, N, bounds_ok, nodes, tris, ox, oy, oz, dx, dy, dz, active,
 #                 t, tri, u, v, counters, stream)
 # bpt_any_bvh(B, N, bounds_ok, nodes, tris, ox, oy, oz, dx, dy, dz, tmax, hit,
@@ -50,6 +50,7 @@ _I = ctypes.c_int
 # bpt_pt_wave_bounce(B, N, L, bounce, nodes, tris, mat_id, mat, lgt, keys,
 #                    state_in, rid, hit_t, hit_tri, state_out, counters, stream)
 # bpt_wave_blocks(), bpt_any_blocks(): closest_bvh's and any_bvh's persistent grids
+# bpt_strata_sum(first, B, nk, rows, tot, stream)
 # bpt_closest_tri(f64, B, T, tri, ox, oy, oz, dx, dy, dz, tmin, tmax,
 #                 t, tri_out, u, v, stream)
 # bpt_any_tri(f64, B, T, tri, ox, oy, oz, dx, dy, dz, tmin, tmax, hit, stream)
@@ -62,6 +63,7 @@ _SIGNATURES = {
     "bpt_bdpt_megakernel": ([_I] * 12 + [_P] * 8 + [_P] * 6 + [_P] * 3
                             + [_P] * 4 + [_P] * 2, _I),
     "bpt_pt_walk_blocks": ([], _I),
+    "bpt_pt_brute_blocks": ([], _I),
     "bpt_bdpt_walk_blocks": ([], _I),
     "bpt_bdpt_brute_blocks": ([], _I),
     "bpt_closest_bvh": ([_I] * 3 + [_P] * 2 + [_P] * 7 + [_P] * 4 + [_P] * 2, _I),
@@ -69,6 +71,7 @@ _SIGNATURES = {
     "bpt_pt_wave_bounce": ([_I] * 4 + [_P] * 6 + [_P] * 5 + [_P] * 2, _I),
     "bpt_wave_blocks": ([], _I),
     "bpt_any_blocks": ([], _I),
+    "bpt_strata_sum": ([_I] * 3 + [_P] * 2 + [_P], _I),
     "bpt_closest_tri": ([_I] * 3 + [_P] + [_P] * 8 + [_P] * 4 + [_P], _I),
     "bpt_any_tri": ([_I] * 3 + [_P] + [_P] * 8 + [_P] + [_P], _I),
     "bpt_clustered_hit": ([_I] * 5 + [_P] * 2 + [_P] * 8 + [_P] * 5 + [_P] * 2, _I),

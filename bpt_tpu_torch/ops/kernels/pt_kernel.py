@@ -14,12 +14,14 @@ hit provider's: node visits and box hits are 0 in the sweep, which counts
 T triangle tests a closest hit and one accepted test a hit; the walk
 counts as ``closest_bvh`` does.
 
-The walk mode runs one sample a work item on a persistent grid
-(``csrc/walk_sched.cuh``): in pixels mode with more than one stratum each
-launch writes its samples' radiance stratum by stratum and the wrapper
-adds them into the pixel totals in stratum order (``walk_launches``), over
-as many launches as ``stratum_ranges`` plans; a call can thus launch the
-kernel more than once, and counts each launch.
+Both modes run one sample a work item on a persistent grid
+(``csrc/walk_sched.cuh``; the brute mode's lanes a flat bounce loop whose
+warps refill their free lanes): in pixels mode with more than one stratum
+each launch writes its samples' radiance stratum by stratum and the
+wrapper adds them into the pixel totals in stratum order
+(``walk_launches``, ``strata_sum``: ``csrc/strata_sum.cu``), over as many
+launches as ``stratum_ranges`` plans; a call can thus launch the kernel
+more than once, and counts each launch.
 
 Dispatch is by device: a CPU tensor takes the plain PyTorch version (the
 ``models.pt`` wavefront on the same threefry stream, over
@@ -278,49 +280,90 @@ def walk_args(scene):
     return int(nodes.shape[0]), nodes.data_ptr(), tris.data_ptr(), mat_id
 
 
-# The walk mode's per-sample radiance a launch may hold, [3, k1 - k0, B] f32
+# The per-sample radiance a pixels-mode launch may hold, [3, k1 - k0, B] f32
 # (stratum_ranges)
 STRATA_BYTES = 256 << 20
-WALK_BLOCK = 128  # threads a block of the walk kernels (csrc BLOCK)
+WALK_BLOCK = 128  # threads a block of the persistent megakernels (csrc BLOCK)
 
 
 def stratum_ranges(B: int, spp: int, budget=None) -> list:
-    """The walk mode's launches of a pixels-mode call over B lanes and spp
-    strata: stratum ranges [k0, k1) in order, each as many strata as keep
-    its per-sample radiance, 12 bytes a sample, within ``budget`` bytes
-    (``STRATA_BYTES``); one stratum a range where even one is over it."""
+    """The persistent megakernels' launches of a pixels-mode call over B
+    lanes and spp strata: stratum ranges [k0, k1) in order, each as many
+    strata as keep its per-sample radiance, 12 bytes a sample, within
+    ``budget`` bytes (``STRATA_BYTES``); one stratum a range where even one
+    is over it."""
     budget = STRATA_BYTES if budget is None else budget
     per = max(1, budget // (12 * max(1, B)))
     return [(k0, min(spp, k0 + per)) for k0 in range(0, spp, per)]
 
 
 def walk_grid(resident_blocks, items: int) -> int:
-    """Persistent blocks of a walk-mode launch of ``items`` samples: as many
-    as the card holds at once (``resident_blocks()``, the C occupancy
+    """Persistent blocks of a megakernel launch of ``items`` samples: as
+    many as the card holds at once (``resident_blocks()``, the C occupancy
     query), and no more than the items fill."""
     blocks = resident_blocks()
     if blocks <= 0:
-        raise RuntimeError(f"walk kernel occupancy query failed: CUDA error {-blocks}")
+        raise RuntimeError(f"megakernel occupancy query failed: CUDA error {-blocks}")
     return max(1, min(blocks, -(-items // WALK_BLOCK)))
 
 
+def strata_sum_plain(rows, tot, first: bool):
+    """Plain version of ``strata_sum``: one elementwise add a stratum."""
+    strata_sum_plain.calls += 1
+    if first:
+        tot.zero_()
+    for k in range(rows.shape[1]):
+        tot += rows[:, k]
+    return tot
+
+
+strata_sum_plain.calls = 0
+
+
+def strata_sum(rows, tot, first: bool):
+    """Adds a launch's per-sample radiance ``rows`` [3, nk, B] into the lane
+    totals ``tot`` [3, B] (from zeros when ``first``) one stratum after
+    another, the float-add sequence ((tot + s0) + s1) + ... of a lane
+    summing its strata in order; returns ``tot``.  A CPU tensor takes the
+    plain version; a CUDA tensor launches ``csrc/strata_sum.cu`` or
+    raises."""
+    if _device_of(rows).type == "cpu":
+        return strata_sum_plain(rows, tot, first)
+    dev = rows.device
+    nk, B = (int(rows.shape[1]), int(rows.shape[2])) if rows.dim() == 3 else (0, 0)
+    _checked(rows, (3, nk, B), dev, "rows")
+    _checked(tot, (3, B), dev, "tot")
+    if nk < 1 or not (rows.is_contiguous() and tot.is_contiguous()):
+        raise ValueError("strata_sum takes contiguous rows [3, nk >= 1, B] and tot [3, B]")
+    with torch.cuda.device(dev):
+        code = build.load_library().bpt_strata_sum(
+            int(first), B, nk, rows.data_ptr(), tot.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(code, "strata_sum")
+    strata_sum.launches += 1
+    return tot
+
+
+strata_sum.launches = 0
+
+
 def walk_launches(B: int, pixels: bool, spp: int, launch, dev) -> torch.Tensor:
-    """The walk mode's launches of one call: one over B samples, or in
-    pixels mode with spp > 1 one a stratum range.  ``launch(k0, nk, out)``
-    runs the kernel on [k0, k0 + nk) into out [3, nk, B] on ``dev``.
+    """The persistent megakernels' launches of one call: one over B samples,
+    or in pixels mode with spp > 1 one a stratum range.  ``launch(k0, nk,
+    out)`` runs the kernel on [k0, k0 + nk) into out [3, nk, B] on ``dev``.
     Returns the lane totals [3, B]: each range's rows added one stratum
-    after another from zeros, the float-add sequence ((0 + s0) + s1) + ...
-    of a lane summing its strata in order, so no split changes a bit."""
+    after another from zeros (``strata_sum``), the float-add sequence
+    ((0 + s0) + s1) + ... of a lane summing its strata in order, so no
+    split changes a bit."""
     if not pixels or spp == 1:
         out = torch.empty((3, 1, B), dtype=torch.float32, device=dev)
         launch(0, 1, out)
         return out[:, 0]
-    tot = torch.zeros((3, B), dtype=torch.float32, device=dev)
+    tot = torch.empty((3, B), dtype=torch.float32, device=dev)
     for k0, k1 in stratum_ranges(B, spp):
         rows = torch.empty((3, k1 - k0, B), dtype=torch.float32, device=dev)
         launch(k0, k1 - k0, rows)
-        for k in range(k1 - k0):
-            tot += rows[:, k]
+        strata_sum(rows, tot, first=k0 == 0)
     return tot
 
 
@@ -333,31 +376,25 @@ def _launch(wrapper, scene, ins, ray_ids, keys, depth, pixels, cam=None,
         ubuf = _checked(ubuf, (depth * NU, B), dev, "uniforms")
     counters = torch.zeros(5, dtype=torch.int64, device=dev)
     lib = build.load_library()
+    blocks = lib.bpt_pt_walk_blocks if N else lib.bpt_pt_brute_blocks
 
-    def launch(k0, nk, out, grid=0, nxt=None):
+    def launch(k0, nk, out):
+        nxt = torch.zeros(1, dtype=torch.int32 if N else torch.int64, device=dev)
         code = lib.bpt_pt_megakernel(
             int(pixels), B, scene.num_tris, scene.num_lights, int(depth),
-            int(spp_loop), int(sqrt_spp), N, k0, nk, grid,
+            int(spp_loop), int(sqrt_spp), N, k0, nk, walk_grid(blocks, B * nk),
             tri.data_ptr(), nodes, tris, None if mat_id is None else mat_id.data_ptr(),
             mat.data_ptr(), lgt.data_ptr(), keys_t.data_ptr(),
             cam_t.data_ptr(), *(x.data_ptr() for x in ins), rid.data_ptr(),
             None if ubuf is None else ubuf.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            counters.data_ptr(), nxt, stream)
+            counters.data_ptr(), nxt.data_ptr(), stream)
         build.check(code, "pt_megakernel")
         wrapper.launches += 1
 
-    def launch_walk(k0, nk, out):
-        nxt = torch.zeros(1, dtype=torch.int32, device=dev)
-        launch(k0, nk, out, walk_grid(lib.bpt_pt_walk_blocks, B * nk), nxt.data_ptr())
-
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if N:
-            out = walk_launches(B, pixels, spp_loop, launch_walk, dev)
-        else:
-            out = torch.empty((3, B), dtype=torch.float32, device=dev)
-            launch(0, 1, out)
+        out = walk_launches(B, pixels, spp_loop, launch, dev)
     return out[0], out[1], out[2], counters[0], counters[1:]
 
 

@@ -31,6 +31,10 @@
    the fused PT path on this scene unchanged since the round-4 run, so
    that gap lies between TPU and CPU arithmetic, not in the code.  That
    count is printed, not checked.  Writes output/chip_smoke_cornell_pt.png.
+   strata_sum (the in-order add of a launch's per-sample radiance into the
+   pixel totals) must launch once a megakernel launch, and on the
+   warm-up's own rows equal its plain version to the bit; timed beside
+   its plain version and torch.sum.
    Then the same for BDPT and BDPT-MIS (the CLI's default integrator and
    its MIS variant): each kernel launched, the plain version never, the
    image deterministic, finite and not black; rays_traced and shadow_rays
@@ -133,12 +137,12 @@
    defocus angle 1 focused at the room's centre, with pt and with bdpt —
    one warm-up and three timed renders each through the stratum loop,
    launching pt_megakernel / bdpt_megakernel in rays mode only, no plain
-   version; walls and Mrays/s printed.  The bdpt warm-up's one
-   bdpt_megakernel launch (B = 4,194,304) timed on its own inputs and
-   held against its plain version there (defocus_wave_vs_plain): its
+   version; walls and Mrays/s printed.  Each warm-up's one pt_megakernel /
+   bdpt_megakernel launch (B = 4,194,304) timed on its own inputs, bounded
+   and held against its plain version there (defocus_wave_vs_plain): its
    radiance on every 16th lane equal to the bit to that slice's own
-   launch, and the slice within rtol 1e-4 / atol 1e-5 of
-   bdpt_megakernel_plain on >= 99.9% of lanes, all six counters exact.
+   launch, and the slice within rtol 1e-4 / atol 1e-6 (PT) or 1e-5 (BDPT)
+   of the plain version on >= 99.9% of lanes, every counter exact.
 14. The CLI's --f64 (64x64, 4 spp; its BDPT default) in this process:
    exit 0, the float64 closest_tri / any_tri launched, no plain version.
 15. The megakernels' walk mode (scenes over 512 triangles, the clustered
@@ -221,6 +225,13 @@
    both modes with its counters equal, dead lanes' rows copied to the bit,
    live lanes equal to the bit to the same lanes launched alone, packed,
    and within rtol 1e-4 / atol 1e-6 of the plain version.  The brute-force
+   PT kernel on its persistent grid (brute_pt_cases): rays mode at B = 1,
+   31, 37, four times its persistent grid and 5 lanes more, every lane
+   inactive, one live lane in ten scattered, live lanes equal to the bit
+   to their packed launch; pixels mode at depth 1 and at depth 80 (the
+   mixed scene), with spp_loop 1 and over 4 stratum ranges; rays mode
+   with injected uniforms: rtol 1e-4 / atol 1e-6 on >= 99.9% of lanes,
+   all five counters exact.  The brute-force
    BDPT kernel on its persistent grid (brute_bdpt_cases), bdpt and
    bdpt-mis: rays mode on cornell camera rays at B = 1, 31, 37, four times
    its persistent grid and 5 lanes more, every lane inactive, one live
@@ -743,10 +754,171 @@ def mixed_scene(dev):
     return mb.build(device=dev)
 
 
+def cornell_lanes(cc, name, B, seed, dev):
+    """(o, d, ids) of a brute-force edge case: the cornell camera's rays
+    through random points of a 512x512 image (``cc``), one lane in 13
+    inactive; "scattered": one live lane in ten at random places; "all
+    inactive": none live."""
+    import numpy as np
+    import torch
+
+    from bpt_tpu_torch.core.vec3 import Vec3
+    from bpt_tpu_torch.models.camera import generate_rays
+
+    g = np.random.default_rng(seed)
+    px = torch.from_numpy(g.integers(0, 512, (2, B)).astype(np.float32)).to(dev)
+    u = torch.from_numpy(g.uniform(size=(B, 4)).astype(np.float32)).to(dev)
+    o, d = generate_rays(cc, px[0], px[1], px[0] * 0, px[1] * 0, u)
+    ids = torch.arange(B, dtype=torch.int32, device=dev)
+    if name == "scattered":
+        ids = torch.where(torch.from_numpy(g.uniform(size=B) < 0.1).to(dev), ids, -1)
+    else:
+        ids[5::13] = -1
+    if name == "all inactive":
+        ids[:] = -1
+    return Vec3(*o.unbind(1)), Vec3(*d.unbind(1)), ids
+
+
+def held(name, kout, pout, launched, want_launches, atol):
+    """Checks a brute-force edge case against its plain version: the
+    launches, >= 99.9% of lanes within rtol 1e-4 / ``atol``, every counter
+    exact.  Returns (fraction within tolerance, max abs err, counters)."""
+    import torch
+
+    got, want = (torch.stack(x[:3], 1) for x in (kout, pout))
+    f, e, _ = agreement(got, want, atol) if got.shape[0] else (1.0, 0.0, 0)
+    kc, pc = counters(kout), counters(pout)
+    check(launched == want_launches, f"{name}: {launched} launches, not {want_launches}")
+    check(f >= MIN_FRAC, f"{name}: only {f:.5f} of lanes agree with the plain version")
+    check(kc == pc, f"{name}: counters kernel {kc} plain {pc}")
+    return f, e, kc
+
+
+def packed_equal(what, mk, kout, a, ids, kw):
+    """Checks that an edge case's inactive lanes are 0 and its live lanes
+    equal to the bit to the same lanes launched alone, packed (rays mode:
+    ``a`` = (scene, o, d, ids, ...))."""
+    import torch
+
+    from bpt_tpu_torch.core.vec3 import Vec3
+
+    live = ids >= 0
+    scene, o, d, _, *rest = a
+    packed = mk(scene, Vec3(*(x[live] for x in o)), Vec3(*(x[live] for x in d)), ids[live],
+                *rest, **kw)
+    check(all(float(c[~live].abs().sum()) == 0.0 for c in kout[:3]),
+          f"{what}: an inactive lane has radiance")
+    check(all(torch.equal(c[live], pc) for c, pc in zip(kout[:3], packed[:3]))
+          and counters(packed) == counters(kout), f"{what}: differs from its live lanes packed")
+
+
+def brute_pt_cases(dev, card) -> dict:
+    """The brute-force PT kernel on its persistent grid, whose lanes run a
+    flat bounce loop, against its plain version: rays mode at depth 10 on
+    the cornell camera's rays (cornell_lanes), B = 1, 31 and 37, 4 x the
+    persistent grid's threads and 5 more, every lane inactive, one live
+    lane in ten scattered among 4096: radiance within rtol 1e-4 / atol
+    1e-6 on >= 99.9% of lanes, all five counters exact, inactive lanes 0,
+    live lanes equal to the bit to the same lanes launched alone, packed.
+    Then pixels mode at depth 1 (cornell, 16x16 x 4 spp) and 80 (the mixed
+    scene), pixels mode with spp_loop 1 (each stratum a lane), rays mode
+    with injected uniforms, and pixels mode over 4 stratum ranges
+    (pt_kernel.STRATA_BYTES patched to one stratum a launch): the same
+    tolerance, counters exact."""
+    import numpy as np
+    import torch
+
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.models.camera import camera_constants
+    from bpt_tpu_torch.models.pt import NU
+    from bpt_tpu_torch.ops.kernels import build
+    from bpt_tpu_torch.ops.kernels import pt_kernel as pk
+    from bpt_tpu_torch.scene.presets import cornell_box, cornell_box_camera
+
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        blocks = lib.bpt_pt_brute_blocks()
+    check(blocks > 0, f"pt_megakernel's occupancy query failed: CUDA error {-blocks}")
+    cornell, mixed = cornell_box(device=dev), mixed_scene(dev)
+    cc = camera_constants(dataclasses.replace(cornell_box_camera(), image_width=512),
+                          torch.float32, dev)
+    key = rng.prng_key(17)
+    cases = {"B=1": 1, "B=31": 31, "B=37": 37, "past 4 grids": 4 * blocks * 128 + 5,
+             "all inactive": 4096, "scattered": 4096}
+    worst = 0.0
+    for seed, (name, B) in enumerate(cases.items()):
+        t0 = time.monotonic()
+        o, d, ids = cornell_lanes(cc, name, B, 20 + seed, dev)
+        a = (cornell, o, d, ids, key, 10)
+        n = pk.pt_megakernel.launches
+        kout = pk.pt_megakernel(*a)
+        launched = pk.pt_megakernel.launches - n
+        pout = pk.pt_megakernel_plain(*a)
+        what = f"pt_megakernel {name} (B={B})"
+        f, e, kc = held(what, kout, pout, launched, 1, ATOL)
+        packed_equal(what, pk.pt_megakernel, kout, a, ids, {})
+        worst = max(worst, e)
+        print(f"phase 22: {what}, {int((ids >= 0).sum())} live: {f * 100:.4f}% of lanes "
+              f"within rtol {RTOL} / atol {ATOL}, max abs err {e:.3e}; counters {kc} exact; "
+              f"live lanes equal to their packed launch; {time.monotonic() - t0:.1f} s ({card})")
+    modes = ("depth 1", "depth 80", "spp_loop 1", "injected", "ranges")
+    for name in modes:
+        t0 = time.monotonic()
+        want_launches = 1
+        if name == "injected":
+            o, d, ids = cornell_lanes(cc, name, 4096, 29, dev)
+            u = torch.from_numpy(np.random.default_rng(30).uniform(
+                size=(10 * NU, 4096)).astype(np.float32)).to(dev)
+            a, kw = (cornell, o, d, ids, key, 10), dict(uniforms=u)
+            mk, plain = pk.pt_megakernel, pk.pt_megakernel_plain
+        else:
+            W, S = 16, 2
+            depth = {"depth 1": 1, "depth 80": 80}.get(name, 10)
+            cc16 = camera_constants(dataclasses.replace(
+                cornell_box_camera(), image_width=W, samples_per_pixel=S * S), torch.float32, dev)
+            pix = torch.arange(W * W, dtype=torch.int32, device=dev)
+            if name == "spp_loop 1":  # each stratum a lane, its absolute sample id
+                st = torch.arange(S * S, dtype=torch.int32, device=dev).repeat_interleave(W * W)
+                pix = pix.repeat(S * S)
+                ids = pix * (S * S) + st
+                ids[3::7] = -1
+                i, j = (pix % W).float(), (pix // W).float()
+                sx, sy = (st % S).float(), (st // S).float()
+                kw = dict(spp_loop=1, sqrt_spp=S)
+            else:
+                ids = pix.clone()
+                ids[3::7] = -1
+                i, j = (pix % W).float(), (pix // W).float()
+                sx, sy = i * 0, j * 0
+                kw = dict(spp_loop=S * S, sqrt_spp=S)
+            a = (mixed if name == "depth 80" else cornell, i, j, sx, sy, ids,
+                 pk.camera_table(cc16), key, depth)
+            mk, plain = pk.pt_megakernel_pixels, pk.pt_megakernel_pixels_plain
+        with contextlib.ExitStack() as stack:
+            if name == "ranges":
+                budget = pk.STRATA_BYTES
+                pk.STRATA_BYTES = 12 * ids.numel()
+                stack.callback(setattr, pk, "STRATA_BYTES", budget)
+                want_launches = kw["spp_loop"]
+            n = mk.launches
+            kout = mk(*a, **kw)
+            launched = mk.launches - n
+        pout = plain(*a, **kw)
+        what = f"{mk.__name__} {name}"
+        f, e, kc = held(what, kout, pout, launched, want_launches, ATOL)
+        worst = max(worst, e)
+        print(f"phase 22: {what}: {launched} launch(es), {f * 100:.4f}% of lanes within rtol "
+              f"{RTOL} / atol {ATOL}, max abs err {e:.3e}; counters {kc} exact; "
+              f"{time.monotonic() - t0:.1f} s ({card})")
+    print(f"phase 22: pt_megakernel's persistent grid: {blocks} blocks of 128 threads ({card})")
+    return {"blocks": blocks, "max_abs_err": worst,
+            "cases": list(cases) + list(modes)}
+
+
 def brute_bdpt_cases(dev, card) -> dict:
     """The brute-force BDPT kernel on its persistent grid against its plain
     version, bdpt and bdpt-mis: rays mode at depth 10 on the cornell
-    camera's rays through random points of a 512x512 image, B = 1, 31 and
+    camera's rays (cornell_lanes), B = 1, 31 and
     37, 4 x the persistent grid's threads and 5 more, every lane inactive,
     one live lane in ten scattered among 4096 (else one in 13 inactive):
     radiance within rtol 1e-4 / atol 1e-5 on >= 99.9% of lanes, all six
@@ -760,8 +932,7 @@ def brute_bdpt_cases(dev, card) -> dict:
     import torch
 
     from bpt_tpu_torch.core import rng
-    from bpt_tpu_torch.core.vec3 import Vec3
-    from bpt_tpu_torch.models.camera import camera_constants, generate_rays
+    from bpt_tpu_torch.models.camera import camera_constants
     from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
     from bpt_tpu_torch.ops.kernels import build
     from bpt_tpu_torch.ops.kernels import pt_kernel as pk
@@ -776,49 +947,22 @@ def brute_bdpt_cases(dev, card) -> dict:
                           torch.float32, dev)
     key = rng.prng_key(7)
 
-    def lanes(name, B, seed):
-        g = np.random.default_rng(seed)
-        px = torch.from_numpy(g.integers(0, 512, (2, B)).astype(np.float32)).to(dev)
-        u = torch.from_numpy(g.uniform(size=(B, 4)).astype(np.float32)).to(dev)
-        o, d = generate_rays(cc, px[0], px[1], px[0] * 0, px[1] * 0, u)
-        ids = torch.arange(B, dtype=torch.int32, device=dev)
-        if name == "scattered":
-            ids = torch.where(torch.from_numpy(g.uniform(size=B) < 0.1).to(dev), ids, -1)
-        else:
-            ids[5::13] = -1
-        if name == "all inactive":
-            ids[:] = -1
-        return Vec3(*o.unbind(1)), Vec3(*d.unbind(1)), ids
-
-    def held(name, kout, pout, launched, want_launches):
-        got, want = (torch.stack(x[:3], 1) for x in (kout, pout))
-        f, e, _ = agreement(got, want, BDPT_ATOL) if got.shape[0] else (1.0, 0.0, 0)
-        kc, pc = counters(kout), counters(pout)
-        check(launched == want_launches, f"{name}: {launched} launches, not {want_launches}")
-        check(f >= MIN_FRAC, f"{name}: only {f:.5f} of lanes agree with the plain version")
-        check(kc == pc, f"{name}: counters kernel {kc} plain {pc}")
-        return f, e, kc
-
     cases = {"B=1": 1, "B=31": 31, "B=37": 37, "past 4 grids": 4 * blocks * 128 + 5,
              "all inactive": 4096, "scattered": 4096}
     worst = 0.0
     for seed, (name, B) in enumerate(cases.items()):
-        o, d, ids = lanes(name, B, seed)
+        o, d, ids = cornell_lanes(cc, name, B, seed, dev)
         live = ids >= 0
         for mis in (False, True):
             t0 = time.monotonic()
             n = bk.bdpt_megakernel.launches
-            kout = bk.bdpt_megakernel(cornell, o, d, ids, key, 10, mis=mis)
+            a = (cornell, o, d, ids, key, 10)
+            kout = bk.bdpt_megakernel(*a, mis=mis)
             launched = bk.bdpt_megakernel.launches - n
-            pout = bk.bdpt_megakernel_plain(cornell, o, d, ids, key, 10, mis=mis)
-            packed = bk.bdpt_megakernel(cornell, Vec3(*(x[live] for x in o)),
-                                        Vec3(*(x[live] for x in d)), ids[live], key, 10, mis=mis)
+            pout = bk.bdpt_megakernel_plain(*a, mis=mis)
             what = f"bdpt_megakernel {'bdpt-mis' if mis else 'bdpt'} {name} (B={B})"
-            f, e, kc = held(what, kout, pout, launched, 1)
-            check(all(float(c[~live].abs().sum()) == 0.0 for c in kout[:3]),
-                  f"{what}: an inactive lane has radiance")
-            check(all(torch.equal(c[live], pc) for c, pc in zip(kout[:3], packed[:3]))
-                  and counters(packed) == kc, f"{what}: differs from its live lanes packed")
+            f, e, kc = held(what, kout, pout, launched, 1, BDPT_ATOL)
+            packed_equal(what, bk.bdpt_megakernel, kout, a, ids, dict(mis=mis))
             worst = max(worst, e)
             print(f"phase 22: {what}, {int(live.sum())} live: {f * 100:.4f}% of lanes within "
                   f"rtol {RTOL} / atol {BDPT_ATOL}, max abs err {e:.3e}; counters {kc} exact; "
@@ -829,7 +973,7 @@ def brute_bdpt_cases(dev, card) -> dict:
             t0 = time.monotonic()
             with contextlib.ExitStack() as stack:
                 if name == "injected":
-                    o, d, ids = lanes(name, 4096, 9)
+                    o, d, ids = cornell_lanes(cc, name, 4096, 9, dev)
                     u = torch.from_numpy(np.random.default_rng(10).uniform(
                         size=(bk.n_uniform_slots(10), 4096)).astype(np.float32)).to(dev)
                     a, kw = (cornell, o, d, ids, key, 10), dict(uniforms=u, mis=mis)
@@ -860,7 +1004,7 @@ def brute_bdpt_cases(dev, card) -> dict:
                 launched = mk.launches - n
                 pout = plain(*a, **kw)
             what = f"{mk.__name__} {'bdpt-mis' if mis else 'bdpt'} {name}"
-            f, e, kc = held(what, kout, pout, launched, want_launches)
+            f, e, kc = held(what, kout, pout, launched, want_launches, BDPT_ATOL)
             worst = max(worst, e)
             print(f"phase 22: {what}: {launched} launch(es), {f * 100:.4f}% of lanes within "
                   f"rtol {RTOL} / atol {BDPT_ATOL}, max abs err {e:.3e}; counters {kc} exact; "
@@ -870,33 +1014,37 @@ def brute_bdpt_cases(dev, card) -> dict:
             "cases": list(cases) + ["depth 1", "depth 80", "injected", "ranges"]}
 
 
-def defocus_wave_vs_plain(args, kw, stride=16):
-    """The cornell defocus BDPT wave's launch (rays mode; ``args``, ``kw``
-    as the render made it) against its plain version.  The plain version
-    holds every lane's subpaths at once, too much for all 4,194,304 lanes,
-    so it runs on every ``stride``-th lane, after the whole launch's
-    radiance on those lanes is shown equal to the bit to that slice's own
-    launch (a lane's sample depends on its ray and id only).  The slice against
-    ``bdpt_megakernel_plain``: rtol 1e-4 / atol 1e-5 on >= 99.9% of lanes,
-    all six counters exact.  Returns (the whole launch's outputs, fraction
+def defocus_wave_vs_plain(name, args, kw, stride=16):
+    """A cornell defocus wave's launch (rays mode; ``name`` pt or bdpt,
+    ``args``, ``kw`` as the render made them) against its plain version.
+    The plain version holds every lane's state at once, too much for all
+    4,194,304 lanes, so it runs on every ``stride``-th lane, after the
+    whole launch's radiance on those lanes is shown equal to the bit to
+    that slice's own launch (a lane's sample depends on its ray and id
+    only).  The slice against ``pt_megakernel_plain`` (rtol 1e-4 / atol
+    1e-6) or ``bdpt_megakernel_plain`` (atol 1e-5) on >= 99.9% of lanes,
+    every counter exact.  Returns (the whole launch's outputs, fraction
     within tolerance, max abs err, plain ms, lanes compared)."""
     import torch
 
     from bpt_tpu_torch.core.vec3 import Vec3
     from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
+    from bpt_tpu_torch.ops.kernels import pt_kernel as pk
 
+    mod = pk if name == "pt" else bk
+    mk, plain = getattr(mod, f"{name}_megakernel"), getattr(mod, f"{name}_megakernel_plain")
     scene, o, d, ids, *rest = args
-    full = bk.bdpt_megakernel(*args, **kw)
+    full = mk(*args, **kw)
     sl = torch.arange(0, ids.shape[0], stride, device=ids.device)
     s_args = (scene, Vec3(*(x[sl] for x in o)), Vec3(*(x[sl] for x in d)), ids[sl], *rest)
-    kout = bk.bdpt_megakernel(*s_args, **kw)
+    kout = mk(*s_args, **kw)
     check(all(torch.equal(a[sl], b) for a, b in zip(full[:3], kout[:3])),
-          f"defocus bdpt wave: its launch on every {stride}th lane differs from the whole "
+          f"defocus {name} wave: its launch on every {stride}th lane differs from the whole "
           "launch on those lanes")
-    pout, p_ms = timed(lambda: bk.bdpt_megakernel_plain(*s_args, **kw))
-    f, e = compare(f"phase 13: bdpt_megakernel on every {stride}th lane of the defocus bdpt "
+    pout, p_ms = timed(lambda: plain(*s_args, **kw))
+    f, e = compare(f"phase 13: {mk.__name__} on every {stride}th lane of the defocus {name} "
                    f"wave (B={int(sl.numel())})", kout, pout, exact_counts=True,
-                   atol=BDPT_ATOL)
+                   atol=ATOL if name == "pt" else BDPT_ATOL)
     return full, f, e, p_ms, int(sl.numel())
 
 
@@ -1135,13 +1283,19 @@ def main() -> int:
     cfg = dataclasses.replace(cornell_box_camera(), image_width=512,
                               samples_per_pixel=16, max_depth=10,
                               integrator="pt")
-    render(scene, cfg, seed=0)  # warm-up
-    pk.pt_megakernel.launches = pk.pt_megakernel_pixels.launches = 0
+    with capture(pk, "strata_sum") as sums3:  # warm-up; records the in-order sum's launch
+        render(scene, cfg, seed=0)
+    pk.pt_megakernel.launches = pk.pt_megakernel_pixels.launches = pk.strata_sum.launches = 0
     pk.pt_megakernel_plain.calls = pk.pt_megakernel_pixels_plain.calls = 0
+    pk.strata_sum_plain.calls = 0
     results = [render(scene, cfg, seed=0) for _ in range(3)]
     launches = pk.pt_megakernel.launches + pk.pt_megakernel_pixels.launches
-    plain_calls = pk.pt_megakernel_plain.calls + pk.pt_megakernel_pixels_plain.calls
+    sum_launches = pk.strata_sum.launches
+    plain_calls = (pk.pt_megakernel_plain.calls + pk.pt_megakernel_pixels_plain.calls
+                   + pk.strata_sum_plain.calls)
     check(pk.pt_megakernel_pixels.launches > 0, "main path launched no kernel")
+    check(sum_launches == pk.pt_megakernel_pixels.launches,
+          f"main path: {sum_launches} strata_sum launches, not one a megakernel launch")
     check(plain_calls == 0, f"main path called the plain version {plain_calls} times")
     walls = [r.stats.wall_seconds for r in results]
     wall = statistics.median(walls)
@@ -1163,8 +1317,27 @@ def main() -> int:
           f"{(rays - EXPECTED_RAYS) / EXPECTED_RAYS * 100:+.4f}%; TPU bench "
           f"{TPU_BENCH_RAYS}, {(rays - TPU_BENCH_RAYS) / TPU_BENCH_RAYS * 100:+.4f}%)"
           f"; tri tests {res.stats.triangle_tests}, "
-          f"tri hits {res.stats.triangle_hits}; kernel launches {launches}, "
-          f"plain calls {plain_calls}; wrote {path} ({card})")
+          f"tri hits {res.stats.triangle_hits}; kernel launches {launches}, strata_sum "
+          f"launches {sum_launches}, plain calls {plain_calls}; wrote {path} ({card})")
+    # strata_sum at the main path's shape: the rows of the warm-up's launch
+    # (one stratum range, added from zeros), bitwise against its plain version
+    check(len(sums3) == 1 and sums3[0][1]["first"], "main path: not one strata_sum from zeros")
+    rows3 = sums3[0][0][0]
+    tot3 = torch.empty((3, rows3.shape[2]), device=dev)
+    sum_out = pk.strata_sum(rows3, tot3.clone(), first=True)
+    sum_plain = pk.strata_sum_plain(rows3, tot3.clone(), first=True)
+    check(torch.equal(sum_out, sum_plain), "strata_sum differs from its plain version")
+    sum_err = float((sum_out - sum_plain).abs().max())
+    sum_ms = time_ms(lambda: pk.strata_sum(rows3, tot3, first=True), reps=20)
+    sum_plain_ms = time_ms(lambda: pk.strata_sum_plain(rows3, tot3, first=True), reps=20)
+    sum_lib_ms = time_ms(lambda: torch.sum(rows3, dim=1), reps=20)
+    # rows read once and the totals written once; an add a sample and channel
+    sum_bound = bound((rows3.numel() + tot3.numel()) * 4, rows3.numel())
+    print(f"phase 3: strata_sum on the main path's rows {list(rows3.shape)}: equal to its plain "
+          f"version to the bit; kernel {sum_ms:.4f} ms, plain (one add a stratum) "
+          f"{sum_plain_ms:.4f} ms, torch.sum {sum_lib_ms:.4f} ms, bound {sum_bound[0]:.4f} ms "
+          f"({sum_bound[1]}) ({card})")
+    del sums3, rows3, tot3, sum_out, sum_plain
     lap("phase 3 (PT)")
 
     # ---- phase 3, BDPT and BDPT-MIS main paths (the CLI's default)
@@ -1346,7 +1519,7 @@ def main() -> int:
     with capture(pw, "pt_wave_bounce") as bounces:  # the warm-up records its launches
         render(coffee, cfg, seed=0)
     check(len(bounces) == depth, f"coffee PT: {len(bounces)} wave-kernel launches, not {depth}")
-    plains = (pk.pt_megakernel_plain, pk.pt_megakernel_pixels_plain,
+    plains = (pk.pt_megakernel_plain, pk.pt_megakernel_pixels_plain, pk.strata_sum_plain,
               bk.bdpt_megakernel_plain, bk.bdpt_megakernel_pixels_plain,
               pw.closest_bvh_plain, pw.any_bvh_plain, pw.pt_wave_bounce_plain,
               pw.pt_wave_plain, soa.bvh_closest, soa.bvh_any)
@@ -1819,14 +1992,15 @@ def main() -> int:
 
     # ---- phase 13: defocus on the card, through the rays-mode megakernels
     centre = (277.5, 277.5, 277.5)
-    rays_mode_launches = {}
+    rays_mode_launches, waves13 = {}, {}
     for name in ("pt", "bdpt"):
         cam = cornell_box_camera()
         cfg13 = dataclasses.replace(cam, image_width=512, samples_per_pixel=16, max_depth=depth,
                                     integrator=name, defocus_angle=1.0,
                                     focus_dist=math.dist(cam.lookfrom, centre))
-        with capture(bk, "bdpt_megakernel") as wave13:  # warm-up; records the BDPT wave
-            render(scene, cfg13, seed=0)
+        with capture(pk, "pt_megakernel") as pt13, capture(bk, "bdpt_megakernel") as bdpt13:
+            render(scene, cfg13, seed=0)  # warm-up; records the wave's launch
+        waves13[name] = pt13 if name == "pt" else bdpt13
         mk = pk.pt_megakernel if name == "pt" else bk.bdpt_megakernel
         waves = (math.ceil(16 / _wave_spp_batch(512 * 512, 16)) if name == "pt"
                  else math.ceil(16 / _bdpt_wave_shape(512 * 512, 16, depth, False)[0]))
@@ -1858,21 +2032,32 @@ def main() -> int:
               f"shadow_rays {st.shadow_rays}; {mk.__name__} rays-mode launches {n_mk}, other "
               f"launches {n_other}, plain calls {n_plain}; wrote {path} ({card})")
         del results, fb
-    # the BDPT wave's launch (B = 4,194,304) timed on its own inputs
-    check(len(wave13) == 1, f"defocus bdpt: {len(wave13)} rays-mode launches a render")
-    args13, kw13 = wave13[0]
-    B13 = int(args13[3].shape[0])
-    out13, defocus_frac, defocus_err, defocus_plain_ms, n13 = defocus_wave_vs_plain(args13, kw13)
-    bdpt_err, bdpt_frac = max(bdpt_err, defocus_err), min(bdpt_frac, defocus_frac)
-    c13 = counters(out13)
-    defocus_ms = time_ms(lambda: bk.bdpt_megakernel(*args13, **kw13), reps=3)
-    defocus_bound = bound(B13 * 40 + sum(t.numel() * t.element_size()
-                                         for t in bk._pack_tables_bdpt(scene)), c13[4] * MT_OPS)
-    print(f"phase 13: bdpt_megakernel rays mode on the defocus bdpt wave (B={B13}): kernel "
-          f"{defocus_ms:.3f} ms, bound {defocus_bound[0]:.4f} ms ({defocus_bound[1]}); "
-          f"counters {c13}; plain version on every 16th lane ({n13}) {defocus_plain_ms:.3f} ms "
-          f"({card})")
-    del wave13, args13, kw13, out13
+    # each wave's launch (B = 4,194,304) timed on its own inputs, bounded and
+    # held against its plain version on every 16th lane
+    res13 = {}
+    for name, tab13 in (("pt", pk._pack_tables(scene)), ("bdpt", bk._pack_tables_bdpt(scene))):
+        check(len(waves13[name]) == 1,
+              f"defocus {name}: {len(waves13[name])} rays-mode launches a render")
+        args13, kw13 = waves13[name][0]
+        B13 = int(args13[3].shape[0])
+        out13, frac13, err13, plain13_ms, n13 = defocus_wave_vs_plain(name, args13, kw13)
+        c13 = counters(out13)
+        mk = pk.pt_megakernel if name == "pt" else bk.bdpt_megakernel
+        ms13 = time_ms(lambda: mk(*args13, **kw13), reps=3)
+        # lanes in: o, d, id; radiance out; the tables once; the sweeps'
+        # triangle tests (the tri-tests counter) at MT_OPS each
+        bound13 = bound(B13 * 40 + sum(t.numel() * t.element_size() for t in tab13),
+                        c13[3 if name == "pt" else 4] * MT_OPS)
+        res13[name] = dict(ms=ms13, bound=bound13, frac=frac13, err=err13, plain_ms=plain13_ms,
+                           lanes=n13, B=B13)
+        print(f"phase 13: {mk.__name__} rays mode on the defocus {name} wave (B={B13}): kernel "
+              f"{ms13:.3f} ms, bound {bound13[0]:.4f} ms ({bound13[1]}); counters {c13}; plain "
+              f"version on every 16th lane ({n13}) {plain13_ms:.3f} ms ({card})")
+        del args13, kw13, out13
+    bdpt_err = max(bdpt_err, res13["bdpt"]["err"])
+    bdpt_frac = min(bdpt_frac, res13["bdpt"]["frac"])
+    max_err, frac = max(max_err, res13["pt"]["err"]), min(frac, res13["pt"]["frac"])
+    del waves13
     lap("phase 13")
 
     # ---- phase 14: the CLI's --f64 through the float64 instantiation
@@ -2519,6 +2704,8 @@ def main() -> int:
     # ---- phase 22: the refilling wave kernels' edge cases, exact; the brute
     # BDPT kernel's persistent grid; any_bvh's refilling grid
     refill = refill_cases(dev, card)
+    brute_pt = brute_pt_cases(dev, card)
+    max_err = max(max_err, brute_pt["max_abs_err"])
     brute22 = brute_bdpt_cases(dev, card)
     bdpt_err = max(bdpt_err, brute22["max_abs_err"])
     any22 = any_cases(dev, card)
@@ -2598,6 +2785,15 @@ def main() -> int:
         "general_interval_within_tol": r["general_frac"],
         "general_interval_max_abs_err": r["general_err"],
     } for k, r in cl_res.items()]
+    def defocus_keys(name):
+        r = res13[name]
+        return {"defocus_wave_ms": r["ms"], "defocus_wave_bound_ms": r["bound"][0],
+                "defocus_wave_bound_by": r["bound"][1],
+                "defocus_wave_shape": f"the cornell defocus {name} wave, rays mode, B={r['B']}",
+                "defocus_wave_within_tol": r["frac"], "defocus_wave_max_abs_err": r["err"],
+                "defocus_wave_plain_ms": r["plain_ms"],
+                "defocus_wave_plain_shape": f"every 16th lane of that wave, {r['lanes']} lanes"}
+
     print(f"chip_smoke: all phases passed in {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
         "name": "pt_megakernel",
@@ -2618,6 +2814,26 @@ def main() -> int:
         "rays_mode_launches": rays_mode_launches["pt"],
         "rays_mode_launches_path": "three cornell PT renders with defocus, 512x512, 16 spp, "
                                    "depth 10",
+        **defocus_keys("pt"),
+        "persistent_blocks": brute_pt["blocks"],
+        "edge_cases": brute_pt["cases"],
+    }, {
+        "name": "strata_sum",
+        "route": "cuda",
+        "source": "bpt_tpu_torch/csrc/strata_sum.cu",
+        "replaces": "bpt_tpu/ops/pallas/pt_kernel.py:898 (pt_megakernel_pixels' flush of a "
+                    "sample into its pixel total; pallas_call :1334)",
+        "launches": sum_launches,
+        "launches_path": "three cornell PT renders, 512x512, 16 spp, depth 10",
+        "max_abs_err": sum_err,
+        "within_tol": 1.0,
+        "ms": sum_ms,
+        "plain_ms": sum_plain_ms,
+        "bound_ms": sum_bound[0],
+        "bound_by": sum_bound[1],
+        "library_ms": sum_lib_ms,
+        "library_call": "torch.sum(rows, dim=1): the same sum in its own add order",
+        "shape": "the cornell PT render's per-sample radiance, [3, 16, 262144]",
     }, {
         "name": "bdpt_megakernel",
         "route": "cuda",
@@ -2643,13 +2859,7 @@ def main() -> int:
         "render_ms": bdpt_ms["bdpt"],
         "render_launches": [{"live": 512 * 512, "ms": bdpt_ms["bdpt"]}],
         "render_shape": "the one launch of a cornell bdpt render, 512x512, 16 spp, depth 10",
-        "defocus_wave_ms": defocus_ms,
-        "defocus_wave_bound_ms": defocus_bound[0],
-        "defocus_wave_shape": f"the cornell defocus bdpt wave, rays mode, B={B13}",
-        "defocus_wave_within_tol": defocus_frac,
-        "defocus_wave_max_abs_err": defocus_err,
-        "defocus_wave_plain_ms": defocus_plain_ms,
-        "defocus_wave_plain_shape": f"every 16th lane of that wave, {n13} lanes",
+        **defocus_keys("bdpt"),
         "persistent_blocks": brute22["blocks"],
         "edge_cases": brute22["cases"],
     }, {

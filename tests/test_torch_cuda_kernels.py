@@ -814,19 +814,20 @@ def test_pt_wave_bounce_refill_matches_plain(case, paged):
 BRUTE_CASES = ["B=1", "B=31", "B=37", "past 4 grids", "all inactive", "scattered"]
 
 
-def _cornell_lanes(case, seed):
+def _cornell_lanes(case, seed, blocks="bpt_bdpt_brute_blocks"):
     """(o, d, ids) of a brute-force edge case: the cornell camera's rays
     through random points of a 512x512 image; a lane in 13 inactive, "past
-    4 grids" 4 x the persistent grid's threads and 5 more, "all inactive"
-    no live lane, "scattered" one live lane in ten at random places; 4096
-    lanes where the name gives no count."""
+    4 grids" 4 x the threads of the persistent grid ``blocks`` (the
+    library's occupancy query) and 5 more, "all inactive" no live lane,
+    "scattered" one live lane in ten at random places; 4096 lanes where the
+    name gives no count."""
     from bpt_tpu_torch.models.camera import generate_rays
     from bpt_tpu_torch.ops.kernels import build
 
     if case.startswith("B="):
         B = int(case[2:])
     elif case == "past 4 grids":
-        B = 4 * build.load_library().bpt_bdpt_brute_blocks() * 128 + 5
+        B = 4 * getattr(build.load_library(), blocks)() * 128 + 5
     else:
         B = 4096
     g = np.random.default_rng(seed)
@@ -909,6 +910,89 @@ def test_brute_bdpt_modes_match_plain(case, mis, monkeypatch):
     assert mk.launches - n == launches
     assert _frac_close(got, want) >= 0.999
     assert _counters(got) == _counters(want) and _counters(got)[0] > 0
+
+
+PT_MODE_CASES = ["depth 1", "depth 80", "spp_loop 1", "injected", "ranges"]
+
+
+@pytest.mark.parametrize("case", BRUTE_CASES + PT_MODE_CASES)
+def test_brute_pt_schedule_matches_plain(case, monkeypatch):
+    """The brute-force PT kernel on its persistent grid, its lanes running a
+    flat bounce loop: rays mode at depth 10 on the brute-force edge cases,
+    with inactive lanes 0 and each live lane's radiance to the bit that of
+    the same lanes launched alone, packed; pixels mode at depth 1 (cornell)
+    and 80 (the mixed scene), with spp_loop 1 (a stratum a lane), over 4
+    stratum ranges (4 launches, a budget of one stratum each), and rays
+    mode with injected uniforms.  Radiance on >= 99.9% of lanes, all five
+    counters exact."""
+    key = rng.prng_key(17)
+    if case in BRUTE_CASES or case == "injected":
+        scene = presets.cornell_box(device="cuda")
+        o, d, ids = _cornell_lanes(case, 32, "bpt_pt_brute_blocks")
+        kw = {}
+        if case == "injected":
+            kw["uniforms"] = torch.from_numpy(np.random.default_rng(33).uniform(
+                size=(10 * NU, ids.numel())).astype(np.float32)).cuda()
+        a = (scene, o, d, ids, key, 10)
+        mk, plain = pk.pt_megakernel, pk.pt_megakernel_plain
+    else:
+        scene = _scene("mixed" if case == "depth 80" else "cornell")
+        W, S = 16, 2
+        cc = camera_constants(dataclasses.replace(presets.cornell_box_camera(), image_width=W,
+                                                  samples_per_pixel=S * S),
+                              torch.float32, "cuda")
+        pix = torch.arange(W * W, dtype=torch.int32, device="cuda")
+        sx = sy = torch.zeros(W * W, device="cuda")
+        kw = dict(spp_loop=S * S, sqrt_spp=S)
+        if case == "spp_loop 1":  # each stratum a lane, its absolute sample id
+            st = torch.arange(S * S, dtype=torch.int32, device="cuda").repeat_interleave(W * W)
+            pix = pix.repeat(S * S)
+            sx, sy = (st % S).float(), (st // S).float()
+            ids = pix * (S * S) + st
+            kw = dict(spp_loop=1, sqrt_spp=S)
+        else:
+            ids = pix.clone()
+        ids[3::7] = -1
+        a = (scene, (pix % W).float(), (pix // W).float(), sx, sy, ids, pk.camera_table(cc), key,
+             {"depth 1": 1, "depth 80": 80}.get(case, 10))
+        mk, plain = pk.pt_megakernel_pixels, pk.pt_megakernel_pixels_plain
+        if case == "ranges":
+            monkeypatch.setattr(pk, "STRATA_BYTES", 12 * W * W)
+    n = mk.launches
+    got = mk(*a, **kw)
+    want = plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert mk.launches == n + (4 if case == "ranges" else 1)
+    assert _frac_close(got, want) >= 0.999
+    assert _walk_counters(got) == _walk_counters(want)
+    live = ids >= 0
+    if int(live.sum()) > 100:
+        assert _walk_counters(got)[0] > 0
+    if case in BRUTE_CASES:
+        packed = mk(scene, Vec3(*(x[live] for x in o)), Vec3(*(x[live] for x in d)), ids[live],
+                    key, 10)
+        assert all(float(c[~live].abs().sum()) == 0.0 for c in got[:3])
+        assert all(torch.equal(c[live], pc) for c, pc in zip(got[:3], packed[:3]))
+        assert _walk_counters(packed) == _walk_counters(got)
+
+
+@pytest.mark.parametrize("nk, B, first", [(16, (1 << 18) + 5, True), (3, 37, False),
+                                         (1, 1, True)])
+def test_strata_sum_matches_plain_bitwise(nk, B, first):
+    """The in-order sum of a launch's per-sample radiance: bit for bit its
+    plain version's adds, from zeros or onto given totals; one launch; a
+    raise for rows it does not take."""
+    g = np.random.default_rng(B)
+    rows = torch.from_numpy(g.normal(size=(3, nk, B)).astype(np.float32)).cuda()
+    start = torch.from_numpy(g.normal(size=(3, B)).astype(np.float32)).cuda()
+    n = pk.strata_sum.launches
+    got = pk.strata_sum(rows, start.clone(), first)
+    want = pk.strata_sum_plain(rows, start.clone(), first)
+    torch.cuda.synchronize()
+    assert pk.strata_sum.launches == n + 1
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):  # the kernel takes float32 rows only
+        pk.strata_sum(rows.double(), start.clone(), first)
 
 
 ANY_CASES = ["B=1", "B=31", "B=37", "all dead", "one live lane", "all live"]

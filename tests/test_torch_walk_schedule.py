@@ -1,19 +1,25 @@
-"""The persistent megakernels' stratum-range plan, on the CPU.
+"""The persistent megakernels' launch plans and stratum-range sums, on the
+CPU.
 
 In pixels mode the walk kernels (``csrc/pt_megakernel.cu``,
-``csrc/bdpt_megakernel.cu``) and the brute-force BDPT kernel write each
+``csrc/bdpt_megakernel.cu``) and both brute-force kernels write each
 sample's radiance on its own, stratum by stratum, and the wrapper adds a
 range's rows into the pixel totals in stratum order
 (``pt_kernel.walk_launches``), over as many launches as
 ``pt_kernel.stratum_ranges`` plans within ``STRATA_BYTES``.  Checked
 here: the plan covers every sample id once, in stratum order, each range
 within the budget; the BDPT wrapper's vertex scratch, sized for its
-largest launch's grid (``bdpt_kernel.scratch_shape``); and the per-stratum plain outputs added in
-the plan's order equal the plain pixels versions, which sum a pixel's
-strata in one loop, bit for bit (the float-add sequence of a lane that
-sums its strata in order, as the brute-force PT kernel does)."""
+largest launch's grid (``bdpt_kernel.scratch_shape``); the brute-force PT
+wrapper's launches (work split and persistent grid from the occupancy
+query, read through a stand-in for the CUDA library) and its raise when
+that query fails; the in-order sum (``pt_kernel.strata_sum``); and the
+per-stratum plain outputs added in the plan's order equal the plain
+pixels versions, which sum a pixel's strata in one loop, bit for bit
+(the float-add sequence of a lane that sums its strata in order)."""
 
+import contextlib
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -94,6 +100,111 @@ def test_bdpt_launch_plan(B, spp, blocks, depth, mis, budget, monkeypatch):
 def test_launch_plan_raises_when_the_occupancy_query_fails():
     with pytest.raises(RuntimeError, match="occupancy"):
         bk.scratch_shape(64, 1, lambda: -2, 10, False)
+
+
+class _FakeLibrary:
+    """Stands in for the CUDA library: its occupancy queries return
+    ``blocks``, and each ``bpt_pt_megakernel`` call is recorded and
+    reports a launch."""
+
+    def __init__(self, blocks):
+        self.blocks = blocks
+        self.calls = []
+
+    def bpt_pt_brute_blocks(self):
+        return self.blocks
+
+    def bpt_pt_walk_blocks(self):
+        return self.blocks
+
+    def bpt_pt_megakernel(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+# bpt_pt_megakernel's arguments: pixels, B, T, L, depth, spp_loop,
+# sqrt_spp, N, k0, nk, grid, ...
+_PIXELS, _B, _SPP_LOOP, _N, _K0, _NK, _GRID = 0, 1, 5, 7, 8, 9, 10
+
+
+def _fake_launch(monkeypatch, blocks, mode, B, spp=16):
+    """The brute-force PT wrapper's ``bpt_pt_megakernel`` calls for one
+    call over B lanes of the cornell box (mode: rays, pixels with spp
+    strata in the kernel, or spp_loop 1), and the launches it counted."""
+    from bpt_tpu_torch.models.pt import NU
+    from bpt_tpu_torch.ops.kernels import build
+
+    lib = _FakeLibrary(blocks)
+    monkeypatch.setattr(build, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    scene = presets.cornell_box(device="cpu")
+    ids = torch.arange(B, dtype=torch.int32)
+    x = torch.zeros(B)
+    key = rng.prng_key(3)
+    n = pk.pt_megakernel.launches
+    if mode == "rays":
+        pk._launch(pk.pt_megakernel, scene, [x] * 6, ids, rng.subkeys(key, NU), 10,
+                   pixels=False)
+    else:
+        S = round(spp ** 0.5)
+        cam = pk.camera_table(camera_constants(dataclasses.replace(
+            presets.cornell_box_camera(), image_width=8, samples_per_pixel=spp),
+            torch.float32, "cpu"))
+        pk._launch(pk.pt_megakernel, scene, [x] * 4, ids, rng.subkeys_with_raygen(key, NU), 10,
+                   pixels=True, cam=cam, spp_loop=spp if mode == "pixels" else 1,
+                   sqrt_spp=S)
+    return lib.calls, pk.pt_megakernel.launches - n
+
+
+@pytest.mark.parametrize("mode, B, blocks, budget, launches", [
+    # the cornell main path's chunk: one range of 16 strata, 4,194,304 samples
+    ("pixels", 1 << 18, 660, None, [(0, 16, 660)]),
+    ("pixels", 37, 660, None, [(0, 16, 5)]),          # 592 samples: 5 blocks
+    ("pixels", 1000, 4, None, [(0, 16, 4)]),          # more samples than the grid holds
+    # ranges of 5 strata: [0, 5), [5, 10), [10, 15), [15, 16)
+    ("pixels", 1000, 660, 12 * 1000 * 5, [(0, 5, 40), (5, 5, 40), (10, 5, 40), (15, 1, 8)]),
+    ("spp_loop 1", 4096, 660, None, [(0, 1, 32)]),    # a stratum a lane
+    ("rays", 4_194_304, 660, None, [(0, 1, 660)]),    # the cornell defocus PT wave
+    ("rays", 1, 660, None, [(0, 1, 1)]),
+    ("rays", 0, 660, None, [(0, 1, 1)]),              # no lane: the library launches nothing
+])
+def test_brute_pt_launch_plan(mode, B, blocks, budget, launches, monkeypatch):
+    """A sample a work item: one launch a stratum range of
+    ``stratum_ranges`` (one in rays mode and with spp_loop 1), each on the
+    blocks the card holds at once or as few as its samples fill
+    (``walk_grid``), with a 64-bit work counter."""
+    if budget is not None:
+        monkeypatch.setattr(pk, "STRATA_BYTES", budget)
+    calls, launched = _fake_launch(monkeypatch, blocks, mode, B)
+    assert launched == len(calls) == len(launches)
+    assert [(a[_K0], a[_NK], a[_GRID]) for a in calls] == launches
+    assert all(a[_B] == B and a[_N] == 0 and a[_PIXELS] == int(mode != "rays") for a in calls)
+    assert all(a[_SPP_LOOP] == (16 if mode == "pixels" else 1) for a in calls)
+
+
+@pytest.mark.parametrize("mode", ["pixels", "rays"])
+def test_brute_pt_launch_raises_when_the_occupancy_query_fails(mode, monkeypatch):
+    with pytest.raises(RuntimeError, match="occupancy"):
+        _fake_launch(monkeypatch, -2, mode, 64)
+
+
+@pytest.mark.parametrize("nk, first", [(1, True), (16, True), (5, False)])
+def test_strata_sum_adds_in_stratum_order(nk, first):
+    """``strata_sum`` on the CPU (its plain version): the rows added into the
+    totals one stratum after another, from zeros on a call's first range,
+    bit for bit the sequence of single adds."""
+    g = np.random.default_rng(nk)
+    rows = torch.from_numpy(g.normal(size=(3, nk, 37)).astype(np.float32))
+    start = torch.from_numpy(g.normal(size=(3, 37)).astype(np.float32))
+    want = torch.zeros(3, 37) if first else start.clone()
+    for k in range(nk):
+        want = want + rows[:, k]
+    n = pk.strata_sum_plain.calls
+    got = pk.strata_sum(rows, start.clone(), first)
+    assert torch.equal(got, want)
+    assert pk.strata_sum_plain.calls == n + 1
 
 
 def _setup(which, W=4, S=2):

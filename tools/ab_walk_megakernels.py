@@ -6,8 +6,9 @@ Each argument is a directory holding a ``bpt_tpu_torch`` package and its
 archive``).  The copies' kernels are built first, all at once; then, in the
 order given, each copy runs in its own process: it builds the coffee
 stand-in from this checkout's ``scenes/coffee`` with that copy's
-``chip_smoke.coffee_builder``, and times with CUDA events (mean of 3 calls
-after a warm-up; 10 for the brute kernels at 512x512), seed 0:
+``chip_smoke.coffee_builder``, and times with CUDA events (the median of
+5 batches' means, a batch 3 calls, 10 for the brute BDPT kernels at
+512x512 and 30 for the brute PT kernel, after 3 warm-up calls), seed 0:
 
 - 2c: ``pt_megakernel_pixels`` walk mode, coffee 256x256 x 16 spp, depth 10;
 - 6c: ``bdpt_megakernel_pixels`` walk mode, coffee bdpt-mis 512x512 x 4
@@ -20,13 +21,18 @@ after a warm-up; 10 for the brute kernels at 512x512), seed 0:
   defocus angle 1, as chip_smoke.py phase 19 builds them);
 - 2 / 6: the brute-force kernels on the cornell box at 512x512 x 16 spp,
   depth 10 (PT, bdpt, bdpt-mis);
-- 5: ``bdpt_megakernel`` brute force in rays mode on the cornell defocus
-  BDPT wave (512x512 x 16 spp, depth 10, defocus angle 1: B = 4,194,304,
-  the arguments of chip_smoke.py phase 13's launch, recorded);
-- 5 on random rays: ``bdpt_megakernel`` bdpt at B = 65,536, depth 10,
-  origins uniform in [50, 500]^3 (chip_smoke.py phase 2's timed case);
+- 1 / 5: ``pt_megakernel`` / ``bdpt_megakernel`` brute force in rays mode
+  on the cornell defocus PT / BDPT wave (512x512 x 16 spp, depth 10,
+  defocus angle 1: B = 4,194,304, the arguments of chip_smoke.py phase
+  13's launches, recorded);
+- 1 / 5 on random rays: ``pt_megakernel`` / ``bdpt_megakernel`` (bdpt) at
+  B = 65,536, depth 10, origins uniform in [50, 500]^3 (chip_smoke.py
+  phase 2's timed cases);
 - 6 at depth 80: ``bdpt_megakernel_pixels`` bdpt-mis on the mixed-material
   scene at 64x64 x 4 spp (chip_smoke.py phase 2's case);
+- the cornell main paths, ``render()`` at 512x512 x 16 spp, depth 10 with
+  PT, bdpt and bdpt-mis: the wall's median of 3 and the framebuffer's
+  sha256;
 
 and prints for each case its ms, rays, shadow rays and walk counters and a
 sha256 of its outputs (radiance and counters), then the kernels' ptxas
@@ -70,15 +76,19 @@ def ptxas(entry):  # ptxas's stack / spill and register lines of one kernel
     return f"{entry}: " + " / ".join(lines)
 
 
-def timed(fn, reps):
+def timed(fn, reps, batches=5):  # median of the batches' means, after 3 warm-up calls
     out = fn()
+    fn(), fn()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return out, start.elapsed_time(stop) / reps
+    means = []
+    for _ in range(batches):
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(stop) / reps)
+    return out, sorted(means)[batches // 2]
 
 
 def digest(out):
@@ -133,37 +143,39 @@ cornell = cornell_box(device=dev)
 ic, jc, pixc, camc = pixels(dataclasses.replace(cornell_box_camera(), image_width=512,
                                                 samples_per_pixel=16))
 runs["2 cornell pt pixels 512x512x16spp d10"] = (lambda: pk.pt_megakernel_pixels(
-    cornell, ic, jc, ic * 0, jc * 0, pixc, camc, key, 10, spp_loop=16, sqrt_spp=4), 10)
+    cornell, ic, jc, ic * 0, jc * 0, pixc, camc, key, 10, spp_loop=16, sqrt_spp=4), 30)
 for mis in (False, True):
     runs[f"6 cornell {'bdpt-mis' if mis else 'bdpt'} pixels 512x512x16spp d10"] = (
         lambda mis=mis: bk.bdpt_megakernel_pixels(cornell, ic, jc, pixc, camc, key, 10, 4,
                                                   mis=mis), 10)
-# 5: the cornell defocus BDPT wave, as render() launches it (chip_smoke.py phase 13)
-cam5 = cornell_box_camera()
-cfg5 = dataclasses.replace(cam5, image_width=512, samples_per_pixel=16, max_depth=10,
-                           integrator="bdpt", defocus_angle=1.0,
-                           focus_dist=math.dist(cam5.lookfrom, (277.5, 277.5, 277.5)))
-fn5, calls5 = bk.bdpt_megakernel, []
+# 1 / 5: the cornell defocus PT / BDPT waves, as render() launches them
+# (chip_smoke.py phase 13)
+for num, name, mod, kname in ((1, "pt", pk, "pt_megakernel"), (5, "bdpt", bk, "bdpt_megakernel")):
+    cam5 = cornell_box_camera()
+    cfg5 = dataclasses.replace(cam5, image_width=512, samples_per_pixel=16, max_depth=10,
+                               integrator=name, defocus_angle=1.0,
+                               focus_dist=math.dist(cam5.lookfrom, (277.5, 277.5, 277.5)))
+    fn5, calls5 = getattr(mod, kname), []
 
+    def spy5(*a, fn5=fn5, calls5=calls5, **kw):
+        calls5.append((a, kw))
+        return fn5(*a, **kw)
 
-def spy5(*a, **kw):
-    calls5.append((a, kw))
-    return fn5(*a, **kw)
-
-
-spy5.__dict__.update(fn5.__dict__)  # the wrapper counts its launches on its own name
-bk.bdpt_megakernel = spy5
-render(cornell, cfg5, seed=0)
-bk.bdpt_megakernel = fn5
-args5, kwargs5 = calls5[0]
-runs[f"5 cornell bdpt rays defocus B={args5[3].numel()} d10"] = (
-    lambda: fn5(*args5, **kwargs5), 3)
+    spy5.__dict__.update(fn5.__dict__)  # the wrapper counts its launches on its own name
+    setattr(mod, kname, spy5)
+    render(cornell, cfg5, seed=0)
+    setattr(mod, kname, fn5)
+    args5, kwargs5 = calls5[0]
+    runs[f"{num} cornell {name} rays defocus B={args5[3].numel()} d10"] = (
+        lambda fn5=fn5, args5=args5, kwargs5=kwargs5: fn5(*args5, **kwargs5),
+        30 if name == "pt" else 3)
 # 5 on chip_smoke.py phase 2's random rays
 g2 = np.random.default_rng(0)
 o2 = torch.from_numpy(g2.uniform(50, 500, (65536, 3)).astype(np.float32)).to(dev)
 d2 = torch.from_numpy(g2.normal(size=(65536, 3)).astype(np.float32)).to(dev)
 a2 = (cornell, Vec3(*o2.unbind(1)), Vec3(*d2.unbind(1)),
       torch.arange(65536, dtype=torch.int32, device=dev), key, 10)
+runs["1 cornell pt rays random B=65536 d10"] = (lambda: pk.pt_megakernel(*a2), 30)
 runs["5 cornell bdpt rays random B=65536 d10"] = (lambda: bk.bdpt_megakernel(*a2), 10)
 # 6 at depth 80: chip_smoke.py phase 2's mixed-material scene
 MS = builder.MaterialSpec
@@ -190,15 +202,21 @@ if not BRUTE_ONLY:
     fb = hashlib.sha256(np.ascontiguousarray(r.framebuffer_sum).tobytes()).hexdigest()[:16]
     out.append(f"6c main path render: wall {r.stats.wall_seconds:.6f} s, peak "
                f"{peak / 2**30:.3f} GiB, framebuffer sha256 {fb}")
-for mis in (False, True):  # the cornell main path, render() as the CLI runs it
+for name in ("pt", "bdpt", "bdpt-mis"):  # the cornell main paths, render() as the CLI runs it
     cfg3 = dataclasses.replace(cornell_box_camera(), image_width=512, samples_per_pixel=16,
-                               max_depth=10, integrator="bdpt-mis" if mis else "bdpt")
+                               max_depth=10, integrator=name)
     render(cornell, cfg3, seed=0)
     rs = [render(cornell, cfg3, seed=0) for _ in range(3)]
     fb = hashlib.sha256(np.ascontiguousarray(rs[0].framebuffer_sum).tobytes()).hexdigest()[:16]
     walls = sorted(r.stats.wall_seconds for r in rs)
-    out.append(f"6 cornell {cfg3.integrator} main path render: wall median {walls[1]:.6f} s "
-               f"{[round(w, 6) for w in walls]}, framebuffer sha256 {fb}")
+    out.append(f"{2 if name == 'pt' else 6} cornell {name} main path render: wall median "
+               f"{walls[1]:.6f} s {[round(w, 6) for w in walls]}, rays "
+               f"{rs[0].stats.rays_traced}, framebuffer sha256 {fb}")
+# pixels mode's stratum-major rows added into the lane totals in order
+# (walk_launches) with no kernel launched, at the cornell chunk's shape
+_, sum_ms = timed(lambda: pk.walk_launches(1 << 18, True, 16, lambda k0, nk, out: None, dev), 10)
+out.append(f"walk_launches alone, 2^18 lanes x 16 strata (allocation, in-order adds): "
+           f"{sum_ms:.3f} ms")
 extra = ["ptxas: " + "; ".join(ptxas(e) for e in ("18pt_megakernel_walkE",
                                                  "20bdpt_megakernel_walkE",
                                                  "13pt_megakernelE", "15bdpt_megakernelE"))]
@@ -207,6 +225,10 @@ if hasattr(lib, "bpt_bdpt_walk_blocks"):
         pb, bb = lib.bpt_pt_walk_blocks(), lib.bpt_bdpt_walk_blocks()
     extra.append(f"persistent grid: pt {pb} blocks, bdpt {bb} blocks of {pk.WALK_BLOCK}; "
                  f"d80 bdpt-mis vertex scratch {bk.walk_scratch_bytes(bb * pk.WALK_BLOCK, 80, True)} B")
+if hasattr(lib, "bpt_pt_brute_blocks"):
+    with torch.cuda.device(dev):
+        extra.append(f"brute pt persistent grid: {lib.bpt_pt_brute_blocks()} blocks of "
+                     f"{pk.WALK_BLOCK}")
 if hasattr(lib, "bpt_bdpt_brute_blocks"):
     with torch.cuda.device(dev):
         rb = lib.bpt_bdpt_brute_blocks()
