@@ -51,9 +51,11 @@ _I = ctypes.c_int
 #                    state_in, rid, hit_t, hit_tri, state_out, counters, stream)
 # bpt_wave_blocks(), bpt_any_blocks(): closest_bvh's and any_bvh's persistent grids
 # bpt_strata_sum(first, B, nk, rows, tot, stream)
-# bpt_closest_tri(f64, B, T, tri, ox, oy, oz, dx, dy, dz, tmin, tmax,
-#                 t, tri_out, u, v, stream)
-# bpt_any_tri(f64, B, T, tri, ox, oy, oz, dx, dy, dz, tmin, tmax, hit, stream)
+# bpt_closest_tri(f64, B, T, grid, tri, ox, oy, oz, dx, dy, dz, tmin, tmax,
+#                 t, tri_out, u, v, next, stream)
+# bpt_any_tri(f64, B, T, grid, tri, ox, oy, oz, dx, dy, dz, tmin, tmax, hit,
+#             next, stream)
+# bpt_tri_blocks(f64, any): closest_tri's or any_tri's persistent grid
 # bpt_clustered_hit(any, B, S, C, T, table, blocks, ox, oy, oz, dx, dy, dz,
 #                   tmin, tmax, t, tri, u, v, hit, counters, stream)
 # bpt_plucker_hit: the same arguments (S unused)
@@ -72,8 +74,9 @@ _SIGNATURES = {
     "bpt_wave_blocks": ([], _I),
     "bpt_any_blocks": ([], _I),
     "bpt_strata_sum": ([_I] * 3 + [_P] * 2 + [_P], _I),
-    "bpt_closest_tri": ([_I] * 3 + [_P] + [_P] * 8 + [_P] * 4 + [_P], _I),
-    "bpt_any_tri": ([_I] * 3 + [_P] + [_P] * 8 + [_P] + [_P], _I),
+    "bpt_closest_tri": ([_I] * 4 + [_P] + [_P] * 8 + [_P] * 4 + [_P] * 2, _I),
+    "bpt_any_tri": ([_I] * 4 + [_P] + [_P] * 8 + [_P] + [_P] * 2, _I),
+    "bpt_tri_blocks": ([_I] * 2, _I),
     "bpt_clustered_hit": ([_I] * 5 + [_P] * 2 + [_P] * 8 + [_P] * 5 + [_P] * 2, _I),
     "bpt_plucker_hit": ([_I] * 5 + [_P] * 2 + [_P] * 8 + [_P] * 5 + [_P] * 2, _I),
     "bpt_cuda_error_string": ([_I], ctypes.c_char_p),

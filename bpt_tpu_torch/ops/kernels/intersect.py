@@ -12,7 +12,11 @@ connection's endpoint itself.
 
 Dispatch is by device: a CPU tensor takes the plain version
 (``ops.soa.brute_closest`` / ``brute_any``); a CUDA tensor launches the
-kernel or raises.  The wrappers count their launches in
+kernel or raises.  A launch runs on a persistent grid, the blocks the card
+holds at once (``bpt_tri_blocks``, the C occupancy query) or as few as its
+lanes fill, with a zeroed 64-bit work counter of its own; a call over no
+lane launches nothing.  The triangle table is packed once a scene
+(``tri_table``).  The wrappers count their launches in
 ``<wrapper>.launches``, the plain versions their calls in
 ``<plain>.calls``.  The hit counters (triangle tests, accepted tests) are
 the caller's: ``ops.soa.closest_hit`` computes them from the lanes.
@@ -25,10 +29,11 @@ import torch
 from bpt_tpu_torch.core.vec3 import Vec3
 from bpt_tpu_torch.ops import soa
 from bpt_tpu_torch.ops.kernels import build
-from bpt_tpu_torch.ops.kernels.pt_kernel import _checked, _device_of
-from bpt_tpu_torch.scene.types import SceneTensors
+from bpt_tpu_torch.ops.kernels.pt_kernel import _checked, _device_of, walk_grid
+from bpt_tpu_torch.scene.types import SceneTensors, per_scene
 
 DTYPES = (torch.float32, torch.float64)
+MAX_TRIS = 256  # the table staged in shared memory (csrc/intersect.cu: TRI_TILE)
 
 
 def closest_tri_plain(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax):
@@ -51,8 +56,11 @@ def any_tri_plain(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax):
 any_tri_plain.calls = 0
 
 
+@per_scene
 def tri_table(scene: SceneTensors) -> torch.Tensor:
-    """[T, 9] (v0, e1, e2) of every triangle, in the scene's dtype."""
+    """[T, 9] (v0, e1, e2) of every triangle, in the scene's dtype.  Packed
+    once a scene and kept while the scene lives, since every hit call of a
+    wave reads it."""
     return torch.cat([scene.v0, scene.e1, scene.e2], dim=1).contiguous()
 
 
@@ -71,6 +79,37 @@ def _lanes(what, scene, o: Vec3, d: Vec3, tmin, tmax):
     return dev, B, ins
 
 
+def _launch(which: str, scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax):
+    """Launches ``which`` (closest_tri or any_tri) over the lanes on its
+    persistent grid, with a zeroed work counter of its own; nothing at B =
+    0.  Returns its outputs."""
+    dev, B, ins = _lanes(which, scene, o, d, tmin, tmax)
+    f64 = int(scene.dtype == torch.float64)
+    if which == "closest_tri":
+        outs = tuple(torch.empty(B, dtype=dt, device=dev)
+                     for dt in (scene.dtype, torch.int32, scene.dtype, scene.dtype))
+    else:
+        outs = (torch.empty(B, dtype=torch.bool, device=dev),)
+    if B == 0:
+        return outs
+    T = scene.num_tris
+    if not 1 <= T <= MAX_TRIS:
+        raise ValueError(f"{which} takes 1 to {MAX_TRIS} triangles, not {T}: a larger "
+                         "scene has a BVH")
+    table = tri_table(scene)
+    nxt = torch.zeros(1, dtype=torch.int64, device=dev)
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        grid = walk_grid(lambda: lib.bpt_tri_blocks(f64, int(which == "any_tri")), B)
+        code = getattr(lib, f"bpt_{which}")(
+            f64, B, T, grid, table.data_ptr(), *(x.data_ptr() for x in ins),
+            *(x.data_ptr() for x in outs), nxt.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(code, which)
+    (closest_tri if which == "closest_tri" else any_tri).launches += 1
+    return outs
+
+
 def closest_tri(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax):
     """Closest hit of each ray over every triangle within its own [tmin,
     tmax] ([B] each); an exact t tie keeps the lower triangle index.
@@ -78,18 +117,7 @@ def closest_tri(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax):
     0 on a miss), in the scene's dtype."""
     if _device_of(tmax).type == "cpu":
         return closest_tri_plain(scene, o, d, tmin, tmax)
-    dev, B, ins = _lanes("closest_tri", scene, o, d, tmin, tmax)
-    t, u, v = (torch.empty(B, dtype=scene.dtype, device=dev) for _ in range(3))
-    tri = torch.empty(B, dtype=torch.int32, device=dev)
-    table = tri_table(scene)
-    with torch.cuda.device(dev):
-        code = build.load_library().bpt_closest_tri(
-            int(scene.dtype == torch.float64), B, scene.num_tris, table.data_ptr(),
-            *(x.data_ptr() for x in ins), t.data_ptr(), tri.data_ptr(), u.data_ptr(),
-            v.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(code, "closest_tri")
-    closest_tri.launches += 1
-    return t, tri, u, v
+    return _launch("closest_tri", scene, o, d, tmin, tmax)
 
 
 closest_tri.launches = 0
@@ -100,17 +128,7 @@ def any_tri(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax):
     each; a lane with tmax < tmin hits nothing).  Returns hit [B] bool."""
     if _device_of(tmax).type == "cpu":
         return any_tri_plain(scene, o, d, tmin, tmax)
-    dev, B, ins = _lanes("any_tri", scene, o, d, tmin, tmax)
-    hit = torch.empty(B, dtype=torch.bool, device=dev)
-    table = tri_table(scene)
-    with torch.cuda.device(dev):
-        code = build.load_library().bpt_any_tri(
-            int(scene.dtype == torch.float64), B, scene.num_tris, table.data_ptr(),
-            *(x.data_ptr() for x in ins), hit.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(code, "any_tri")
-    any_tri.launches += 1
-    return hit
+    return _launch("any_tri", scene, o, d, tmin, tmax)[0]
 
 
 any_tri.launches = 0

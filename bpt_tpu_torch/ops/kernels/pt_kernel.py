@@ -298,12 +298,13 @@ def stratum_ranges(B: int, spp: int, budget=None) -> list:
 
 
 def walk_grid(resident_blocks, items: int) -> int:
-    """Persistent blocks of a megakernel launch of ``items`` samples: as
+    """Persistent blocks of a launch of ``items`` work items (samples of a
+    megakernel, lanes of a brute-force hit kernel), 128 threads a block: as
     many as the card holds at once (``resident_blocks()``, the C occupancy
     query), and no more than the items fill."""
     blocks = resident_blocks()
     if blocks <= 0:
-        raise RuntimeError(f"megakernel occupancy query failed: CUDA error {-blocks}")
+        raise RuntimeError(f"persistent kernel occupancy query failed: CUDA error {-blocks}")
     return max(1, min(blocks, -(-items // WALK_BLOCK)))
 
 

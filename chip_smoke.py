@@ -128,11 +128,18 @@
    bpt_tpu's CPU route (tools/cornell_reference_rays_refvis.py) and its
    shadow rays within 1% of the port's plain route on this machine's CPU
    (bpt_tpu's, decided by XLA's contracted arithmetic at the endpoint
-   ties, printed with the gap).  Both kernels held against their plain
-   versions at the main path's shapes (camera bounce 1, the shadow wave of
-   camera vertex 1) on their first 2^20 lanes and timed at the full
-   shapes; the route at 64x64, 16 spp bitwise equal to its plain=True
-   twin, counters included.  Writes output/chip_smoke_cornell_ref_vis.png.
+   ties, printed with the gap).  Each of the warm-up's 19 closest_tri and
+   10 any_tri launches timed on its own inputs as the render makes them
+   (tri_launch_times), with its live lanes and bound, and their sums.
+   Both kernels held against their plain versions at the main path's
+   shapes (tri_slice_vs_plain): the whole launch's answers on every 4th
+   lane of camera bounce 1 and on every 40th lane of the shadow wave of
+   camera vertex 1 (1,048,576 lanes across its ten light rows) equal to
+   the bit to that slice's own launch, then the slice against both plain
+   versions (compare_tri); both timed at the full shapes, the live lanes
+   of each light row printed; the route at 64x64, 16 spp bitwise equal to
+   its plain=True twin, counters included.  Writes
+   output/chip_smoke_cornell_ref_vis.png.
 13. Defocus on the card: the cornell box at 512x512, 16 spp, depth 10,
    defocus angle 1 focused at the room's centre, with pt and with bdpt —
    one warm-up and three timed renders each through the stratum loop,
@@ -629,6 +636,97 @@ def capture(module, name, keep=None):
         yield calls
     finally:
         setattr(module, name, fn)
+
+
+def tri_dense(scene, o, d, tmin, tmax):
+    """The lanes of a ``closest_tri`` / ``any_tri`` call as the kernels
+    read them: contiguous [B] tensors of the scene's dtype (a call's tmin
+    may be a broadcast scalar)."""
+    import torch
+
+    from bpt_tpu_torch.core.vec3 import Vec3
+
+    def dense(x):
+        return torch.broadcast_to(torch.as_tensor(x, dtype=scene.dtype, device=scene.device),
+                                  o.x.shape).contiguous()
+
+    return scene, Vec3(*map(dense, o)), Vec3(*map(dense, d)), dense(tmin), dense(tmax)
+
+
+def tri_bound(name, scene, o, d, tmin, tmax):
+    """(bound ms, what bounds it) of one ``closest_tri`` / ``any_tri``
+    launch on these lanes: every lane reads its interval and writes its
+    answer (t, tri, u, v; or a byte), a live lane also reads its origin and
+    direction, the table is read once; the closest hit runs T tests a live
+    lane, the any hit what ``any_tests`` counts."""
+    e = tmin.element_size()
+    B, live = int(tmin.shape[0]), int((tmin <= tmax).sum())
+    table = scene.num_tris * 9 * e
+    if name == "closest_tri":
+        return bound(B * (2 * e + 3 * e + 4) + live * 6 * e + table,
+                     live * scene.num_tris * MT_OPS)
+    return bound(B * (2 * e + 1) + live * 6 * e + table,
+                 any_tests(scene, o, d, tmin, tmax) * MT_OPS)
+
+
+@contextlib.contextmanager
+def tri_launch_times(module, name, keep=()):
+    """While the block runs, each call of ``module.<name>`` (closest_tri
+    or any_tri) is timed on its own inputs before it goes through (mean of
+    3 calls after a warm-up) and bounded: yields {"launches": [(B, live,
+    ms, bound ms)], "kept": {call number: its dense inputs}} for the calls
+    numbered in ``keep``.  One launch's inputs at a time: a ref_vis
+    render's ten shadow waves would hold about 13 GB."""
+    fn = getattr(module, name)
+    out = {"launches": [], "kept": {}}
+
+    def spy(*args):
+        a = tri_dense(*args)
+        ms = time_ms(lambda: fn(*a), reps=3)
+        out["launches"].append((int(a[3].shape[0]), int((a[3] <= a[4]).sum()), ms,
+                                tri_bound(name, *a)[0]))
+        if len(out["launches"]) - 1 in keep:
+            out["kept"][len(out["launches"]) - 1] = a
+        return fn(*args)
+
+    spy.__dict__.update(fn.__dict__)  # a wrapper counts its launches on its own name
+    setattr(module, name, spy)
+    try:
+        yield out
+    finally:
+        setattr(module, name, fn)
+
+
+def tri_slice_vs_plain(name, what, args, stride, card):
+    """A ref_vis launch of ``closest_tri`` / ``any_tri`` (``name``, on its
+    dense inputs ``args``) against its plain version, which holds [T, B]
+    temporaries, too much for 42M lanes: the whole launch's answers on
+    every ``stride``-th lane are shown equal to the bit to that slice's own
+    launch (a lane's answer depends on its own ray only), then the slice
+    is held against both plain versions (``compare_tri``).  Returns (max
+    abs err, share of lanes equal, the slice's kernel ms, its plain ms,
+    lanes compared)."""
+    import torch
+
+    from bpt_tpu_torch.core.vec3 import Vec3
+    from bpt_tpu_torch.ops.kernels import intersect as ki
+
+    kernel, plain = getattr(ki, name), getattr(ki, f"{name}_plain")
+    scene, o, d, tmin, tmax = args
+    full = kernel(*args)
+    full = full if isinstance(full, tuple) else (full,)
+    sl = torch.arange(0, tmin.shape[0], stride, device=tmin.device)
+    s_args = (scene, Vec3(*(x[sl] for x in o)), Vec3(*(x[sl] for x in d)), tmin[sl], tmax[sl])
+    part = kernel(*s_args)
+    part = part if isinstance(part, tuple) else (part,)
+    check(all(torch.equal(a[sl], b) for a, b in zip(full, part)),
+          f"{name}: its launch on every {stride}th lane differs from the whole launch there")
+    del full
+    e, f = compare_tri(f"phase 12: closest_tri / any_tri on every {stride}th lane of {what}, "
+                       f"equal to the bit to the whole {name} launch there", *s_args, card)
+    slice_ms = time_ms(lambda: kernel(*s_args), reps=10)
+    _, plain_ms = timed(lambda: plain(*s_args))
+    return e, f, slice_ms, plain_ms, int(sl.numel())
 
 
 def shadow_lanes(args, kw):
@@ -1841,12 +1939,17 @@ def main() -> int:
     cfg12 = dataclasses.replace(cornell_box_camera(), image_width=256, samples_per_pixel=64,
                                 max_depth=depth, integrator="bdpt", ref_vis=True)
     t0 = time.monotonic()
-    with capture(soa, "closest_hit", keep={1}) as cl, capture(soa, "any_hit", keep={1}) as an:
-        render(scene, cfg12, seed=0)  # warm-up; records camera bounce 1 and its shadow wave
+    # the warm-up times each hit launch on its own inputs and keeps camera
+    # bounce 1's and the shadow wave of camera vertex 1's
+    with (tri_launch_times(ki, "closest_tri", keep={1}) as cl,
+          tri_launch_times(ki, "any_tri", keep={1}) as an):
+        render(scene, cfg12, seed=0)
     warm = time.monotonic() - t0
-    main_closest, main_shadow = cl[1], an[1]
     strata, span = _bdpt_wave_shape(256 * 256, 64, depth, False)
     waves = math.ceil(64 / strata) * math.ceil(256 * 256 / span)
+    check([len(cl["launches"]), len(an["launches"])] == [waves * (2 * depth - 1), waves * depth],
+          f"ref_vis warm-up: {len(cl['launches'])} closest_tri, {len(an['launches'])} any_tri "
+          f"launches in {waves} waves")
     for fn in all_plains:
         fn.calls = 0
     for fn in (*everything, *tri_kernels):
@@ -1918,51 +2021,41 @@ def main() -> int:
     del results, res, fb
 
     # the kernels at the main path's own shapes (camera bounce 1 of the
-    # wave; the shadow wave of camera vertex 1), against their plain
-    # versions on the first 2^20 lanes: the plain sweeps hold [T, B]
-    # temporaries, which do not fit at 42M lanes
-    args, kw = main_closest
-    o_m, d_m = args[1], args[2]
-    Bt_c = int(o_m.x.shape[0])
-    tmin_c = torch.full((Bt_c,), T_MIN, device=dev)
-    tmax_c = torch.where(kw["mask"], torch.inf, 0.0)
-    o_w, d_w, t_w = shadow_lanes(*main_shadow)
-    Bt_s = int(t_w.shape[0])
-    tmin_s = torch.full((Bt_s,), T_MIN, device=dev)
-    del main_closest, main_shadow
-    n_sl = 1 << 20
-    sl = slice(0, n_sl)
-    e, f = compare_tri(f"phase 12: closest_tri / any_tri on camera bounce 1 of the main path, "
-                       f"lanes 0..{n_sl}", scene, Vec3(*(c[sl] for c in o_m)),
-                       Vec3(*(c[sl] for c in d_m)), tmin_c[sl], tmax_c[sl], card)
-    e2, f2 = compare_tri(f"phase 12: closest_tri / any_tri on the shadow wave of camera vertex "
-                         f"1, lanes 0..{n_sl}", scene, Vec3(*(c[sl] for c in o_w)),
-                         Vec3(*(c[sl] for c in d_w)), tmin_s[sl], t_w[sl], card)
+    # wave; the shadow wave of camera vertex 1, its ten light rows), timed,
+    # and against their plain versions on a strided slice of each
+    ct_args, at_args = cl["kept"][1], an["kept"][1]
+    Bt_c, Bt_s = int(ct_args[3].shape[0]), int(at_args[3].shape[0])
+    live_c = int((ct_args[3] <= ct_args[4]).sum())
+    live_s = int((at_args[3] <= at_args[4]).sum())
+    live_rows = (at_args[3] <= at_args[4]).view(-1, Bt_c).sum(dim=1).tolist()
+    e, f, ct_sl_ms, ct_plain_ms, ct_n = tri_slice_vs_plain("closest_tri", "camera bounce 1",
+                                                           ct_args, 4, card)
+    e2, f2, at_sl_ms, at_plain_ms, at_n = tri_slice_vs_plain(
+        "any_tri", "the shadow wave of camera vertex 1", at_args, 40, card)
     tri_err, tri_frac = max(tri_err, e, e2), min(tri_frac, f, f2)
-    ct_args = (scene, o_m, d_m, tmin_c, tmax_c)
-    at_args = (scene, o_w, d_w, tmin_s, t_w)
     ct_ms = time_ms(lambda: ki.closest_tri(*ct_args), reps=10)
     at_ms = time_ms(lambda: ki.any_tri(*at_args), reps=10)
-    sl_args = [(a[0], *(Vec3(*(c[sl] for c in v)) for v in a[1:3]), a[3][sl], a[4][sl])
-               for a in (ct_args, at_args)]
-    ct_sl_ms = time_ms(lambda: ki.closest_tri(*sl_args[0]), reps=10)
-    at_sl_ms = time_ms(lambda: ki.any_tri(*sl_args[1]), reps=10)
-    _, ct_plain_ms = timed(lambda: ki.closest_tri_plain(*sl_args[0]))
-    _, at_plain_ms = timed(lambda: ki.any_tri_plain(*sl_args[1]))
-    T_c = scene.num_tris
-    table_bytes = T_c * 9 * 4
-    live_c, live_s = int(kw["mask"].sum()), int((t_w >= T_MIN).sum())
-    ct_bound, ct_by = bound(Bt_c * (2 * 4 + 16) + live_c * 24 + table_bytes,
-                            live_c * T_c * MT_OPS)
-    at_bound, at_by = bound(Bt_s * (2 * 4 + 1) + live_s * 24 + table_bytes,
-                            any_tests(scene, *at_args[1:]) * MT_OPS)
+    (ct_bound, ct_by), (at_bound, at_by) = (tri_bound("closest_tri", *ct_args),
+                                            tri_bound("any_tri", *at_args))
+    with torch.cuda.device(dev):
+        tri_grids = [build.load_library().bpt_tri_blocks(0, a) for a in (0, 1)]
     print(f"phase 12: closest_tri, camera bounce 1 (B={Bt_c}, {live_c} live): kernel "
-          f"{ct_ms:.3f} ms, bound {ct_bound:.4f} ms ({ct_by}); at lanes 0..{n_sl}: kernel "
-          f"{ct_sl_ms:.3f} ms, plain {ct_plain_ms:.3f} ms (one call) ({card})")
-    print(f"phase 12: any_tri, the shadow wave of camera vertex 1 (B={Bt_s}, {live_s} live): "
-          f"kernel {at_ms:.3f} ms, bound {at_bound:.4f} ms ({at_by}); at lanes 0..{n_sl}: "
-          f"kernel {at_sl_ms:.3f} ms, plain {at_plain_ms:.3f} ms (one call) ({card})")
-    del o_m, d_m, o_w, d_w, t_w, tmin_c, tmax_c, tmin_s, ct_args, at_args, sl_args
+          f"{ct_ms:.3f} ms, bound {ct_bound:.4f} ms ({ct_by}); on every 4th lane ({ct_n}): "
+          f"kernel {ct_sl_ms:.3f} ms, plain {ct_plain_ms:.3f} ms (one call); persistent grid "
+          f"{tri_grids[0]} blocks ({card})")
+    print(f"phase 12: any_tri, the shadow wave of camera vertex 1 (B={Bt_s}, {live_s} live; "
+          f"live lanes a light row {live_rows}): kernel {at_ms:.3f} ms, bound {at_bound:.4f} "
+          f"ms ({at_by}); on every 40th lane ({at_n}): kernel {at_sl_ms:.3f} ms, plain "
+          f"{at_plain_ms:.3f} ms (one call); persistent grid {tri_grids[1]} blocks ({card})")
+    ct_render, at_render = cl["launches"], an["launches"]
+    ct_render_ms, at_render_ms = (sum(x[2] for x in r) for r in (ct_render, at_render))
+    for name, rows, tot in (("closest_tri", ct_render, ct_render_ms),
+                            ("any_tri", at_render, at_render_ms)):
+        print(f"phase 12: {name}, the {len(rows)} launches of the warm-up render, each on its "
+              f"own inputs (live lanes of B: ms): "
+              f"{', '.join(f'{n} of {b}: {ms:.3f}' for b, n, ms, _ in rows)}; sum {tot:.3f} "
+              f"ms, bound {sum(x[3] for x in rows):.4f} ms ({card})")
+    del ct_args, at_args, cl, an
 
     # the route against its plain twin on the card at 64x64, 16 spp
     cfg64 = dataclasses.replace(cfg12, image_width=64, samples_per_pixel=16)
@@ -2957,8 +3050,15 @@ def main() -> int:
         "bound_by": ct_by,
         "library_ms": None,
         "shape": f"camera bounce 1 of the ref_vis wave, B={Bt_c}",
-        "plain_shape": f"its first {n_sl} lanes",
+        "live": live_c,
+        "plain_shape": f"its every 4th lane, {ct_n} lanes",
         "slice_ms": ct_sl_ms,
+        "render_ms": ct_render_ms,
+        "render_bound_ms": sum(x[3] for x in ct_render),
+        "render_launches": [{"B": b, "live": n, "ms": ms} for b, n, ms, _ in ct_render],
+        "render_shape": "the 19 launches of one ref_vis render, 256x256, 64 spp, depth 10, "
+                        "each on its own inputs",
+        "persistent_blocks": tri_grids[0],
     }, {
         "name": "any_tri",
         "route": "cuda",
@@ -2974,8 +3074,16 @@ def main() -> int:
         "bound_by": at_by,
         "library_ms": None,
         "shape": f"the ref_vis wave's shadow wave of camera vertex 1, B={Bt_s}",
-        "plain_shape": f"its first {n_sl} lanes",
+        "live": live_s,
+        "live_rows": live_rows,
+        "plain_shape": f"its every 40th lane, {at_n} lanes across its ten light rows",
         "slice_ms": at_sl_ms,
+        "render_ms": at_render_ms,
+        "render_bound_ms": sum(x[3] for x in at_render),
+        "render_launches": [{"B": b, "live": n, "ms": ms} for b, n, ms, _ in at_render],
+        "render_shape": "the 10 launches of one ref_vis render, 256x256, 64 spp, depth 10, "
+                        "each on its own inputs",
+        "persistent_blocks": tri_grids[1],
     }, *walk_entries, *cl_entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

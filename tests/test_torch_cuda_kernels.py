@@ -27,7 +27,7 @@ from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
 from bpt_tpu_torch.ops.kernels import pt_kernel as pk
 from bpt_tpu_torch.ops.kernels import pt_wave as pw
 from bpt_tpu_torch.scene import builder, presets
-from torch_parity import big_rays, big_scene, mixed_scene, rays
+from torch_parity import big_rays, big_scene, mixed_scene, rays, shadow_wave
 
 pytestmark = pytest.mark.gpu
 
@@ -408,6 +408,64 @@ def test_tri_kernels_match_plain(dtype):
         for g_, w_ in zip(got[0:1] + got[2:], want[0:1] + want[2:]):
             assert g_.dtype == dtype and float((g_ - w_)[hit].abs().max()) <= 1e-6
         assert torch.equal(hit_k, hit_p) and not bool(hit_k[tmax < tmin].any())
+
+
+def _tri_case(case, dtype):
+    """Lanes of one case of the brute-force hit kernels' persistent grid,
+    on the card: a shadow wave's layout (torch_parity.shadow_wave: 10 light
+    rows of 4,096 lanes, sparser row by row, runs of dead lanes, masked and
+    NaN lanes), ragged B, every lane dead, every lane live."""
+    if case == "shadow wave":
+        o, d, tmin, tmax, _ = shadow_wave(10, 4096, 21)
+    else:
+        B = {"B=1": 1, "B=31": 31, "B=33": 33, "B=129": 129}.get(case, 70_001)
+        o, d = rays(B, 7)
+        g = np.random.default_rng(7)
+        tmin = g.uniform(0.0, 50.0, B)
+        tmax = tmin + g.uniform(10.0, 900.0, B)
+        if case == "all dead":
+            tmax = tmin - 1.0
+            tmax[::5] = np.nan
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to("cuda", dtype)  # noqa: E731
+    return (Vec3(*(to(o[:, k]) for k in range(3))), Vec3(*(to(d[:, k]) for k in range(3))),
+            to(tmin), to(tmax))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["shadow wave", "B=1", "B=31", "B=33", "B=129", "all dead",
+                                  "all live"])
+def test_tri_kernels_persistent_grid_match_plain(case, dtype):
+    """closest_tri / any_tri on their persistent grid, whose warps hold live
+    rays only, against brute_closest / brute_any: hit, triangle and
+    any-answer exact, t, u, v within 1e-6, a dead lane's miss (t = inf, tri
+    -1, u = v = 0, no hit); two launches in a row equal to the bit."""
+    from bpt_tpu_torch.ops.kernels import intersect as ki
+
+    scene = presets.cornell_box(device="cuda", dtype=dtype)
+    o, d, tmin, tmax = _tri_case(case, dtype)
+    n = ki.closest_tri.launches, ki.any_tri.launches
+    got, again = (ki.closest_tri(scene, o, d, tmin, tmax) for _ in range(2))
+    hit_k, hit_k2 = (ki.any_tri(scene, o, d, tmin, tmax) for _ in range(2))
+    want = ki.closest_tri_plain(scene, o, d, tmin, tmax)
+    hit_p = ki.any_tri_plain(scene, o, d, tmin, tmax)
+    torch.cuda.synchronize()
+    assert (ki.closest_tri.launches, ki.any_tri.launches) == (n[0] + 2, n[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)) and torch.equal(hit_k, hit_k2)
+    assert torch.equal(got[1], want[1]) and torch.equal(hit_k, hit_p)
+    hit, live = got[1] >= 0, tmin <= tmax
+    assert torch.equal(got[0][~hit], want[0][~hit]) and bool(got[0][~hit].isinf().all())
+    assert not bool(got[2][~hit].any() or got[3][~hit].any())
+    for g_, w_ in zip(got[0:1] + got[2:], want[0:1] + want[2:]):
+        err = (g_ - w_)[hit].abs()
+        assert g_.dtype == dtype and (err.numel() == 0 or float(err.max()) <= 1e-6)
+    assert not bool(hit[~live].any() or hit_k[~live].any())
+    if case == "all dead":
+        assert not bool(live.any())
+    elif case == "all live":
+        assert bool(live.all()) and 0.2 < float(hit.double().mean()) < 1.0
+    elif case == "shadow wave":
+        rows = live.view(10, 4096).sum(dim=1)
+        assert int(rows[0]) > 3 * int(rows[-1]) > 0 and bool(hit_k.any())
 
 
 def test_tri_wrappers_reject_what_the_kernels_cannot_take():

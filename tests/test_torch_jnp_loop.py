@@ -62,7 +62,7 @@ from bpt_tpu_torch.ops.kernels import intersect as ki
 from bpt_tpu_torch.scene import builder as tbuilder
 from bpt_tpu_torch.scene import presets as tpresets
 from bpt_tpu_torch.utils.png import read_png
-from torch_parity import rays
+from torch_parity import endpoint_ties, rays, shadow_wave
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STATS = ("rays_traced", "shadow_rays", "bvh_node_visits", "aabb_hits", "triangle_tests",
@@ -88,15 +88,47 @@ def _hit_lanes(B=3001):
     return o, d, tmin, tmax
 
 
-@pytest.mark.parametrize("which", ["closest", "any"])
-def test_brute_hits_match_pallas_interpret(which):
-    o, d, tmin, tmax = _hit_lanes()
+def _pallas_and_port_args(o, d, tmin, tmax):
     js = jpresets.cornell_box(dtype=jnp.float32)
     jargs = (jsoa._tri_flat(js), *(jnp.asarray(np.ascontiguousarray(a[:, k]))
                                    for a in (o, d) for k in range(3)),
              jnp.asarray(tmin), jnp.asarray(tmax))
     targs = (tpresets.cornell_box(device="cpu"), _vec(o, torch), _vec(d, torch),
              torch.from_numpy(tmin), torch.from_numpy(tmax))
+    return jargs, targs
+
+
+def _wave_lanes():
+    """A shadow wave (torch_parity.shadow_wave: 6 light rows of 768 lanes,
+    rows sparser with the light vertex, runs of dead lanes, masked and NaN
+    lanes) with endpoint ties on the lanes where bpt_tpu's Pallas closest
+    hit and the port's put the hit at the same t."""
+    o, d, tmin, tmax, live = shadow_wave(6, 768, 13)
+    far = np.where(live, np.inf, tmax).astype(np.float32)
+    jargs, targs = _pallas_and_port_args(o, d, tmin, far)
+    jt = np.asarray(jint.closest_pallas(*jargs, interpret=True)[0])
+    tmax, ties = endpoint_ties(tmax, live, jt, ki.closest_tri(*targs)[0].numpy())
+    rows = live.reshape(6, 768).sum(axis=1)
+    assert ties.sum() >= 100 and rows[0] > 3 * rows[-1] > 0
+    return o, d, tmin, tmax, ties
+
+
+@pytest.mark.parametrize("which, layout", [("closest", "random"), ("any", "random"),
+                                           ("closest", "shadow wave"), ("any", "shadow wave")],
+                         ids=["closest", "any", "closest-shadow-wave", "any-shadow-wave"])
+def test_brute_hits_match_pallas_interpret(which, layout):
+    """The plain versions of closest_tri / any_tri against bpt_tpu's Pallas
+    kernels in interpret mode, on random lanes and on a shadow wave's
+    layout.  At a tie (tmax the hit's own t, inclusive) the port hits every
+    lane; bpt_tpu's any kernel rounds t by XLA's contraction, which differs
+    from its closest kernel's on a few of them, so there the two any hits
+    agree on >= 97%, everywhere else exactly."""
+    if layout == "random":
+        o, d, tmin, tmax = _hit_lanes()
+        ties = np.zeros(tmax.shape, bool)
+    else:
+        o, d, tmin, tmax, ties = _wave_lanes()
+    jargs, targs = _pallas_and_port_args(o, d, tmin, tmax)
     if which == "closest":
         jt, jtri, ju, jv = (np.asarray(x) for x in jint.closest_pallas(*jargs, interpret=True))
         n = ki.closest_tri_plain.calls
@@ -104,7 +136,9 @@ def test_brute_hits_match_pallas_interpret(which):
         assert ki.closest_tri_plain.calls == n + 1
         hit = tri >= 0
         np.testing.assert_array_equal(hit, jtri >= 0)
-        assert 0.3 < hit.mean() < 0.9 and not np.isfinite(t[~hit]).any()
+        live = tmin <= tmax
+        assert 0.3 < hit[live if ties.any() else ...].mean() < 0.9
+        assert not np.isfinite(t[~hit]).any() and not hit[~live].any()
         np.testing.assert_allclose(t[hit], jt[hit], rtol=1e-5)
         # a ray that meets two surfaces at one t (where walls or a box and
         # the floor meet) takes the lower triangle on each side, and an ulp
@@ -115,13 +149,16 @@ def test_brute_hits_match_pallas_interpret(which):
         np.testing.assert_allclose(np.c_[u, v][same], np.c_[ju, jv][same], rtol=1e-5,
                                    atol=1e-5)
         assert not np.c_[u, v][~hit].any()
+        assert hit[ties].all() and (t[ties] == tmax[ties]).all()
     else:
         want = np.asarray(jint.any_pallas(*jargs, interpret=True))
         n = ki.any_tri_plain.calls
         got = ki.any_tri(*targs).numpy()
         assert ki.any_tri_plain.calls == n + 1
-        np.testing.assert_array_equal(got, want)
-        assert 0.3 < got.mean() < 0.9 and not got[tmax < tmin].any()
+        np.testing.assert_array_equal(got[~ties], want[~ties])
+        assert got[ties].all() and want[ties].sum() >= 0.97 * ties.sum()
+        live = tmin <= tmax
+        assert 0.3 < got[live if ties.any() else ...].mean() < 0.9 and not got[~live].any()
 
 
 def _record(monkeypatch):

@@ -35,7 +35,7 @@ from bpt_tpu_torch.ops import soa as tsoa
 from bpt_tpu_torch.ops.kernels import pt_kernel as tk
 from bpt_tpu_torch.scene import builder as tbuilder
 from bpt_tpu_torch.scene import presets as tpresets
-from torch_parity import mixed_scene, rays
+from torch_parity import endpoint_ties, mixed_scene, rays, shadow_wave
 
 RTOL, ATOL = 1e-4, 1e-6
 
@@ -118,6 +118,47 @@ def test_brute_hits_match_f64(kind):
                                    rtol=1e-10, atol=1e-10, err_msg=name)
     assert int(got.tri_tests) == int(want.tri_tests)
     assert int(got.tri_hits) == int(want.tri_hits)
+
+
+@pytest.mark.parametrize("kind", ["closest", "any"])
+def test_brute_hits_on_a_shadow_wave_match_f64(kind):
+    """closest_tri / any_tri (their plain versions on the CPU) at float64 on
+    a shadow wave's layout (torch_parity.shadow_wave: 5 light rows of 512
+    lanes, sparser row by row, runs of dead lanes, masked and NaN lanes)
+    against bpt_tpu's brute_closest / brute_any, with endpoint ties (tmax
+    the hit's own t where both sides put it alike, inclusive): every answer
+    and triangle equal, t, u, v to 1e-10, every tie a hit."""
+    from bpt_tpu_torch.ops.kernels import intersect as ki
+
+    js, ts = _scenes("mixed", "f64")
+    o, d, tmin, tmax, live = shadow_wave(5, 512, 17, np.float64)
+
+    def args(tm):
+        return ((js, _vec(o, "jax"), _vec(d, "jax"), jnp.asarray(tmin), jnp.asarray(tm)),
+                (ts, _vec(o, "t"), _vec(d, "t"), torch.from_numpy(tmin), torch.from_numpy(tm)))
+
+    far = np.where(live, np.inf, tmax)
+    (ja, ta) = args(far)
+    tmax, ties = endpoint_ties(tmax, live, np.asarray(jsoa.brute_closest(*ja).t),
+                               ki.closest_tri(*ta)[0].numpy())
+    assert ties.sum() >= 100
+    ja, ta = args(tmax)
+    dead = ~(tmin <= tmax)
+    if kind == "any":
+        got = ki.any_tri(*ta).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jsoa.brute_any(*ja)))
+        assert got[ties].all() and not got[dead].any()
+        return
+    want = jsoa.brute_closest(*ja)
+    t, tri, u, v = (x.numpy() for x in ki.closest_tri(*ta))
+    m = np.asarray(want.hit)
+    np.testing.assert_array_equal(tri >= 0, m)
+    assert m[ties].all() and (t[ties] == tmax[ties]).all() and not m[dead].any()
+    np.testing.assert_array_equal(tri[m], np.asarray(want.tri)[m])
+    for name, got in (("t", t), ("u", u), ("v", v)):
+        np.testing.assert_allclose(got[m], np.asarray(getattr(want, name))[m], rtol=1e-10,
+                                   atol=1e-10, err_msg=name)
+    assert np.isinf(t[~m]).all() and not np.c_[u, v][~m].any()
 
 
 @pytest.mark.parametrize("which", ["cornell", "mixed"])

@@ -12,13 +12,18 @@ within the budget; the BDPT wrapper's vertex scratch, sized for its
 largest launch's grid (``bdpt_kernel.scratch_shape``); the brute-force PT
 wrapper's launches (work split and persistent grid from the occupancy
 query, read through a stand-in for the CUDA library) and its raise when
-that query fails; the in-order sum (``pt_kernel.strata_sum``); and the
+that query fails; the brute-force hit wrappers' launches (``closest_tri``
+/ ``any_tri``: the persistent grid from ``bpt_tri_blocks``, a zeroed work
+counter for each launch, no launch over no lane, a raise when the query
+fails) and their triangle table, packed once a scene; the in-order sum (``pt_kernel.strata_sum``); and the
 per-stratum plain outputs added in the plan's order equal the plain
 pixels versions, which sum a pixel's strata in one loop, bit for bit
 (the float-add sequence of a lane that sums its strata in order)."""
 
 import contextlib
+import ctypes
 import dataclasses
+import gc
 import types
 
 import numpy as np
@@ -28,6 +33,7 @@ import torch
 from bpt_tpu_torch.core import rng
 from bpt_tpu_torch.models.camera import camera_constants
 from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
+from bpt_tpu_torch.ops.kernels import intersect as ki
 from bpt_tpu_torch.ops.kernels import pt_kernel as pk
 from bpt_tpu_torch.scene import builder, presets
 from torch_parity import big_scene
@@ -188,6 +194,129 @@ def test_brute_pt_launch_plan(mode, B, blocks, budget, launches, monkeypatch):
 def test_brute_pt_launch_raises_when_the_occupancy_query_fails(mode, monkeypatch):
     with pytest.raises(RuntimeError, match="occupancy"):
         _fake_launch(monkeypatch, -2, mode, 64)
+
+
+class _FakeTriLibrary:
+    """Stands in for the CUDA library's brute-force hit entries: the
+    occupancy query returns ``blocks``; each launch is recorded with what
+    its work counter held, which it then moves past B, as the kernel's
+    warps do, and reports a launch."""
+
+    def __init__(self, blocks):
+        self.blocks = blocks
+        self.queries, self.calls = [], []
+
+    def bpt_tri_blocks(self, f64, any_hit):
+        self.queries.append((f64, any_hit))
+        return self.blocks
+
+    def _launch(self, args):
+        f64, B, T, grid, table = args[:5]
+        counter = ctypes.c_int64.from_address(args[-2])
+        self.calls.append(dict(f64=f64, B=B, T=T, grid=grid, table=table,
+                               counter=counter.value))
+        counter.value = B + 4096
+        return 0
+
+    def bpt_closest_tri(self, *args):
+        return self._launch(args)
+
+    def bpt_any_tri(self, *args):
+        return self._launch(args)
+
+
+def _fake_tri_launch(monkeypatch, lib, which, B, dtype=torch.float32, scene=None):
+    """``intersect._launch`` of ``which`` over B cornell lanes through the
+    stand-in ``lib``: (the outputs, launches counted)."""
+    from bpt_tpu_torch.core.vec3 import Vec3
+    from bpt_tpu_torch.ops.kernels import build
+
+    monkeypatch.setattr(build, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    scene = presets.cornell_box(device="cpu", dtype=dtype) if scene is None else scene
+    x = torch.zeros(B, dtype=dtype)
+    wrapper = getattr(ki, which)
+    n = wrapper.launches
+    outs = ki._launch(which, scene, Vec3(x, x, x), Vec3(x, x, x), x, x)
+    return outs, wrapper.launches - n
+
+
+@pytest.mark.parametrize("which, dtype, B, blocks, grid", [
+    ("any_tri", torch.float32, 4096, 2112, 32),         # as many blocks as the lanes fill
+    ("any_tri", torch.float64, 129, 1188, 2),
+    ("closest_tri", torch.float32, 1, 2112, 1),
+    ("closest_tri", torch.float32, 300_000, 2112, 2112),  # the resident blocks
+    ("closest_tri", torch.float64, 1000, 4, 4),
+])
+def test_tri_launch_plan(which, dtype, B, blocks, grid, monkeypatch):
+    """One launch a call, on the blocks the card holds at once
+    (``bpt_tri_blocks`` of the kernel's instantiation) or as few as the
+    lanes fill, 128 lanes a block; the scene's packed table; a zeroed
+    64-bit work counter."""
+    lib = _FakeTriLibrary(blocks)
+    outs, launched = _fake_tri_launch(monkeypatch, lib, which, B, dtype)
+    f64, any_hit = int(dtype == torch.float64), int(which == "any_tri")
+    assert launched == 1 and lib.queries == [(f64, any_hit)]
+    assert lib.calls == [dict(f64=f64, B=B, T=presets.cornell_box(device="cpu").num_tris,
+                              grid=grid, table=lib.calls[0]["table"], counter=0)]
+    want = [torch.bool] if any_hit else [dtype, torch.int32, dtype, dtype]
+    assert [o.dtype for o in outs] == want and all(o.shape == (B,) for o in outs)
+
+
+def test_tri_launches_get_a_zeroed_work_counter_each(monkeypatch):
+    """Each launch takes a counter of its own, zeroed, though the one
+    before left its counter past B; every launch reads the scene's one
+    packed table."""
+    lib = _FakeTriLibrary(2112)
+    scene = presets.cornell_box(device="cpu")
+    for which in ("any_tri", "closest_tri", "any_tri", "closest_tri"):
+        _fake_tri_launch(monkeypatch, lib, which, 256, scene=scene)
+    assert [c["counter"] for c in lib.calls] == [0, 0, 0, 0]
+    assert {c["table"] for c in lib.calls} == {ki.tri_table(scene).data_ptr()}
+
+
+@pytest.mark.parametrize("which", ["closest_tri", "any_tri"])
+def test_tri_launch_over_no_lane_launches_nothing(which, monkeypatch):
+    lib = _FakeTriLibrary(2112)
+    outs, launched = _fake_tri_launch(monkeypatch, lib, which, 0)
+    assert launched == 0 and lib.calls == [] and lib.queries == []
+    assert all(o.shape == (0,) for o in outs)
+
+
+@pytest.mark.parametrize("which", ["closest_tri", "any_tri"])
+def test_tri_launch_raises_when_the_occupancy_query_fails(which, monkeypatch):
+    lib = _FakeTriLibrary(-2)
+    n = getattr(ki, which).launches
+    with pytest.raises(RuntimeError, match="occupancy"):
+        _fake_tri_launch(monkeypatch, lib, which, 64)
+    assert lib.calls == [] and getattr(ki, which).launches == n
+
+
+def test_tri_launch_refuses_a_scene_over_the_staged_table(monkeypatch):
+    """The kernels stage a whole table of at most 256 triangles; a larger
+    scene has a BVH and takes the BVH kernels."""
+    lib = _FakeTriLibrary(2112)
+    with pytest.raises(ValueError, match="256"):
+        _fake_tri_launch(monkeypatch, lib, "closest_tri", 64,
+                         scene=big_scene(builder, device="cpu"))
+    assert lib.calls == []
+
+
+def test_tri_table_is_packed_once_a_scene():
+    """The brute-force hit kernels' (v0, e1, e2) table is packed at a
+    scene's first hit call, reused by every later one, and dropped with
+    the scene."""
+    scene = presets.cornell_box(device="cpu", dtype=torch.float64)
+    table = ki.tri_table(scene)
+    assert ki.tri_table(scene) is table
+    assert table.shape == (scene.num_tris, 9) and table.dtype == torch.float64
+    assert torch.equal(table, torch.cat([scene.v0, scene.e1, scene.e2], dim=1))
+    key = id(scene)
+    del scene
+    gc.collect()
+    assert key not in ki.tri_table.cache
 
 
 @pytest.mark.parametrize("nk, first", [(1, True), (16, True), (5, False)])

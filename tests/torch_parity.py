@@ -77,3 +77,35 @@ def big_rays(B, seed):
     d[:8, 0] = 0.0
     o[:4, 0] = 0.0
     return o, d
+
+
+def shadow_wave(S, B, seed, dtype=np.float32):
+    """The lanes of a BDPT shadow wave in the cornell box, [S, B] flattened
+    row by row as ``models/bdpt.py`` lays out its connections (row n: light
+    vertex n of every camera lane), numpy-seeded: each camera lane's origin
+    repeated over the rows, directions to random points of the box, tmax
+    just short of them.  Row n is live with a probability falling from 0.9
+    to 0.1, four runs of 128 lanes (four warps) are dead, a dead lane is masked as
+    ``ops/soa.py`` masks it (tmax 0 < tmin = 1e-3), and one lane in 50 has
+    a NaN tmax.  Returns (o [S*B, 3], d [S*B, 3], tmin, tmax, live [S*B])."""
+    g = np.random.default_rng(seed)
+    o = np.repeat(g.uniform(50, 500, (1, B, 3)), S, axis=0).reshape(-1, 3)
+    d = g.uniform(0, 555, (S * B, 3)) - o
+    dist = np.linalg.norm(d, axis=1)
+    d = d / dist[:, None]
+    live = g.uniform(size=S * B) < np.linspace(0.9, 0.1, S).repeat(B)
+    for s in g.integers(0, S * B - 128, 4):
+        live[s:s + 128] = False
+    tmin = np.full(S * B, 1e-3)
+    tmax = np.where(live, dist * 0.999, 0.0)
+    tmax[g.uniform(size=S * B) < 0.02] = np.nan
+    return (o.astype(dtype), d.astype(dtype), tmin.astype(dtype), tmax.astype(dtype),
+            live & ~np.isnan(tmax))
+
+
+def endpoint_ties(tmax, live, t_a, t_b):
+    """tmax with every third live lane whose hit both sides put at the same
+    t ending exactly there (a ref_vis connection's endpoint: t == tmax,
+    inclusive); returns (tmax, the tie lanes)."""
+    ties = live & np.isfinite(t_a) & (t_a == t_b) & (np.arange(tmax.shape[0]) % 3 == 0)
+    return np.where(ties, t_a, tmax).astype(tmax.dtype), ties

@@ -43,14 +43,17 @@ VARIANTS = {
 }
 
 
-def make(dest: Path, name: str) -> Path:
+def make(dest: Path, name: str, variants=None) -> Path:
+    """Writes DEST/NAME, a copy of the checkout with NAME's substitutions
+    from ``variants`` (this tool's VARIANTS by default)."""
+    variants = VARIANTS if variants is None else variants
     out = dest / name
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     shutil.copytree(ROOT / "bpt_tpu_torch", out / "bpt_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", out / "chip_smoke.py")
-    for rel, old, new in (sub for part in name.split("+") for sub in VARIANTS[part]):
+    for rel, old, new in (sub for part in name.split("+") for sub in variants[part]):
         path = out / rel
         text = path.read_text()
         if text.count(old) != 1:
