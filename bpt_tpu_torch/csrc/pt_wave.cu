@@ -10,9 +10,14 @@
 // dead lane, early exit): out hit.
 // pt_wave_bounce replaces bpt_tpu/ops/pallas/pt_wave.py::_launch_bounce
 // (_bounce_kernel): make_bounce's shade of one PT bounce per ray over the
-// closest hits closest_bvh wrote, with kernel-stream draws keyed by (ray
-// id, bounce).  The wrapper launches closest_bvh over the state's rays
-// first, or takes its hits in paged mode.
+// closest hits closest_bvh (or, on a scene without a BVH, closest_tri)
+// wrote, with kernel-stream draws keyed by (ray id, bounce).  The wrapper
+// launches closest_bvh over the state's rays first, or is given the hits.
+// Like make_bounce, it writes the hit point into the origin of every live
+// hit, a lane that ends on an emitter or at a mixture pdf of 0 included
+// (pt_kernel.py:661-667): a textured light's texel is read there
+// (ops/kernels/pt_wave.py::texel_stage).  pt_bounce, which the PT
+// megakernel shares, leaves such a lane's origin alone; the write is here.
 //
 // What bounds them on the H100: the walk, not FP32 throughput and not
 // device-memory bandwidth (one thread a ray, closest_bvh, pt_wave_bounce
@@ -250,6 +255,12 @@ __global__ void __launch_bounds__(WAVE_BLOCK) pt_wave_bounce(const WaveParams p)
       const Draws dr{nullptr, p.B, s_keys, (uint32_t)p.rid[lane], lane};
       GivenHit h{p.g, p.mat_id, p.hit_t[lane], p.hit_tri[lane]};
       alive = pt_bounce(s_mat, s_lgt, p.L, dr, p.bounce, h, s);
+      if (!alive && h.tri >= 0) {  // the path ended at a hit: its point
+        // (-fmad=false: rounded as pt_bounce's px, one multiply, one add)
+        s.ox = s.ox + h.t * s.dx;
+        s.oy = s.oy + h.t * s.dy;
+        s.oz = s.oz + h.t * s.dz;
+      }
       // at most one bounce of a path adds radiance: rr + 0 elsewhere
       rr = rr + s.ar;
       rg = rg + s.ag;

@@ -224,7 +224,7 @@ def trace_subpath(scene: SceneTensors, o: Vec3, d: Vec3, thr0: Vec3, alive0,
 
         valid_v = alive & rec.hit
         delta = sh.is_delta(mtype)
-        emission = sh.emitted(scene, rec.mat, rec.front_face)
+        emission = sh.emitted(scene, rec.mat, rec.front_face, rec.u, rec.v, rec.p)
         wi = v3.normalize_safe(-d)
 
         _set(verts.valid, b, valid_v, True)
@@ -268,7 +268,7 @@ def trace_subpath(scene: SceneTensors, o: Vec3, d: Vec3, thr0: Vec3, alive0,
             )
 
         can_scatter = mtype != MAT_LIGHT
-        atten = sh.attenuation(scene, rec.mat, mtype)
+        atten = sh.attenuation(scene, rec.mat, mtype, rec.u, rec.v, rec.p)
         d_delta = sh.delta_scatter_dir(
             scene, rec.mat, mtype, d, rec.normal, rec.front_face,
             u[TU_DIEL], u[TU_FZ1], u[TU_FZ2])
@@ -310,7 +310,9 @@ def build_light_subpath(scene: SceneTensors, B, max_depth: int, start_u,
 
     # emitter emission: forced front_face=true (camera.h:385-394)
     zeros = torch.zeros((B,), dtype=dtype, device=dev)
-    emission = sh.emitted(scene, s.mat, torch.ones((B,), dtype=torch.bool, device=dev))
+    # at uv = (0, 0) and the sampled point, as bpt_tpu/models/bdpt.py:694 does
+    emission = sh.emitted(scene, s.mat, torch.ones((B,), dtype=torch.bool, device=dev),
+                          zeros, zeros, s.position)
     path_ok = s.valid & (v3.length_squared(emission) > 0.0)
 
     inv_pdf = 1.0 / torch.clamp_min(s.pdf, 1e-8)
@@ -414,7 +416,7 @@ def connect_paths(scene: SceneTensors, cam: Vertices, light: Vertices,
 
     # light-side factors, independent of s
     lmtype = scene.materials.mtype[light.mat]
-    f_light_bsdf = sh.evaluate_bsdf(scene, light.mat, lmtype)
+    f_light_bsdf = sh.evaluate_bsdf(scene, light.mat, lmtype, light.u, light.v, light.p)
     # emitter vertices use raw emission as their "BSDF" (camera.h:462-467)
     f_light = v3.where(light.is_light, light.emit, f_light_bsdf)
     light_factor = light.thr * f_light  # [S_l, B]
@@ -429,7 +431,7 @@ def connect_paths(scene: SceneTensors, cam: Vertices, light: Vertices,
         cmat = cam.mat[s]
         c_ok = cam.valid[s] & ~cam.delta[s]
         cmtype = scene.materials.mtype[cmat]
-        f_cam = sh.evaluate_bsdf(scene, cmat, cmtype)  # [B]
+        f_cam = sh.evaluate_bsdf(scene, cmat, cmtype, cam.u[s], cam.v[s], cp)  # [B]
         c_ok = c_ok & (v3.length_squared(f_cam) > 0.0)
         cam_factor = cthr * f_cam
 

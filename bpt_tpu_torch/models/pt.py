@@ -109,7 +109,8 @@ def pt_bounce(scene: SceneTensors, o: Vec3, d: Vec3, thr: Vec3, alive, h, u):
     uniform rows ``u``: miss -> background, one-sided emission, delta
     continuation or the 50/50 light/BSDF mixture.
 
-    Returns (o, d, thr, radiance added this bounce, alive_new)."""
+    Returns (o, d, thr, radiance added this bounce, alive_new); o is the
+    hit point on every live hit, the ray's origin elsewhere."""
     bg = Vec3(scene.background[0], scene.background[1], scene.background[2])
     rec = soa.complete_hit(scene, o, d, h)
     mtype = scene.materials.mtype[rec.mat]
@@ -119,14 +120,14 @@ def pt_bounce(scene: SceneTensors, o: Vec3, d: Vec3, thr: Vec3, alive, h, u):
     rad = v3.scale_add(Vec3(zero, zero, zero), miss, thr * bg)
 
     live_hit = alive & rec.hit
-    emission = sh.emitted(scene, rec.mat, rec.front_face)
+    emission = sh.emitted(scene, rec.mat, rec.front_face, rec.u, rec.v, rec.p)
     delta = sh.is_delta(mtype)
     can_scatter = mtype != MAT_LIGHT
 
     # non-delta lanes add emission (skip_pdf lanes drop it, camera.h:273)
     rad = v3.scale_add(rad, live_hit & ~delta, thr * emission)
 
-    atten = sh.attenuation(scene, rec.mat, mtype)
+    atten = sh.attenuation(scene, rec.mat, mtype, rec.u, rec.v, rec.p)
 
     # delta continuation (camera.h:273-275)
     d_delta = sh.delta_scatter_dir(
@@ -156,7 +157,9 @@ def pt_bounce(scene: SceneTensors, o: Vec3, d: Vec3, thr: Vec3, alive, h, u):
     )
 
     alive_new = delta_ok | diffuse_ok
-    o = v3.where(alive_new, rec.p, o)
+    # every live hit writes its point, those ending here included: the
+    # wave's texel stage reads it (bpt_tpu/ops/pallas/pt_kernel.py:661-667)
+    o = v3.where(live_hit, rec.p, o)
     d = v3.where(alive_new, v3.where(delta_ok, d_delta, d_diff), d)
     return o, d, thr, rad, alive_new
 

@@ -126,8 +126,9 @@ def _route(scene: SceneTensors, cfg: CameraConfig, integrator: str, resume) -> s
 
     1. ``"wave"``: PT on a scene over 512 triangles, through pt_wave, at
        2^18 pixels or more or where the fused loop would take it (bpt_tpu
-       takes the fused loop there), unless ref_vis, over the shade tables'
-       capacity or resuming a checkpoint of another loop;
+       takes the fused loop there), and on a textured scene of any size at
+       2^18 pixels or more (render.py:300-303), unless ref_vis, over the
+       shade tables' capacity or resuming a checkpoint of another loop;
     2. ``"bdpt_wave"``: BDPT on a float32 scene over 512 triangles at 2^18
        samples or more and depth <= 32, without ref_vis, starting fresh or
        resuming a jnp stratum checkpoint: the stratum loop on the jnp
@@ -135,13 +136,15 @@ def _route(scene: SceneTensors, cfg: CameraConfig, integrator: str, resume) -> s
     3. ``"fused"``: the megakernels' chunk loop, for a scene they take
        (brute force up to 512 triangles, a BVH walk above) without defocus
        or ref_vis, starting fresh or resuming a chunk-kind checkpoint;
-    4. ``"strata"``: the jnp stratum loop, for everything else."""
+    4. ``"strata"``: the jnp stratum loop, for everything else, textured
+       scenes the other routes leave included."""
     kind, stream = _resume_kind(resume), _resume_stream(resume)
     large = scene.num_tris > MAX_TRIS
     npix = cfg.image_width * cfg.image_height
     fused_ok = (cfg.defocus_angle <= 0.0 and not cfg.ref_vis
                 and not megakernel_reject_reason(scene, integrator))
-    if (integrator == "pt" and large and (npix >= WAVE_MIN_RAYS or fused_ok)
+    if (integrator == "pt" and (large or scene.has_textures)
+            and (npix >= WAVE_MIN_RAYS or fused_ok)
             and not cfg.ref_vis and not shade_reject_reason(scene)
             and kind in ("", "stratum") and stream in ("", "wave")):
         return "wave"
@@ -163,8 +166,8 @@ def _reject_reason(scene: SceneTensors, cfg: CameraConfig, integrator: str,
                 "CUDA kernel's vertex-scratch bound")
     if route in ("wave", "fused"):
         return ""  # the route was chosen because its kernels take the scene
-    if scene.num_volumes or scene.has_textures:
-        return "scene has volumes or textures (not yet ported: ROADMAP §1 items 3-4)"
+    if scene.num_volumes:
+        return "scene has volumes (not yet ported: ROADMAP §1 item 4)"
     if scene.device.type == "cuda" and scene.use_bvh:
         return walk_reject_reason(scene)
     return ""

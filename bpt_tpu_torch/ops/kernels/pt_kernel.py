@@ -63,11 +63,15 @@ def megakernel_reject_reason(scene: SceneTensors, integrator: str = "pt") -> str
     can); both take the same scenes: at most ``MAX_TRIS`` triangles, or a
     BVH to walk, within ``shade_reject_reason``'s tables.  bpt_tpu's
     single-table budget of its clustered mode (clusters.py:92-102, TPU
-    SMEM) has no counterpart: the walk reads the BVH from device memory."""
+    SMEM) has no counterpart: the walk reads the BVH from device memory.
+    Textured scenes go to the wave or the stratum loop, as in bpt_tpu
+    (pt_kernel.py:1025-1027)."""
     if integrator not in INTEGRATORS:
         return f"unknown integrator {integrator!r} (not one of {', '.join(INTEGRATORS)})"
     if scene.num_tris > MAX_TRIS and not scene.use_bvh:
         return f"{scene.num_tris} tris > MAX_TRIS={MAX_TRIS} and no BVH to walk"
+    if scene.has_textures:
+        return "scene has textures (the megakernels take none: pt_wave and the jnp estimators do)"
     return shade_reject_reason(scene)
 
 
@@ -78,7 +82,9 @@ def use_walk(scene: SceneTensors) -> bool:
 
 def shade_reject_reason(scene: SceneTensors) -> str:
     """Why the shade's tables (``pack_shade_tables``), which the
-    megakernels and the wave kernel read, cannot hold ``scene``."""
+    megakernels and the wave kernel read, cannot hold ``scene``: the wave
+    kernel's reason (bpt_tpu's ``wave_reject_reason``), which lets textured
+    scenes through."""
     if scene.num_lights > MAX_LIGHTS:
         return f"{scene.num_lights} lights > MAX_LIGHTS={MAX_LIGHTS}"
     m = int(scene.materials.mtype.shape[0])
@@ -89,8 +95,6 @@ def shade_reject_reason(scene: SceneTensors) -> str:
     if scene.dtype != torch.float32:
         return (f"dtype {scene.dtype} != float32 (the CUDA kernels take "
                 "float32; render() takes float64 through the stratum loop)")
-    if scene.has_textures:
-        return "scene has textures (not yet ported: ROADMAP §1 item 3)"
     return ""
 
 

@@ -23,19 +23,35 @@ changes no result bit.  Two launches per bounce: ``closest_bvh`` walks
 the live rays' BVH hits (on a persistent grid that refills finished lanes)
 and ``pt_wave_bounce`` shades them; the wrapper ``pt_wave_bounce`` calls
 ``closest_bvh`` itself, or in paged mode (``paged=True``, the counterpart
-of ``bpt_tpu``'s ``precomp``) is given its hits.
+of ``bpt_tpu``'s ``precomp``) is given its hits.  A scene without a BVH
+(at most 256 triangles) takes its hits from ``closest_tri``
+(``ops/kernels/intersect.py``), which ``_pt_wave`` calls before each
+shade, as ``bpt_tpu``'s kernel sweeps such a scene's triangles itself.
+
+Textured mode (``scene.has_textures``; bpt_tpu/ops/pallas/pt_wave.py:
+546-608): the shade reads the material table with every textured
+material's albedo set to 1.0 (``shade_scene``) and writes the hit point
+into the origin of every live hit, those that end on an emitter included;
+after each bounce ``texel_stage`` looks up the texel at the hit's
+interpolated (u, v) and that point, multiplies it into the throughput of
+the lanes that scattered off a textured non-dielectric surface and into
+the radiance of the lanes that ended on a textured light.  The stage is
+torch, as ``bpt_tpu`` runs it in XLA between its launches, and serves the
+kernels and their plain versions alike; ``_pt_wave`` then computes each
+bounce's hits itself, to keep their (u, v).
 
 Dispatch is by device: a CPU tensor takes the plain PyTorch version
 (``ops.soa.bvh_closest``, ``ops.soa.bvh_any`` and ``models.pt.pt_bounce``);
 a CUDA tensor launches ``csrc/pt_wave.cu`` or raises.  The wrappers count their launches
 in ``<wrapper>.launches``, the plain versions their calls in
 ``<plain>.calls``.  Left out: bpt_tpu's TPU study options ``entry_sort``,
-``pair_il`` and ``tile_rows``, and the texel stage (textures are not
-ported).
+``pair_il`` and ``tile_rows``, and the texel stage's textured-volume case
+(volumes are ROADMAP §1 item 4).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -54,7 +70,13 @@ from bpt_tpu_torch.ops.kernels.pt_kernel import (
     pack_shade_tables,
     shade_reject_reason,
 )
-from bpt_tpu_torch.scene.types import SceneTensors, per_scene
+from bpt_tpu_torch.scene.textures import texture_value
+from bpt_tpu_torch.scene.types import (
+    MAT_DIELECTRIC,
+    MAT_LIGHT,
+    SceneTensors,
+    per_scene,
+)
 
 STATE_ROWS = 13
 OX, DX, THR, RAD, ALIVE = 0, 3, 6, 9, 12  # first row of each field
@@ -93,11 +115,32 @@ def bounds_ok(scene: SceneTensors) -> bool:
     return not bool(walk_tables(scene)[0][:, :6].isnan().any())
 
 
+def shade_scene(scene: SceneTensors) -> SceneTensors:
+    """The scene as the wave's shade reads it: every textured material's
+    albedo 1.0 and no UV interpolation (bpt_tpu/ops/pallas/pt_kernel.py:
+    1066-1074), since ``texel_stage`` multiplies the texel in after the
+    bounce.  An untextured scene is itself."""
+    return _untextured(scene) if scene.has_textures else scene
+
+
+@per_scene
+def _untextured(scene: SceneTensors) -> SceneTensors:
+    """``shade_scene`` of a textured scene, made once a scene (it holds
+    the scene's tensors, not the scene)."""
+    mats = scene.materials
+    albedo = torch.where((mats.tex_id >= 0)[:, None], 1.0, mats.albedo)
+    return dataclasses.replace(scene, materials=dataclasses.replace(mats, albedo=albedo),
+                               has_textures=False)
+
+
 def pack_bvh(scene: SceneTensors) -> BvhTables:
     """The scene in the wave kernel's layout: the walk's tables and the
-    shading tables."""
+    shading tables of ``shade_scene``.  The shade reads only the
+    triangles' rows (normals) and material ids, packed from the triangle
+    arrays; a scene of at most 256 triangles, which the walks never take,
+    carries its BVH's arrays all the same (``scene/builder.py``)."""
     return BvhTables(*walk_tables(scene), scene.mat_id.to(torch.int32).contiguous(),
-                     *pack_shade_tables(scene))
+                     *pack_shade_tables(shade_scene(scene)))
 
 
 @functools.lru_cache(maxsize=16)
@@ -217,9 +260,11 @@ any_bvh.launches = 0
 
 
 def pt_wave_bounce_plain(scene, state, rid, key, bounce: int, hits=None):
-    """Plain version of ``pt_wave_bounce``: ``models.pt.pt_bounce`` on the
-    kernel stream, over ``ops.soa.bvh_closest``'s hits or the given ones."""
+    """Plain version of ``pt_wave_bounce``: ``models.pt.pt_bounce`` of
+    ``shade_scene`` on the kernel stream, over ``ops.soa.bvh_closest``'s
+    hits or the given ones."""
     pt_wave_bounce_plain.calls += 1
+    scene = shade_scene(scene)
     o, d, thr = (Vec3(*state[k:k + 3]) for k in (OX, DX, THR))
     alive = state[ALIVE] > 0.5
     if hits is None:
@@ -247,8 +292,10 @@ def pt_wave_bounce(scene: SceneTensors, state, rid, key, bounce: int,
     """One PT bounce of every live lane: state [STATE_ROWS, B] f32 in
     (origin, direction, throughput, radiance, alive rows), rid [B] int32
     ray ids keying the draws with ``bounce``; ``hits`` = (t, tri) from
-    ``closest_bvh`` in paged mode, else this calls ``closest_bvh`` on the
-    live lanes first.  The shade is one launch (``.launches``).
+    ``closest_bvh`` or ``closest_tri``, else this calls ``closest_bvh`` on
+    the live lanes first.  The shade is one launch (``.launches``); it
+    reads ``shade_scene``'s materials and writes the hit point into the
+    origin of every live hit.
 
     Returns (the next state [STATE_ROWS, B] with this bounce's radiance
     added, counters int64[5] = (rays, node visits, AABB hits, triangle
@@ -325,6 +372,46 @@ def _sort_key(state):
     return _coherence_key(lo, hi, *state[OX:DX + 3], state[ALIVE])
 
 
+def closest_sweep(scene: SceneTensors, o: Vec3, d: Vec3, active, plain: bool = False):
+    """The closest hits of a scene without a BVH, with ``closest_bvh``'s
+    outputs: ``closest_tri`` (or, ``plain``, its plain version) over (T_MIN,
+    inf) for the lanes ``active`` and an empty interval for the rest;
+    counters (0, 0, T tests a live lane, one accepted test a hit): the
+    sweep of ``ops.soa.closest_hit``."""
+    h = soa.closest_hit(scene, o, d, T_MIN, torch.inf, mask=active, plain=plain)
+    return (h.t, torch.where(h.hit, h.tri, -1).to(torch.int32), h.u, h.v,
+            torch.stack([h.node_visits, h.aabb_hits, h.tri_tests, h.tri_hits]))
+
+
+def texel_stage(scene: SceneTensors, state, tri, u, v) -> None:
+    """bpt_tpu's texel stage (pt_wave.py:546-608) on the state a bounce of
+    ``shade_scene`` wrote, in place.  ``tri``, ``u``, ``v`` [B]: the
+    bounce's closest hits (tri -1 on a miss or a lane that was dead); the
+    state's radiance rows hold this bounce's radiance only.  At the hit's
+    interpolated (u, v), in f32, and the hit point the bounce wrote into
+    the origin, the texel multiplies the throughput of the live lanes on a
+    textured non-dielectric material (``tr * tex``, the kernel having
+    shaded with albedo 1) and the radiance of the lanes that ended on a
+    textured light (emission texel times the throughput they added)."""
+    surf = tri >= 0
+    trc = torch.clamp(tri.long(), 0, scene.num_tris - 1)
+    mat = scene.mat_id[trc]
+    mtype = scene.materials.mtype[mat]
+    tid = scene.materials.tex_id[mat]
+    uvt = scene.tri_uv[trc].to(torch.float32)
+    ui = uvt[:, 0] + u * (uvt[:, 2] - uvt[:, 0]) + v * (uvt[:, 4] - uvt[:, 0])
+    vi = uvt[:, 1] + u * (uvt[:, 3] - uvt[:, 1]) + v * (uvt[:, 5] - uvt[:, 1])
+    ui = torch.where(surf, ui, 0.0)
+    vi = torch.where(surf, vi, 0.0)
+    tex = texture_value(scene.textures, torch.clamp_min(tid, 0), ui, vi,
+                        state[OX:OX + 3].T, with_noise=scene.has_noise).T  # [3, B]
+    texd = (tid >= 0) & surf
+    take = (state[ALIVE] > 0.5) & texd & (mtype != MAT_DIELECTRIC)
+    state[THR:THR + 3] = torch.where(take, state[THR:THR + 3] * tex, state[THR:THR + 3])
+    light = texd & (mtype == MAT_LIGHT)
+    state[RAD:RAD + 3] = torch.where(light, state[RAD:RAD + 3] * tex, state[RAD:RAD + 3])
+
+
 def _pt_wave(scene, o: Vec3, d: Vec3, ray_ids, key, depth: int, sort: bool,
              paged: bool, plain: bool):
     reason = shade_reject_reason(scene)
@@ -347,18 +434,28 @@ def _pt_wave(scene, o: Vec3, d: Vec3, ray_ids, key, depth: int, sort: bool,
     else:
         tables = pack_bvh(scene) if dev.type == "cuda" else None
         closest, bounce = closest_bvh, functools.partial(pt_wave_bounce, tables=tables)
+    if not scene.use_bvh:
+        closest = functools.partial(closest_sweep, plain=plain)
+    textured = scene.has_textures
+    given = paged or textured or not scene.use_bvh  # the hits come from this loop
     for b in range(depth):
         if sort and b > 0:  # primaries arrive raster-coherent
             perm = torch.sort(_sort_key(state), stable=True).indices
             state, rid, idx = state[:, perm], rid[perm], idx[perm]
         hits = None
-        if paged:
-            t, tri, _, _, walk = closest(scene, Vec3(*state[OX:OX + 3]),
+        if given:
+            t, tri, u, v, walk = closest(scene, Vec3(*state[OX:OX + 3]),
                                          Vec3(*state[DX:DX + 3]), state[ALIVE] > 0.5)
             counters[1:] += walk
             hits = (t, tri)
+        if textured:  # the bounce adds its radiance to zeros; the stage scales it
+            rad = state[RAD:RAD + 3].clone()
+            state[RAD:RAD + 3] = 0.0
         state, c = bounce(scene, state, rid, key, b, hits)
         counters += c
+        if textured:
+            texel_stage(scene, state, tri, u, v)
+            state[RAD:RAD + 3] += rad
     # depth-exhausted entries still count (camera.h:256)
     rays = counters[0] + (state[ALIVE] > 0.5).sum(dtype=torch.int64)
     rad = torch.empty((3, B), dtype=torch.float32, device=dev)
@@ -370,8 +467,11 @@ def pt_wave(scene: SceneTensors, o: Vec3, d: Vec3, ray_ids, key, depth: int,
             sort: bool = True, paged: bool = False):
     """Sorted per-bounce wavefront PT.  o, d: Vec3 of [B]; ray_ids [B] int
     (negative = inactive); key: the PT stream's key (the render's
-    ``fold_in(key, 1)``).  The wave kernel walks the BVH itself unless
-    ``paged``, where ``closest_bvh`` computes each bounce's hits first.
+    ``fold_in(key, 1)``).  The wrapper ``pt_wave_bounce`` computes the
+    hits of a scene with a BVH unless ``paged`` or textured, where this
+    loop calls ``closest_bvh`` first; a scene without one takes its hits
+    from ``closest_tri``.  A textured scene runs ``texel_stage`` after
+    each bounce.
 
     Returns (rad_x, rad_y, rad_z [B] f32, rays_traced int64,
     extra int64[4] = (node_visits, aabb_hits, tri_tests, tri_hits))."""

@@ -1,7 +1,7 @@
 """SoA shading: branchless materials, sampling and light machinery on
-component tensors — counterpart of ``bpt_tpu.ops.shade_soa`` for
-untextured scenes (the albedo is the material table's; textures are
-ROADMAP §1 item 3)."""
+component tensors — counterpart of ``bpt_tpu.ops.shade_soa``.  A textured
+material's albedo is its texel at the hit's (u, v, p)
+(``scene/textures.py::texture_value``)."""
 
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from bpt_tpu_torch.core.vec3 import Vec3
 from bpt_tpu_torch.core.vecmath import PI
 from bpt_tpu_torch.ops.intersect import MT_EPSILON, T_MIN
 from bpt_tpu_torch.ops.soa import _mt_all
+from bpt_tpu_torch.scene.textures import texture_value
 from bpt_tpu_torch.scene.types import (
     MAT_DIELECTRIC,
     MAT_ISOTROPIC,
@@ -61,13 +62,20 @@ def schlick(cosine, ri):
 # --------------------------------------------------------------- materials
 
 
-def albedo_value(scene: SceneTensors, mat) -> Vec3:
-    return v3.gather(scene.materials.albedo, mat)
+def albedo_value(scene: SceneTensors, mat, u, v, p: Vec3) -> Vec3:
+    """The material's albedo, or its texel where it has a texture."""
+    base = v3.gather(scene.materials.albedo, mat)
+    if not scene.has_textures:
+        return base
+    tid = scene.materials.tex_id[mat]
+    tex = texture_value(scene.textures, torch.clamp_min(tid, 0), u, v, v3.to_array(p),
+                        with_noise=scene.has_noise)
+    return v3.where(tid >= 0, v3.from_array(tex), base)
 
 
-def emitted(scene: SceneTensors, mat, front_face) -> Vec3:
+def emitted(scene: SceneTensors, mat, front_face, u, v, p: Vec3) -> Vec3:
     mtype = scene.materials.mtype[mat]
-    emit = albedo_value(scene, mat)
+    emit = albedo_value(scene, mat, u, v, p)
     mask = (mtype == MAT_LIGHT) & front_face
     zero = torch.zeros_like(emit.x)
     return v3.where(mask, emit, Vec3(zero, zero, zero))
@@ -77,8 +85,8 @@ def is_delta(mtype):
     return (mtype == MAT_METAL) | (mtype == MAT_DIELECTRIC)
 
 
-def attenuation(scene: SceneTensors, mat, mtype) -> Vec3:
-    alb = albedo_value(scene, mat)
+def attenuation(scene: SceneTensors, mat, mtype, u, v, p: Vec3) -> Vec3:
+    alb = albedo_value(scene, mat, u, v, p)
     one = torch.ones_like(alb.x)
     return v3.where(mtype == MAT_DIELECTRIC, Vec3(one, one, one), alb)
 
@@ -125,10 +133,10 @@ def scattering_pdf(mtype, normal: Vec3, direction: Vec3):
     return torch.where(mtype == MAT_ISOTROPIC, SPHERE_PDF, out)
 
 
-def evaluate_bsdf(scene: SceneTensors, mat, mtype) -> Vec3:
+def evaluate_bsdf(scene: SceneTensors, mat, mtype, u, v, p: Vec3) -> Vec3:
     """The reference's direction-free BSDF value (material.h:35-37, 60-63):
     albedo/pi for lambertian, albedo/(4 pi) for isotropic, 0 otherwise."""
-    alb = albedo_value(scene, mat)
+    alb = albedo_value(scene, mat, u, v, p)
     zero = torch.zeros_like(alb.x)
     out = v3.where(mtype == MAT_LAMBERTIAN, alb * (1.0 / PI), Vec3(zero, zero, zero))
     return v3.where(mtype == MAT_ISOTROPIC, alb * (1.0 / (4.0 * PI)), out)

@@ -461,7 +461,14 @@ def complete_hit(scene: SceneTensors, o: Vec3, d: Vec3, h: HitSoA) -> HitRecSoA:
     nrm = v3.gather(scene.normal, h.tri)
     front = v3.dot(d, nrm) < 0.0
     normal = v3.where(front, nrm, -nrm)
+    u, v = h.u, h.v
+    if scene.has_textures:
+        # per-vertex UV interpolation (bpt_tpu/ops/soa.py:924-930); both
+        # coordinates read the hit's own barycentrics
+        uvt = scene.tri_uv[h.tri]
+        u = uvt[:, 0] + h.u * (uvt[:, 2] - uvt[:, 0]) + h.v * (uvt[:, 4] - uvt[:, 0])
+        v = uvt[:, 1] + h.u * (uvt[:, 3] - uvt[:, 1]) + h.v * (uvt[:, 5] - uvt[:, 1])
     return HitRecSoA(
         hit=h.hit, t=h.t, p=p, normal=normal, front_face=front,
-        tri=h.tri, mat=scene.mat_id[h.tri], u=h.u, v=h.v,
+        tri=h.tri, mat=scene.mat_id[h.tri], u=u, v=v,
     )

@@ -6,13 +6,15 @@ triangles accumulate host-side in float64, transforms are baked at add
 time, and ``build()`` flattens everything into tensors once, in the same
 BVH leaf order as ``bpt_tpu`` so triangle ids and sums match it exactly,
 with the BVH node arrays and the clustered hit kernels' subtree splits
-(``cluster_splits``, ``super_splits``) beside them.
+(``cluster_splits``, ``super_splits``) beside them, and the per-vertex UVs
+and texture table of textured materials.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -20,12 +22,14 @@ import torch
 from bpt_tpu_torch.ops.clusters import CLUSTER_TRIS, MAX_CLUSTERS, SUPER
 from bpt_tpu_torch.scene import bvh as bvh_mod
 from bpt_tpu_torch.scene.obj import parse_obj
+from bpt_tpu_torch.scene.textures import TextureSpec, build_texture_table
 from bpt_tpu_torch.scene.types import (
     MAT_DIELECTRIC,
     MAT_ISOTROPIC,
     MAT_LAMBERTIAN,
     MAT_LIGHT,
     MAT_METAL,
+    TEX_NOISE,
     MaterialTable,
     SceneTensors,
     scene_device,
@@ -48,12 +52,11 @@ class MaterialSpec:
     albedo: tuple = (0.0, 0.0, 0.0)  # lambertian/metal/isotropic albedo; light emission
     fuzz: float = 0.0
     ior: float = 1.5
+    texture: Optional[TextureSpec] = None
 
     @staticmethod
     def lambertian(albedo=(0.0, 0.0, 0.0), texture=None):
-        if texture is not None:
-            raise _not_ported("textures", "3")
-        return MaterialSpec(MAT_LAMBERTIAN, tuple(albedo))
+        return MaterialSpec(MAT_LAMBERTIAN, tuple(albedo), texture=texture)
 
     @staticmethod
     def metal(albedo, fuzz=0.0):
@@ -66,15 +69,11 @@ class MaterialSpec:
 
     @staticmethod
     def diffuse_light(emission=(0.0, 0.0, 0.0), texture=None):
-        if texture is not None:
-            raise _not_ported("textures", "3")
-        return MaterialSpec(MAT_LIGHT, tuple(emission))
+        return MaterialSpec(MAT_LIGHT, tuple(emission), texture=texture)
 
     @staticmethod
     def isotropic(albedo=(0.0, 0.0, 0.0), texture=None):
-        if texture is not None:
-            raise _not_ported("textures", "3")
-        return MaterialSpec(MAT_ISOTROPIC, tuple(albedo))
+        return MaterialSpec(MAT_ISOTROPIC, tuple(albedo), texture=texture)
 
 
 def rotate_y_point(p, sin_t, cos_t):
@@ -101,7 +100,7 @@ def _bake_xform(p, rotate_y_degrees, translate):
 
 class SceneBuilder:
     def __init__(self):
-        self._tris: list[tuple] = []  # (v0, v1, v2, mat_index)
+        self._tris: list[tuple] = []  # (v0, v1, v2, mat_index, uvs)
         self._materials: list[MaterialSpec] = []
         self._mat_index: dict[int, int] = {}  # id(spec) -> index
         self.background = (0.0, 0.0, 0.0)
@@ -117,14 +116,20 @@ class SceneBuilder:
 
     # ------------------------------------------------------------ geometry
 
-    def add_triangle(self, v0, v1, v2, mat: MaterialSpec,
+    def add_triangle(self, v0, v1, v2, mat: MaterialSpec, uvs=None,
                      rotate_y_degrees=0.0, translate=(0, 0, 0)):
+        """uvs: optional ((u0, v0), (u1, v1), (u2, v2)) texture coordinates
+        a vertex; the default ((0, 0), (1, 0), (0, 1)) makes the
+        interpolated hit (u, v) the barycentric (u, v), the reference's
+        hit_record.  rotate_y_degrees / translate bake the reference's
+        instancing wrappers (src/objects/hittable.h:46-120) at add time;
+        the UVs ride the rotated object unchanged."""
         if rotate_y_degrees != 0.0 or any(translate):
             v0 = _bake_xform(v0, rotate_y_degrees, translate)
             v1 = _bake_xform(v1, rotate_y_degrees, translate)
             v2 = _bake_xform(v2, rotate_y_degrees, translate)
         mid = self.material(mat)
-        self._tris.append((tuple(v0), tuple(v1), tuple(v2), mid))
+        self._tris.append((tuple(v0), tuple(v1), tuple(v2), mid, uvs))
 
     def add_quad(self, q, u, v, mat: MaterialSpec,
                  rotate_y_degrees=0.0, translate=(0, 0, 0)):
@@ -174,8 +179,10 @@ class SceneBuilder:
     def add_uv_sphere(self, center, radius, mat: MaterialSpec, lat_steps=16,
                       lon_steps=32, rotate_y_degrees=0.0, translate=(0, 0, 0)):
         """add_uv_sphere (scene_loader.h:212-242): 16x32 tessellation, pole
-        caps emit a single triangle per quad (bpt_tpu's, without UVs:
-        textures are not ported)."""
+        caps emit a single triangle per quad, with bpt_tpu's spherical UVs
+        of the unrotated parametrisation (the texture turns with the
+        sphere, as under the reference's ray-space rotate_y wrapper,
+        hittable.h:76-120)."""
         center = np.asarray(center, np.float64)
         xf = dict(rotate_y_degrees=rotate_y_degrees, translate=translate)
 
@@ -183,6 +190,10 @@ class SceneBuilder:
             st = math.sin(theta)
             return center + radius * np.array(
                 [st * math.cos(phi), math.cos(theta), st * math.sin(phi)])
+
+        def uv(theta, phi):
+            # bpt_tpu's spherical UVs: the reference's tessellation has none
+            return (phi / (2.0 * PI), 1.0 - theta / PI)
 
         for lat in range(lat_steps):
             th0 = PI * lat / lat_steps
@@ -193,9 +204,11 @@ class SceneBuilder:
                 p00, p01 = pt(th0, ph0), pt(th0, ph1)
                 p10, p11 = pt(th1, ph0), pt(th1, ph1)
                 if lat > 0:
-                    self.add_triangle(p00, p10, p11, mat, **xf)
+                    self.add_triangle(p00, p10, p11, mat,
+                                      uvs=(uv(th0, ph0), uv(th1, ph0), uv(th1, ph1)), **xf)
                 if lat < lat_steps - 1:
-                    self.add_triangle(p00, p11, p01, mat, **xf)
+                    self.add_triangle(p00, p11, p01, mat,
+                                      uvs=(uv(th0, ph0), uv(th1, ph1), uv(th0, ph1)), **xf)
 
     def add_obj(self, path, mat: MaterialSpec, rotate_y_degrees=0.0,
                 translate=(0, 0, 0)):
@@ -215,8 +228,8 @@ class SceneBuilder:
     def num_tris(self) -> int:
         return len(self._tris)
 
-    def build(self, dtype=torch.float32, device="cuda",
-              background=None) -> SceneTensors:
+    def build(self, dtype=torch.float32, device="cuda", background=None,
+              perlin_seed: int = 0) -> SceneTensors:
         device = scene_device(device)
         if not self._tris:
             raise ValueError("empty scene")
@@ -226,6 +239,10 @@ class SceneBuilder:
         verts = np.array([(t[0], t[1], t[2]) for t in self._tris], np.float64)
         mat_id = np.array([t[3] for t in self._tris], np.int64)
         T = verts.shape[0]
+        tri_uv = np.tile(np.array([0.0, 0.0, 1.0, 0.0, 0.0, 1.0]), (T, 1))
+        for k, t in enumerate(self._tris):
+            if t[4] is not None:
+                tri_uv[k] = np.asarray(t[4], np.float64).reshape(6)
 
         # triangle precompute (triangle.h:21-38)
         v0 = verts[:, 0]
@@ -242,6 +259,7 @@ class SceneBuilder:
         order = tree["order"]
         v0, e1, e2 = v0[order], e1[order], e2[order]
         normal, area, mat_id = normal[order], area[order], mat_id[order]
+        tri_uv = tri_uv[order]
 
         mats = self._materials
         mtypes = np.array([m.mtype for m in mats], np.int64)
@@ -249,12 +267,21 @@ class SceneBuilder:
         def ten(a, dt=dtype):
             return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dt)
 
+        # textured materials index the texture table (bpt_tpu/scene/builder.py:304-320)
+        tex_specs, tex_ids = [], []
+        for m in mats:
+            tex_ids.append(len(tex_specs) if m.texture is not None else -1)
+            if m.texture is not None:
+                tex_specs.append(m.texture)
         materials = MaterialTable(
             mtype=ten(mtypes, torch.int64),
             albedo=ten([m.albedo for m in mats]),
             fuzz=ten([m.fuzz for m in mats]),
             ior=ten([m.ior for m in mats]),
+            tex_id=ten(tex_ids, torch.int64),
         )
+        textures = build_texture_table(tex_specs, dtype=dtype, device=device,
+                                       perlin_seed=perlin_seed)
 
         # lights: emissive triangles (scene_loader.h:190-202); empty ->
         # whole world (main.cpp:67)
@@ -284,6 +311,7 @@ class SceneBuilder:
             v0=ten(v0), e1=ten(e1), e2=ten(e2),
             normal=ten(normal), area=ten(area),
             mat_id=ten(mat_id, torch.int64),
+            tri_uv=ten(tri_uv),
             light_v0=ten(v0[light_idx]),
             light_e1=ten(e1[light_idx]),
             light_e2=ten(e2[light_idx]),
@@ -298,11 +326,14 @@ class SceneBuilder:
             bvh_first=ten(tree["bvh_first"], torch.int32),
             bvh_count=ten(tree["bvh_count"], torch.int32),
             materials=materials,
+            textures=textures,
             background=ten(np.asarray(background, np.float64)),
             num_tris=T,
             num_lights=int(light_idx.size),
             num_volumes=0,
             use_bvh=use_bvh,
+            has_textures=bool(tex_specs),
+            has_noise=any(s.kind == TEX_NOISE for s in tex_specs),
             cluster_splits=cluster_splits,
             super_splits=super_splits,
             has_delta_mats=bool(np.any((mtypes == MAT_METAL)

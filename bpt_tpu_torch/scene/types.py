@@ -4,9 +4,9 @@ Counterpart of ``bpt_tpu.scene.types.SceneArrays`` holding the fields the
 PT and BDPT megakernels' tables (``_pack_tables``, ``_pack_tables_bdpt``),
 the BVH traversals (``ops.soa.bvh_closest`` / ``bvh_any``, ``csrc/pt_wave.cu``), the
 clustered hit kernels (``ops/clusters.py``, ``ops/plucker.py``) and the
-estimators read, plus the static meta.  Texture tables and the volume
-boundary soup are not carried: this port has no textures or volumes yet
-(ROADMAP §1 items 3-4).
+estimators read, plus the static meta: the triangles' per-vertex UVs and the
+texture table (``scene/textures.py``) among them.  The volume boundary soup
+is not carried: this port has no volumes yet (ROADMAP §1 item 4).
 """
 
 from __future__ import annotations
@@ -26,16 +26,45 @@ MAT_DIELECTRIC = 2
 MAT_LIGHT = 3
 MAT_ISOTROPIC = 4
 
+# Texture kinds (reference classes, src/materials/textures/texture.h:14-87)
+TEX_SOLID = 0
+TEX_CHECKER = 1
+TEX_IMAGE = 2
+TEX_NOISE = 3
+
+
+@dataclass(frozen=True)
+class TextureTable:
+    """Texture parameter SoA (src/materials/textures/texture.h:7-87).
+
+    ``kind`` selects solid / checker / image / noise; unused parameters are
+    zero.  Image texels live in a padded atlas ``images[I, Hmax, Wmax, 3]``
+    (byte values as floats, 0..255) with each image's true size; the perlin
+    lattice tables (texture.h:76-87, perlin.h) are baked at build."""
+
+    kind: torch.Tensor  # [K] int64
+    color0: torch.Tensor  # [K,3] solid colour / checker even
+    color1: torch.Tensor  # [K,3] checker odd
+    scale: torch.Tensor  # [K] checker scale (world units) or noise scale
+    img_id: torch.Tensor  # [K] int64 index into images (or 0)
+    images: torch.Tensor  # [I, Hmax, Wmax, 3] float, 0..255
+    img_h: torch.Tensor  # [I] int64
+    img_w: torch.Tensor  # [I] int64
+    perlin_randvec: torch.Tensor  # [256, 3]
+    perlin_perm: torch.Tensor  # [3, 256] int64 (x, y, z permutations)
+
 
 @dataclass(frozen=True)
 class MaterialTable:
     """Branchless material parameter table; ``albedo`` doubles as emission
-    for MAT_LIGHT."""
+    for MAT_LIGHT.  ``tex_id`` < 0 means the ``albedo`` column, >= 0 indexes
+    the TextureTable."""
 
     mtype: torch.Tensor  # [M] int64
     albedo: torch.Tensor  # [M,3]
     fuzz: torch.Tensor  # [M]  (metal)
     ior: torch.Tensor  # [M]  (dielectric)
+    tex_id: torch.Tensor  # [M] int64
 
 
 @dataclass(frozen=True)
@@ -49,6 +78,9 @@ class SceneTensors:
     normal: torch.Tensor  # [T,3] geometric unit normal
     area: torch.Tensor  # [T]
     mat_id: torch.Tensor  # [T] int64
+    # per-vertex texture UVs (u0, v0, u1, v1, u2, v2); the default
+    # (0,0),(1,0),(0,1) leaves the hit's barycentric (u, v) unchanged
+    tri_uv: torch.Tensor  # [T,6]
 
     # light triangles (emissive tris, or the whole world when none)
     light_v0: torch.Tensor  # [L,3]
@@ -69,6 +101,7 @@ class SceneTensors:
     bvh_count: torch.Tensor  # [N] int32: leaf triangle count (0 = internal)
 
     materials: MaterialTable
+    textures: TextureTable
     background: torch.Tensor  # [3]
 
     # static metadata (bpt_tpu/scene/types.py:144-164)
@@ -99,9 +132,12 @@ class SceneTensors:
 
 
 _INT_FIELDS = {"mat_id": torch.int64, "light_mat": torch.int64,
-               "materials.mtype": torch.int64, "bvh_skip": torch.int32,
-               "bvh_first": torch.int32, "bvh_count": torch.int32}
-_MATERIAL_FIELDS = [f.name for f in dataclasses.fields(MaterialTable)]
+               "materials.mtype": torch.int64, "materials.tex_id": torch.int64,
+               "bvh_skip": torch.int32, "bvh_first": torch.int32,
+               "bvh_count": torch.int32, "textures.kind": torch.int64,
+               "textures.img_id": torch.int64, "textures.img_h": torch.int64,
+               "textures.img_w": torch.int64, "textures.perlin_perm": torch.int64}
+_TABLES = {"materials": MaterialTable, "textures": TextureTable}
 _META_TYPES = {
     f.name: {"int": int, "bool": bool, "tuple": tuple}[f.type]
     for f in dataclasses.fields(SceneTensors) if f.type in ("int", "bool", "tuple")
@@ -109,8 +145,8 @@ _META_TYPES = {
 _META_FIELDS = list(_META_TYPES)
 _TENSOR_FIELDS = [
     f.name for f in dataclasses.fields(SceneTensors)
-    if f.name not in _META_FIELDS and f.name != "materials"
-] + ["materials." + n for n in _MATERIAL_FIELDS]
+    if f.name not in _META_FIELDS and f.name not in _TABLES
+] + [f"{t}.{f.name}" for t, cls in _TABLES.items() for f in dataclasses.fields(cls)]
 
 
 def per_scene(fn):
@@ -146,7 +182,8 @@ def scene_from_numpy(d: dict, meta: dict, device="cuda",
                      dtype=torch.float32) -> SceneTensors:
     """Build SceneTensors from host arrays: the state carry-over from any
     producer of the same fields (e.g. ``np.asarray`` of every field of a
-    ``bpt_tpu`` SceneArrays, materials keyed ``"materials.<field>"``).
+    ``bpt_tpu`` SceneArrays, the material and texture tables keyed
+    ``"materials.<field>"`` and ``"textures.<field>"``).
 
     Keys and meta entries this port does not carry are ignored; a missing
     key raises KeyError."""
@@ -157,10 +194,11 @@ def scene_from_numpy(d: dict, meta: dict, device="cuda",
         t = torch.from_numpy(np.array(d[name]))  # a copy: inputs may be read-only
         return t.to(device=device, dtype=_INT_FIELDS.get(name, dtype))
 
-    mats = MaterialTable(**{n: conv("materials." + n) for n in _MATERIAL_FIELDS})
-    tensors = {n: conv(n) for n in _TENSOR_FIELDS if not n.startswith("materials.")}
+    tables = {t: cls(**{f.name: conv(f"{t}.{f.name}") for f in dataclasses.fields(cls)})
+              for t, cls in _TABLES.items()}
+    tensors = {n: conv(n) for n in _TENSOR_FIELDS if "." not in n}
     static = {n: t(meta[n]) for n, t in _META_TYPES.items() if n in meta}
-    return SceneTensors(materials=mats, **tensors, **static)
+    return SceneTensors(**tables, **tensors, **static)
 
 
 def scene_to_numpy(scene: SceneTensors) -> tuple[dict, dict]:

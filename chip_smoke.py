@@ -250,6 +250,34 @@
    the 964-triangle scene: B = 1, 31, 37, 65,536 dead lanes, one live lane
    among 1,048,576, 65,536 live lanes: answers and counters equal to the
    plain version's.
+23. Textures (texture_phases).  (a) texture_value on 1,048,576 card lanes
+   against the same call on the CPU, with an image atlas made from a
+   seeded array (so no phase passes or fails on a file's pixels): image,
+   checker and solid lookups exact, noise within 1e-5; prints whether
+   Pillow imports.  (b) pt_wave's textured mode (the shade with every
+   textured albedo 1, the torch texel stage after each bounce) against
+   pt_wave_plain at B = 65,536, depth 4, on the coffee stand-in with
+   bench.py's checker (closest_bvh's hits) and on a 40-triangle textured
+   scene without a BVH (closest_tri's hits; a checker light at y = 6.03):
+   phase 7's rule, rtol 1e-4 / atol 1e-6 on >= 99.9% of lanes, rays and
+   walk counters exact, each kernel launched once a bounce and no plain
+   version.  (c) The textured coffee PT render (bench.py's
+   coffee_91k_tex_pt: 512x512, 4 spp, depth 10, seed 0): one warm-up and
+   three timed renders through pt_wave, closest_bvh and pt_wave_bounce
+   launched 10 times a render each, nothing else and no plain version, the
+   image finite, not black and bitwise identical across renders;
+   rays_traced beside the same render untextured (textures change
+   throughput only); each bounce of the warm-up timed on its own inputs
+   (walk + shade, the shade alone, the texel stage) and the first bounce's
+   launch with its texel stage held against the plain version on every
+   16th lane, every state row (the origin rows on every lane: a lane that
+   ends at a hit leaves its hit point).  (d) scenes/earth.yaml through
+   render(): PT at its own 512x512, 64 spp, depth 8 (pt_wave), then
+   BDPT-MIS at 256x256, 4 spp, depth 8 (the BDPT wave loop): the launches,
+   no plain version, finite, not black and bitwise repeatable images, the
+   walls and Mrays/s; prints the image atlas's shape ("magenta fallback"
+   where the image did not load).  Writes output/chip_smoke_coffee_tex_pt.png
+   and output/chip_smoke_earth_{pt,bdpt-mis}.png.
 
 Each phase prints its seconds, and the script its total.  The second-to-last line is a JSON object
 describing the kernels, each with its bound: the larger of the bytes it
@@ -1199,6 +1227,331 @@ def any_cases(dev, card) -> dict:
               f"{time.monotonic() - t0:.1f} s ({card})")
     print(f"phase 22: any_bvh's persistent grid: {blocks} blocks of 128 threads ({card})")
     return {"blocks": blocks, "cases": list(cases)}
+
+
+def textured_coffee(scene):
+    """bench.py's coffee_91k_tex_pt scene (bench.py:60-81): the coffee
+    stand-in with a checker of scale 0.02 on its first lambertian."""
+    import torch
+
+    from bpt_tpu_torch.scene.textures import TextureSpec, build_texture_table
+    from bpt_tpu_torch.scene.types import MAT_LAMBERTIAN
+
+    tt = build_texture_table([TextureSpec.checker(0.02, (0.9, 0.4, 0.05), (0.1, 0.1, 0.1))],
+                             device=scene.device)
+    mats = scene.materials
+    tex_id = mats.tex_id.clone()
+    tex_id[int(torch.nonzero(mats.mtype == MAT_LAMBERTIAN)[0, 0])] = 0
+    return dataclasses.replace(scene, materials=dataclasses.replace(mats, tex_id=tex_id),
+                               textures=tt, has_textures=True)
+
+
+def textured_small(dev):
+    """A textured scene of 40 triangles, without a BVH: a checker sphere
+    on a noise floor under a checker light at y = 6.03, off its cells'
+    boundaries (tests/torch_parity.py::textured_wave_scene, light=True,
+    with the floor textured)."""
+    from bpt_tpu_torch.scene.builder import MaterialSpec as MS, SceneBuilder
+    from bpt_tpu_torch.scene.textures import TextureSpec as TS
+
+    b = SceneBuilder()
+    b.add_uv_sphere((0, 1, 0), 1.0, MS.lambertian(
+        texture=TS.checker(0.35, (0.9, 0.3, 0.2), (0.1, 0.8, 0.3))), lat_steps=4, lon_steps=6)
+    b.add_quad((-10, 0, -10), (20, 0, 0), (0, 0, 20), MS.lambertian(texture=TS.noise(3.0)))
+    b.add_quad((-2, 6.03, -2), (4, 0, 0), (0, 0, 4), MS.diffuse_light(
+        (1, 1, 1), texture=TS.checker(0.5, (12.0, 10.0, 4.0), (2.0, 2.0, 10.0))))
+    return b.build(device=dev)
+
+
+def state_rows_agree(name, kout, pout, hit):
+    """(fraction of lanes within tolerance, max abs err) of two wave
+    states: the origin rows on every lane (the hit point on a lane that hit,
+    whether it lives on or not), direction and throughput on the lanes the
+    plain version keeps alive, radiance and alive on every lane."""
+    import torch
+
+    from bpt_tpu_torch.ops.kernels import pt_wave as pw
+
+    live = pout[pw.ALIVE] > 0.5
+    rows, prows = (torch.cat([x[:pw.DX], torch.where(live, x[pw.DX:pw.RAD], 0.0),
+                              x[pw.RAD:]]).T for x in (kout, pout))
+    f, e, worst = agreement(rows, prows)
+    check(bool(hit.any()) and bool(live.any()), f"{name}: no lane hits or stays alive")
+    check(f >= MIN_FRAC, f"{name}: only {f:.5f} of lanes agree; worst lane {worst}: kernel "
+          f"{rows[worst].tolist()} plain {prows[worst].tolist()}")
+    return f, e
+
+
+# phase 23's shapes: kernel 9's textured mode against its plain version
+# (rays, depth); the textured coffee render (width, spp, depth); earth.yaml's
+# PT render at its own size and BDPT-MIS (width, spp, depth)
+TEX_WAVE = (65536, 4)
+TEX_COFFEE = (512, 4, 10)
+EARTH_RENDERS = {"pt": (512, 64, 8), "bdpt-mis": (256, 4, 8)}
+
+
+def texture_phases(dev, card, coffee, ccc, key, scene_bytes, lap) -> dict:
+    """Phase 23, textures: (a) image lookups on the card against the CPU;
+    (b) pt_wave's textured mode against pt_wave_plain on the textured
+    coffee stand-in (closest_bvh's hits) and a textured scene of 40
+    triangles (closest_tri's), and one launch at the textured coffee
+    render's first bounce on every 16th lane; (c) the textured coffee PT
+    render (bench.py's coffee_91k_tex_pt); (d) scenes/earth.yaml through
+    render(), PT and BDPT-MIS.  Returns the numbers of kernel 9's textured
+    mode for the kernels line."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.core.vec3 import Vec3
+    from bpt_tpu_torch.models.render import _route, render
+    from bpt_tpu_torch.ops import soa
+    from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
+    from bpt_tpu_torch.ops.kernels import intersect as ki
+    from bpt_tpu_torch.ops.kernels import pt_kernel as pk
+    from bpt_tpu_torch.ops.kernels import pt_wave as pw
+    from bpt_tpu_torch.scene.loader import load_scene_from_yaml
+    from bpt_tpu_torch.scene.textures import TextureSpec as TS
+    from bpt_tpu_torch.scene.textures import build_texture_table, texture_value
+    from bpt_tpu_torch.scene.types import TEX_NOISE, TextureTable
+    from bpt_tpu_torch.utils.png import write_png
+
+    out = {}
+    kernels = (pw.closest_bvh, pw.any_bvh, pw.pt_wave_bounce, ki.closest_tri, ki.any_tri,
+               pk.pt_megakernel, pk.pt_megakernel_pixels, bk.bdpt_megakernel,
+               bk.bdpt_megakernel_pixels)
+    plains = (pk.pt_megakernel_plain, pk.pt_megakernel_pixels_plain, pk.strata_sum_plain,
+              bk.bdpt_megakernel_plain, bk.bdpt_megakernel_pixels_plain,
+              pw.closest_bvh_plain, pw.any_bvh_plain, pw.pt_wave_bounce_plain,
+              pw.pt_wave_plain, ki.closest_tri_plain, ki.any_tri_plain, soa.bvh_closest,
+              soa.bvh_any)
+
+    def zero_counts():
+        for fn in kernels:
+            fn.launches = 0
+        for fn in plains:
+            fn.calls = 0
+
+    def read_counts():
+        return ({fn.__name__: fn.launches for fn in kernels if fn.launches},
+                sum(fn.calls for fn in plains))
+
+    # ---- (a) image lookups on the card
+    has_pil = importlib.util.find_spec("PIL") is not None
+    g = np.random.default_rng(23)
+    tt = build_texture_table([TS.image("seeded"), TS.checker(0.35, (0.9, 0.3, 0.2),
+                                                             (0.1, 0.8, 0.3)),
+                              TS.noise(4.0), TS.solid((0.2, 0.4, 0.6))], device="cpu")
+    atlas = torch.from_numpy(g.integers(0, 256, (1, 37, 53, 3)).astype(np.float32))
+    tt = dataclasses.replace(tt, images=atlas, img_h=torch.tensor([37]),
+                             img_w=torch.tensor([53]))
+    tt_card = TextureTable(**{f.name: getattr(tt, f.name).to(dev)
+                              for f in dataclasses.fields(tt)})
+    N = 1 << 20
+    tid = torch.from_numpy(g.integers(0, 4, N))
+    u, v = (torch.from_numpy(g.uniform(-0.1, 1.1, N).astype(np.float32)) for _ in range(2))
+    p = torch.from_numpy(g.uniform(-5, 5, (N, 3)).astype(np.float32))
+    want = texture_value(tt, tid, u, v, p)
+    args = [x.to(dev) for x in (tid, u, v, p)]
+    got, tex_ms = timed(lambda: texture_value(tt_card, *args))
+    got = got.cpu()
+    noise = (tt.kind[tid] == TEX_NOISE)[:, None]
+    exact = bool(torch.equal(torch.where(noise, 0.0, got), torch.where(noise, 0.0, want)))
+    noise_err = float(((got - want).abs() * noise).max())
+    check(exact, "texture_value on the card differs from the CPU's on an image, checker "
+                 "or solid lane")
+    check(noise_err <= 1e-5, f"texture_value's noise on the card {noise_err:.3e} from the CPU's")
+    print(f"phase 23a: Pillow {'present' if has_pil else 'absent (images load as the magenta fallback)'}; "
+          f"texture_value on {N} card lanes (a seeded 37x53 atlas, checker, noise, solid) "
+          f"equal to the CPU's on every image, checker and solid lane, noise within "
+          f"{noise_err:.3e}; {tex_ms:.3f} ms on the card ({card})")
+    del got, want, args
+    lap("phase 23a")
+
+    # ---- (b) kernel 9's textured mode against its plain version
+    tex_coffee = textured_coffee(coffee)
+    small = textured_small(dev)
+    check(not small.use_bvh and small.has_textures and small.has_noise,
+          "the small textured scene has a BVH or no textures")
+    key_pt = rng.fold_in(key, 1)
+    B, depth_w = TEX_WAVE
+    o_c, d_c, ids_c = wave_rays(ccc, torch.arange(B, device=dev) * (ccc.width ** 2 // B), 1,
+                                key, dev)
+    o_s = torch.tensor([0.0, 2.0, 6.0], device=dev).expand(B, 3)
+    tgt = torch.from_numpy(np.c_[g.uniform(-3, 3, B), g.uniform(0, 7, B),
+                                 np.zeros(B)].astype(np.float32)).to(dev)
+    cases = (("coffee (BVH: closest_bvh)", tex_coffee, o_c, d_c, ids_c, pw.closest_bvh),
+             ("40 triangles (no BVH: closest_tri)", small, Vec3(*o_s.unbind(1)),
+              Vec3(*(tgt - o_s).unbind(1)), torch.arange(B, dtype=torch.int32, device=dev),
+              ki.closest_tri))
+    tw_frac, tw_err = 1.0, 0.0
+    for name, sc, o_, d_, ids_, hit_kernel in cases:
+        zero_counts()
+        kout = pw.pt_wave(sc, o_, d_, ids_, key_pt, depth_w)
+        torch.cuda.synchronize()
+        launched, n_plain = read_counts()
+        check(launched == {hit_kernel.__name__: depth_w, "pt_wave_bounce": depth_w}
+              and not n_plain, f"textured pt_wave {name}: launches {launched}, plain {n_plain}")
+        pout, p_ms = timed(lambda: pw.pt_wave_plain(sc, o_, d_, ids_, key_pt, depth_w))
+        f, e = compare(f"phase 23b: textured pt_wave on {name}, B={B} depth={depth_w}", kout,
+                       pout, exact_counts=True)
+        check(float(torch.stack(kout[:3]).sum()) > 0, f"textured pt_wave {name}: black")
+        k_ms = time_ms(lambda: pw.pt_wave(sc, o_, d_, ids_, key_pt, depth_w), reps=5)
+        print(f"phase 23b: textured pt_wave on {name}: kernel {k_ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms (one call) ({card})")
+        tw_frac, tw_err = min(tw_frac, f), max(tw_err, e)
+        if sc is small:
+            out["brute_wave_ms"], out["brute_wave_plain_ms"] = k_ms, p_ms
+            out["brute_wave_closest_tri_launches"] = launched.get("closest_tri", 0)
+    del kout, pout
+    lap("phase 23b")
+
+    # ---- (c) the textured coffee PT render: bench.py's coffee_91k_tex_pt
+    width, spp, depth = TEX_COFFEE
+    cfg = dataclasses.replace(coffee_camera(width, spp, depth),
+                              file_name="chip_smoke_coffee_tex_pt.png")
+    check(_route(tex_coffee, cfg, "pt", None) == "wave", "textured coffee PT is not routed to pt_wave")
+    with capture(pw, "pt_wave_bounce") as bounces:  # the warm-up records its launches
+        render(tex_coffee, cfg, seed=0)
+    check(len(bounces) == cfg.max_depth, f"textured coffee: {len(bounces)} shade launches")
+    zero_counts()
+    results = [render(tex_coffee, cfg, seed=0) for _ in range(3)]
+    launched, n_plain = read_counts()
+    check(set(launched) == {"closest_bvh", "pt_wave_bounce"} and not n_plain,
+          f"textured coffee PT launched {launched}, plain calls {n_plain}")
+    check(launched.get("closest_bvh") == launched.get("pt_wave_bounce") == 3 * cfg.max_depth,
+          f"textured coffee PT launches {launched}")
+    walls = [r.stats.wall_seconds for r in results]
+    wall = statistics.median(walls)
+    st = results[0].stats
+    fb = results[0].framebuffer_sum
+    check(bool(np.isfinite(fb).all()) and float(fb.mean()) > 0.0,
+          "textured coffee: non-finite or black image")
+    check(all(np.array_equal(r.framebuffer_sum, fb) for r in results[1:]),
+          "textured coffee: renders with the same seed differ")
+    plain_render = render(coffee, cfg, seed=0)
+    gap = st.rays_traced - plain_render.stats.rays_traced
+    path = write_png(cfg.file_name, results[0].rgb8(), output_dir="output")
+    # each bounce of the warm-up on its own inputs: walk + shade, the shade
+    # alone on the walk's hits, and the texel stage after it
+    rows = []
+    for a, kw in bounces.values():
+        sc, state, rid, k_, b_ = a[:5]
+        o_, d_, alive = Vec3(*state[pw.OX:pw.OX + 3]), Vec3(*state[pw.DX:pw.DX + 3]), \
+            state[pw.ALIVE] > 0.5
+        walk_ms = time_ms(lambda: pw.closest_bvh(sc, o_, d_, alive), reps=3)
+        t, tri, hu, hv, walk = pw.closest_bvh(sc, o_, d_, alive)
+        shade_ms = time_ms(lambda: pw.pt_wave_bounce(sc, state, rid, k_, b_, (t, tri), **kw),
+                           reps=3)
+        nxt, c = pw.pt_wave_bounce(sc, state, rid, k_, b_, (t, tri), **kw)
+        stage_ms = time_ms(lambda: pw.texel_stage(sc, nxt, tri, hu, hv), reps=3)
+        rows.append(dict(live=int(alive.sum()), ms=walk_ms + shade_ms, shade_ms=shade_ms,
+                         texel_stage_ms=stage_ms,
+                         bound=bound(int(alive.shape[0]) * (2 * pw.STATE_ROWS * 4 + 4)
+                                     + scene_bytes,
+                                     int(walk[0]) * SLAB_OPS + int(walk[2]) * MT_OPS)[0]))
+    render_ms = sum(r["ms"] for r in rows)
+    stage_sum = sum(r["texel_stage_ms"] for r in rows)
+    # the first bounce against its plain version, every 16th lane
+    (sc, state, rid, k_, _, _), kw = bounces[0]
+    t, tri, hu, hv, _ = pw.closest_bvh(sc, Vec3(*state[pw.OX:pw.OX + 3]),
+                                       Vec3(*state[pw.DX:pw.DX + 3]), state[pw.ALIVE] > 0.5)
+    sl = slice(None, None, 16)
+    st_s, rid_s, hits_s = state[:, sl].contiguous(), rid[sl].contiguous(), \
+        (t[sl].contiguous(), tri[sl].contiguous())
+    kb, kc = pw.pt_wave_bounce(sc, st_s, rid_s, k_, 0, hits_s)
+    pw.texel_stage(sc, kb, tri[sl], hu[sl], hv[sl])
+    (pb, pc), b_plain_ms = timed(lambda: pw.pt_wave_bounce_plain(sc, st_s, rid_s, k_, 0,
+                                                                 hits_s))
+    pw.texel_stage(sc, pb, tri[sl], hu[sl], hv[sl])
+    f, e = state_rows_agree("textured wave kernel at bounce 0", kb, pb, tri[sl] >= 0)
+    check(kc.tolist() == pc.tolist(), f"textured bounce 0: counters {kc.tolist()} vs "
+                                      f"{pc.tolist()}")
+    tw_frac, tw_err = min(tw_frac, f), max(tw_err, e)
+    _, b_plain_full_ms = timed(lambda: pw.pt_wave_bounce_plain(sc, state, rid, k_, 0,
+                                                               (t, tri)))
+    B0 = int(state.shape[1])
+    print(f"phase 23c: render textured coffee {width}x{width} {spp} spp depth {depth} seed 0: walls "
+          f"{[round(w, 6) for w in walls]} s, median {wall:.6f} s, "
+          f"{st.rays_traced / wall / 1e6:.3f} Mrays/s; rays_traced {st.rays_traced}, the same "
+          f"render untextured {plain_render.stats.rays_traced} "
+          f"({'equal' if gap == 0 else f'{gap:+d}'}: textures change throughput only); "
+          f"launches {launched}, plain calls {n_plain}; texel stage {stage_sum:.3f} ms of the "
+          f"{len(rows)} bounces ({stage_sum / len(rows):.3f} ms a bounce, "
+          f"{stage_sum / 1e3 / wall * 100:.2f}% of the wall); wrote {path} ({card})")
+    print(f"phase 23c: the wave kernel at the textured render's first bounce (B={B0}): walk "
+          f"+ shade {rows[0]['ms']:.3f} ms, the shade alone {rows[0]['shade_ms']:.3f} ms, "
+          f"texel stage {rows[0]['texel_stage_ms']:.3f} ms, plain {b_plain_full_ms:.3f} ms "
+          f"(one call, the shade on the same hits), bound {rows[0]['bound']:.4f} ms; on every "
+          f"16th lane ({st_s.shape[1]}) with the texel stage: {f * 100:.4f}% of lanes within "
+          f"rtol {RTOL} / atol {ATOL} (origin rows on every lane), max abs err {e:.3e}, "
+          f"counters {kc.tolist()} ({card})")
+    per_bounce = ", ".join("{live}: {ms:.3f} (+{texel_stage_ms:.3f})".format(**r) for r in rows)
+    print(f"phase 23c: walk + shade (+ texel stage), the {len(rows)} bounces of the textured "
+          f"render (live lanes: ms): {per_bounce}; "
+          f"sum {render_ms:.3f} ms (+{stage_sum:.3f} ms), bound "
+          f"{sum(r['bound'] for r in rows):.4f} ms ({card})")
+    out.update(
+        textured_launches=launched.get("pt_wave_bounce", 0),
+        textured_launches_path=f"three textured coffee PT renders, {width}x{width}, {spp} spp, "
+                               f"depth {depth}",
+        textured_ms=rows[0]["ms"], textured_shade_ms=rows[0]["shade_ms"],
+        textured_plain_ms=b_plain_full_ms, textured_bound_ms=rows[0]["bound"],
+        textured_shape=f"the textured coffee PT render's first bounce, B={B0}",
+        textured_render_ms=render_ms,
+        textured_render_bound_ms=sum(r["bound"] for r in rows),
+        textured_render_launches=[{k_: r[k_] for k_ in ("live", "ms", "texel_stage_ms")}
+                                  for r in rows],
+        texel_stage_ms=rows[0]["texel_stage_ms"], texel_stage_render_ms=stage_sum,
+        texel_stage_wall_share=stage_sum / 1e3 / wall,
+        textured_render_wall_s=wall, textured_within_tol=tw_frac,
+        textured_max_abs_err=tw_err, textured_slice_plain_ms=b_plain_ms,
+        textured_rays_traced=st.rays_traced,
+        untextured_rays_traced=plain_render.stats.rays_traced)
+    del bounces, results, plain_render, state, st_s, kb, pb, t, tri, hu, hv, rows
+    lap("phase 23c")
+
+    # ---- (d) scenes/earth.yaml through render(): PT, then BDPT-MIS
+    earth = load_scene_from_yaml("scenes/earth.yaml", device=dev, verbose=False)
+    shape = tuple(earth.scene.textures.images.shape)
+    print(f"phase 23d: earth.yaml: {earth.scene.num_tris} triangles, Pillow "
+          f"{'present' if has_pil else 'absent'}, image atlas {list(shape)}"
+          f"{' (magenta fallback)' if shape[1:3] == (1, 1) else ''}")
+    for integrator, want_route, want in (
+            ("pt", "wave", {"closest_bvh", "pt_wave_bounce"}),
+            ("bdpt-mis", "bdpt_wave", {"closest_bvh", "any_bvh"})):
+        width, spp, depth = EARTH_RENDERS[integrator]
+        cfg = dataclasses.replace(earth.camera, image_width=width, aspect_ratio=1.0,
+                                  samples_per_pixel=spp, max_depth=depth, integrator=integrator,
+                                  file_name=f"chip_smoke_earth_{integrator}.png")
+        check(_route(earth.scene, cfg, integrator, None) == want_route,
+              f"earth {integrator} is not routed to {want_route}")
+        render(earth.scene, cfg, seed=0)  # warm-up
+        zero_counts()
+        results = [render(earth.scene, cfg, seed=0) for _ in range(2)]
+        launched, n_plain = read_counts()
+        check(set(launched) == want and not n_plain,
+              f"earth {integrator} launched {launched}, plain calls {n_plain}")
+        fb = results[0].framebuffer_sum
+        check(bool(np.isfinite(fb).all()) and float(fb.mean()) > 0.0,
+              f"earth {integrator}: non-finite or black image")
+        check(np.array_equal(results[1].framebuffer_sum, fb),
+              f"earth {integrator}: renders with the same seed differ")
+        walls = [r.stats.wall_seconds for r in results]
+        st = results[0].stats
+        path = write_png(cfg.file_name, results[0].rgb8(), output_dir="output")
+        print(f"phase 23d: render earth {integrator} {width}x{width} {spp} spp depth {depth} seed 0 "
+              f"({want_route}): walls {[round(w, 6) for w in walls]} s, "
+              f"{st.rays_traced / min(walls) / 1e6:.3f} Mrays/s on rays_traced "
+              f"({(st.rays_traced + st.shadow_rays) / min(walls) / 1e6:.3f} with shadow rays); "
+              f"rays_traced {st.rays_traced}, shadow_rays {st.shadow_rays}; launches {launched}, "
+              f"plain calls {n_plain}; mean {float(fb.mean()) / cfg.effective_spp:.4f}; wrote "
+              f"{path} ({card})")
+        out[f"earth_{integrator}_walls_s"] = walls
+    lap("phase 23d")
+    return out
 
 
 class Laps:
@@ -2803,6 +3156,7 @@ def main() -> int:
     bdpt_err = max(bdpt_err, brute22["max_abs_err"])
     any22 = any_cases(dev, card)
     lap("phase 22")
+    tex = texture_phases(dev, card, coffee, ccc, key, scene_bytes, lap)
 
     # lanes in (pixels: i, j, sx, sy, id; rays: o, d, id), radiance out
     pt_tab = sum(t.numel() * t.element_size() for t in pk._pack_tables(scene))
@@ -3035,6 +3389,7 @@ def main() -> int:
         "pt_wave_ms": wave_ms[False],
         "pt_wave_paged_ms": wave_ms[True],
         "pt_wave_plain_ms": wave_plain_ms,
+        **{k: v for k, v in tex.items() if not k.startswith(("brute_", "earth_"))},
     }, {
         "name": "closest_tri",
         "route": "cuda",
@@ -3059,6 +3414,11 @@ def main() -> int:
         "render_shape": "the 19 launches of one ref_vis render, 256x256, 64 spp, depth 10, "
                         "each on its own inputs",
         "persistent_blocks": tri_grids[0],
+        "textured_wave_launches": tex["brute_wave_closest_tri_launches"],
+        "textured_wave_path": "textured pt_wave on a 40-triangle scene without a BVH, "
+                              "B=65536, depth 4 (phase 23b)",
+        "textured_wave_ms": tex["brute_wave_ms"],
+        "textured_wave_plain_ms": tex["brute_wave_plain_ms"],
     }, {
         "name": "any_tri",
         "route": "cuda",

@@ -146,7 +146,9 @@ def test_sample_surface_and_evaluate_bsdf_match_f64(which):
     zero = jnp.zeros(mats.shape, jnp.float64)
     want = jsh.evaluate_bsdf(js, jnp.asarray(mats), js.materials.mtype[mats], zero, zero,
                              jv3.Vec3(zero, zero, zero))
-    got = tsh.evaluate_bsdf(ts, torch.from_numpy(mats), ts.materials.mtype[mats])
+    tzero = torch.zeros(mats.shape, dtype=torch.float64)
+    got = tsh.evaluate_bsdf(ts, torch.from_numpy(mats), ts.materials.mtype[mats], tzero,
+                            tzero, tv3.Vec3(tzero, tzero, tzero))
     np.testing.assert_allclose(tv3.to_array(got).numpy(), np.asarray(jv3.to_array(want)),
                                rtol=1e-15, atol=0)
 

@@ -24,10 +24,18 @@ from bpt_tpu_torch.models.camera import camera_constants
 from bpt_tpu_torch.models.pt import NU
 from bpt_tpu_torch.models.render import render
 from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
+from bpt_tpu_torch.ops.kernels import intersect as ki
 from bpt_tpu_torch.ops.kernels import pt_kernel as pk
 from bpt_tpu_torch.ops.kernels import pt_wave as pw
 from bpt_tpu_torch.scene import builder, presets
-from torch_parity import big_rays, big_scene, mixed_scene, rays, shadow_wave
+from torch_parity import (
+    big_rays,
+    big_scene,
+    mixed_scene,
+    rays,
+    shadow_wave,
+    textured_wave_scene,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -1092,3 +1100,65 @@ def test_any_bvh_refill_matches_plain_bitwise(case):
     assert not bool(got[0][~live].any())
     if int(live.sum()) > 1000:
         assert bool(got[0].any())
+
+
+def _textured_wave(big):
+    """The textured-light scene of tests/test_torch_textured_wave.py on the
+    card and 8,192 rays from its camera point."""
+    from bpt_tpu_torch.scene import textures
+
+    scene = textured_wave_scene(builder, textures, big, True, device="cuda")
+    B = 8192
+    g = np.random.default_rng(9 + int(big))
+    o = torch.tensor([0.0, 2.0, 6.0], device="cuda").expand(B, 3)
+    tgt = torch.from_numpy(np.c_[g.uniform(-3, 3, B), g.uniform(0, 7, B),
+                                 np.zeros(B)].astype(np.float32)).cuda()
+    return (scene, Vec3(*o.unbind(1)), Vec3(*(tgt - o).unbind(1)),
+            torch.arange(B, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.parametrize("big", [False, True], ids=["brute", "bvh"])
+def test_textured_pt_wave_matches_plain(big):
+    """pt_wave's textured mode (closest_tri's hits on the scene without a
+    BVH, closest_bvh's on the other, the shade with albedo 1, the texel
+    stage) against its plain version: radiance on >= 99.9% of lanes, rays
+    and counters exact."""
+    scene, o, d, ids = _textured_wave(big)
+    n, k = pw.pt_wave_bounce.launches, (pw.closest_bvh if big else ki.closest_tri).launches
+    got = pw.pt_wave(scene, o, d, ids, rng.prng_key(3), 4)
+    want = pw.pt_wave_plain(scene, o, d, ids, rng.prng_key(3), 4)
+    torch.cuda.synchronize()
+    assert pw.pt_wave_bounce.launches == n + 4
+    assert (pw.closest_bvh if big else ki.closest_tri).launches == k + 4
+    assert _frac_close(got, want) >= 0.999
+    assert int(got[3]) == int(want[3]) and got[4].tolist() == want[4].tolist()
+    assert float(torch.stack(got[:3]).sum()) > 0
+
+
+@pytest.mark.parametrize("big", [False, True], ids=["brute", "bvh"])
+def test_wave_bounce_writes_the_hit_point_of_every_live_hit(big):
+    """One shade launch: every lane that hit, those ending on the checker
+    light included, leaves its hit point in its origin, as the plain
+    version does; a miss keeps its origin."""
+    scene, o, d, ids = _textured_wave(big)
+    B = ids.shape[0]
+    state = torch.zeros((pw.STATE_ROWS, B), device="cuda")
+    state[pw.OX:pw.DX + 3] = torch.stack([*o, *d])
+    state[pw.THR:pw.THR + 3] = 1.0
+    state[pw.ALIVE] = 1.0
+    alive = state[pw.ALIVE] > 0.5
+    if big:
+        t, tri = pw.closest_bvh(scene, o, d, alive)[:2]
+    else:
+        t, tri = pw.closest_sweep(scene, o, d, alive)[:2]
+    kb, kc = pw.pt_wave_bounce(scene, state, ids, rng.prng_key(4), 0, (t, tri))
+    pb, pc = pw.pt_wave_bounce_plain(scene, state, ids, rng.prng_key(4), 0, (t, tri))
+    hit = tri >= 0
+    ended = hit & (kb[pw.ALIVE] < 0.5)
+    assert int(ended.sum()) > 100 and kc.tolist() == pc.tolist()
+    for k in range(3):
+        p = o[k] + torch.where(hit, t, 0.0) * d[k]
+        assert torch.equal(kb[pw.OX + k][hit], p[hit])
+        assert torch.equal(kb[pw.OX + k][~hit], o[k][~hit])
+        assert torch.equal(kb[pw.OX + k], pb[pw.OX + k])
+

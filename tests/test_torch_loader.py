@@ -21,22 +21,11 @@ from bpt_tpu_torch.scene import loader as tloader
 from bpt_tpu_torch.scene import obj as tobj
 from bpt_tpu_torch.scene import presets as tpresets
 from bpt_tpu_torch.scene.types import scene_from_numpy, scene_to_numpy
-from torch_parity import big_scene, to_port
+from torch_parity import assert_scene_equal, big_scene
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = os.path.join(ROOT, "scenes")
 GLASS_OBJ = ["glass", "water", "ice1", "ice2", "floor", "backdrop"]
-
-
-def _assert_scene_equal(port, jscene):
-    """Every array and meta field the port carries equals bpt_tpu's."""
-    ref = to_port(jscene, dtype=port.dtype)
-    arrays, meta = scene_to_numpy(port)
-    ref_arrays, ref_meta = scene_to_numpy(ref)
-    assert meta == ref_meta
-    for name, a in arrays.items():
-        assert a.dtype == ref_arrays[name].dtype, name
-        np.testing.assert_array_equal(a, ref_arrays[name], err_msg=name)
 
 
 @pytest.mark.parametrize("path", [f"glass/data/{n}.obj" for n in GLASS_OBJ]
@@ -71,7 +60,7 @@ def test_bvh_and_cluster_splits_match_bpt_tpu(which):
         port = big_scene(tbuilder, device="cpu")
         jscene = big_scene(jbuilder, dtype=jnp.float32)
         assert port.num_tris == 964 and port.use_bvh
-        _assert_scene_equal(port, jscene)  # node arrays and triangle order
+        assert_scene_equal(port, jscene)  # node arrays and triangle order
     else:
         lo, hi = _glass_bounds()
         tree = tbvh.build_bvh(lo, hi)
@@ -92,14 +81,25 @@ def test_loader_matches_bpt_tpu(name, capsys):
     assert not want.camera.ref_vis  # bpt_tpu's only extra field, off
     out = capsys.readouterr().out
     assert out.count(f"Triangles: {got.scene.num_tris}") == 2
-    _assert_scene_equal(got.scene, want.scene)
+    assert_scene_equal(got.scene, want.scene)
 
 
 @pytest.mark.parametrize("name", ["earth", "cornell_smoke"])
-def test_loader_refuses_unported_features(name):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item [34]\)"):
-        tloader.load_scene_from_yaml(os.path.join(SCENES, name + ".yaml"),
-                                     device="cpu")
+def test_loader_refuses_unported_features(name, capsys):
+    """Volumes (cornell_smoke.yaml) refuse; the textured earth.yaml, refused
+    until textures were ported, loads equal to bpt_tpu's, its texture
+    table, tex_id and tri_uv included."""
+    path = os.path.join(SCENES, name + ".yaml")
+    if name == "cornell_smoke":
+        with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 4\)"):
+            tloader.load_scene_from_yaml(path, device="cpu")
+        return
+    got = tloader.load_scene_from_yaml(path, device="cpu")
+    want = jloader.load_scene_from_yaml(path, dtype=jnp.float32)
+    assert got.scene.has_textures and got.scene.num_tris == 964
+    assert tuple(got.scene.textures.images.shape) == (1, 512, 1024, 3)
+    assert got.scene.materials.tex_id.tolist() == [0, 1, -1]
+    assert_scene_equal(got.scene, want.scene)
 
 
 def test_build_material_coercions_match_bpt_tpu():
@@ -121,14 +121,27 @@ def test_build_material_coercions_match_bpt_tpu():
         {"base_color": [300, 2, 2]},
         {"base_color": "junk", "roughness": True},
     ]
-    for node in nodes:
-        got = tloader.build_material(node)
-        want = jloader.build_material(node)
+    textured = [
+        {"type": "lambertian", "texture": {"type": "checker"}},
+        {"type": "lambertian", "texture": {"type": "checker", "scale": "0.5",
+                                           "even": [255, 0, 0], "odd": "junk"}},
+        {"type": "light", "emission": [4, 4, 4], "texture": {"type": "noise"}},
+        {"emission": [4, 4, 4], "texture": {"type": "noise", "scale": 3}},
+        {"base_color": [0.2, 0.2, 0.2], "texture": {"type": "image", "file": "a.png"}},
+        {"type": "metal", "texture": {"type": "checker"}},
+        {"type": "lambertian", "texture": {"type": "image"}},
+        {"type": "lambertian", "texture": {"type": "bogus"}},
+    ]
+    for node in nodes + textured:
+        got = tloader.build_material(node, "/scenes")
+        want = jloader.build_material(node, "/scenes")
         assert (got.mtype, got.albedo, got.fuzz, got.ior) == (
             want.mtype, want.albedo, want.fuzz, want.ior), node
-    with pytest.raises(NotImplementedError, match="textures"):
-        tloader.load_materials({"a": {"type": "lambertian",
-                                      "texture": {"type": "checker"}}})
+        assert (got.texture is None) == (want.texture is None), node
+        if got.texture is not None:  # the same texture, image path joined alike
+            assert dataclasses.asdict(got.texture) == dataclasses.asdict(want.texture), node
+    got = tloader.load_materials({"a": textured[0], "b": "junk"})
+    assert list(got) == ["a"] and got["a"].texture.kind == 1
 
 
 @pytest.mark.parametrize("factory", ["build", "cornell_box", "scene_from_numpy",

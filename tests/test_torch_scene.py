@@ -12,10 +12,12 @@ from bpt_tpu.models import camera as jcam
 from bpt_tpu.ops.pallas import pt_kernel as jk
 from bpt_tpu.scene import builder as jbuilder
 from bpt_tpu.scene import presets as jpresets
+from bpt_tpu.scene import textures as jtex
 from bpt_tpu_torch.models import camera as tcam
 from bpt_tpu_torch.ops.kernels import pt_kernel as tk
 from bpt_tpu_torch.scene import builder as tbuilder
 from bpt_tpu_torch.scene import presets as tpresets
+from bpt_tpu_torch.scene import textures as ttex
 from bpt_tpu_torch.scene.types import scene_from_numpy, scene_to_numpy
 from torch_parity import big_scene, mixed_scene, to_port
 
@@ -111,15 +113,37 @@ def test_generate_rays_matches(defocus):
     np.testing.assert_allclose(dt_.numpy(), np.asarray(dj), rtol=1e-12, atol=1e-9)
 
 
+def _textured_spec(feature, builder_mod, tex_mod):
+    MS, TS = builder_mod.MaterialSpec, tex_mod.TextureSpec
+    return {
+        "texture": lambda: MS.lambertian((0.5, 0.5, 0.5),
+                                         texture=TS.checker(0.3, (1, 0, 0), (0, 0, 1))),
+        "light_texture": lambda: MS.diffuse_light((1, 1, 1), texture=TS.noise(2.0)),
+        "iso_texture": lambda: MS.isotropic((0.5, 0.5, 0.5),
+                                            texture=TS.solid((0.2, 0.3, 0.4))),
+    }[feature]()
+
+
 @pytest.mark.parametrize("feature", ["texture", "light_texture", "iso_texture", "volume"])
 def test_unported_builder_features_raise(feature):
-    b = tbuilder.SceneBuilder()
-    MS = tbuilder.MaterialSpec
-    calls = {
-        "texture": lambda: MS.lambertian((0.5, 0.5, 0.5), texture=object()),
-        "light_texture": lambda: MS.diffuse_light((1, 1, 1), texture=object()),
-        "iso_texture": lambda: MS.isotropic((0.5, 0.5, 0.5), texture=object()),
-        "volume": lambda: b.add_volume_box((0, 0, 0), (1, 1, 1), 0.01),
-    }
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        calls[feature]()
+    """Volumes raise; a textured lambertian, light or isotropic spec, which
+    raised until textures were ported, builds the texture table and tex_id
+    bpt_tpu's builder does."""
+    if feature == "volume":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tbuilder.SceneBuilder().add_volume_box((0, 0, 0), (1, 1, 1), 0.01)
+        return
+    scenes = []
+    for builder_mod, tex_mod, kw in ((tbuilder, ttex, dict(device="cpu")),
+                                     (jbuilder, jtex, dict(dtype=jnp.float32))):
+        b = builder_mod.SceneBuilder()
+        b.add_quad((0, 0, 0), (1, 0, 0), (0, 0, 1), builder_mod.MaterialSpec.lambertian((0.7,) * 3))
+        b.add_quad((0, 2, 0), (1, 0, 0), (0, 0, 1), _textured_spec(feature, builder_mod, tex_mod))
+        scenes.append(b.build(**kw))
+    got, want = scenes
+    assert got.has_textures and got.materials.tex_id.tolist() == [-1, 0]
+    assert got.has_noise == (feature == "light_texture")
+    ref = to_port(want)
+    for f in dataclasses.fields(got.textures):
+        assert torch.equal(getattr(got.textures, f.name), getattr(ref.textures, f.name)), f.name
+    assert torch.equal(got.materials.tex_id, ref.materials.tex_id)

@@ -28,14 +28,29 @@ def to_port(jscene, device="cpu", dtype=torch.float32):
     arrays, meta = {}, {}
     for f in dataclasses.fields(jscene):
         val = getattr(jscene, f.name)
-        if f.name == "materials":
+        if dataclasses.is_dataclass(val):  # the material and texture tables
             for mf in dataclasses.fields(val):
-                arrays["materials." + mf.name] = np.asarray(getattr(val, mf.name))
+                arrays[f"{f.name}.{mf.name}"] = np.asarray(getattr(val, mf.name))
         elif isinstance(val, jax.Array):
             arrays[f.name] = np.asarray(val)
-        elif not dataclasses.is_dataclass(val):
+        else:
             meta[f.name] = val
     return scene_from_numpy(arrays, meta, device=device, dtype=dtype)
+
+
+def assert_scene_equal(port, jscene):
+    """Every array and meta field the port carries equals bpt_tpu's, the
+    texture table's included."""
+    from bpt_tpu_torch.scene.types import scene_to_numpy
+
+    ref = to_port(jscene, dtype=port.dtype)
+    arrays, meta = scene_to_numpy(port)
+    ref_arrays, ref_meta = scene_to_numpy(ref)
+    assert meta == ref_meta
+    assert set(arrays) == set(ref_arrays)
+    for name, a in arrays.items():
+        assert a.dtype == ref_arrays[name].dtype, name
+        np.testing.assert_array_equal(a, ref_arrays[name], err_msg=name)
 
 
 def mixed_scene(builder_mod, presets_mod, **build_kw):
@@ -109,3 +124,74 @@ def endpoint_ties(tmax, live, t_a, t_b):
     inclusive); returns (tmax, the tie lanes)."""
     ties = live & np.isfinite(t_a) & (t_a == t_b) & (np.arange(tmax.shape[0]) % 3 == 0)
     return np.where(ties, t_a, tmax).astype(tmax.dtype), ties
+
+
+def atlas(tmp_path, h=6, w=8, seed=3):
+    """A seeded RGB image written with Pillow; returns its path."""
+    from PIL import Image
+
+    px = np.random.default_rng(seed).integers(0, 256, (h, w, 3), dtype=np.uint8)
+    path = tmp_path / "atlas.png"
+    Image.fromarray(px).save(path)
+    return str(path)
+
+
+def textured_cornell(builder_mod, tex_mod, image_path, **build_kw):
+    """The cornell box with a checker back wall (z = 555 off the scale-60
+    cells' boundaries), a noise block, an image-textured box, a small
+    image-textured sphere, and a checker light (y = 554, scale 37)."""
+    MS, TS = builder_mod.MaterialSpec, tex_mod.TextureSpec
+    b = builder_mod.SceneBuilder()
+    red = MS.lambertian((0.65, 0.05, 0.05))
+    white = MS.lambertian((0.73, 0.73, 0.73))
+    green = MS.lambertian((0.12, 0.45, 0.15))
+    wall = MS.lambertian(texture=TS.checker(60.0, (0.8, 0.7, 0.2), (0.2, 0.3, 0.8)))
+    light = MS.diffuse_light((15.0, 15.0, 15.0),
+                             texture=TS.checker(37.0, (15.0, 14.0, 11.0), (5.0, 7.0, 16.0)))
+    img = MS.lambertian(texture=TS.image(image_path))
+    b.add_quad((555, 0, 0), (0, 0, 555), (0, 555, 0), green)
+    b.add_quad((0, 0, 555), (0, 0, -555), (0, 555, 0), red)
+    b.add_quad((0, 555, 0), (555, 0, 0), (0, 0, 555), white)
+    b.add_quad((0, 0, 555), (555, 0, 0), (0, 0, -555), white)
+    b.add_quad((555, 0, 555), (-555, 0, 0), (0, 555, 0), wall)
+    b.add_quad((213, 554, 227), (130, 0, 0), (0, 0, 105), light)
+    b.add_box((0, 0, 0), (165, 330, 165), img, rotate_y_degrees=15.0, translate=(265, 0, 295))
+    b.add_box((60, 0, 60), (200, 140, 200), MS.lambertian(texture=TS.noise(0.04)))
+    b.add_uv_sphere((420, 100, 150), 70.0, img, lat_steps=4, lon_steps=6)
+    return b.build(**build_kw)
+
+
+def textured_cornell_pair(tmp_path):
+    """(bpt_tpu's, the port's) ``textured_cornell`` at f64 on the CPU, with
+    one seeded atlas written to ``tmp_path``."""
+    import jax.numpy as jnp  # here, so that the card-only tests need no JAX
+
+    from bpt_tpu.scene import builder as jbuilder
+    from bpt_tpu.scene import textures as jtex
+    from bpt_tpu_torch.scene import builder as tbuilder
+    from bpt_tpu_torch.scene import textures as ttex
+
+    path = atlas(tmp_path)
+    js = textured_cornell(jbuilder, jtex, path, dtype=jnp.float64)
+    ts = textured_cornell(tbuilder, ttex, path, device="cpu", dtype=torch.float64)
+    assert not ts.use_bvh and ts.has_textures and ts.has_noise
+    return js, ts
+
+
+def textured_wave_scene(mod, tex_mod, big: bool, light: bool, **build_kw):
+    """tests/test_pallas_kernels.py::_textured_scene (light=False) and the
+    scene of its textured-light test (light=True, the light at y = 6.03,
+    off its checker's cell boundaries)."""
+    MS, TS = mod.MaterialSpec, tex_mod.TextureSpec
+    b = mod.SceneBuilder()
+    tex = TS.checker(0.35, (0.9, 0.3, 0.2), (0.1, 0.8, 0.3))
+    kw = dict(lat_steps=16, lon_steps=32) if big else dict(lat_steps=4, lon_steps=6)
+    b.add_uv_sphere((0, 1, 0), 1.0, MS.lambertian((1, 1, 1), texture=tex), **kw)
+    b.add_quad((-10, 0, -10), (20, 0, 0), (0, 0, 20), MS.lambertian((0.6, 0.6, 0.6)))
+    if light:
+        ltex = TS.checker(0.5, (12.0, 10.0, 4.0), (2.0, 2.0, 10.0))
+        b.add_quad((-2, 6.03, -2), (4, 0, 0), (0, 0, 4),
+                   MS.diffuse_light((1, 1, 1), texture=ltex))
+    else:
+        b.add_quad((-2, 6, -2), (4, 0, 0), (0, 0, 4), MS.diffuse_light((10, 10, 10)))
+    return b.build(**build_kw)
