@@ -10,7 +10,8 @@ holding values in [0, 2^32), masked after every add and shift.
 
 The BDPT megakernel has a stream of its own (``subkeys_bdpt``): one key
 per (section, bounce, slot), the counter ``(ray_id, 0)``, and word x0 of
-every call.
+every call.  A scene with V volumes adds V free-flight slots to every
+bounce of both streams (PT: slots NU..NU+V-1, single draws).
 
 The jnp wavefront's stream (``wave_uniforms`` / ``uniform_rows``, the
 counterparts of ``bpt_tpu.core.rng``'s) is a third one, the stream of
@@ -158,41 +159,46 @@ def wave_uniforms(key: tuple[int, int], ray_ids: torch.Tensor, bounce: int, n: i
 # ------------------------------------------------------------ BDPT stream
 
 
-def n_uniform_slots(depth: int) -> int:
-    """Uniform rows of one BDPT sample (bdpt_kernel.n_uniform_slots without
-    volumes): camera trace depth x NT, light start NLS, light trace
-    (depth-1) x NT."""
-    return depth * BDPT_NT + BDPT_NLS + max(depth - 1, 0) * BDPT_NT
+def n_uniform_slots(depth: int, n_vols: int = 0) -> int:
+    """Uniform rows of one BDPT sample (bdpt_kernel.n_uniform_slots):
+    camera trace depth x (NT + V), light start NLS, light trace
+    (depth-1) x (NT + V); a trace bounce's V free-flight draws, one a
+    volume, follow its NT slots."""
+    ntv = BDPT_NT + n_vols
+    return depth * ntv + BDPT_NLS + max(depth - 1, 0) * ntv
 
 
 @lru_cache(maxsize=16)
-def _bdpt_keys(key: tuple[int, int], depth: int) -> tuple:
+def _bdpt_keys(key: tuple[int, int], depth: int, n_vols: int = 0) -> tuple:
     k_cam, k_ls, k_lt = fold_in(key, 2), fold_in(key, 3), fold_in(key, 4)
+    ntv = BDPT_NT + n_vols
     ks = []
     for b in range(depth):
         kb = fold_in(k_cam, b)
-        ks.extend(fold_in(kb, s) for s in range(BDPT_NT))
+        ks.extend(fold_in(kb, s) for s in range(ntv))
     ks.extend(fold_in(k_ls, s) for s in range(BDPT_NLS))
     for b in range(max(depth - 1, 0)):
         kb = fold_in(k_lt, b)
-        ks.extend(fold_in(kb, s) for s in range(BDPT_NT))
+        ks.extend(fold_in(kb, s) for s in range(ntv))
     return tuple(ks)
 
 
-def subkeys_bdpt(key: tuple[int, int], depth: int) -> list[int]:
+def subkeys_bdpt(key: tuple[int, int], depth: int, n_vols: int = 0) -> list[int]:
     """Per-slot keys of the BDPT kernel stream, flattened to
-    [2 * n_uniform_slots(depth)] words (bdpt_kernel._subkeys_bdpt): slot s
-    of camera bounce b is ``fold_in(fold_in(fold_in(key, 2), b), s)``, of
-    the light start ``fold_in(fold_in(key, 3), s)``, of light bounce b
-    ``fold_in(fold_in(fold_in(key, 4), b), s)``."""
-    return [w for k in _bdpt_keys(tuple(key), depth) for w in k]
+    [2 * n_uniform_slots(depth, n_vols)] words (bdpt_kernel._subkeys_bdpt):
+    slot s of camera bounce b is ``fold_in(fold_in(fold_in(key, 2), b), s)``,
+    of the light start ``fold_in(fold_in(key, 3), s)``, of light bounce b
+    ``fold_in(fold_in(fold_in(key, 4), b), s)``; a trace bounce has NT +
+    n_vols slots, the free-flight draws last."""
+    return [w for k in _bdpt_keys(tuple(key), depth, n_vols) for w in k]
 
 
-def subkeys_bdpt_raygen(key: tuple[int, int], depth: int) -> list[int]:
+def subkeys_bdpt_raygen(key: tuple[int, int], depth: int, n_vols: int = 0) -> list[int]:
     """subkeys_bdpt + the two jitter keys ``fold_in(fold_in(key, 0), 0|1)``
     (bdpt_kernel._subkeys_bdpt_raygen)."""
     kg = fold_in(key, 0)
-    return subkeys_bdpt(key, depth) + list(fold_in(kg, 0)) + list(fold_in(kg, 1))
+    return (subkeys_bdpt(key, depth, n_vols) + list(fold_in(kg, 0))
+            + list(fold_in(kg, 1)))
 
 
 def _x0(k: tuple[int, int], ridw: torch.Tensor) -> torch.Tensor:
@@ -210,24 +216,25 @@ def bdpt_raygen_jitter(key: tuple[int, int], ray_ids: torch.Tensor):
     return _x0(fold_in(kg, 0), ridw), _x0(fold_in(kg, 1), ridw)
 
 
-def bdpt_kernel_stream_uniforms_fn(key, ray_ids: torch.Tensor, depth: int, dtype):
+def bdpt_kernel_stream_uniforms_fn(key, ray_ids: torch.Tensor, depth: int, dtype,
+                                   n_vols: int = 0):
     """The BDPT megakernel's in-kernel stream as the wavefront's uniform
     sources: ``(cam_fn, light_start_rows, light_fn)`` for
     ``models.bdpt.bdpt_radiance``.  ``cam_fn(b, n)`` / ``light_fn(b, n)``
-    give n rows of [B] for trace bounce b; ``light_start_rows`` is the NLS
-    rows of the light start.  Every draw is x0 of its own threefry call
-    at counter (rid, 0)."""
-    keys = _bdpt_keys(tuple(key), depth)
+    give n <= NT + n_vols rows of [B] for trace bounce b; ``light_start_rows``
+    is the NLS rows of the light start.  Every draw is x0 of its own
+    threefry call at counter (rid, 0)."""
+    keys = _bdpt_keys(tuple(key), depth, n_vols)
     ridw = ray_words(ray_ids)
-    nt, nls = BDPT_NT, BDPT_NLS
+    ntv, nls = BDPT_NT + n_vols, BDPT_NLS
 
     def rows(base, n):
         return [_x0(keys[base + s], ridw).to(dtype) for s in range(n)]
 
     def cam_fn(b, n):
-        return rows(b * nt, n)
+        return rows(b * ntv, n)
 
     def light_fn(b, n):
-        return rows(depth * nt + nls + b * nt, n)
+        return rows(depth * ntv + nls + b * ntv, n)
 
-    return cam_fn, rows(depth * nt, nls), light_fn
+    return cam_fn, rows(depth * ntv, nls), light_fn

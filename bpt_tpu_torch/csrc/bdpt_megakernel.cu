@@ -7,8 +7,9 @@
 // every (s, t) connection with a shadow any-hit, summed unweighted (bdpt,
 // the reference's estimator) or with power-heuristic MIS weights
 // (bdpt-mis); in pixels mode also raygen and every spp stratum.
-// Untextured, volume-free float32 scenes with 16 materials and 16 lights,
-// any depth from 1 to MAX_DEPTH = 80.  Two modes, as the Pallas kernel has
+// Untextured float32 scenes with 16 materials and 16 lights, and at most 4
+// constant-density volumes over 64 boundary triangles, any depth from 1 to
+// MAX_DEPTH = 80.  Two modes, as the Pallas kernel has
 // (use_clusters): a scene of at most 512 triangles sweeps them all, brute
 // force, from shared memory (bdpt_megakernel); a larger one walks its BVH
 // for the closest hits and the shadow rays (bdpt_megakernel_walk, the
@@ -61,12 +62,23 @@
 // visible connections, then the provider's node visits, box hits,
 // triangle tests and accepted tests (bvh_walk.cuh; shadow rays add to all
 // but the last).
+//
+// Volumes: a scene with constant-density volumes launches the _vol
+// kernels, the same bodies instantiated with VOLS: they stage the volume
+// tables in shared memory and run volume.cuh's free-flight override after
+// each closest hit of a trace (bdpt_kernel.py:377-416), before its miss
+// test; a trace bounce then has NT + V slots, the V free-flight draws
+// last, and the key table grows to match.  The triangle-hit counter
+// counts surface hits before the override, and boundary tests count
+// nowhere; shadow rays do not see volumes, as in bpt_tpu.  The kernels of
+// a scene without volumes are the bodies without VOLS, compiled as before.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "bvh_walk.cuh"
 #include "common.cuh"
+#include "volume.cuh"
 #include "walk_sched.cuh"
 
 namespace bpt {
@@ -85,6 +97,9 @@ constexpr int NLS = 5;  // light-start slots (models.bdpt LS_*)
 constexpr int MAX_DEPTH = 80;
 constexpr int MAX_SLOTS = MAX_DEPTH * NT + NLS + (MAX_DEPTH - 1) * NT;
 constexpr int MAX_KEYS = 2 * MAX_SLOTS + 4;
+constexpr int MAX_SLOTS_VOL =
+    MAX_DEPTH * (NT + MAX_VOLS) + NLS + (MAX_DEPTH - 1) * (NT + MAX_VOLS);
+constexpr int MAX_KEYS_VOL = 2 * MAX_SLOTS_VOL + 4;
 constexpr int BLOCK = 128;
 
 enum { TU_B1 = 0, TU_B2 = 1, TU_DIEL = 2, TU_FZ1 = 3, TU_FZ2 = 4 };
@@ -127,22 +142,35 @@ struct Params {
   float* out_b;
   // [6] rays, shadow rays, node visits, box hits, tri tests, tri hits
   unsigned long long* counters;
+  int V, VT;          // volumes and their boundary triangles
+  const float* vol;   // [MAX_VOL_TRIS * 10] (pack_vol_tables)
+  const float* volm;  // [MAX_VOLS * 2]
 };
 
 // The shading tables and slot keys every block stages in shared memory.
-struct Tables {
+template <int NK>
+struct TablesOf {
   float mat[MAX_MATS * MAT_STRIDE];
   float lgt[LGT_WORDS];
-  uint32_t keys[MAX_KEYS];
+  uint32_t keys[NK];
 };
+using Tables = TablesOf<MAX_KEYS>;
+using TablesVol = TablesOf<MAX_KEYS_VOL>;
 
 // The brute mode's shared memory: the triangle table ahead of the shading
 // tables in one struct.  Kept as one struct: with the triangle table in
 // an array of its own the kernel ran 5-6% slower (PERF.md, Findings).
-struct BruteTables {
+template <class Tab>
+struct BruteTablesOf {
   float tri[MAX_TRIS * TRI_STRIDE];
-  Tables shade;
+  Tab shade;
 };
+
+// Slots a trace bounce draws: NT, and a volume scene's V free-flight slots.
+template <bool VOLS>
+__device__ __forceinline__ int trace_slots(const Params& p) {
+  return VOLS ? NT + p.V : NT;
+}
 
 // A lane's counters: traced rays and visible connections, and the hit
 // provider's node visits, box hits, triangle tests and accepted tests,
@@ -267,33 +295,50 @@ __device__ float suffix_sum(const Verts& v, int m, int lo) {
 }
 
 // trace_path (camera.h:325-370) for at most `steps` bounces from r with
-// throughput (tr, tg, tb), drawing from slot0 + bounce * NT, its closest
-// hits from the provider (bvh_walk.cuh: BruteHit or WalkHit over Counts,
-// passed by value; the rays count in the provider's counters).  Stores one
-// vertex per surface hit at slots off, off+1, ... and returns how many.
-template <class Hits>
-__device__ int trace(const Tables& s, const Params& p, const Stream& st,
+// throughput (tr, tg, tb), drawing from slot0 + bounce * (NT + V), its
+// closest hits from the provider (bvh_walk.cuh: BruteHit or WalkHit over
+// Counts, passed by value; the rays count in the provider's counters),
+// with VOLS the free-flight override over `vol` after each.  Stores one
+// vertex per surface or volume hit at slots off, off+1, ... and returns
+// how many.
+template <bool VOLS, class Tab, class Hits>
+__device__ int trace(const Tab& s, const VolTables* vol, const Params& p, const Stream& st,
                      const Verts& v, int steps, int slot0, int off, Ray r,
                      float tr, float tg, float tb, bool collect_bg, float& bg_r,
                      float& bg_g, float& bg_b, Prev pv, Hits hits) {
+  const int ntv = trace_slots<VOLS>(p);
   int n = 0;
   for (int b = 0; b < steps; ++b) {
     hits.c.rays += 1;
     const Hit h = hits(r.ox, r.oy, r.oz, r.dx, r.dy, r.dz);
     const int best = h.tri;
-    const float t_hit = h.t;
-    if (best < 0) {  // miss -> background (light-table tail)
+    float t_hit = h.t;
+    float gnx, gny, gnz;
+    int mid;
+    bool in_vol = false;
+    if constexpr (VOLS) {
+      const int uv = slot0 + b * ntv + NT;  // this bounce's free-flight draws
+      in_vol = free_flight(*vol, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, t_hit, mid,
+                           [&](int k) { return st.draw(uv + k); });
+    }
+    if (in_vol) {
+      // the reference's arbitrary normal (1, 0, 0), front face true
+      // (constant_medium.h:48-49): set against the ray, the flip below
+      // yields front; every use of a volume vertex's normal is an abs()
+      // or guarded by the isotropic phase, so its sign reaches no sum
+      gnx = r.dx < 0.0f ? 1.0f : -1.0f;
+      gny = 0.0f;
+      gnz = 0.0f;
+    } else if (best < 0) {  // miss -> background (light-table tail)
       if (collect_bg) {
         bg_r = bg_r + tr * s.lgt[LGT_TAIL + 0];
         bg_g = bg_g + tg * s.lgt[LGT_TAIL + 1];
         bg_b = bg_b + tb * s.lgt[LGT_TAIL + 2];
       }
       break;
+    } else {
+      hits.surface(best, gnx, gny, gnz, mid);
     }
-
-    float gnx, gny, gnz;
-    int mid;
-    hits.surface(best, gnx, gny, gnz, mid);
     const bool front = (r.dx * gnx + r.dy * gny + r.dz * gnz) < 0.0f;
     const float nx = front ? gnx : -gnx;
     const float ny = front ? gny : -gny;
@@ -348,7 +393,7 @@ __device__ int trace(const Tables& s, const Params& p, const Stream& st,
     if (is_light) break;  // lights do not scatter
 
     const float alb_r = m[1], alb_g = m[2], alb_b = m[3];
-    const int u0 = slot0 + b * NT;
+    const int u0 = slot0 + b * ntv;
     float ndx, ndy, ndz;
     if (mtype == M_METAL) {
       // material.h:73-83
@@ -438,12 +483,13 @@ struct Sub {
 // The camera and light subpaths of bidirectional_color (camera.h:294-323)
 // from the primary ray r0, with the camera-vertex emission; its hits from
 // the provider.
-template <class Hits>
-__device__ Sub subpaths(const Tables& s, const Params& p, const Stream& st,
-                        const Verts& cam, const Verts& lgt, Ray r0,
+template <bool VOLS, class Tab, class Hits>
+__device__ Sub subpaths(const Tab& s, const VolTables* vol, const Params& p,
+                        const Stream& st, const Verts& cam, const Verts& lgt, Ray r0,
                         Hits hits) {
   const int depth = p.depth;
   const bool mis = p.mis;
+  const int ntv = trace_slots<VOLS>(p);
 
   // ---- camera subpath; its previous "vertex" is the delta camera
   float bg_r = 0.0f, bg_g = 0.0f, bg_b = 0.0f;
@@ -453,8 +499,8 @@ __device__ Sub subpaths(const Tables& s, const Params& p, const Stream& st,
     normalize_safe(nx, ny, nz);
     pc = Prev{r0.ox, r0.oy, r0.oz, nx, ny, nz, true, M_LAM, 1.0f};
   }
-  const int n_cam = trace(s, p, st, cam, depth, 0, 0, r0, 1.0f, 1.0f, 1.0f,
-                          true, bg_r, bg_g, bg_b, pc, hits);
+  const int n_cam = trace<VOLS>(s, vol, p, st, cam, depth, 0, 0, r0, 1.0f, 1.0f, 1.0f,
+                                true, bg_r, bg_g, bg_b, pc, hits);
 
   const float total = s.lgt[LGT_TAIL + 3];
   const float inv_area = total > 0.0f ? 1.0f / fmaxf(total, 1e-30f) : 0.0f;
@@ -477,7 +523,7 @@ __device__ Sub subpaths(const Tables& s, const Params& p, const Stream& st,
   }
 
   // ---- light subpath start (camera.h:372-418)
-  const int ls0 = depth * NT;
+  const int ls0 = depth * ntv;
   const float u_pick = st.draw(ls0 + LS_PICK);
   const float u_lu = st.draw(ls0 + LS_U);
   const float u_lv = st.draw(ls0 + LS_V);
@@ -547,10 +593,10 @@ __device__ Sub subpaths(const Tables& s, const Params& p, const Stream& st,
                    ldx, ldy, ldz};
       const Prev pl{spx, spy, spz, snx, sny, snz, false, smtype, inv_area};
       float unused_r = 0.0f, unused_g = 0.0f, unused_b = 0.0f;
-      n_light += trace(s, p, st, lgt, depth - 1, depth * NT + NLS, 1, lr,
-                       thr0 * le_r * scale, thr0 * le_g * scale,
-                       thr0 * le_b * scale, false, unused_r, unused_g,
-                       unused_b, pl, hits);
+      n_light += trace<VOLS>(s, vol, p, st, lgt, depth - 1, depth * ntv + NLS, 1, lr,
+                             thr0 * le_r * scale, thr0 * le_g * scale,
+                             thr0 * le_b * scale, false, unused_r, unused_g,
+                             unused_b, pl, hits);
     }
     if (mis) {  // the light side's suffix sums, for connect()
       for (int t = 0; t < n_light; ++t) {
@@ -578,8 +624,8 @@ struct Conn {
 //   V::visible(o, d, tmax)  the shadow ray's answer, true if unoccluded
 //     (the policy counts the visible pair), false to skip the pair.
 // Returns true when every pair is done; c then holds the sum.
-template <class V>
-__device__ bool connect(const Tables& s, const Params& p, const Verts& cam,
+template <class Tab, class V>
+__device__ bool connect(const Tab& s, const Params& p, const Verts& cam,
                         const Verts& lgt, int n_cam, int n_light, Conn& c,
                         V& vis) {
   const int depth = p.depth;
@@ -684,7 +730,8 @@ __device__ bool connect(const Tables& s, const Params& p, const Verts& cam,
 
 // get_ray (camera.h:199-213): BDPT's jitter is word x0 of two threefry
 // calls keyed by the two tail keys (bdpt_kernel.py:994-997)
-__device__ __forceinline__ Ray stratum_ray(const float* c, const Tables& s,
+template <class Tab>
+__device__ __forceinline__ Ray stratum_ray(const float* c, const Tab& s,
                                            int nj, uint32_t ridu, float i,
                                            float j, float sx, float sy) {
   uint32_t a0 = ridu, a1 = 0u, b0 = ridu, b1 = 0u;
@@ -703,7 +750,8 @@ __device__ __forceinline__ Ray stratum_ray(const float* c, const Tables& s,
              c[2] + a * c[5] + e * c[8] - c[11]};
 }
 
-__device__ __forceinline__ void stage_tables(const Params& p, Tables& s) {
+template <class Tab>
+__device__ __forceinline__ void stage_tables(const Params& p, Tab& s) {
   for (int k = threadIdx.x; k < MAX_MATS * MAT_STRIDE; k += blockDim.x) s.mat[k] = p.mat[k];
   for (int k = threadIdx.x; k < LGT_WORDS; k += blockDim.x) s.lgt[k] = p.lgt[k];
   for (int k = threadIdx.x; k < p.nkeys; k += blockDim.x) s.keys[k] = p.keys[k];
@@ -712,7 +760,8 @@ __device__ __forceinline__ void stage_tables(const Params& p, Tables& s) {
 // Sample k of `lane`: its primary ray and draw stream.  Rays mode: the
 // lane's ray, drawn by ray id rid (or from the injected buffer).  Pixels
 // mode: stratum k of pixel rid, drawn by sample id pix*spp + k.
-__device__ __forceinline__ Ray primary(const Params& p, const Tables& s,
+template <bool VOLS, class Tab>
+__device__ __forceinline__ Ray primary(const Params& p, const Tab& s,
                                        int lane, int rid, uint32_t k,
                                        Stream& st) {
   if (!p.pixels) {
@@ -720,7 +769,8 @@ __device__ __forceinline__ Ray primary(const Params& p, const Tables& s,
     return Ray{p.in[0][lane], p.in[1][lane], p.in[2][lane],
                p.in[3][lane], p.in[4][lane], p.in[5][lane]};
   }
-  const int nj = p.depth * NT + NLS + (p.depth - 1) * NT;
+  const int ntv = trace_slots<VOLS>(p);
+  const int nj = p.depth * ntv + NLS + (p.depth - 1) * ntv;
   const int S = p.sqrt_spp;
   const uint32_t ridu = (uint32_t)rid * (uint32_t)(S * S) + k;
   st = Stream{nullptr, p.B, lane, s.keys, ridu};
@@ -822,9 +872,9 @@ struct ShadowNow {
 // and shadow rays from the provider (BruteHit or WalkHit over cnt), each
 // warp's shadow rays shared across its lanes through `ring` (SHARE, the
 // walk mode), or each lane's swept where it comes up (ring unused).
-template <bool SHARE, class Hits>
-__device__ __forceinline__ void samples(const Params& p, const Tables& s, Ring* ring,
-                                        Hits hits, Counts& cnt) {
+template <bool SHARE, bool VOLS, class Tab, class Hits>
+__device__ __forceinline__ void samples(const Params& p, const Tab& s, const VolTables* vol,
+                                        Ring* ring, Hits hits, Counts& cnt) {
   const int wl = threadIdx.x & 31;
   const int stride = p.mis ? VTX_STRIDE_MIS : VTX_STRIDE;
   const size_t thread = blockIdx.x * BLOCK + threadIdx.x;
@@ -845,8 +895,8 @@ __device__ __forceinline__ void samples(const Params& p, const Tables& s, Ring* 
     Conn summed;
     Stream st;
     if (rid >= 0) {
-      const Ray r = primary(p, s, lane, rid, (uint32_t)(p.k0 + kk), st);
-      sub = subpaths(s, p, st, cam, lgt, r, hits);
+      const Ray r = primary<VOLS>(p, s, lane, rid, (uint32_t)(p.k0 + kk), st);
+      sub = subpaths<VOLS>(s, vol, p, st, cam, lgt, r, hits);
     }
     if constexpr (!SHARE) {
       if (rid >= 0) {
@@ -906,12 +956,25 @@ __device__ __forceinline__ void samples(const Params& p, const Tables& s, Ring* 
 constexpr int BRUTE_BLOCKS = 5;
 
 __global__ void __launch_bounds__(BLOCK, BRUTE_BLOCKS) bdpt_megakernel(const Params p) {
-  __shared__ BruteTables s;
+  __shared__ BruteTablesOf<Tables> s;
   for (int k = threadIdx.x; k < p.T * TRI_STRIDE; k += blockDim.x) s.tri[k] = p.tri[k];
   stage_tables(p, s.shade);
   __syncthreads();
   Counts cnt;
-  samples<false>(p, s.shade, nullptr, BruteHit<Counts>{s.tri, p.T, cnt}, cnt);
+  samples<false, false>(p, s.shade, nullptr, nullptr, BruteHit<Counts>{s.tri, p.T, cnt}, cnt);
+  flush_counts(p, cnt);
+}
+
+// The brute mode on a scene with volumes.
+__global__ void __launch_bounds__(BLOCK, BRUTE_BLOCKS) bdpt_megakernel_vol(const Params p) {
+  __shared__ BruteTablesOf<TablesVol> s;
+  __shared__ VolTables sv;
+  for (int k = threadIdx.x; k < p.T * TRI_STRIDE; k += blockDim.x) s.tri[k] = p.tri[k];
+  stage_tables(p, s.shade);
+  stage_volumes(p.vol, p.volm, p.V, p.VT, sv);
+  __syncthreads();
+  Counts cnt;
+  samples<false, true>(p, s.shade, &sv, nullptr, BruteHit<Counts>{s.tri, p.T, cnt}, cnt);
   flush_counts(p, cnt);
 }
 
@@ -919,7 +982,7 @@ __global__ void __launch_bounds__(BLOCK, BRUTE_BLOCKS) bdpt_megakernel(const Par
 // over [T_MIN, tmax] with bvh_walk<true> (the clustered mode of bpt_tpu's
 // kernel, use_clusters: more than 512 triangles).  WALK_BLOCKS blocks an
 // SM, at least (the kernel is held to 128 registers; it takes 96) and at
-// most (bpt_bdpt_walk_blocks): the card fits five, which ran no faster
+// most (bpt_bdpt_blocks): the card fits five, which ran no faster
 // than four and takes 184 MB more vertex scratch at depth 80 with MIS
 // (PERF.md §6).
 constexpr int WALK_BLOCKS = 4;
@@ -930,7 +993,22 @@ __global__ void __launch_bounds__(BLOCK, WALK_BLOCKS) bdpt_megakernel_walk(const
   stage_tables(p, s);
   __syncthreads();
   Counts cnt;
-  samples<true>(p, s, &rings[threadIdx.x >> 5], WalkHit<Counts>{p.g, p.mat_id, cnt}, cnt);
+  samples<true, false>(p, s, nullptr, &rings[threadIdx.x >> 5],
+                       WalkHit<Counts>{p.g, p.mat_id, cnt}, cnt);
+  flush_counts(p, cnt);
+}
+
+// The walk mode on a scene with volumes.
+__global__ void __launch_bounds__(BLOCK, WALK_BLOCKS) bdpt_megakernel_walk_vol(const Params p) {
+  __shared__ TablesVol s;
+  __shared__ Ring rings[BLOCK / 32];
+  __shared__ VolTables sv;
+  stage_tables(p, s);
+  stage_volumes(p.vol, p.volm, p.V, p.VT, sv);
+  __syncthreads();
+  Counts cnt;
+  samples<true, true>(p, s, &sv, &rings[threadIdx.x >> 5],
+                      WalkHit<Counts>{p.g, p.mat_id, cnt}, cnt);
   flush_counts(p, cnt);
 }
 
@@ -946,7 +1024,9 @@ extern "C" {
 // launch (0 = launched), or cudaErrorInvalidValue for a depth, key count,
 // table size or work split the kernel does not take.  N > 0 selects the
 // walk mode over the BVH (nodes, tris, mat_id; tri unused), N == 0 the
-// brute mode over tri (T <= 512).  Device pointers only.
+// brute mode over tri (T <= 512).  V > 0 volumes over VT boundary
+// triangles (vol, volm: pack_vol_tables) select the _vol kernels, whose
+// keys and ubuf hold NT + V slots a trace bounce.  Device pointers only.
 int bpt_bdpt_megakernel(int pixels, int mis, int B, int T, int L, int depth,
                         int sqrt_spp, int nkeys, int N, int k0, int nk,
                         int grid, const float* tri, const float* nodes,
@@ -956,9 +1036,12 @@ int bpt_bdpt_megakernel(int pixels, int mis, int B, int T, int L, int depth,
                         const float* in3, const float* in4, const float* in5,
                         const int* rid, const float* ubuf, float* vtx,
                         float* out_r, float* out_g, float* out_b,
-                        unsigned long long* counters, int* next, void* stream) {
+                        unsigned long long* counters, int* next, int V, int VT,
+                        const float* vol, const float* volm, void* stream) {
   using namespace bpt::bdpt;
-  if (depth < 1 || depth > MAX_DEPTH || nkeys < 0 || nkeys > MAX_KEYS ||
+  if (depth < 1 || depth > MAX_DEPTH || nkeys < 0 ||
+      nkeys > (V > 0 ? MAX_KEYS_VOL : MAX_KEYS) || V < 0 || V > bpt::MAX_VOLS ||
+      VT < 0 || VT > bpt::MAX_VOL_TRIS || (V > 0 && VT < 1) ||
       N < 0 || (N == 0 && (T < 0 || T > MAX_TRIS)) || L < 1 ||
       L > MAX_LIGHTS || sqrt_spp < 1 || grid < 1 || nk < 1 || k0 < 0 ||
       (!pixels && (k0 != 0 || nk != 1)) || (pixels && k0 + nk > sqrt_spp * sqrt_spp) ||
@@ -997,28 +1080,37 @@ int bpt_bdpt_megakernel(int pixels, int mis, int B, int T, int L, int depth,
   p.out_g = out_g;
   p.out_b = out_b;
   p.counters = counters;
+  p.V = V;
+  p.VT = VT;
+  p.vol = vol;
+  p.volm = volm;
   if (B > 0) {
-    if (N > 0) {
-      bdpt_megakernel_walk<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(p);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (N > 0 && V > 0) {
+      bdpt_megakernel_walk_vol<<<grid, BLOCK, 0, st>>>(p);
+    } else if (N > 0) {
+      bdpt_megakernel_walk<<<grid, BLOCK, 0, st>>>(p);
+    } else if (V > 0) {
+      bdpt_megakernel_vol<<<grid, BLOCK, 0, st>>>(p);
     } else {
-      bdpt_megakernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(p);
+      bdpt_megakernel<<<grid, BLOCK, 0, st>>>(p);
     }
   }
   return (int)cudaGetLastError();
 }
 
-// Blocks of bdpt_megakernel_walk the current device holds at once (the
-// walk mode's persistent grid), or a negative CUDA error code.
-int bpt_bdpt_walk_blocks() {
-  static int cache[64];
-  return bpt::resident_blocks(bpt::bdpt::bdpt_megakernel_walk, bpt::bdpt::BLOCK,
-                              cache, 64, bpt::bdpt::WALK_BLOCKS);
-}
-
-// The same for bdpt_megakernel (the brute mode's persistent grid).
-int bpt_bdpt_brute_blocks() {
-  static int cache[64];
-  return bpt::resident_blocks(bpt::bdpt::bdpt_megakernel, bpt::bdpt::BLOCK, cache, 64);
+// Blocks of the BDPT megakernel the current device holds at once (its
+// persistent grid), or a negative CUDA error code: bdpt_megakernel_walk
+// (at most WALK_BLOCKS an SM) if walk, else bdpt_megakernel (the brute
+// mode); their volume kernels if vols.
+int bpt_bdpt_blocks(int walk, int vols) {
+  using namespace bpt::bdpt;
+  static int walk_cache[2][64], cache[2][64];
+  if (walk)
+    return bpt::resident_blocks(vols ? bdpt_megakernel_walk_vol : bdpt_megakernel_walk, BLOCK,
+                                walk_cache[vols != 0], 64, WALK_BLOCKS);
+  return bpt::resident_blocks(vols ? bdpt_megakernel_vol : bdpt_megakernel, BLOCK,
+                              cache[vols != 0], 64);
 }
 
 }  // extern "C"

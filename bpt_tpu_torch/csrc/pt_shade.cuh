@@ -3,12 +3,15 @@
 // estimator of make_bounce (bpt_tpu/ops/pallas/pt_kernel.py:177-675) with
 // real branches for its masks.  The closest hit comes from a provider the
 // caller passes in (bvh_walk.cuh): the megakernel's brute-force sweep over
-// shared memory, the BVH walk, or a hit computed by an earlier launch.
+// shared memory, the BVH walk, or a hit computed by an earlier launch.  On
+// a scene with volumes (VOLS) the free-flight override of volume.cuh
+// follows the closest hit.
 #pragma once
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "volume.cuh"
 
 namespace bpt {
 
@@ -24,19 +27,21 @@ enum { U_MIX = 0, U_LPICK = 1, U_LU = 2, U_LV = 3, U_B1 = 4, U_B2 = 5,
        U_DIEL = 6, U_FZ1 = 7, U_FZ2 = 8 };
 
 // A lane's draws: the injected buffer when given, else threefry keyed by
-// slot with (sample id, bounce) as the counter.
+// slot with (sample id, bounce) as the counter.  A bounce has nu = NU + V
+// slots, the V volume free-flight slots (single draws) last.
 struct Draws {
-  const float* ubuf;  // [depth*NU, B] or null
+  const float* ubuf;  // [depth*nu, B] or null
   int B;
-  const uint32_t* keys;
+  const uint32_t* keys;  // [2*nu] slot keys
   uint32_t ridu;
   int lane;
+  int nu;
 
   // two uniforms (slot, slot+1) from one threefry call (both words)
   __device__ __forceinline__ void two(int b, int slot, float& a, float& c) const {
     if (ubuf) {
-      a = ubuf[(size_t)(b * NU + slot) * B + lane];
-      c = ubuf[(size_t)(b * NU + slot + 1) * B + lane];
+      a = ubuf[(size_t)(b * nu + slot) * B + lane];
+      c = ubuf[(size_t)(b * nu + slot + 1) * B + lane];
       return;
     }
     uint32_t x0 = ridu, x1 = (uint32_t)b;
@@ -46,7 +51,7 @@ struct Draws {
   }
 
   __device__ __forceinline__ float one(int b, int slot) const {
-    if (ubuf) return ubuf[(size_t)(b * NU + slot) * B + lane];
+    if (ubuf) return ubuf[(size_t)(b * nu + slot) * B + lane];
     uint32_t x0 = ridu, x1 = (uint32_t)b;
     threefry2x32(keys[2 * slot], keys[2 * slot + 1], x0, x1);
     return bits_to_unit(x0);
@@ -64,26 +69,45 @@ struct PathState {
 // returns the ray's Hit.  Adds the bounce's radiance to s.a*; returns true
 // and moves the ray on if the path continues, false if it ends here (miss,
 // emitter, or a mixture pdf of 0).  `mat` [MAX_MATS*6] and `lgt` [LGT_TAB]
-// are the packed tables of ops/kernels/pt_kernel.py::_pack_tables.
-template <class Closest>
+// are the packed tables of ops/kernels/pt_kernel.py::_pack_tables.  VOLS:
+// the free-flight override over `vol` (volume.cuh) runs before the miss
+// test, a miss being a surface t of inf, so a ray that leaves the scene
+// can still scatter in a volume; a volume hit writes its phase material
+// to *vmat_out when given, and -1 marks a surface hit or a miss there.
+template <bool VOLS, class Closest>
 __device__ __forceinline__ bool pt_bounce(const float* mat, const float* lgt,
                                           int L, const Draws& dr, int b,
-                                          Closest& closest, PathState& s) {
+                                          Closest& closest, PathState& s,
+                                          const VolTables* vol = nullptr,
+                                          int* vmat_out = nullptr) {
   const float cox = s.ox, coy = s.oy, coz = s.oz;
   const float cdx = s.dx, cdy = s.dy, cdz = s.dz;
   const Hit h = closest(cox, coy, coz, cdx, cdy, cdz);
-  if (h.tri < 0) {  // miss -> background (light-table tail)
+  float t_hit = h.t;
+  float gnx, gny, gnz;
+  int mid;
+  bool in_vol = false;
+  if constexpr (VOLS) {
+    in_vol = free_flight(*vol, cox, coy, coz, cdx, cdy, cdz, t_hit, mid,
+                         [&](int v) { return dr.one(b, NU + v); });
+    if (vmat_out) *vmat_out = in_vol ? mid : -1;
+  }
+  if (in_vol) {
+    // the reference's arbitrary normal (1, 0, 0), front face true
+    // (constant_medium.h:48-49): set against the ray, the flip below
+    // yields front
+    gnx = cdx < 0.0f ? 1.0f : -1.0f;
+    gny = 0.0f;
+    gnz = 0.0f;
+  } else if (h.tri < 0) {  // miss -> background (light-table tail)
     const float* bg = &lgt[MAX_LIGHTS * LGT_STRIDE];
     s.ar = s.ar + s.tr * bg[0];
     s.ag = s.ag + s.tg * bg[1];
     s.ab = s.ab + s.tb * bg[2];
     return false;
+  } else {
+    closest.surface(h.tri, gnx, gny, gnz, mid);
   }
-
-  const float t_hit = h.t;
-  float gnx, gny, gnz;
-  int mid;
-  closest.surface(h.tri, gnx, gny, gnz, mid);
   const bool front = (cdx * gnx + cdy * gny + cdz * gnz) < 0.0f;
   const float fsign = front ? 1.0f : -1.0f;
   const float nx = gnx * fsign, ny = gny * fsign, nz = gnz * fsign;

@@ -18,6 +18,11 @@
 // (pt_kernel.py:661-667): a textured light's texel is read there
 // (ops/kernels/pt_wave.py::texel_stage).  pt_bounce, which the PT
 // megakernel shares, leaves such a lane's origin alone; the write is here.
+// On a scene with constant-density volumes the wrapper launches
+// pt_wave_bounce_vol, the same shade with pt_shade.cuh's free-flight
+// override (volume.cuh) after the given hit; it writes -2 - the phase
+// material into the hit's tri where a lane scatters in a volume, the
+// Pallas kernel's ti (pt_kernel.py:396-410), for the texel stage.
 //
 // What bounds them on the H100: the walk, not FP32 throughput and not
 // device-memory bandwidth (one thread a ray, closest_bvh, pt_wave_bounce
@@ -222,25 +227,25 @@ struct WaveParams {
   const int* mat_id;    // [T]
   const float* mat;     // [MAX_MATS * 6]
   const float* lgt;     // [LGT_TAB]
-  const uint32_t* keys; // [2 * NU] slot keys
+  const uint32_t* keys; // [2 * (NU + V)] slot keys
   const float* in;      // [STATE_ROWS, B]
   const int* rid;       // [B]
   const float* hit_t;   // [B] closest_bvh's t
-  const int* hit_tri;   // [B] closest_bvh's tri
+  // [B] closest_bvh's tri; with volumes a lane that scatters in one gets
+  // -2 - its phase material (the Pallas kernel's ti, pt_kernel.py:396-410)
+  int* hit_tri;
   float* out;           // [STATE_ROWS, B]
   unsigned long long* counters;  // [1] rays
+  int V, VT;            // volumes and their boundary triangles
+  const float* vol;     // [MAX_VOL_TRIS * 10] (pack_vol_tables)
+  const float* volm;    // [MAX_VOLS * 2]
 };
 
-// The shade of a PT bounce, over the closest hits closest_bvh wrote.
-__global__ void __launch_bounds__(WAVE_BLOCK) pt_wave_bounce(const WaveParams p) {
-  __shared__ float s_mat[MAX_MATS * MAT_STRIDE];
-  __shared__ float s_lgt[LGT_TAB];
-  __shared__ uint32_t s_keys[2 * NU];
-  for (int k = threadIdx.x; k < MAX_MATS * MAT_STRIDE; k += blockDim.x) s_mat[k] = p.mat[k];
-  for (int k = threadIdx.x; k < LGT_TAB; k += blockDim.x) s_lgt[k] = p.lgt[k];
-  for (int k = threadIdx.x; k < 2 * NU; k += blockDim.x) s_keys[k] = p.keys[k];
-  __syncthreads();
-
+// The shade of one lane (VOLS: with the free-flight override over vol).
+template <bool VOLS>
+__device__ __forceinline__ void shade_lane(const WaveParams& p, const float* s_mat,
+                                           const float* s_lgt, const uint32_t* s_keys,
+                                           const VolTables* vol) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned long long rays = 0;
   if (lane < p.B) {
@@ -252,10 +257,13 @@ __global__ void __launch_bounds__(WAVE_BLOCK) pt_wave_bounce(const WaveParams p)
     bool alive = false;
     if (in[12 * B] > 0.5f) {
       rays = 1;
-      const Draws dr{nullptr, p.B, s_keys, (uint32_t)p.rid[lane], lane};
+      const Draws dr{nullptr, p.B, s_keys, (uint32_t)p.rid[lane], lane,
+                     VOLS ? NU + p.V : NU};
       GivenHit h{p.g, p.mat_id, p.hit_t[lane], p.hit_tri[lane]};
-      alive = pt_bounce(s_mat, s_lgt, p.L, dr, p.bounce, h, s);
-      if (!alive && h.tri >= 0) {  // the path ended at a hit: its point
+      int vmat = -1;
+      alive = pt_bounce<VOLS>(s_mat, s_lgt, p.L, dr, p.bounce, h, s, vol, &vmat);
+      if (VOLS && vmat >= 0) p.hit_tri[lane] = -2 - vmat;
+      if (!alive && h.tri >= 0 && vmat < 0) {  // the path ended at a hit: its point
         // (-fmad=false: rounded as pt_bounce's px, one multiply, one add)
         s.ox = s.ox + h.t * s.dx;
         s.oy = s.oy + h.t * s.dy;
@@ -282,6 +290,32 @@ __global__ void __launch_bounds__(WAVE_BLOCK) pt_wave_bounce(const WaveParams p)
     out[12 * B] = alive ? 1.0f : 0.0f;
   }
   warp_add(rays, &p.counters[0]);
+}
+
+// The shade of a PT bounce, over the closest hits closest_bvh wrote.
+__global__ void __launch_bounds__(WAVE_BLOCK) pt_wave_bounce(const WaveParams p) {
+  __shared__ float s_mat[MAX_MATS * MAT_STRIDE];
+  __shared__ float s_lgt[LGT_TAB];
+  __shared__ uint32_t s_keys[2 * NU];
+  for (int k = threadIdx.x; k < MAX_MATS * MAT_STRIDE; k += blockDim.x) s_mat[k] = p.mat[k];
+  for (int k = threadIdx.x; k < LGT_TAB; k += blockDim.x) s_lgt[k] = p.lgt[k];
+  for (int k = threadIdx.x; k < 2 * NU; k += blockDim.x) s_keys[k] = p.keys[k];
+  __syncthreads();
+  shade_lane<false>(p, s_mat, s_lgt, s_keys, nullptr);
+}
+
+// The same on a scene with volumes.
+__global__ void __launch_bounds__(WAVE_BLOCK) pt_wave_bounce_vol(const WaveParams p) {
+  __shared__ float s_mat[MAX_MATS * MAT_STRIDE];
+  __shared__ float s_lgt[LGT_TAB];
+  __shared__ uint32_t s_keys[2 * (NU + MAX_VOLS)];
+  __shared__ VolTables sv;
+  for (int k = threadIdx.x; k < MAX_MATS * MAT_STRIDE; k += blockDim.x) s_mat[k] = p.mat[k];
+  for (int k = threadIdx.x; k < LGT_TAB; k += blockDim.x) s_lgt[k] = p.lgt[k];
+  for (int k = threadIdx.x; k < 2 * (NU + p.V); k += blockDim.x) s_keys[k] = p.keys[k];
+  stage_volumes(p.vol, p.volm, p.V, p.VT, sv);
+  __syncthreads();
+  shade_lane<true>(p, s_mat, s_lgt, s_keys, &sv);
 }
 
 inline int grid_of(int B) { return (B + WAVE_BLOCK - 1) / WAVE_BLOCK; }
@@ -366,14 +400,20 @@ int bpt_any_bvh(int B, int N, int bounds_ok, const float* nodes, const float* tr
   return (int)cudaGetLastError();
 }
 
-// hit_t / hit_tri: closest_bvh's hits of the state's rays.
+// hit_t / hit_tri: closest_bvh's hits of the state's rays.  V > 0 volumes
+// over VT boundary triangles (vol, volm: pack_vol_tables) select
+// pt_wave_bounce_vol, whose keys hold NU + V slots and which writes
+// -2 - phase material into hit_tri where a lane scatters in a volume.
 int bpt_pt_wave_bounce(int B, int N, int L, int bounce, const float* nodes,
                        const float* tris, const int* mat_id, const float* mat,
                        const float* lgt, const uint32_t* keys,
                        const float* state_in, const int* rid,
-                       const float* hit_t, const int* hit_tri,
-                       float* state_out, unsigned long long* counters,
-                       void* stream) {
+                       const float* hit_t, int* hit_tri,
+                       float* state_out, unsigned long long* counters, int V,
+                       int VT, const float* vol, const float* volm, void* stream) {
+  if (V < 0 || V > bpt::MAX_VOLS || VT < 0 || VT > bpt::MAX_VOL_TRIS) {
+    return (int)cudaErrorInvalidValue;
+  }
   bpt::WaveParams p;
   p.B = B;
   p.L = L;
@@ -389,8 +429,17 @@ int bpt_pt_wave_bounce(int B, int N, int L, int bounce, const float* nodes,
   p.hit_tri = hit_tri;
   p.out = state_out;
   p.counters = counters;
+  p.V = V;
+  p.VT = VT;
+  p.vol = vol;
+  p.volm = volm;
   if (B > 0) {
-    bpt::pt_wave_bounce<<<bpt::grid_of(B), bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (V > 0) {
+      bpt::pt_wave_bounce_vol<<<bpt::grid_of(B), bpt::WAVE_BLOCK, 0, st>>>(p);
+    } else {
+      bpt::pt_wave_bounce<<<bpt::grid_of(B), bpt::WAVE_BLOCK, 0, st>>>(p);
+    }
   }
   return (int)cudaGetLastError();
 }

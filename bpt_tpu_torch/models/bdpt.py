@@ -25,10 +25,12 @@ CUDA scene, ``closest_bvh`` / ``any_bvh`` with a BVH and ``closest_tri`` /
 ``any_tri`` without.  ``plain`` runs their torch versions instead, for
 comparisons.
 
-Not ported (each refused where it would be asked for): ``bpt_tpu``'s
-live-prefix narrowed trace and its batched or sparse connection waves
-(TPU study options, ROADMAP §2 "Not to port") and volumes (ROADMAP §1
-item 4).
+On a scene with constant-density volumes each traced bounce ends at the
+free-flight override of ``ops.soa.apply_volumes``, as in ``bpt_tpu``;
+shadow rays do not see volumes there either.
+
+Not ported: ``bpt_tpu``'s live-prefix narrowed trace and its batched or
+sparse connection waves (TPU study options, ROADMAP §2 "Not to port").
 """
 
 from __future__ import annotations
@@ -191,10 +193,9 @@ def trace_subpath(scene: SceneTensors, o: Vec3, d: Vec3, thr0: Vec3, alive0,
     delta (bool), mtype (int), pfwd (its own forward area pdf).  Every
     scattering pdf in the material set is independent of the incoming
     direction, so the reverse pdfs of interior vertices are fixed at trace
-    time.  ``plain``: the closest hits walk the BVH in torch on any device."""
-    if scene.num_volumes:
-        raise NotImplementedError(
-            "volumes are not yet ported to bpt_tpu_torch (ROADMAP §1 item 4)")
+    time.  ``plain``: the closest hits walk the BVH in torch on any device.
+    A bounce draws NT + V rows, the V free-flight draws of a volume scene
+    last (bpt_tpu/models/bdpt.py:234-243)."""
     B = o.x.shape[0]
     dtype, dev = o.x.dtype, o.x.device
     verts = _empty_vertices(steps, B, dtype, dev)
@@ -212,10 +213,10 @@ def trace_subpath(scene: SceneTensors, o: Vec3, d: Vec3, thr0: Vec3, alive0,
     thr, alive = thr0, alive0
 
     for b in range(steps):
-        u = uniforms_fn(b, NT)
+        u = uniforms_fn(b, NT + scene.num_volumes)
 
         h = soa.closest_hit(scene, o, d, T_MIN, torch.inf, mask=alive, plain=plain)
-        rec = soa.complete_hit(scene, o, d, h)
+        rec = soa.apply_volumes(scene, o, d, soa.complete_hit(scene, o, d, h), u[NT:], alive)[0]
         mtype = scene.materials.mtype[rec.mat]
 
         miss = alive & ~rec.hit

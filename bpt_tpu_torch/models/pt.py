@@ -6,7 +6,9 @@ Per bounce, the whole ray batch moves through: intersect wave -> emission
 -> delta-follow or 50/50 light/BSDF mixture sampling -> throughput update.
 No Russian roulette, hard max_depth cutoff, emission dropped on delta
 bounces (camera.h:273-275).  Randomness enters only through
-``uniforms_fn(bounce, n) -> n rows of [B]``.
+``uniforms_fn(bounce, n) -> n rows of [B]``: NU rows a bounce, and on a
+scene with V constant-density volumes V more, the free-flight draws of
+the override that follows each closest hit (``soa.apply_volumes``).
 
 This wavefront is the plain version the CUDA megakernel
 (``ops/kernels/pt_kernel.py``) is held against, and the render's estimator
@@ -70,31 +72,36 @@ def default_uniforms_fn(key, ray_ids, dtype):
     return fn
 
 
-def kernel_stream_uniforms_fn(key, ray_ids, dtype):
+def kernel_stream_uniforms_fn(key, ray_ids, dtype, n_vols: int = 0):
     """The PT megakernel's in-kernel threefry stream as uniform rows:
     per-slot subkeys, the bounce in the threefry COUNTER, and paired draws
     — even slot s takes x0 of threefry(keys[s], (rid, bounce)), odd slot s
-    takes x1 of the s-1 call; the odd tail slot (U_FZ2) is a single draw.
+    takes x1 of the s-1 call; the odd tail slot (U_FZ2) and the volume
+    free-flight slots NU..NU+n_vols-1 are single draws.
     ``key``: (k1, k2) ints; ``ray_ids``: [B] int tensor."""
-    keys = rng.subkeys(key, NU)
+    keys = rng.subkeys(key, NU + n_vols)
     ridw = rng.ray_words(ray_ids)
 
     def fn(bounce, n):
         ctr = torch.full_like(ridw, int(bounce) & rng.MASK32)
         rows = []
-        for s in range(0, n, 2):
+        s = 0
+        while len(rows) < n:
             b0, b1 = rng.threefry2x32(keys[2 * s], keys[2 * s + 1], ridw, ctr)
             rows.append(rng.bits_to_unit_float(b0).to(dtype))
-            if s + 1 < NU:  # the odd tail slot is a single draw
+            if s + 1 < NU:  # a surface pair: word x1 is slot s + 1
                 rows.append(rng.bits_to_unit_float(b1).to(dtype))
+                s += 2
+            else:  # the odd tail slot and the volume slots: single draws
+                s += 1
         return rows[:n]
 
     return fn
 
 
 def array_uniforms_fn(uniforms):
-    """uniforms: [B, D, NU] — the injected-uniform path."""
-    rows_all = torch.movedim(uniforms, 0, -1)  # [D, NU, B]
+    """uniforms: [B, D, NU + V] — the injected-uniform path."""
+    rows_all = torch.movedim(uniforms, 0, -1)  # [D, NU + V, B]
 
     def fn(bounce, n):
         step = rows_all[bounce]
@@ -103,16 +110,21 @@ def array_uniforms_fn(uniforms):
     return fn
 
 
-def pt_bounce(scene: SceneTensors, o: Vec3, d: Vec3, thr: Vec3, alive, h, u):
+def pt_bounce(scene: SceneTensors, o: Vec3, d: Vec3, thr: Vec3, alive, h, u,
+              rec=None):
     """One bounce of the estimator for the lanes ``alive`` (camera.h:
     255-292) given their closest hit ``h`` (a HitSoA) and the bounce's
-    uniform rows ``u``: miss -> background, one-sided emission, delta
-    continuation or the 50/50 light/BSDF mixture.
+    uniform rows ``u`` (NU, + V free-flight draws on a volume scene): miss
+    -> background, one-sided emission, delta continuation or the 50/50
+    light/BSDF mixture.  ``rec``: the bounce's hit record after the
+    free-flight override (``soa.apply_volumes``), if the caller has it.
 
     Returns (o, d, thr, radiance added this bounce, alive_new); o is the
     hit point on every live hit, the ray's origin elsewhere."""
     bg = Vec3(scene.background[0], scene.background[1], scene.background[2])
-    rec = soa.complete_hit(scene, o, d, h)
+    if rec is None:
+        rec = soa.apply_volumes(scene, o, d, soa.complete_hit(scene, o, d, h), u[NU:],
+                                alive)[0]
     mtype = scene.materials.mtype[rec.mat]
 
     zero = torch.zeros_like(thr.x)
@@ -170,9 +182,6 @@ def path_trace_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
     ``plain``: the closest hits walk the BVH in torch on any device.
 
     Returns (radiance [B,3], PTStats)."""
-    if scene.num_volumes:
-        raise NotImplementedError(
-            "volumes are not yet ported to bpt_tpu_torch (ROADMAP §1 item 4)")
     B = origins.shape[0]
     dtype = origins.dtype
     dev = origins.device
@@ -188,7 +197,7 @@ def path_trace_radiance(scene: SceneTensors, origins, dirs, max_depth: int,
     for b in range(max_depth):
         h = soa.closest_hit(scene, o, d, T_MIN, torch.inf, mask=alive, plain=plain)
         o, d, thr, inc, alive_new = pt_bounce(scene, o, d, thr, alive, h,
-                                              uniforms_fn(b, NU))
+                                              uniforms_fn(b, NU + scene.num_volumes))
         # a path adds radiance only on the bounce it ends, so this sum
         # rounds as one accumulator would
         rad = rad + inc

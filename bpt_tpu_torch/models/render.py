@@ -166,8 +166,6 @@ def _reject_reason(scene: SceneTensors, cfg: CameraConfig, integrator: str,
                 "CUDA kernel's vertex-scratch bound")
     if route in ("wave", "fused"):
         return ""  # the route was chosen because its kernels take the scene
-    if scene.num_volumes:
-        return "scene has volumes (not yet ported: ROADMAP §1 item 4)"
     if scene.device.type == "cuda" and scene.use_bvh:
         return walk_reject_reason(scene)
     return ""

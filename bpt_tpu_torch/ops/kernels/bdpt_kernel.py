@@ -29,12 +29,18 @@ Dispatch is by device: a CPU tensor takes the plain PyTorch version (the
 ``models.bdpt`` wavefront on the kernel's threefry stream or on injected
 uniforms, over ``ops.soa.bvh_closest`` / ``bvh_any`` on a scene over
 ``MAX_TRIS`` triangles, counting as the kernel does); a CUDA tensor
-launches ``csrc/bdpt_megakernel.cu`` or raises.
-Each wrapper counts its launches in ``<wrapper>.launches``; the plain
-versions count their calls in ``<plain>.calls``.
+launches ``csrc/bdpt_megakernel.cu`` or raises.  A scene with
+constant-density volumes takes the kernel's volume mode (its ``_vol``
+kernels: the free-flight override after each closest hit of a trace, NT + V
+slots a trace bounce, the volume tables of ``pt_kernel.pack_vol_tables``).
+Each wrapper counts its launches in ``<wrapper>.launches`` (those of the
+volume mode also in ``<wrapper>.vol_launches``); the plain versions count
+their calls in ``<plain>.calls``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -53,6 +59,7 @@ from bpt_tpu_torch.ops.kernels.pt_kernel import (
     _pack_tables,
     _scatter_active,
     stratum_ranges,
+    vol_args,
     walk_args,
     walk_grid,
     walk_launches,
@@ -84,18 +91,20 @@ def _check_depth(depth: int) -> None:
 # ---------------------------------------------------------------- plain
 
 
-def _buffer_uniforms(ubuf, depth: int):
-    """Injected rows [n_uniform_slots(depth), N] -> the uniform sources of
-    models.bdpt.bdpt_radiance (the kernel's slot layout)."""
-    lt0 = depth * NT + NLS
+def _buffer_uniforms(ubuf, depth: int, n_vols: int = 0):
+    """Injected rows [n_uniform_slots(depth, n_vols), N] -> the uniform
+    sources of models.bdpt.bdpt_radiance (the kernel's slot layout: NT +
+    n_vols rows a trace bounce)."""
+    ntv = NT + n_vols
+    lt0 = depth * ntv + NLS
 
     def cam_fn(b, n):
-        return list(ubuf[b * NT:b * NT + n])
+        return list(ubuf[b * ntv:b * ntv + n])
 
     def light_fn(b, n):
-        return list(ubuf[lt0 + b * NT:lt0 + b * NT + n])
+        return list(ubuf[lt0 + b * ntv:lt0 + b * ntv + n])
 
-    return cam_fn, list(ubuf[depth * NT:lt0]), light_fn
+    return cam_fn, list(ubuf[depth * ntv:lt0]), light_fn
 
 
 def _radiance(scene, origins, dirs, depth, sources, mis):
@@ -109,7 +118,7 @@ def bdpt_megakernel_plain(scene, o: Vec3, d: Vec3, ray_ids, key, depth: int,
                           uniforms=None, mis: bool = False):
     """Plain version of ``bdpt_megakernel``: the ``models.bdpt`` wavefront
     over the active lanes (ray_ids >= 0), fed the injected ``uniforms``
-    [n_uniform_slots(depth), B] or the kernel's threefry stream."""
+    [n_uniform_slots(depth, V), B] or the kernel's threefry stream."""
     bdpt_megakernel_plain.calls += 1
     _check_depth(depth)
     B = ray_ids.shape[0]
@@ -118,9 +127,9 @@ def bdpt_megakernel_plain(scene, o: Vec3, d: Vec3, ray_ids, key, depth: int,
     dirs = torch.stack([d.x, d.y, d.z], dim=-1)[idx]
     if uniforms is None:
         sources = rng.bdpt_kernel_stream_uniforms_fn(key, ray_ids[idx], depth,
-                                                     origins.dtype)
+                                                     origins.dtype, scene.num_volumes)
     else:
-        sources = _buffer_uniforms(uniforms[:, idx], depth)
+        sources = _buffer_uniforms(uniforms[:, idx], depth, scene.num_volumes)
     rad, rays, shadow, extra = _radiance(scene, origins, dirs, depth, sources, mis)
     return (*_scatter_active(rad, idx, B), rays, shadow, extra)
 
@@ -141,7 +150,8 @@ def stratum_plain(scene, i, j, pix_ids, cam13, key, depth: int, sqrt_spp: int,
     origins, dirs = generate_rays(
         _camera_from_table(cam13), iv, jv, torch.full_like(iv, float(k % sqrt_spp)),
         torch.full_like(iv, float(k // sqrt_spp)), torch.stack([u0, u1, zero, zero], -1))
-    sources = rng.bdpt_kernel_stream_uniforms_fn(key, rid, depth, origins.dtype)
+    sources = rng.bdpt_kernel_stream_uniforms_fn(key, rid, depth, origins.dtype,
+                                                 scene.num_volumes)
     return _radiance(scene, origins, dirs, depth, sources, mis)
 
 
@@ -195,15 +205,16 @@ def _launch(wrapper, scene, ins, ray_ids, keys, depth, mis, pixels, cam=None,
         scene, "bdpt-mis" if mis else "bdpt", ins, ray_ids, keys, cam)
     _, tri, mat, lgt = _pack_tables_bdpt(scene)
     N, nodes, tris, mat_id = walk_args(scene)
+    V, VT, vol, volm = vol_args(scene)
     if ubuf is not None:
-        ubuf = _checked(ubuf, (n_uniform_slots(depth), B), dev, "uniforms")
+        ubuf = _checked(ubuf, (n_uniform_slots(depth, V), B), dev, "uniforms")
     spp = sqrt_spp * sqrt_spp if pixels else 1
     counters = torch.zeros(6, dtype=torch.int64, device=dev)
     lib = build.load_library()
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        blocks = lib.bpt_bdpt_walk_blocks if N else lib.bpt_bdpt_brute_blocks
+        blocks = functools.partial(lib.bpt_bdpt_blocks, int(N > 0), int(V > 0))
         vtx = torch.empty(scratch_shape(B, spp, blocks, depth, mis), dtype=torch.float32,
                           device=dev)
 
@@ -217,9 +228,11 @@ def _launch(wrapper, scene, ins, ray_ids, keys, depth, mis, pixels, cam=None,
                 cam_t.data_ptr(), *(x.data_ptr() for x in ins), rid.data_ptr(),
                 None if ubuf is None else ubuf.data_ptr(), vtx.data_ptr(),
                 out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-                counters.data_ptr(), nxt.data_ptr(), stream)
+                counters.data_ptr(), nxt.data_ptr(), V, VT, vol, volm, stream)
             build.check(code, "bdpt_megakernel")
             wrapper.launches += 1
+            if V:
+                wrapper.vol_launches += 1
 
         out = walk_launches(B, pixels, spp, launch, dev)
     return out[0], out[1], out[2], counters[0], counters[1], counters[2:]
@@ -229,7 +242,8 @@ def bdpt_megakernel(scene: SceneTensors, o: Vec3, d: Vec3, ray_ids, key,
                     depth: int, uniforms=None, mis: bool = False):
     """Whole BDPT sample from given rays.  ray_ids [B] int (negative =
     inactive lane); key: the base render key (streams 2/3/4 fold inside);
-    uniforms: optional [n_uniform_slots(depth), B] f32 injected draws;
+    uniforms: optional [n_uniform_slots(depth, V), B] f32 injected draws, V
+    the scene's volumes;
     ``mis``: power-heuristic weighted strategies (integrator bdpt-mis).
 
     Returns (rad_x, rad_y, rad_z [B] f32, rays_traced, shadow_rays int64,
@@ -238,11 +252,11 @@ def bdpt_megakernel(scene: SceneTensors, o: Vec3, d: Vec3, ray_ids, key,
         return bdpt_megakernel_plain(scene, o, d, ray_ids, key, depth,
                                      uniforms, mis)
     return _launch(bdpt_megakernel, scene, [o.x, o.y, o.z, d.x, d.y, d.z], ray_ids,
-                   rng.subkeys_bdpt(key, depth), depth, mis, pixels=False,
+                   rng.subkeys_bdpt(key, depth, scene.num_volumes), depth, mis, pixels=False,
                    ubuf=uniforms)
 
 
-bdpt_megakernel.launches = 0
+bdpt_megakernel.launches = bdpt_megakernel.vol_launches = 0
 
 
 def bdpt_megakernel_pixels(scene: SceneTensors, i, j, pix_ids, cam13, key,
@@ -256,8 +270,9 @@ def bdpt_megakernel_pixels(scene: SceneTensors, i, j, pix_ids, cam13, key,
         return bdpt_megakernel_pixels_plain(scene, i, j, pix_ids, cam13, key,
                                             depth, sqrt_spp, mis)
     return _launch(bdpt_megakernel_pixels, scene, [i, j], pix_ids,
-                   rng.subkeys_bdpt_raygen(key, depth), depth, mis, pixels=True,
+                   rng.subkeys_bdpt_raygen(key, depth, scene.num_volumes), depth, mis,
+                   pixels=True,
                    cam=cam13, sqrt_spp=sqrt_spp)
 
 
-bdpt_megakernel_pixels.launches = 0
+bdpt_megakernel_pixels.launches = bdpt_megakernel_pixels.vol_launches = 0

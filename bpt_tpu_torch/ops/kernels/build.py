@@ -36,19 +36,20 @@ _I = ctypes.c_int
 # bpt_pt_megakernel(pixels, B, T, L, depth, spp_loop, sqrt_spp, N, k0, nk,
 #                   grid, tri, nodes, tris, mat_id, mat, lgt, keys, cam,
 #                   in0..in5, rid, ubuf, out_r, out_g, out_b, counters, next,
-#                   stream)
+#                   V, VT, vol, volm, stream)
 # bpt_bdpt_megakernel(pixels, mis, B, T, L, depth, sqrt_spp, nkeys, N, k0,
 #                     nk, grid, tri, nodes, tris, mat_id, mat, lgt, keys, cam,
 #                     in0..in5, rid, ubuf, vtx, out_r, out_g, out_b, counters,
-#                     next, stream)
-# bpt_pt_walk_blocks(), bpt_pt_brute_blocks(), bpt_bdpt_walk_blocks(),
-# bpt_bdpt_brute_blocks(): the persistent megakernels' resident blocks
+#                     next, V, VT, vol, volm, stream)
+# bpt_pt_blocks(walk, vols), bpt_bdpt_blocks(walk, vols): the persistent
+# megakernels' resident blocks (walk or brute mode, with or without volumes)
 # bpt_closest_bvh(B, N, bounds_ok, nodes, tris, ox, oy, oz, dx, dy, dz, active,
 #                 t, tri, u, v, counters, stream)
 # bpt_any_bvh(B, N, bounds_ok, nodes, tris, ox, oy, oz, dx, dy, dz, tmax, hit,
 #             counters, stream)
 # bpt_pt_wave_bounce(B, N, L, bounce, nodes, tris, mat_id, mat, lgt, keys,
-#                    state_in, rid, hit_t, hit_tri, state_out, counters, stream)
+#                    state_in, rid, hit_t, hit_tri, state_out, counters, V, VT,
+#                    vol, volm, stream)
 # bpt_wave_blocks(), bpt_any_blocks(): closest_bvh's and any_bvh's persistent grids
 # bpt_strata_sum(first, B, nk, rows, tot, stream)
 # bpt_closest_tri(f64, B, T, grid, tri, ox, oy, oz, dx, dy, dz, tmin, tmax,
@@ -61,16 +62,15 @@ _I = ctypes.c_int
 # bpt_plucker_hit: the same arguments (S unused)
 _SIGNATURES = {
     "bpt_pt_megakernel": ([_I] * 11 + [_P] * 8 + [_P] * 6 + [_P] * 2
-                          + [_P] * 4 + [_P] * 2, _I),
+                          + [_P] * 4 + [_P] + [_I] * 2 + [_P] * 2 + [_P], _I),
     "bpt_bdpt_megakernel": ([_I] * 12 + [_P] * 8 + [_P] * 6 + [_P] * 3
-                            + [_P] * 4 + [_P] * 2, _I),
-    "bpt_pt_walk_blocks": ([], _I),
-    "bpt_pt_brute_blocks": ([], _I),
-    "bpt_bdpt_walk_blocks": ([], _I),
-    "bpt_bdpt_brute_blocks": ([], _I),
+                            + [_P] * 4 + [_P] + [_I] * 2 + [_P] * 2 + [_P], _I),
+    "bpt_pt_blocks": ([_I] * 2, _I),
+    "bpt_bdpt_blocks": ([_I] * 2, _I),
     "bpt_closest_bvh": ([_I] * 3 + [_P] * 2 + [_P] * 7 + [_P] * 4 + [_P] * 2, _I),
     "bpt_any_bvh": ([_I] * 3 + [_P] * 2 + [_P] * 7 + [_P] * 2 + [_P], _I),
-    "bpt_pt_wave_bounce": ([_I] * 4 + [_P] * 6 + [_P] * 5 + [_P] * 2, _I),
+    "bpt_pt_wave_bounce": ([_I] * 4 + [_P] * 6 + [_P] * 5 + [_P] + [_I] * 2 + [_P] * 3,
+                           _I),
     "bpt_wave_blocks": ([], _I),
     "bpt_any_blocks": ([], _I),
     "bpt_strata_sum": ([_I] * 3 + [_P] * 2 + [_P], _I),

@@ -27,11 +27,15 @@ Dispatch is by device: a CPU tensor takes the plain PyTorch version (the
 ``models.pt`` wavefront on the same threefry stream, over
 ``ops.soa.bvh_closest`` on a scene over ``MAX_TRIS`` triangles); a CUDA
 tensor launches ``csrc/pt_megakernel.cu`` or raises.  Each wrapper counts
-its launches in ``<wrapper>.launches``; the plain versions count their
-calls in ``<plain>.calls``.
+its launches in ``<wrapper>.launches``, and those of the volume mode (the
+``_vol`` kernels, which a scene with constant-density volumes takes) also
+in ``<wrapper>.vol_launches``; the plain versions count their calls in
+``<plain>.calls``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -45,7 +49,7 @@ from bpt_tpu_torch.models.pt import (
     path_trace_radiance,
 )
 from bpt_tpu_torch.ops.kernels import build
-from bpt_tpu_torch.scene.types import SceneTensors
+from bpt_tpu_torch.scene.types import SceneTensors, per_scene
 
 MAX_TRIS = 512
 MAX_MATS = 16
@@ -53,6 +57,11 @@ MAX_LIGHTS = 16
 TRI_STRIDE = 13  # v0(3) e1(3) e2(3) n(3) mat(1)
 MAT_STRIDE = 6  # mtype, albedo(3), fuzz, ior
 LGT_STRIDE = 13  # v0(3) e1(3) e2(3) n(3) area(1)
+# constant-density volumes (bpt_tpu/ops/pallas/pt_kernel.py:62-65)
+MAX_VOLS = 4
+MAX_VOL_TRIS = 64
+VOL_STRIDE = 10  # v0(3) e1(3) e2(3) owning-volume id
+VOLM_STRIDE = 2  # neg_inv_density, phase material id
 
 
 INTEGRATORS = ("pt", "bdpt", "bdpt-mis")
@@ -90,8 +99,11 @@ def shade_reject_reason(scene: SceneTensors) -> str:
     m = int(scene.materials.mtype.shape[0])
     if m > MAX_MATS:
         return f"{m} materials > MAX_MATS={MAX_MATS}"
-    if scene.num_volumes:
-        return "scene has volumes (not yet in the CUDA kernels: ROADMAP §1 item 4)"
+    if scene.num_volumes > MAX_VOLS:
+        return f"{scene.num_volumes} volumes > MAX_VOLS={MAX_VOLS}"
+    if scene.num_volumes and int(scene.vol_v0.shape[0]) > MAX_VOL_TRIS:
+        return (f"{int(scene.vol_v0.shape[0])} volume boundary tris > "
+                f"MAX_VOL_TRIS={MAX_VOL_TRIS}")
     if scene.dtype != torch.float32:
         return (f"dtype {scene.dtype} != float32 (the CUDA kernels take "
                 "float32; render() takes float64 through the stratum loop)")
@@ -132,9 +144,30 @@ def _pack_tables(scene: SceneTensors):
     if not use_walk(scene):
         tri[:T] = torch.cat([scene.v0, scene.e1, scene.e2, scene.normal,
                              scene.mat_id[:, None].to(scene.dtype)], dim=1).to(torch.float32)
-    meta = torch.tensor([T, M, L, 0, 0, 0, scene.num_volumes, 0],
+    VT = int(scene.vol_v0.shape[0]) if scene.num_volumes else 0
+    meta = torch.tensor([T, M, L, 0, 0, 0, scene.num_volumes, VT],
                         dtype=torch.int32, device=scene.device)
     return (meta, tri.reshape(-1), *pack_shade_tables(scene))
+
+
+@per_scene
+def pack_vol_tables(scene: SceneTensors):
+    """The kernels' volume tables on the scene's device
+    (bpt_tpu/ops/pallas/pt_kernel.py:1098-1114), packed once a scene:
+    (vol f32[MAX_VOL_TRIS*10], the boundary triangles v0, e1, e2 and the
+    owning volume, owner -1 on the pad rows; volm f32[MAX_VOLS*2], each
+    volume's -1/density and phase material)."""
+    VT = int(scene.vol_v0.shape[0])
+    kw = dict(dtype=torch.float32, device=scene.device)
+    vol = torch.zeros((MAX_VOL_TRIS, VOL_STRIDE), **kw)
+    vol[:VT] = torch.cat([scene.vol_v0, scene.vol_e1, scene.vol_e2,
+                          scene.vol_tri_vol[:, None].to(scene.dtype)], dim=1).to(torch.float32)
+    vol[VT:, 9] = -1.0
+    volm = torch.zeros((MAX_VOLS, VOLM_STRIDE), **kw)
+    V = int(scene.vol_neg_inv_density.shape[0])
+    volm[:V] = torch.stack([scene.vol_neg_inv_density.to(torch.float32),
+                            scene.vol_mat.to(torch.float32)], dim=1)
+    return vol.reshape(-1), volm.reshape(-1)
 
 
 def camera_table(cc: CameraConstants) -> torch.Tensor:
@@ -165,17 +198,18 @@ def pt_megakernel_plain(scene, o: Vec3, d: Vec3, ray_ids, key, depth: int,
                         uniforms=None):
     """Plain version of ``pt_megakernel``: the ``models.pt`` wavefront over
     the active lanes (ray_ids >= 0), fed the injected ``uniforms``
-    [depth*NU, B] or the kernel's threefry stream."""
+    [depth*(NU+V), B] or the kernel's threefry stream."""
     pt_megakernel_plain.calls += 1
     B = ray_ids.shape[0]
+    nu = NU + scene.num_volumes
     idx = torch.nonzero(ray_ids >= 0).squeeze(1)
     origins = torch.stack([o.x, o.y, o.z], dim=-1)[idx]
     dirs = torch.stack([d.x, d.y, d.z], dim=-1)[idx]
     if uniforms is None:
-        ufn = kernel_stream_uniforms_fn(key, ray_ids[idx], origins.dtype)
+        ufn = kernel_stream_uniforms_fn(key, ray_ids[idx], origins.dtype, scene.num_volumes)
     else:
         ufn = array_uniforms_fn(
-            uniforms.reshape(depth, NU, B).permute(2, 0, 1)[idx])
+            uniforms.reshape(depth, nu, B).permute(2, 0, 1)[idx])
     rad, stats = path_trace_radiance(scene, origins, dirs, depth, ufn, plain=True)
     return (*_scatter_active(rad, idx, B), *_counters(stats))
 
@@ -221,7 +255,8 @@ def pt_megakernel_pixels_plain(scene, i, j, sx, sy, ray_ids, cam13, key,
                                       torch.stack([u0, u1, zero, zero], -1))
         rad, stats = path_trace_radiance(
             scene, origins, dirs, depth,
-            kernel_stream_uniforms_fn(key_pt, rid, origins.dtype), plain=True)
+            kernel_stream_uniforms_fn(key_pt, rid, origins.dtype, scene.num_volumes),
+            plain=True)
         total = rad if total is None else total + rad
         r, e = _counters(stats)
         rays = rays + r
@@ -270,6 +305,17 @@ def _lane_inputs(scene, integrator, ins, ray_ids, keys, cam):
     cam_t = (torch.zeros(13, dtype=torch.float32, device=dev) if cam is None
              else _checked(cam, (13,), dev, "camera table"))
     return dev, B, ins, rid, keys_t, cam_t
+
+
+def vol_args(scene):
+    """(V, VT, vol, volm) of a launch's volume arguments: the volumes,
+    their boundary triangles and device pointers to ``pack_vol_tables``
+    (kept while the scene lives); (0, 0, None, None) without volumes,
+    whose launches take the volume-free kernels."""
+    if not scene.num_volumes:
+        return 0, 0, None, None
+    vol, volm = pack_vol_tables(scene)
+    return scene.num_volumes, int(scene.vol_v0.shape[0]), vol.data_ptr(), volm.data_ptr()
 
 
 def walk_args(scene):
@@ -378,10 +424,11 @@ def _launch(wrapper, scene, ins, ray_ids, keys, depth, pixels, cam=None,
     _, tri, mat, lgt = _pack_tables(scene)
     N, nodes, tris, mat_id = walk_args(scene)
     if ubuf is not None:
-        ubuf = _checked(ubuf, (depth * NU, B), dev, "uniforms")
+        ubuf = _checked(ubuf, (depth * (NU + scene.num_volumes), B), dev, "uniforms")
     counters = torch.zeros(5, dtype=torch.int64, device=dev)
     lib = build.load_library()
-    blocks = lib.bpt_pt_walk_blocks if N else lib.bpt_pt_brute_blocks
+    V, VT, vol, volm = vol_args(scene)
+    blocks = functools.partial(lib.bpt_pt_blocks, int(N > 0), int(V > 0))
 
     def launch(k0, nk, out):
         nxt = torch.zeros(1, dtype=torch.int32 if N else torch.int64, device=dev)
@@ -393,9 +440,11 @@ def _launch(wrapper, scene, ins, ray_ids, keys, depth, pixels, cam=None,
             cam_t.data_ptr(), *(x.data_ptr() for x in ins), rid.data_ptr(),
             None if ubuf is None else ubuf.data_ptr(),
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            counters.data_ptr(), nxt.data_ptr(), stream)
+            counters.data_ptr(), nxt.data_ptr(), V, VT, vol, volm, stream)
         build.check(code, "pt_megakernel")
         wrapper.launches += 1
+        if V:
+            wrapper.vol_launches += 1
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -413,17 +462,19 @@ def _device_of(t) -> torch.device:
 def pt_megakernel(scene: SceneTensors, o: Vec3, d: Vec3, ray_ids, key,
                   depth: int, uniforms=None):
     """Whole PT loop from given rays.  ray_ids [B] int (negative = inactive
-    lane); uniforms: optional [depth*NU, B] f32 injected draws.
+    lane); uniforms: optional [depth*(NU+V), B] f32 injected draws, V the
+    scene's volumes.
 
     Returns (rad_x, rad_y, rad_z [B] f32, rays_traced int64,
     extra int64[4] = (node_visits, aabb_hits, tri_tests, tri_hits))."""
     if _device_of(ray_ids).type == "cpu":
         return pt_megakernel_plain(scene, o, d, ray_ids, key, depth, uniforms)
     return _launch(pt_megakernel, scene, [o.x, o.y, o.z, d.x, d.y, d.z], ray_ids,
-                   rng.subkeys(key, NU), depth, pixels=False, ubuf=uniforms)
+                   rng.subkeys(key, NU + scene.num_volumes), depth, pixels=False,
+                   ubuf=uniforms)
 
 
-pt_megakernel.launches = 0
+pt_megakernel.launches = pt_megakernel.vol_launches = 0
 
 
 def pt_megakernel_pixels(scene: SceneTensors, i, j, sx, sy, ray_ids, cam13,
@@ -440,8 +491,8 @@ def pt_megakernel_pixels(scene: SceneTensors, i, j, sx, sy, ray_ids, cam13,
         return pt_megakernel_pixels_plain(scene, i, j, sx, sy, ray_ids, cam13,
                                           key, depth, spp_loop, sqrt_spp)
     return _launch(pt_megakernel_pixels, scene, [i, j, sx, sy], ray_ids,
-                   rng.subkeys_with_raygen(key, NU), depth, pixels=True,
+                   rng.subkeys_with_raygen(key, NU + scene.num_volumes), depth, pixels=True,
                    cam=cam13, spp_loop=spp_loop, sqrt_spp=sqrt_spp)
 
 
-pt_megakernel_pixels.launches = 0
+pt_megakernel_pixels.launches = pt_megakernel_pixels.vol_launches = 0

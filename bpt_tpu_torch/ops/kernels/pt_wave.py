@@ -45,8 +45,14 @@ Dispatch is by device: a CPU tensor takes the plain PyTorch version
 a CUDA tensor launches ``csrc/pt_wave.cu`` or raises.  The wrappers count their launches
 in ``<wrapper>.launches``, the plain versions their calls in
 ``<plain>.calls``.  Left out: bpt_tpu's TPU study options ``entry_sort``,
-``pair_il`` and ``tile_rows``, and the texel stage's textured-volume case
-(volumes are ROADMAP §1 item 4).
+``pair_il`` and ``tile_rows``.
+
+Volumes (bpt_tpu/ops/pallas/pt_wave.py:400-420, 566-583): on a scene with
+constant-density volumes the shade runs the free-flight override after
+each given hit (``csrc/volume.cuh``), a bounce draws NU + V slots, and a
+lane that scatters in a volume gets -2 - its phase material in the hits'
+tri, which the kernel writes in place; ``texel_stage`` reads the texel of
+a textured phase material at (0, 0, p) for such a lane.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ from bpt_tpu_torch.ops.kernels.pt_kernel import (
     key_words,
     pack_shade_tables,
     shade_reject_reason,
+    vol_args,
 )
 from bpt_tpu_torch.scene.textures import texture_value
 from bpt_tpu_torch.scene.types import (
@@ -144,8 +151,8 @@ def pack_bvh(scene: SceneTensors) -> BvhTables:
 
 
 @functools.lru_cache(maxsize=16)
-def _slot_keys(key, dev) -> torch.Tensor:
-    return key_words(rng.subkeys(key, NU), dev)
+def _slot_keys(key, dev, n_vols: int = 0) -> torch.Tensor:
+    return key_words(rng.subkeys(key, NU + n_vols), dev)
 
 
 def _stream(dev):
@@ -262,7 +269,8 @@ any_bvh.launches = 0
 def pt_wave_bounce_plain(scene, state, rid, key, bounce: int, hits=None):
     """Plain version of ``pt_wave_bounce``: ``models.pt.pt_bounce`` of
     ``shade_scene`` on the kernel stream, over ``ops.soa.bvh_closest``'s
-    hits or the given ones."""
+    hits or the given ones (whose tri it marks, as the kernel does, where
+    a lane scatters in a volume)."""
     pt_wave_bounce_plain.calls += 1
     scene = shade_scene(scene)
     o, d, thr = (Vec3(*state[k:k + 3]) for k in (OX, DX, THR))
@@ -276,8 +284,12 @@ def pt_wave_bounce_plain(scene, state, rid, key, bounce: int, hits=None):
         h = soa.HitSoA(tri >= 0, t, torch.clamp_min(tri.long(), 0), zero, zero,
                        *([None] * 4))
         walk = [torch.zeros((), dtype=torch.int64, device=state.device)] * 4
-    u = kernel_stream_uniforms_fn(key, rid, state.dtype)(bounce, NU)
-    o, d, thr, inc, alive_new = pt_bounce(scene, o, d, thr, alive, h, u)
+    nv = scene.num_volumes
+    u = kernel_stream_uniforms_fn(key, rid, state.dtype, nv)(bounce, NU + nv)
+    rec, vmat = soa.apply_volumes(scene, o, d, soa.complete_hit(scene, o, d, h), u[NU:], alive)
+    if vmat is not None and hits is not None:
+        hits[1].copy_(torch.where(vmat >= 0, -2 - vmat, hits[1]))
+    o, d, thr, inc, alive_new = pt_bounce(scene, o, d, thr, alive, h, u, rec=rec)
     rad = state[RAD:RAD + 3] + torch.stack(list(inc))
     out = torch.cat([torch.stack([*o, *d, *thr]), rad,
                      alive_new.to(state.dtype)[None]])
@@ -295,7 +307,9 @@ def pt_wave_bounce(scene: SceneTensors, state, rid, key, bounce: int,
     ``closest_bvh`` or ``closest_tri``, else this calls ``closest_bvh`` on
     the live lanes first.  The shade is one launch (``.launches``); it
     reads ``shade_scene``'s materials and writes the hit point into the
-    origin of every live hit.
+    origin of every live hit.  On a volume scene it writes -2 - phase
+    material into the given tri [B] int32 (contiguous, changed in place)
+    where a lane scatters in a volume.
 
     Returns (the next state [STATE_ROWS, B] with this bounce's radiance
     added, counters int64[5] = (rays, node visits, AABB hits, triangle
@@ -316,10 +330,12 @@ def pt_wave_bounce(scene: SceneTensors, state, rid, key, bounce: int,
         t, tri, _, _, counters[1:] = closest_bvh(
             scene, Vec3(*st[OX:OX + 3]), Vec3(*st[DX:DX + 3]), st[ALIVE] > 0.5)
         hits = (t, tri)
-    hits = (_checked(hits[0], (B,), dev, "hit t"),
-            _checked(hits[1], (B,), dev, "hit tri", torch.int32))
+    hits = (_checked(hits[0], (B,), dev, "hit t"), hits[1])
+    if _checked(hits[1], (B,), dev, "hit tri", torch.int32) is not hits[1]:
+        raise ValueError("pt_wave_bounce: hit tri must be contiguous (the shade writes it)")
     tables = tables if tables is not None else pack_bvh(scene)
-    keys = _slot_keys(tuple(key), dev)
+    nv, VT, vol, volm = vol_args(scene)
+    keys = _slot_keys(tuple(key), dev, nv)
     out = torch.empty_like(st)
     with torch.cuda.device(dev):
         code = build.load_library().bpt_pt_wave_bounce(
@@ -327,13 +343,16 @@ def pt_wave_bounce(scene: SceneTensors, state, rid, key, bounce: int,
             tables.nodes.data_ptr(), tables.tris.data_ptr(),
             tables.mat_id.data_ptr(), tables.mat.data_ptr(), tables.lgt.data_ptr(),
             keys.data_ptr(), st.data_ptr(), rid.data_ptr(), hits[0].data_ptr(),
-            hits[1].data_ptr(), out.data_ptr(), counters.data_ptr(), _stream(dev))
+            hits[1].data_ptr(), out.data_ptr(), counters.data_ptr(), nv, VT, vol, volm,
+            _stream(dev))
     build.check(code, "pt_wave_bounce")
     pt_wave_bounce.launches += 1
+    if nv:
+        pt_wave_bounce.vol_launches += 1
     return out, counters
 
 
-pt_wave_bounce.launches = 0
+pt_wave_bounce.launches = pt_wave_bounce.vol_launches = 0
 
 
 # ----------------------------------------------------------------- wave
@@ -386,16 +405,21 @@ def closest_sweep(scene: SceneTensors, o: Vec3, d: Vec3, active, plain: bool = F
 def texel_stage(scene: SceneTensors, state, tri, u, v) -> None:
     """bpt_tpu's texel stage (pt_wave.py:546-608) on the state a bounce of
     ``shade_scene`` wrote, in place.  ``tri``, ``u``, ``v`` [B]: the
-    bounce's closest hits (tri -1 on a miss or a lane that was dead); the
+    bounce's closest hits (tri -1 on a miss or a lane that was dead, -2 -
+    the phase material where the shade found a volume scatter); the
     state's radiance rows hold this bounce's radiance only.  At the hit's
-    interpolated (u, v), in f32, and the hit point the bounce wrote into
-    the origin, the texel multiplies the throughput of the live lanes on a
-    textured non-dielectric material (``tr * tex``, the kernel having
-    shaded with albedo 1) and the radiance of the lanes that ended on a
-    textured light (emission texel times the throughput they added)."""
+    interpolated (u, v), in f32, or at (0, 0) in a volume, and the hit
+    point the bounce wrote into the origin, the texel multiplies the
+    throughput of the live lanes on a textured non-dielectric material
+    (``tr * tex``, the kernel having shaded with albedo 1) and the radiance
+    of the lanes that ended on a textured light (emission texel times the
+    throughput they added)."""
     surf = tri >= 0
+    vol = tri <= -2
     trc = torch.clamp(tri.long(), 0, scene.num_tris - 1)
-    mat = scene.mat_id[trc]
+    n_mats = int(scene.materials.mtype.shape[0])
+    vmat = torch.clamp(-2 - tri.long(), 0, n_mats - 1)
+    mat = torch.where(vol, vmat, scene.mat_id[trc])
     mtype = scene.materials.mtype[mat]
     tid = scene.materials.tex_id[mat]
     uvt = scene.tri_uv[trc].to(torch.float32)
@@ -405,7 +429,7 @@ def texel_stage(scene: SceneTensors, state, tri, u, v) -> None:
     vi = torch.where(surf, vi, 0.0)
     tex = texture_value(scene.textures, torch.clamp_min(tid, 0), ui, vi,
                         state[OX:OX + 3].T, with_noise=scene.has_noise).T  # [3, B]
-    texd = (tid >= 0) & surf
+    texd = (tid >= 0) & (surf | vol)
     take = (state[ALIVE] > 0.5) & texd & (mtype != MAT_DIELECTRIC)
     state[THR:THR + 3] = torch.where(take, state[THR:THR + 3] * tex, state[THR:THR + 3])
     light = texd & (mtype == MAT_LIGHT)

@@ -19,6 +19,11 @@ clustered kernels of ``ops/kernels/cluster_wave.py`` over any other or with
 bpt_tpu does there.  On a CUDA scene the calls launch the kernels (a
 failure raises; nothing falls back); ``plain`` runs their torch versions on
 the card, for comparisons.
+
+Volumes (bpt_tpu/ops/soa.py:823-905): ``volume_interaction`` and
+``apply_volumes`` override a hit record where a constant-density volume's
+free flight ends before the surface; they are the plain version of the
+kernels' override (``csrc/volume.cuh``).
 """
 
 from __future__ import annotations
@@ -472,3 +477,83 @@ def complete_hit(scene: SceneTensors, o: Vec3, d: Vec3, h: HitSoA) -> HitRecSoA:
         hit=h.hit, t=h.t, p=p, normal=normal, front_face=front,
         tri=h.tri, mat=scene.mat_id[h.tri], u=u, v=v,
     )
+
+
+# ------------------------------------------------------------------ volumes
+
+
+def _vol_closest(scene: SceneTensors, vid: int, o: Vec3, d: Vec3, tmin, tmax):
+    """Closest boundary hit of volume ``vid`` with t in [tmin, tmax], which
+    may be (-inf, inf): constant_medium probes with interval::universe
+    (constant_medium.h:31-34).  A [VT, B] broadcast, min over VT."""
+    det, t, u, v = _mt_all(scene.vol_v0, scene.vol_e1, scene.vol_e2, o, d)
+    owner = (scene.vol_tri_vol == vid)[:, None]
+    valid = owner & _mt_valid(det, t, u, v, tmin, tmax)
+    return torch.where(valid, t, torch.inf).amin(dim=0)
+
+
+def volume_interaction(scene: SceneTensors, o: Vec3, d: Vec3, tmin, t_surf,
+                       u_rows, active):
+    """constant_medium::hit (constant_medium.h:24-56) for every volume, in
+    order, as if appended last to the hittable list: ``t_surf`` [B] (the
+    closest surface t, inf on a miss) shrinks across them.  ``u_rows``: V
+    rows of [B], one exponential free-flight draw a volume.
+
+    Returns (hit [B] bool, t [B], phase material [B] int64)."""
+    B = o.x.shape[0]
+    dev = o.x.device
+    d_len = v3.length(d)
+    t_best = t_surf
+    hit = torch.zeros((B,), dtype=torch.bool, device=dev)
+    mat = torch.zeros((B,), dtype=torch.int64, device=dev)
+    for vid in range(scene.num_volumes):
+        t1 = _vol_closest(scene, vid, o, d, -torch.inf, torch.inf)
+        t2 = _vol_closest(scene, vid, o, d, t1 + 1e-4, torch.inf)
+        tt1 = torch.clamp_min(t1, tmin)
+        tt2 = torch.minimum(t2, t_best)
+        ok = active & torch.isfinite(t1) & torch.isfinite(t2) & (tt1 < tt2)
+        tt1 = torch.clamp_min(tt1, 0.0)
+        dist_inside = (tt2 - tt1) * d_len
+        hd = scene.vol_neg_inv_density[vid] * torch.log(u_rows[vid])
+        ok = ok & (hd <= dist_inside)
+        tv = tt1 + hd / d_len
+        t_best = torch.where(ok, tv, t_best)
+        hit = hit | ok
+        mat = torch.where(ok, scene.vol_mat[vid].to(torch.int64), mat)
+    return hit, t_best, mat
+
+
+def volume_record(rec: HitRecSoA, o: Vec3, d: Vec3, vhit, t_v, vmat) -> HitRecSoA:
+    """The hit record with the volume interactions ``vhit`` at ``t_v``
+    (phase material ``vmat``) in place of the surface hit: the reference's
+    arbitrary normal (1, 0, 0), front_face true (constant_medium.h:48-49)
+    and u = v = 0."""
+    hit = rec.hit | vhit
+    t = torch.where(vhit, t_v, rec.t)
+    t_safe = torch.where(hit, t, 0.0)
+    p = Vec3(o.x + t_safe * d.x, o.y + t_safe * d.y, o.z + t_safe * d.z)
+    one, zero = torch.ones_like(t), torch.zeros_like(t)
+    return HitRecSoA(
+        hit=hit, t=t, p=p,
+        normal=v3.where(vhit, Vec3(one, zero, zero), rec.normal),
+        front_face=rec.front_face | vhit,
+        tri=rec.tri,
+        mat=torch.where(vhit, vmat, rec.mat),
+        u=torch.where(vhit, 0.0, rec.u),
+        v=torch.where(vhit, 0.0, rec.v),
+    )
+
+
+def apply_volumes(scene: SceneTensors, o: Vec3, d: Vec3, rec: HitRecSoA, u_rows,
+                  active):
+    """The surface hit record overridden where a volume interaction comes
+    first (``volume_interaction`` from T_MIN, then ``volume_record``).
+
+    Returns (record, vmat): vmat [B] int64 is the phase material of the
+    lanes that scattered in a volume and -1 elsewhere; a scene without
+    volumes gives its record back and None."""
+    if not scene.num_volumes:
+        return rec, None
+    t_surf = torch.where(rec.hit, rec.t, torch.inf)
+    vhit, t_v, vmat = volume_interaction(scene, o, d, T_MIN, t_surf, u_rows, active)
+    return volume_record(rec, o, d, vhit, t_v, vmat), torch.where(vhit, vmat, -1)

@@ -6,11 +6,11 @@ loads with its OBJ meshes and camera.  ``--device`` picks where the render
 runs: ``cuda`` (the default) launches the CUDA kernels, ``cpu`` runs their
 plain PyTorch versions.  Every scene renders with pt, bdpt and bdpt-mis:
 the coffee stand-in's YAML (91,540 triangles) with its own BDPT default,
-and the textured ``scenes/earth.yaml``.
+the textured ``scenes/earth.yaml`` and ``scenes/cornell_smoke.yaml`` with
+its two constant-density volumes.
 ``--f64`` renders the preset or YAML scene in float64, as ``bpt_tpu``'s
 CLI does, through the stratum loop (on the card, a scene without a BVH
-only: ROADMAP §1 item 8).  What the port lacks (volumes) exits non-zero
-with a "not yet ported" message naming its ROADMAP item.
+only: ROADMAP §1 item 8).
 
 Usage:
     python -m bpt_tpu_torch.render [scene.yaml] [--spp N] [--size WxH]

@@ -6,8 +6,9 @@ triangles accumulate host-side in float64, transforms are baked at add
 time, and ``build()`` flattens everything into tensors once, in the same
 BVH leaf order as ``bpt_tpu`` so triangle ids and sums match it exactly,
 with the BVH node arrays and the clustered hit kernels' subtree splits
-(``cluster_splits``, ``super_splits``) beside them, and the per-vertex UVs
-and texture table of textured materials.
+(``cluster_splits``, ``super_splits``) beside them, the per-vertex UVs
+and texture table of textured materials, and the constant-density volumes'
+boundary soup, out of the surface arrays and the BVH.
 """
 
 from __future__ import annotations
@@ -36,11 +37,6 @@ from bpt_tpu_torch.scene.types import (
 )
 
 PI = math.pi
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not yet ported to bpt_tpu_torch (ROADMAP §1 item {item})")
 
 
 @dataclass(frozen=True)
@@ -103,6 +99,8 @@ class SceneBuilder:
         self._tris: list[tuple] = []  # (v0, v1, v2, mat_index, uvs)
         self._materials: list[MaterialSpec] = []
         self._mat_index: dict[int, int] = {}  # id(spec) -> index
+        self._volumes: list[tuple] = []  # (density, phase material index)
+        self._vol_tris: list[tuple] = []  # (v0, v1, v2, volume id)
         self.background = (0.0, 0.0, 0.0)
 
     # ------------------------------------------------------------ materials
@@ -216,11 +214,36 @@ class SceneBuilder:
             self.add_triangle(v0, v1, v2, mat, rotate_y_degrees=rotate_y_degrees,
                               translate=translate)
 
-    def add_volume(self, *args, **kwargs) -> int:
-        raise _not_ported("constant-density volumes", "4")
+    # ------------------------------------------------------------- volumes
 
-    add_volume_box = add_volume
-    add_volume_sphere = add_volume
+    def add_volume(self, boundary_tris, density, albedo=(1.0, 1.0, 1.0),
+                   texture=None) -> int:
+        """constant_medium (src/materials/volumes/constant_medium.h:8-61): a
+        homogeneous volume with an isotropic phase function, whose boundary
+        triangles (an iterable of (v0, v1, v2)) stay out of the surface
+        arrays: rays pass through them and scatter at an exponential
+        free-flight distance.  Returns the volume's id."""
+        phase = MaterialSpec.isotropic(tuple(albedo), texture=texture)
+        vid = len(self._volumes)
+        self._volumes.append((float(density), self.material(phase)))
+        for v0, v1, v2 in boundary_tris:
+            self._vol_tris.append((tuple(v0), tuple(v1), tuple(v2), vid))
+        return vid
+
+    def add_volume_box(self, a, b, density, albedo=(1.0, 1.0, 1.0),
+                       rotate_y_degrees=0.0, translate=(0, 0, 0),
+                       texture=None) -> int:
+        tmp = SceneBuilder()
+        tmp.add_box(a, b, MaterialSpec.lambertian(), rotate_y_degrees, translate)
+        return self.add_volume([t[:3] for t in tmp._tris], density, albedo,
+                               texture=texture)
+
+    def add_volume_sphere(self, center, radius, density, albedo=(1.0, 1.0, 1.0),
+                          lat_steps=16, lon_steps=32, texture=None) -> int:
+        tmp = SceneBuilder()
+        tmp.add_uv_sphere(center, radius, MaterialSpec.lambertian(), lat_steps, lon_steps)
+        return self.add_volume([t[:3] for t in tmp._tris], density, albedo,
+                               texture=texture)
 
     # -------------------------------------------------------------- build
 
@@ -307,6 +330,19 @@ class SceneBuilder:
                 super_splits = bvh_mod.merge_splits(ss, (0, T), CLUSTER_TRIS * SUPER)
                 cluster_splits = bvh_mod.merge_splits(cs, super_splits, CLUSTER_TRIS)
 
+        # volumes (bpt_tpu/scene/builder.py:364-375): one zero row without
+        if self._vol_tris:
+            vverts = np.array([t[:3] for t in self._vol_tris], np.float64)
+            vv0 = vverts[:, 0]
+            ve1 = vverts[:, 1] - vv0
+            ve2 = vverts[:, 2] - vv0
+            vol_tri_vol = np.array([t[3] for t in self._vol_tris], np.int32)
+        else:
+            vv0 = ve1 = ve2 = np.zeros((1, 3))
+            vol_tri_vol = np.zeros((1,), np.int32)
+        vol_density = np.array([v[0] for v in self._volumes] or [1.0], np.float64)
+        vol_mat = np.array([v[1] for v in self._volumes] or [0], np.int32)
+
         return SceneTensors(
             v0=ten(v0), e1=ten(e1), e2=ten(e2),
             normal=ten(normal), area=ten(area),
@@ -328,9 +364,13 @@ class SceneBuilder:
             materials=materials,
             textures=textures,
             background=ten(np.asarray(background, np.float64)),
+            vol_v0=ten(vv0), vol_e1=ten(ve1), vol_e2=ten(ve2),
+            vol_tri_vol=ten(vol_tri_vol, torch.int32),
+            vol_neg_inv_density=ten(-1.0 / vol_density),
+            vol_mat=ten(vol_mat, torch.int32),
             num_tris=T,
             num_lights=int(light_idx.size),
-            num_volumes=0,
+            num_volumes=len(self._volumes),
             use_bvh=use_bvh,
             has_textures=bool(tex_specs),
             has_noise=any(s.kind == TEX_NOISE for s in tex_specs),

@@ -15,11 +15,12 @@ tolerant coercions and synonyms:
   defocus force-disabled (scene_loader.h:427-476)
 * bpt_tpu's ``texture`` sub-map on a material (image, checker, noise), with
   image paths relative to the YAML's directory
+* bpt_tpu's constant-density volumes: ``volume_box`` (rotate_y, translate)
+  and ``volume_sphere`` surfaces with a density, an albedo and an optional
+  ``texture`` sub-map (bpt_tpu/scene/loader.py:316-360)
 
-bpt_tpu's ``volume_box`` / ``volume_sphere`` surfaces, which the port does
-not have yet, refuse with a ``NotImplementedError`` naming their ROADMAP
-item (§1 item 4).  PyYAML is imported inside ``load_scene_from_yaml``, so
-the rest of the package never needs it.
+PyYAML is imported inside ``load_scene_from_yaml``, so the rest of the
+package never needs it.
 """
 
 from __future__ import annotations
@@ -41,11 +42,6 @@ class LoadedScene:
     camera: CameraConfig
     scene: SceneTensors
     builder: SceneBuilder
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to bpt_tpu_torch (ROADMAP §1 item {item})")
 
 
 # ----------------------------------------------------------- YAML coercion
@@ -313,6 +309,48 @@ def _load_object(node, yaml_dir, builder, materials):
     builder.add_obj(os.path.join(yaml_dir, file_rel), mat, **_read_transform(node))
 
 
+def _load_volume(node, builder, yaml_dir):
+    """bpt_tpu's volume extension (the reference exposes constant_medium.h
+    from C++ only).  Schema:
+
+      - type: volume_box
+        data: {min: [x,y,z], max: [x,y,z], rotate_y: deg, translate: [x,y,z]}
+        density: 0.01
+        albedo: [r, g, b]
+        texture: {type: checker|image|noise, ...}   # optional
+      - type: volume_sphere
+        data: {center: [x,y,z], radius: r}
+        density: 0.01
+        albedo: [r, g, b]
+        texture: {...}
+    """
+    data = node.get("data")
+    if not isinstance(data, dict):
+        raise ValueError("Volume missing data field")
+    density = _to_float(node.get("density"), 0.0)
+    if density <= 0.0:
+        raise ValueError("Volume missing or invalid density field")
+    albedo = read_color_scaled(node.get("albedo"), (1.0, 1.0, 1.0))
+    texture = _build_texture(node.get("texture"), yaml_dir)
+    if _to_str(node.get("type")) == "volume_sphere":
+        center = read_vec3(data.get("center"), (0, 0, 0))
+        radius = _to_float(data.get("radius"), 0.0)
+        if radius <= 0.0:
+            raise ValueError("Volume sphere missing or invalid radius")
+        builder.add_volume_sphere(center, radius, density, albedo, texture=texture)
+        return
+    lo = read_vec3(data.get("min"), (0, 0, 0))
+    hi = read_vec3(data.get("max"), (0, 0, 0))
+    if any(h <= l for l, h in zip(lo, hi)):
+        raise ValueError("Volume box min/max extents invalid or missing")
+    builder.add_volume_box(
+        lo, hi, density, albedo,
+        rotate_y_degrees=_to_float(data.get("rotate_y"), 0.0),
+        translate=read_vec3(data.get("translate"), (0, 0, 0)),
+        texture=texture,
+    )
+
+
 # --------------------------------------------------------------- camera
 
 
@@ -394,7 +432,7 @@ def load_scene_from_yaml(path, dtype=torch.float32, device="cuda",
         elif mesh_type == "object":
             _load_object(mesh, yaml_dir, builder, materials)
         elif mesh_type in ("volume_box", "volume_sphere"):
-            raise _not_ported(f"constant-density volumes ({mesh_type})", 4)
+            _load_volume(mesh, builder, yaml_dir)
         else:
             print(f"Unknown mesh type: {mesh_type}", file=sys.stderr)
 

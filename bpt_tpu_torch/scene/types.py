@@ -5,8 +5,9 @@ PT and BDPT megakernels' tables (``_pack_tables``, ``_pack_tables_bdpt``),
 the BVH traversals (``ops.soa.bvh_closest`` / ``bvh_any``, ``csrc/pt_wave.cu``), the
 clustered hit kernels (``ops/clusters.py``, ``ops/plucker.py``) and the
 estimators read, plus the static meta: the triangles' per-vertex UVs and the
-texture table (``scene/textures.py``) among them.  The volume boundary soup
-is not carried: this port has no volumes yet (ROADMAP §1 item 4).
+texture table (``scene/textures.py``) among them, and the constant-density
+volumes: their boundary triangle soup, kept out of the surface arrays and
+the BVH, with each volume's density and phase material.
 """
 
 from __future__ import annotations
@@ -104,6 +105,18 @@ class SceneTensors:
     textures: TextureTable
     background: torch.Tensor  # [3]
 
+    # constant-density volumes (constant_medium, src/materials/volumes/
+    # constant_medium.h; bpt_tpu/scene/types.py:133-146): the boundary
+    # triangle soup, grouped by owner, out of the surface arrays (rays pass
+    # through it and scatter at an exponential free-flight distance).  A
+    # scene without volumes holds one zero row of each.
+    vol_v0: torch.Tensor  # [VT,3]
+    vol_e1: torch.Tensor  # [VT,3]
+    vol_e2: torch.Tensor  # [VT,3]
+    vol_tri_vol: torch.Tensor  # [VT] int32: the owning volume
+    vol_neg_inv_density: torch.Tensor  # [V] = -1/density
+    vol_mat: torch.Tensor  # [V] int32: the isotropic phase material
+
     # static metadata (bpt_tpu/scene/types.py:144-164)
     num_tris: int = 0
     num_lights: int = 0
@@ -134,7 +147,8 @@ class SceneTensors:
 _INT_FIELDS = {"mat_id": torch.int64, "light_mat": torch.int64,
                "materials.mtype": torch.int64, "materials.tex_id": torch.int64,
                "bvh_skip": torch.int32, "bvh_first": torch.int32,
-               "bvh_count": torch.int32, "textures.kind": torch.int64,
+               "bvh_count": torch.int32, "vol_tri_vol": torch.int32,
+               "vol_mat": torch.int32, "textures.kind": torch.int64,
                "textures.img_id": torch.int64, "textures.img_h": torch.int64,
                "textures.img_w": torch.int64, "textures.perlin_perm": torch.int64}
 _TABLES = {"materials": MaterialTable, "textures": TextureTable}

@@ -278,6 +278,28 @@
    walls and Mrays/s; prints the image atlas's shape ("magenta fallback"
    where the image did not load).  Writes output/chip_smoke_coffee_tex_pt.png
    and output/chip_smoke_earth_{pt,bdpt-mis}.png.
+24. Volumes (volume_phases).  (a) scenes/cornell_smoke.yaml (12 triangles,
+   two constant-density boxes over 24 boundary triangles) loads and every
+   megakernel takes it.  (b) The volume mode of each kernel against its
+   plain version: pt_megakernel in rays mode with injected draws and on
+   the stream (B = 65,536, depth 10) and pt_megakernel_pixels (64x64 x 4
+   spp, depth 16) on cornell_smoke; bdpt_megakernel, bdpt and bdpt-mis,
+   rays mode both ways on every 16th lane of B = 65,536 and pixels mode at
+   64x64 x 4 spp; the walk mode of both (rays mode both ways at B = 4,096,
+   depth 4, pixels mode at 32x32 x 4 spp) and pt_wave, untextured and
+   with a checker-textured volume (B = 8,192, depth 6), on the 964-triangle
+   scene with a volume box: rtol 1e-4 / atol 1e-6 (PT, the wave) or 1e-5
+   (BDPT) on >= 99.9% of lanes, every counter exact.  (c) The slice's main
+   path, cornell_smoke at its own 256x256, 64 spp, depth 16 through
+   render() with pt, bdpt and bdpt-mis: one warm-up and three timed
+   renders each, one pixels-mode launch of the volume kernel and one
+   strata_sum a render, nothing else, images bitwise repeatable; each
+   launch timed at that shape; the CLI on the scene in a subprocess, exit
+   0.  (d) The large volume scene through render(): PT (pt_wave), bdpt
+   (the fused loop's walk mode) and PT with defocus (the stratum loop,
+   rays mode), each route's rays on every 257th pixel against its plain
+   route.  Writes output/chip_smoke_cornell_smoke_{pt,bdpt,bdpt-mis}.png
+   and output/chip_smoke_volume_*.png.
 
 Each phase prints its seconds, and the script its total.  The second-to-last line is a JSON object
 describing the kernels, each with its bound: the larger of the bytes it
@@ -766,9 +788,12 @@ def shadow_lanes(args, kw):
     return o, d, torch.where(kw["mask"], tmax, 0.0)
 
 
-def wave_rays(cc, pix, strata, key, dev):
+def wave_rays(cc, pix, strata, key, dev, first=0, bdpt=False):
     """The pt_wave render loop's primary rays for pixels ``pix`` and
-    strata 0..strata-1 (models/render.py::_render_wave): (o, d, ray ids)."""
+    strata first..first+strata-1 (models/render.py::_render_wave): (o, d,
+    ray ids).  ``bdpt``: on the BDPT kernel's raygen jitter instead, so
+    the rays-mode plain version on them computes the pixels mode's
+    samples."""
     import torch
 
     from bpt_tpu_torch.core import rng
@@ -777,9 +802,9 @@ def wave_rays(cc, pix, strata, key, dev):
 
     S, W = cc.sqrt_spp, cc.width
     pixb = pix.repeat(strata)
-    s = torch.arange(strata, device=dev).repeat_interleave(pix.numel())
+    s = first + torch.arange(strata, device=dev).repeat_interleave(pix.numel())
     ids = pixb * (S * S) + s
-    u0, u1 = rng.raygen_jitter(key, ids)
+    u0, u1 = (rng.bdpt_raygen_jitter if bdpt else rng.raygen_jitter)(key, ids)
     z = torch.zeros_like(u0)
     o3, d3 = generate_rays(cc, (pixb % W).float(), (pixb // W).float(), (s % S).float(),
                            (s // S).float(), torch.stack([u0, u1, z, z], -1))
@@ -963,7 +988,7 @@ def brute_pt_cases(dev, card) -> dict:
 
     lib = build.load_library()
     with torch.cuda.device(dev):
-        blocks = lib.bpt_pt_brute_blocks()
+        blocks = lib.bpt_pt_blocks(0, 0)
     check(blocks > 0, f"pt_megakernel's occupancy query failed: CUDA error {-blocks}")
     cornell, mixed = cornell_box(device=dev), mixed_scene(dev)
     cc = camera_constants(dataclasses.replace(cornell_box_camera(), image_width=512),
@@ -1066,7 +1091,7 @@ def brute_bdpt_cases(dev, card) -> dict:
 
     lib = build.load_library()
     with torch.cuda.device(dev):
-        blocks = lib.bpt_bdpt_brute_blocks()
+        blocks = lib.bpt_bdpt_blocks(0, 0)
     check(blocks > 0, f"bdpt_megakernel's occupancy query failed: CUDA error {-blocks}")
     cornell, mixed = cornell_box(device=dev), mixed_scene(dev)
     cc = camera_constants(dataclasses.replace(cornell_box_camera(), image_width=512),
@@ -1144,34 +1169,18 @@ def defocus_wave_vs_plain(name, args, kw, stride=16):
     """A cornell defocus wave's launch (rays mode; ``name`` pt or bdpt,
     ``args``, ``kw`` as the render made them) against its plain version.
     The plain version holds every lane's state at once, too much for all
-    4,194,304 lanes, so it runs on every ``stride``-th lane, after the
-    whole launch's radiance on those lanes is shown equal to the bit to
-    that slice's own launch (a lane's sample depends on its ray and id
-    only).  The slice against ``pt_megakernel_plain`` (rtol 1e-4 / atol
-    1e-6) or ``bdpt_megakernel_plain`` (atol 1e-5) on >= 99.9% of lanes,
-    every counter exact.  Returns (the whole launch's outputs, fraction
-    within tolerance, max abs err, plain ms, lanes compared)."""
-    import torch
-
-    from bpt_tpu_torch.core.vec3 import Vec3
+    4,194,304 lanes, so it runs on every ``stride``-th lane
+    (``sliced_vs_plain``): rtol 1e-4 / atol 1e-6 (PT) or 1e-5 (BDPT) on
+    >= 99.9% of lanes, every counter exact.  Returns (the whole launch's
+    outputs, fraction within tolerance, max abs err, plain ms, lanes
+    compared)."""
     from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
     from bpt_tpu_torch.ops.kernels import pt_kernel as pk
 
     mod = pk if name == "pt" else bk
     mk, plain = getattr(mod, f"{name}_megakernel"), getattr(mod, f"{name}_megakernel_plain")
-    scene, o, d, ids, *rest = args
-    full = mk(*args, **kw)
-    sl = torch.arange(0, ids.shape[0], stride, device=ids.device)
-    s_args = (scene, Vec3(*(x[sl] for x in o)), Vec3(*(x[sl] for x in d)), ids[sl], *rest)
-    kout = mk(*s_args, **kw)
-    check(all(torch.equal(a[sl], b) for a, b in zip(full[:3], kout[:3])),
-          f"defocus {name} wave: its launch on every {stride}th lane differs from the whole "
-          "launch on those lanes")
-    pout, p_ms = timed(lambda: plain(*s_args, **kw))
-    f, e = compare(f"phase 13: {mk.__name__} on every {stride}th lane of the defocus {name} "
-                   f"wave (B={int(sl.numel())})", kout, pout, exact_counts=True,
-                   atol=ATOL if name == "pt" else BDPT_ATOL)
-    return full, f, e, p_ms, int(sl.numel())
+    return sliced_vs_plain(f"phase 13: {mk.__name__} on the defocus {name} wave", mk, plain,
+                           args, kw, stride, ATOL if name == "pt" else BDPT_ATOL)
 
 
 def any_cases(dev, card) -> dict:
@@ -1552,6 +1561,603 @@ def texture_phases(dev, card, coffee, ccc, key, scene_bytes, lap) -> dict:
         out[f"earth_{integrator}_walls_s"] = walls
     lap("phase 23d")
     return out
+
+
+# phase 24's shapes: the cornell_smoke cases (rays: B, depth; pixels: width,
+# sqrt spp, depth), the large volume scene's (rays and pixels: B, depth;
+# the wave: B, depth), the large scene's renders (width, spp, depth)
+VOL_RAYS = (65536, 10)
+VOL_PIXELS = (64, 2, 16)
+VOL_BIG_RAYS = (4096, 4)
+VOL_BIG_WAVE = (8192, 6)
+VOL_BIG_RENDER = {"pt": (256, 4, 8), "bdpt": (128, 4, 8), "pt defocus": (64, 4, 8)}
+VOL_SLICE = 16  # the plain BDPT version runs on every 16th lane of rays mode
+STRATA_CHUNK = 16  # strata a plain call when phase 24c counts the main path's override
+
+
+def big_volume_scene(dev, texture=None):
+    """tests/test_pallas_kernels.py:1189-1231's scene: the 964-triangle
+    sphere, floor and light of big_scene with a constant-density box
+    around the sphere (``texture``: its phase function's texture)."""
+    from bpt_tpu_torch.scene.builder import MaterialSpec as MS, SceneBuilder
+
+    b = SceneBuilder()
+    b.add_uv_sphere((0, 1, 0), 1.0, MS.metal((0.8, 0.8, 0.8), 0.05))
+    b.add_quad((-10, 0, -10), (20, 0, 0), (0, 0, 20), MS.lambertian((0.6, 0.6, 0.6)))
+    b.add_quad((-2, 6, -2), (4, 0, 0), (0, 0, 4), MS.diffuse_light((10, 10, 10)))
+    b.add_volume_box((-1.5, 0.01, -1.5), (1.5, 2.5, 1.5), density=0.2,
+                     albedo=(0.9, 0.9, 0.9), texture=texture)
+    return b.build(device=dev)
+
+
+def big_volume_camera(width, spp, depth, integrator):
+    """A camera at (0, 2, 6) looking at the volume box."""
+    from bpt_tpu_torch.scene.types import CameraConfig
+
+    return CameraConfig(image_width=width, samples_per_pixel=spp, max_depth=depth,
+                        vfov=40.0, lookfrom=(0.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0),
+                        integrator=integrator, file_name=f"chip_smoke_volume_{integrator}.png")
+
+
+def vol_table_bytes(scene) -> int:
+    from bpt_tpu_torch.ops.kernels import pt_kernel as pk
+
+    return sum(t.numel() * t.element_size() for t in pk.pack_vol_tables(scene))
+
+
+@contextlib.contextmanager
+def vol_test_count():
+    """The boundary tests that the kernels' free-flight override
+    (csrc/volume.cuh) issues on the rays of the plain run inside the
+    block.  Each override of a live lane sweeps every volume's own
+    triangles once (VT tests), and a volume's again where that first
+    probe, over the whole line, hit it.  Every plain version overrides
+    through ops.soa.volume_interaction, so this hooks it and the first
+    probe's _vol_closest, counting on the device without a sync.  Yields
+    a dict that holds, once the block ends, 'lanes' (the overrides) and
+    'tests'."""
+    import torch
+
+    from bpt_tpu_torch.ops import soa
+
+    interaction, closest = soa.volume_interaction, soa._vol_closest
+    live, lanes, tests = [], [], []
+
+    def hooked_interaction(scene, o, d, tmin, t_surf, u_rows, active):
+        live[:] = [active]
+        lanes.append(active.sum())
+        tests.append(active.sum() * int(scene.vol_v0.shape[0]))
+        return interaction(scene, o, d, tmin, t_surf, u_rows, active)
+
+    def hooked_closest(scene, vid, o, d, tmin, tmax):
+        t = closest(scene, vid, o, d, tmin, tmax)
+        if not torch.is_tensor(tmin) and tmin == -torch.inf:  # the first probe
+            tests.append((live[0] & torch.isfinite(t)).sum() * (scene.vol_tri_vol == vid).sum())
+        return t
+
+    out = {}
+    soa.volume_interaction, soa._vol_closest = hooked_interaction, hooked_closest
+    try:
+        yield out
+    finally:
+        soa.volume_interaction, soa._vol_closest = interaction, closest
+    out.update(lanes=int(sum(lanes)) if lanes else 0, tests=int(sum(tests)) if tests else 0)
+
+
+def vol_note(vt, rays: int) -> str:
+    """What a bound counted of the override: its boundary tests and its
+    lanes, beside the kernel's rays counter (a closest hit each; PT's also
+    counts each path that reaches the depth limit)."""
+    return (f"{vt['tests']} boundary tests on {vt['lanes']} overrides of the plain run, "
+            f"the kernel's rays counter {rays}")
+
+
+def sliced_vs_plain(what, mk, plain, args, kw, stride, atol):
+    """A rays-mode launch over all lanes, its launch on every ``stride``-th
+    lane equal to the bit to the whole launch there (a lane's sample
+    depends on its ray, id and draws only), and that slice against the
+    plain version.  Returns (the whole launch's outputs, the slice's
+    fraction within tolerance, max abs err, plain ms, lanes compared)."""
+    import torch
+
+    from bpt_tpu_torch.core.vec3 import Vec3
+
+    scene, o, d, ids, *rest = args
+    full = mk(*args, **kw)
+    sl = torch.arange(0, ids.shape[0], stride, device=ids.device)
+    skw = dict(kw)
+    if kw.get("uniforms") is not None:
+        skw["uniforms"] = kw["uniforms"][:, sl].contiguous()
+    s_args = (scene, Vec3(*(x[sl] for x in o)), Vec3(*(x[sl] for x in d)), ids[sl], *rest)
+    kout = mk(*s_args, **skw)
+    check(all(torch.equal(a[sl], b) for a, b in zip(full[:3], kout[:3])),
+          f"{what}: the launch on every {stride}th lane differs from the whole launch there")
+    pout, p_ms = timed(lambda: plain(*s_args, **skw))
+    f, e = compare(f"{what}, every {stride}th lane (B={int(sl.numel())})", kout, pout,
+                   exact_counts=True, atol=atol)
+    return full, f, e, p_ms, int(sl.numel())
+
+
+def volume_phases(dev, card, key, lap) -> dict:
+    """Phase 24, volumes.  (a) scenes/cornell_smoke.yaml (two constant-
+    density boxes) loads, and every megakernel takes it.  (b) Each volume
+    mode against its plain version: pt_megakernel in rays mode (injected
+    draws and the stream), pt_megakernel_pixels, bdpt_megakernel for bdpt
+    and bdpt-mis in rays mode (on every 16th lane) and pixels mode on
+    cornell_smoke; the walk mode of both megakernels and pt_wave
+    (untextured and with a checker-textured volume) on the 964-triangle
+    scene with a volume box.  rtol 1e-4 / atol 1e-6 (PT, the wave) or
+    1e-5 (BDPT) on >= 99.9% of lanes, every counter exact.  (c) The
+    slice's main path: cornell_smoke through render() at its own 256x256,
+    64 spp, depth 16 with pt, bdpt and bdpt-mis, one warm-up and three
+    timed renders each, one pixels-mode launch of the volume kernel a
+    render, images bitwise repeatable; the CLI on the same scene in a
+    subprocess.  (d) The large volume scene through render(): PT (pt_wave)
+    and bdpt (the fused loop's walk mode), their rays on a pixel subset
+    against the plain routes.  Returns the volume modes' kernel entries."""
+    import numpy as np
+    import torch
+
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.core.vec3 import Vec3
+    from bpt_tpu_torch.models.camera import camera_constants, generate_rays
+    from bpt_tpu_torch.models.pt import NU
+    from bpt_tpu_torch.models.render import _route, render
+    from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
+    from bpt_tpu_torch.ops.kernels import pt_kernel as pk
+    from bpt_tpu_torch.ops.kernels import pt_wave as pw
+    from bpt_tpu_torch.scene.loader import load_scene_from_yaml
+    from bpt_tpu_torch.scene.textures import TextureSpec as TS
+    from bpt_tpu_torch.utils.png import write_png
+
+    wrappers = (pk.pt_megakernel, pk.pt_megakernel_pixels, bk.bdpt_megakernel,
+                bk.bdpt_megakernel_pixels, pw.pt_wave_bounce)
+    others = (pk.strata_sum, pw.closest_bvh, pw.any_bvh)
+    plains = (pk.pt_megakernel_plain, pk.pt_megakernel_pixels_plain, pk.strata_sum_plain,
+              bk.bdpt_megakernel_plain, bk.bdpt_megakernel_pixels_plain,
+              pw.closest_bvh_plain, pw.any_bvh_plain, pw.pt_wave_bounce_plain,
+              pw.pt_wave_plain)
+
+    def zero_counts():
+        for fn in wrappers:
+            fn.launches = fn.vol_launches = 0
+        for fn in others:
+            fn.launches = 0
+        for fn in plains:
+            fn.calls = 0
+
+    def read_counts():
+        launched = {fn.__name__: fn.launches for fn in (*wrappers, *others) if fn.launches}
+        vol = {fn.__name__: fn.vol_launches for fn in wrappers if fn.vol_launches}
+        return launched, vol, sum(fn.calls for fn in plains)
+
+    out = {}
+    # ---- (a) the scene and the megakernels' reject reasons
+    smoke = load_scene_from_yaml("scenes/cornell_smoke.yaml", device=dev, verbose=False)
+    scene, cam_cfg = smoke.scene, smoke.camera
+    reasons = {i: pk.megakernel_reject_reason(scene, i) for i in pk.INTEGRATORS}
+    print(f"phase 24a: cornell_smoke.yaml: {scene.num_tris} triangles, {scene.num_volumes} "
+          f"volumes over {int(scene.vol_v0.shape[0])} boundary triangles; "
+          f"megakernel_reject_reason {reasons}")
+    check(scene.num_volumes == 2 and all(r == "" for r in reasons.values()),
+          f"cornell_smoke: volumes {scene.num_volumes}, reject reasons {reasons}")
+    lap("phase 24a")
+
+    # ---- (b) every volume mode against its plain version
+    g = np.random.default_rng(24)
+    B, depth = VOL_RAYS
+    o3 = torch.tensor([278.0, 278.0, -800.0], device=dev).expand(B, 3)
+    tgt = torch.from_numpy(g.uniform(50, 500, (B, 3)).astype(np.float32)).to(dev)
+    ov, dv = Vec3(*o3.unbind(1)), Vec3(*(tgt - o3).unbind(1))
+    ids = torch.arange(B, dtype=torch.int32, device=dev)
+    nu = NU + scene.num_volumes
+    ubuf = torch.from_numpy(g.uniform(size=(depth * nu, B)).astype(np.float32)).to(dev)
+    entry = {}
+    frac_pt, err_pt = 1.0, 0.0
+    for mode, u in (("injected", ubuf), ("stream", None)):
+        a = (scene, ov, dv, ids, key, depth)
+        kout = pk.pt_megakernel(*a, uniforms=u)
+        with vol_test_count() as vt:
+            pout, p_ms = timed(lambda: pk.pt_megakernel_plain(*a, uniforms=u))
+        f, e = compare(f"phase 24b: pt_megakernel volume mode, {mode} draws, cornell_smoke "
+                       f"B={B} depth={depth}", kout, pout, exact_counts=True)
+        frac_pt, err_pt = min(frac_pt, f), max(err_pt, e)
+    rays_ms = time_ms(lambda: pk.pt_megakernel(*a), reps=10)
+    c = counters(kout)
+    rays_bound = bound(B * 40 + vol_table_bytes(scene), (c[3] + vt["tests"]) * MT_OPS)
+    print(f"phase 24b: pt_megakernel volume mode, stream, B={B} depth={depth}: kernel "
+          f"{rays_ms:.3f} ms, plain {p_ms:.3f} ms (one call), bound {rays_bound[0]:.4f} ms "
+          f"({rays_bound[1]}; {c[3]} triangle tests, "
+          f"{vol_note(vt, c[0])}) ({card})")
+    W, S, pdepth = VOL_PIXELS
+    cc = camera_constants(dataclasses.replace(cam_cfg, image_width=W, aspect_ratio=1.0,
+                                              samples_per_pixel=S * S), torch.float32, dev)
+    cam13 = pk.camera_table(cc)
+    pix = torch.arange(W * W, dtype=torch.int64, device=dev)
+    i, j = (pix % W).float(), (pix // W).float()
+    a = (scene, i, j, i * 0, j * 0, pix, cam13, key, pdepth)
+    kw = dict(spp_loop=S * S, sqrt_spp=S)
+    kout = pk.pt_megakernel_pixels(*a, **kw)
+    with vol_test_count() as vt:
+        pout, px_plain_ms = timed(lambda: pk.pt_megakernel_pixels_plain(*a, **kw))
+    f, e = compare(f"phase 24b: pt_megakernel_pixels volume mode, cornell_smoke {W}x{W} "
+                   f"x {S * S} spp depth={pdepth}", kout, pout, exact_counts=True)
+    frac_pt, err_pt = min(frac_pt, f), max(err_pt, e)
+    px_ms = time_ms(lambda: pk.pt_megakernel_pixels(*a, **kw), reps=10)
+    c = counters(kout)
+    px_bound = bound(W * W * 32 + vol_table_bytes(scene), (c[3] + vt["tests"]) * MT_OPS)
+    print(f"phase 24b: pt_megakernel_pixels volume mode {W}x{W} x {S * S} spp depth "
+          f"{pdepth}: kernel {px_ms:.3f} ms, plain {px_plain_ms:.3f} ms, bound "
+          f"{px_bound[0]:.4f} ms ({px_bound[1]}; {c[3]} triangle tests, "
+          f"{vol_note(vt, c[0])}) ({card})")
+    entry["pt"] = dict(frac=frac_pt, err=err_pt, rays_ms=rays_ms, rays_plain_ms=p_ms,
+                       rays_bound=rays_bound, px_ms=px_ms, px_plain_ms=px_plain_ms,
+                       px_bound=px_bound)
+    lap("phase 24b (PT)")
+
+    n_slots = bk.n_uniform_slots(depth, scene.num_volumes)
+    ub = torch.from_numpy(g.uniform(size=(n_slots, B)).astype(np.float32)).to(dev)
+    frac_b, err_b = 1.0, 0.0
+    for mis in (False, True):
+        name = "bdpt-mis" if mis else "bdpt"
+        for mode, u in (("injected", ub), ("stream", None)):
+            full, f, e, b_plain_ms, n = sliced_vs_plain(
+                f"phase 24b: bdpt_megakernel volume mode {name}, {mode} draws, cornell_smoke "
+                f"B={B} depth={depth}", bk.bdpt_megakernel, bk.bdpt_megakernel_plain,
+                (scene, ov, dv, ids, key, depth), dict(uniforms=u, mis=mis), VOL_SLICE,
+                BDPT_ATOL)
+            frac_b, err_b = min(frac_b, f), max(err_b, e)
+        a = (scene, i, j, pix, cam13, key, pdepth, S)
+        kout = bk.bdpt_megakernel_pixels(*a, mis=mis)
+        with vol_test_count() as vt_px:
+            pout, bpx_plain_ms = timed(lambda: bk.bdpt_megakernel_pixels_plain(*a, mis=mis))
+        f, e = compare(f"phase 24b: bdpt_megakernel_pixels volume mode {name}, cornell_smoke "
+                       f"{W}x{W} x {S * S} spp depth={pdepth}", kout, pout, exact_counts=True,
+                       atol=BDPT_ATOL)
+        frac_b, err_b = min(frac_b, f), max(err_b, e)
+        if not mis:
+            b_rays_ms = time_ms(lambda: bk.bdpt_megakernel(scene, ov, dv, ids, key, depth),
+                                reps=5)
+            # the timed launch's override count: the plain version on all its lanes
+            with vol_test_count() as vt:
+                bk.bdpt_megakernel_plain(scene, ov, dv, ids, key, depth)
+            c = counters(full)
+            b_rays_bound = bound(B * 40 + vol_table_bytes(scene),
+                                 (c[4] + vt["tests"]) * MT_OPS)
+            bpx_ms = time_ms(lambda: bk.bdpt_megakernel_pixels(*a), reps=5)
+            cp = counters(kout)
+            bpx_bound = bound(W * W * 24 + vol_table_bytes(scene),
+                              (cp[4] + vt_px["tests"]) * MT_OPS)
+            print(f"phase 24b: bdpt_megakernel volume mode bdpt: rays B={B} depth={depth} "
+                  f"kernel {b_rays_ms:.3f} ms, plain on every {VOL_SLICE}th lane "
+                  f"{b_plain_ms:.3f} ms, bound {b_rays_bound[0]:.4f} ms ({b_rays_bound[1]}; "
+                  f"{c[4]} triangle tests, {vol_note(vt, c[0])}); pixels {W}x{W} x {S * S} "
+                  f"spp depth {pdepth} kernel {bpx_ms:.3f} ms, plain {bpx_plain_ms:.3f} ms, "
+                  f"bound {bpx_bound[0]:.4f} ms ({bpx_bound[1]}; {cp[4]} triangle tests, "
+                  f"{vol_note(vt_px, cp[0])}) ({card})")
+            entry["bdpt"] = dict(rays_ms=b_rays_ms, rays_plain_ms=b_plain_ms,
+                                 rays_bound=b_rays_bound, px_ms=bpx_ms,
+                                 px_plain_ms=bpx_plain_ms, px_bound=bpx_bound)
+    entry["bdpt"].update(frac=frac_b, err=err_b)
+    lap("phase 24b (BDPT)")
+
+    # the walk mode and the wave on the 964-triangle scene with a volume box
+    big = big_volume_scene(dev)
+    check(big.use_bvh and pk.use_walk(big) and big.num_volumes == 1
+          and not pk.megakernel_reject_reason(big, "bdpt"),
+          "the large volume scene is not a walk-mode volume scene")
+    Bw, dw = VOL_BIG_RAYS
+    ob = torch.tensor([0.0, 2.0, 6.0], device=dev).expand(Bw, 3)
+    tb = torch.from_numpy(np.c_[g.uniform(-2, 2, Bw), g.uniform(0, 3, Bw),
+                                np.zeros(Bw)].astype(np.float32)).to(dev)
+    obv, dbv = Vec3(*ob.unbind(1)), Vec3(*(tb - ob).unbind(1))
+    idb = torch.arange(Bw, dtype=torch.int32, device=dev)
+    walk = {}
+    ub_pt = torch.from_numpy(g.uniform(size=(dw * (NU + 1), Bw)).astype(np.float32)).to(dev)
+    ub_bd = torch.from_numpy(g.uniform(size=(bk.n_uniform_slots(dw, 1), Bw))
+                             .astype(np.float32)).to(dev)
+    tab = walk_table_bytes(big) + vol_table_bytes(big)
+    # the plain walks run in torch: both draw modes of PT, bdpt on injected
+    # draws and bdpt-mis on the stream
+    for name, mk, plain, modes, atol, extra in (
+            ("pt", pk.pt_megakernel, pk.pt_megakernel_plain,
+             (("injected", ub_pt), ("stream", None)), ATOL, {}),
+            ("bdpt", bk.bdpt_megakernel, bk.bdpt_megakernel_plain, (("injected", ub_bd),),
+             BDPT_ATOL, {}),
+            ("bdpt-mis", bk.bdpt_megakernel, bk.bdpt_megakernel_plain, (("stream", None),),
+             BDPT_ATOL, dict(mis=True))):
+        fr, er = 1.0, 0.0
+        for mode, uu in modes:
+            a = (big, obv, dbv, idb, key, dw)
+            kout = mk(*a, uniforms=uu, **extra)
+            with vol_test_count() as vt:
+                pout, w_plain_ms = timed(lambda: plain(*a, uniforms=uu, **extra))
+            f, e = compare(f"phase 24b: {mk.__name__} walk volume mode {name}, {mode} draws, "
+                           f"large volume scene B={Bw} depth={dw}", kout, pout,
+                           exact_counts=True, atol=atol)
+            fr, er = min(fr, f), max(er, e)
+        # timed on the last mode's draws, the inputs of its counters and count
+        w_ms = time_ms(lambda: mk(*a, uniforms=uu, **extra), reps=5)
+        c = counters(kout)
+        nodes, tests = (c[1], c[3]) if name == "pt" else (c[2], c[4])
+        wb = bound(Bw * 40 + tab, nodes * SLAB_OPS + (tests + vt["tests"]) * MT_OPS)
+        walk[name] = dict(frac=fr, err=er, ms=w_ms, plain_ms=w_plain_ms, bound=wb)
+        print(f"phase 24b: {mk.__name__} walk volume mode {name} B={Bw} depth={dw} ({mode} "
+              f"draws): kernel {w_ms:.3f} ms, plain {w_plain_ms:.3f} ms, bound {wb[0]:.4f} ms "
+              f"({wb[1]}; {nodes} slab and {tests} triangle tests, {vol_note(vt, c[0])}) "
+              f"({card})")
+    Wb = 32
+    cfg_b = big_volume_camera(Wb, 4, dw, "bdpt")
+    ccb = camera_constants(cfg_b, torch.float32, dev)
+    pixb = torch.arange(Wb * Wb, dtype=torch.int64, device=dev)
+    ib, jb = (pixb % Wb).float(), (pixb // Wb).float()
+    for name, mk, plain, a, kw_, atol in (
+            ("pt", pk.pt_megakernel_pixels, pk.pt_megakernel_pixels_plain,
+             (big, ib, jb, ib * 0, jb * 0, pixb, pk.camera_table(ccb), key, dw),
+             dict(spp_loop=4, sqrt_spp=2), ATOL),
+            ("bdpt-mis", bk.bdpt_megakernel_pixels, bk.bdpt_megakernel_pixels_plain,
+             (big, ib, jb, pixb, pk.camera_table(ccb), key, dw, 2), dict(mis=True),
+             BDPT_ATOL)):
+        kout = mk(*a, **kw_)
+        pout = plain(*a, **kw_)
+        f, e = compare(f"phase 24b: {mk.__name__} walk volume mode {name}, large volume "
+                       f"scene {Wb}x{Wb} x 4 spp depth={dw}", kout, pout, exact_counts=True,
+                       atol=atol)
+        key_ = "pt" if name == "pt" else "bdpt"
+        walk[key_]["frac"] = min(walk[key_]["frac"], f)
+        walk[key_]["err"] = max(walk[key_]["err"], e)
+    lap("phase 24b (walk)")
+
+    key_pt = rng.fold_in(key, 1)
+    Bv, dv_ = VOL_BIG_WAVE
+    wave = {}
+    for tex_name, tex in (("untextured", None),
+                          ("checker-textured volume", TS.checker(0.35, (0.9, 0.3, 0.2),
+                                                                 (0.2, 0.4, 0.9)))):
+        sc = big_volume_scene(dev, texture=tex)
+        check(sc.has_textures == (tex is not None), "the textured volume scene's flag")
+        ow = torch.tensor([0.0, 2.0, 6.0], device=dev).expand(Bv, 3)
+        tw = torch.from_numpy(np.c_[g.uniform(-2, 2, Bv), g.uniform(0, 3, Bv),
+                                    np.zeros(Bv)].astype(np.float32)).to(dev)
+        owv, dwv = Vec3(*ow.unbind(1)), Vec3(*(tw - ow).unbind(1))
+        idw = torch.arange(Bv, dtype=torch.int32, device=dev)
+        zero_counts()
+        kout = pw.pt_wave(sc, owv, dwv, idw, key_pt, dv_)
+        torch.cuda.synchronize()
+        launched, vol, n_plain = read_counts()
+        check(vol == {"pt_wave_bounce": dv_} and launched.get("closest_bvh") == dv_
+              and not n_plain, f"pt_wave {tex_name}: launches {launched}, volume mode "
+                               f"{vol}, plain calls {n_plain}")
+        with vol_test_count() as vt:
+            pout, wp_ms = timed(lambda: pw.pt_wave_plain(sc, owv, dwv, idw, key_pt, dv_))
+        f, e = compare(f"phase 24b: pt_wave volume mode, {tex_name}, large volume scene "
+                       f"B={Bv} depth={dv_}", kout, pout, exact_counts=True)
+        check(float(torch.stack(kout[:3]).sum()) > 0, f"pt_wave {tex_name}: black")
+        wk_ms = time_ms(lambda: pw.pt_wave(sc, owv, dwv, idw, key_pt, dv_), reps=5)
+        c = counters(kout)
+        wb = bound(Bv * 40 * dv_ + dv_ * (walk_table_bytes(sc) + vol_table_bytes(sc)),
+                   c[1] * SLAB_OPS + (c[3] + vt["tests"]) * MT_OPS)
+        print(f"phase 24b: pt_wave volume mode, {tex_name}: kernels {wk_ms:.3f} ms (the "
+              f"{dv_} bounces' walks and shades), plain {wp_ms:.3f} ms, bound {wb[0]:.4f} ms "
+              f"({wb[1]}; {vol_note(vt, c[0])}) ({card})")
+        wave[tex_name] = dict(frac=f, err=e, ms=wk_ms, plain_ms=wp_ms, bound=wb)
+    lap("phase 24b (wave)")
+
+    # ---- (c) the slice's main path: cornell_smoke at its own configuration
+    renders = {}
+    for integrator in pk.INTEGRATORS:
+        cfg = dataclasses.replace(cam_cfg, integrator=integrator,
+                                  file_name=f"chip_smoke_cornell_smoke_{integrator}.png")
+        check(_route(scene, cfg, integrator, None) == "fused",
+              f"cornell_smoke {integrator} is not routed to the fused loop")
+        render(scene, cfg, seed=0)  # warm-up
+        zero_counts()
+        results = [render(scene, cfg, seed=0) for _ in range(3)]
+        launched, vol, n_plain = read_counts()
+        mk = "pt_megakernel_pixels" if integrator == "pt" else "bdpt_megakernel_pixels"
+        check(vol == {mk: 3} and launched == {mk: 3, "strata_sum": 3} and not n_plain,
+              f"cornell_smoke {integrator}: launches {launched}, volume mode {vol}, plain "
+              f"calls {n_plain}")
+        fb = results[0].framebuffer_sum
+        check(bool(np.isfinite(fb).all()) and float(fb.mean()) > 0.0,
+              f"cornell_smoke {integrator}: non-finite or black image")
+        check(all(np.array_equal(r.framebuffer_sum, fb) for r in results[1:]),
+              f"cornell_smoke {integrator}: renders with one seed differ")
+        walls = [r.stats.wall_seconds for r in results]
+        wall = statistics.median(walls)
+        st = results[0].stats
+        path = write_png(cfg.file_name, results[0].rgb8(), output_dir="output")
+        digest = hashlib.sha256(np.ascontiguousarray(fb).tobytes()).hexdigest()[:16]
+        print(f"phase 24c: render cornell_smoke {integrator} {cfg.image_width}x"
+              f"{cfg.image_height} {cfg.samples_per_pixel} spp depth {cfg.max_depth} seed 0 "
+              f"(fused): walls {[round(w, 6) for w in walls]} s, median {wall:.6f} s, "
+              f"{st.rays_traced / wall / 1e6:.3f} Mrays/s on rays_traced "
+              f"({(st.rays_traced + st.shadow_rays) / wall / 1e6:.3f} with shadow rays); "
+              f"rays_traced {st.rays_traced}, shadow_rays {st.shadow_rays}, tri tests "
+              f"{st.triangle_tests}, tri hits {st.triangle_hits}; launches {launched} (volume mode "
+              f"{vol}), plain calls {n_plain}; mean {float(fb.mean()) / cfg.effective_spp:.5f};"
+              f" framebuffer sha256 {digest}; wrote {path} ({card})")
+        renders[integrator] = dict(walls=walls, wall=wall, rays=st.rays_traced,
+                                   shadow=st.shadow_rays, launches=vol.get(mk, 0),
+                                   tests=st.triangle_tests, tri_hits=st.triangle_hits,
+                                   npix=cfg.image_width * cfg.image_height)
+    # the main path's launch on its own, at the render's shape (one chunk)
+    npx = cam_cfg.image_width * cam_cfg.image_height
+    S = cam_cfg.sqrt_spp
+    ccs = camera_constants(cam_cfg, torch.float32, dev)
+    pixs = torch.arange(npx, dtype=torch.int64, device=dev)
+    i_s, j_s = (pixs % cam_cfg.image_width).float(), (pixs // cam_cfg.image_width).float()
+    main_args = {
+        "pt": (pk.pt_megakernel_pixels, (scene, i_s, j_s, i_s * 0, j_s * 0, pixs,
+                                         pk.camera_table(ccs), key, cam_cfg.max_depth),
+               dict(spp_loop=S * S, sqrt_spp=S)),
+        "bdpt": (bk.bdpt_megakernel_pixels, (scene, i_s, j_s, pixs, pk.camera_table(ccs), key,
+                                             cam_cfg.max_depth, S), {}),
+        "bdpt-mis": (bk.bdpt_megakernel_pixels, (scene, i_s, j_s, pixs, pk.camera_table(ccs),
+                                                 key, cam_cfg.max_depth, S), dict(mis=True)),
+    }
+    # the boundary tests of that launch: the rays-mode plain version on its
+    # samples (every pixel and stratum, on the pixels mode's ray ids and
+    # jitter), STRATA_CHUNK strata a call; bdpt and bdpt-mis trace the same
+    # subpaths, so they share one count
+    vt_main = {}
+    for name, bdpt in (("pt", False), ("bdpt", True)):
+        lanes = tests = rays = 0
+        for k0 in range(0, S * S, STRATA_CHUNK):
+            o_, d_, id_ = wave_rays(ccs, pixs, min(STRATA_CHUNK, S * S - k0), key, dev,
+                                    first=k0, bdpt=bdpt)
+            with vol_test_count() as vt:
+                if bdpt:
+                    pr = bk.bdpt_megakernel_plain(scene, o_, d_, id_, key, cam_cfg.max_depth)
+                else:
+                    pr = pk.pt_megakernel_plain(scene, o_, d_, id_, rng.fold_in(key, 1),
+                                                cam_cfg.max_depth)
+            lanes, tests, rays = lanes + vt["lanes"], tests + vt["tests"], rays + int(pr[3])
+        vt_main[name] = dict(lanes=lanes, tests=tests, rays=rays)
+    vt_main["bdpt-mis"] = vt_main["bdpt"]
+    for integrator, (mk, a, kw_) in main_args.items():
+        ms = time_ms(lambda: mk(*a, **kw_), reps=3)
+        c = counters(mk(*a, **kw_))
+        tests, vt = c[3] if integrator == "pt" else c[4], vt_main[integrator]
+        check(abs(vt["rays"] - c[0]) <= 1e-3 * c[0],
+              f"cornell_smoke {integrator}: the plain run's rays {vt['rays']} against the "
+              f"launch's {c[0]}")
+        r = renders[integrator]
+        r["ms"], r["bound"] = ms, bound(npx * 32 + vol_table_bytes(scene),
+                                        (tests + vt["tests"]) * MT_OPS)
+        r["tests_main"], r["vol_tests_main"] = tests, vt["tests"]
+        print(f"phase 24c: {mk.__name__} {integrator} at the main path's shape ({npx} pixels x "
+              f"{S * S} spp, depth {cam_cfg.max_depth}): {ms:.3f} ms, bound {r['bound'][0]:.4f} "
+              f"ms ({r['bound'][1]}; {tests} triangle tests, {vol_note(vt, c[0])}, the plain "
+              f"run's {vt['rays']}) ({card})")
+    cli = subprocess.run([sys.executable, "-m", "bpt_tpu_torch.render",
+                          "scenes/cornell_smoke.yaml", "--no-progress", "--output-dir", "output"],
+                         capture_output=True, text=True, timeout=300)
+    print(f"phase 24c: python -m bpt_tpu_torch.render scenes/cornell_smoke.yaml: exit "
+          f"{cli.returncode}; {' / '.join(cli.stderr.strip().splitlines()[-3:])}")
+    check(cli.returncode == 0, f"the CLI on cornell_smoke exited {cli.returncode}: "
+                               f"{cli.stderr[-2000:]}")
+    lap("phase 24c")
+
+    # ---- (d) the large volume scene through render(), rays against the plain
+    # routes: PT through pt_wave, bdpt through the fused loop's walk mode, and
+    # PT with defocus through the stratum loop (the rays mode's walk)
+    launches_24d = {}
+    for case, integrator, want_route, mk_names in (
+            ("pt", "pt", "wave", {"closest_bvh", "pt_wave_bounce"}),
+            ("bdpt", "bdpt", "fused", {"bdpt_megakernel_pixels", "strata_sum"}),
+            ("pt defocus", "pt", "strata", {"pt_megakernel"})):
+        width, spp, depth_r = VOL_BIG_RENDER[case]
+        cfg = big_volume_camera(width, spp, depth_r, integrator)
+        if case == "pt defocus":
+            cfg = dataclasses.replace(cfg, defocus_angle=1.0, focus_dist=5.0,
+                                      file_name="chip_smoke_volume_pt_defocus.png")
+        check(_route(big, cfg, integrator, None) == want_route,
+              f"the large volume scene's {case} is not routed to {want_route}")
+        render(big, cfg, seed=0)  # warm-up
+        zero_counts()
+        res = render(big, cfg, seed=0)
+        launched, vol, n_plain = read_counts()
+        check(set(launched) == mk_names and set(vol) == mk_names - {"closest_bvh", "strata_sum"}
+              and not n_plain, f"large volume {case}: launches {launched}, volume "
+                               f"mode {vol}, plain calls {n_plain}")
+        launches_24d[case] = sum(vol.values())
+        fb = res.framebuffer_sum
+        check(bool(np.isfinite(fb).all()) and float(fb.mean()) > 0.0,
+              f"large volume {case}: non-finite or black image")
+        st = res.stats
+        write_png(cfg.file_name, res.rgb8(), output_dir="output")
+        line = (f"phase 24d: render large volume scene {case} {width}x{width} {spp} spp depth "
+                f"{depth_r} ({want_route}): wall {st.wall_seconds:.6f} s, rays_traced "
+                f"{st.rays_traced}, shadow_rays {st.shadow_rays}; launches {launched} (volume "
+                f"mode {vol}), plain calls {n_plain}")
+        if case == "pt defocus":
+            print(f"{line} ({card})")
+            continue
+        # every 257th pixel, all strata, on the render's own stream: the
+        # route's kernels against its plain route
+        ccr = camera_constants(cfg, torch.float32, dev)
+        sub = torch.arange(0, width * width, 257, device=dev)
+        k0 = rng.prng_key(0)
+        if integrator == "pt":
+            o_, d_, id_ = wave_rays(ccr, sub, spp, k0, dev)
+            kr = pw.pt_wave(big, o_, d_, id_, rng.fold_in(k0, 1), depth_r)
+            pr = pw.pt_wave_plain(big, o_, d_, id_, rng.fold_in(k0, 1), depth_r)
+        else:
+            a = (big, (sub % width).float(), (sub // width).float(), sub,
+                 pk.camera_table(ccr), k0, depth_r, cfg.sqrt_spp)
+            kr = bk.bdpt_megakernel_pixels(*a)
+            pr = bk.bdpt_megakernel_pixels_plain(*a)
+        compare(f"phase 24d: large volume {case} on every 257th pixel x {spp} strata "
+                f"({want_route} route vs its plain route)", kr, pr, exact_counts=True,
+                atol=ATOL if integrator == "pt" else BDPT_ATOL)
+        print(f"{line}; subset rays {counters(kr)[0]} = plain {counters(pr)[0]} ({card})")
+    lap("phase 24d")
+    out.update(entry=entry, walk=walk, wave=wave, renders=renders, launches_24d=launches_24d)
+    return out
+
+
+def volume_entries(vol) -> list:
+    """The kernels line's entries of the volume kernels (phase 24)."""
+    e, w, r = vol["entry"], vol["walk"], vol["renders"]
+    smoke = "cornell_smoke.yaml, 256x256, 64 spp, depth 16"
+    base = dict(route="cuda", library_ms=None)
+
+    def pix(name, src, tpu, mode, integrators):
+        k = e[mode]
+        main = r[integrators[0]]
+        return dict(
+            base, name=name, source=f"bpt_tpu_torch/csrc/{src}", replaces=tpu,
+            launches=sum(r[i]["launches"] for i in integrators),
+            launches_path=f"three renders of {smoke} with each of {', '.join(integrators)}",
+            max_abs_err=k["err"], within_tol=k["frac"], ms=main["ms"], bound_ms=main["bound"][0],
+            bound_by=main["bound"][1],
+            shape=f"the one launch of a {integrators[0]} render of {smoke}",
+            plain_ms=k["px_plain_ms"], plain_shape="cornell_smoke 64x64 x 4 spp, depth 16",
+            small_ms=k["px_ms"], small_bound_ms=k["px_bound"][0],
+            rays_mode_ms=k["rays_ms"], rays_mode_plain_ms=k["rays_plain_ms"],
+            rays_mode_bound_ms=k["rays_bound"][0],
+            render_walls_s={i: r[i]["walls"] for i in integrators},
+            render_rays={i: r[i]["rays"] for i in integrators},
+            render_shadow_rays={i: r[i]["shadow"] for i in integrators},
+            **({"mis_ms": r["bdpt-mis"]["ms"]} if mode == "bdpt" else {}))
+
+    d24 = vol["launches_24d"]
+    walk_path = {"pt": ("pt defocus", "one PT render of the large volume scene with defocus, "
+                                      "64x64, 4 spp, depth 8 (the stratum loop, rays mode)"),
+                 "bdpt": ("bdpt", "one bdpt render of the large volume scene, 128x128, 4 spp, "
+                                  "depth 8 (the fused loop, pixels mode)")}
+    walk_e = [dict(base, name=f"{k}_megakernel_walk_vol",
+                   source=f"bpt_tpu_torch/csrc/{k}_megakernel.cu",
+                   replaces=f"bpt_tpu/ops/pallas/"
+                            f"{'pt_kernel.py:1207' if k == 'pt' else 'bdpt_kernel.py:1195'} "
+                            "(clustered mode, volumes)",
+                   launches=d24[walk_path[k][0]], launches_path=walk_path[k][1],
+                   max_abs_err=w[k]["err"], within_tol=w[k]["frac"], ms=w[k]["ms"],
+                   plain_ms=w[k]["plain_ms"], bound_ms=w[k]["bound"][0], bound_by=w[k]["bound"][1],
+                   shape=f"the large volume scene, B={VOL_BIG_RAYS[0]}, depth {VOL_BIG_RAYS[1]}")
+              for k in ("pt", "bdpt")]
+    wv = vol["wave"]
+    return [
+        pix("pt_megakernel_vol", "pt_megakernel.cu", "bpt_tpu/ops/pallas/pt_kernel.py:1334 "
+            "(volume mode; rays mode :1207)", "pt", ["pt"]),
+        pix("bdpt_megakernel_vol", "bdpt_megakernel.cu", "bpt_tpu/ops/pallas/bdpt_kernel.py:1314 "
+            "(volume mode; rays mode :1195)", "bdpt", ["bdpt", "bdpt-mis"]),
+        *walk_e,
+        dict(base, name="pt_wave_bounce_vol", source="bpt_tpu_torch/csrc/pt_wave.cu",
+             replaces="bpt_tpu/ops/pallas/pt_wave.py:326 (volume mode)",
+             launches=d24["pt"],
+             launches_path="one render of the large volume scene with pt, 256x256, 4 spp, "
+                           "depth 8 (phase 24d)",
+             max_abs_err=max(x["err"] for x in wv.values()),
+             within_tol=min(x["frac"] for x in wv.values()),
+             ms=wv["untextured"]["ms"], plain_ms=wv["untextured"]["plain_ms"],
+             bound_ms=wv["untextured"]["bound"][0], bound_by=wv["untextured"]["bound"][1],
+             shape=f"pt_wave on the large volume scene, B={VOL_BIG_WAVE[0]}, depth "
+                   f"{VOL_BIG_WAVE[1]}: closest_bvh and this kernel a bounce",
+             textured_ms=wv["checker-textured volume"]["ms"],
+             textured_plain_ms=wv["checker-textured volume"]["plain_ms"]),
+    ]
 
 
 class Laps:
@@ -2733,7 +3339,7 @@ def main() -> int:
     kernel_peak16 = torch.cuda.max_memory_allocated(dev)
     c16 = counters(out16)
     with torch.cuda.device(dev):
-        grid16 = build.load_library().bpt_bdpt_walk_blocks()
+        grid16 = build.load_library().bpt_bdpt_blocks(1, 0)
     fb_sha = hashlib.sha256(np.ascontiguousarray(fb).tobytes()).hexdigest()
     print(f"phase 16: bdpt_megakernel_pixels walk mode at the main path's chunk (512x512 "
           f"pixels x 4 spp, depth 80): kernel {main_ms:.3f} ms, peak device memory "
@@ -3157,6 +3763,7 @@ def main() -> int:
     any22 = any_cases(dev, card)
     lap("phase 22")
     tex = texture_phases(dev, card, coffee, ccc, key, scene_bytes, lap)
+    vol = volume_phases(dev, card, key, lap)
 
     # lanes in (pixels: i, j, sx, sy, id; rays: o, d, id), radiance out
     pt_tab = sum(t.numel() * t.element_size() for t in pk._pack_tables(scene))
@@ -3444,7 +4051,7 @@ def main() -> int:
         "render_shape": "the 10 launches of one ref_vis render, 256x256, 64 spp, depth 10, "
                         "each on its own inputs",
         "persistent_blocks": tri_grids[1],
-    }, *walk_entries, *cl_entries]}))
+    }, *walk_entries, *cl_entries, *volume_entries(vol)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

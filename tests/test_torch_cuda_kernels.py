@@ -880,11 +880,11 @@ def test_pt_wave_bounce_refill_matches_plain(case, paged):
 BRUTE_CASES = ["B=1", "B=31", "B=37", "past 4 grids", "all inactive", "scattered"]
 
 
-def _cornell_lanes(case, seed, blocks="bpt_bdpt_brute_blocks"):
+def _cornell_lanes(case, seed, blocks="bpt_bdpt_blocks"):
     """(o, d, ids) of a brute-force edge case: the cornell camera's rays
     through random points of a 512x512 image; a lane in 13 inactive, "past
     4 grids" 4 x the threads of the persistent grid ``blocks`` (the
-    library's occupancy query) and 5 more, "all inactive" no live lane,
+    library's occupancy query, brute mode without volumes) and 5 more, "all inactive" no live lane,
     "scattered" one live lane in ten at random places; 4096 lanes where the
     name gives no count."""
     from bpt_tpu_torch.models.camera import generate_rays
@@ -893,7 +893,7 @@ def _cornell_lanes(case, seed, blocks="bpt_bdpt_brute_blocks"):
     if case.startswith("B="):
         B = int(case[2:])
     elif case == "past 4 grids":
-        B = 4 * getattr(build.load_library(), blocks)() * 128 + 5
+        B = 4 * getattr(build.load_library(), blocks)(0, 0) * 128 + 5
     else:
         B = 4096
     g = np.random.default_rng(seed)
@@ -994,7 +994,7 @@ def test_brute_pt_schedule_matches_plain(case, monkeypatch):
     key = rng.prng_key(17)
     if case in BRUTE_CASES or case == "injected":
         scene = presets.cornell_box(device="cuda")
-        o, d, ids = _cornell_lanes(case, 32, "bpt_pt_brute_blocks")
+        o, d, ids = _cornell_lanes(case, 32, "bpt_pt_blocks")
         kw = {}
         if case == "injected":
             kw["uniforms"] = torch.from_numpy(np.random.default_rng(33).uniform(
@@ -1162,3 +1162,131 @@ def test_wave_bounce_writes_the_hit_point_of_every_live_hit(big):
         assert torch.equal(kb[pw.OX + k][~hit], o[k][~hit])
         assert torch.equal(kb[pw.OX + k], pb[pw.OX + k])
 
+
+
+# ------------------------------------------------------------- volumes
+
+
+def _volume_lanes(big, B, seed):
+    """Rays into the smoke cornell box from its camera position, or from
+    (0, 2, 6) at the large volume scene's box; one lane in 13 inactive."""
+    g = np.random.default_rng(seed)
+    if big:
+        o = np.tile([[0.0, 2.0, 6.0]], (B, 1))
+        d = np.c_[g.uniform(-2, 2, B), g.uniform(0, 3, B), np.zeros(B)] - o
+    else:
+        o = np.tile([[278.0, 278.0, -800.0]], (B, 1))
+        d = g.uniform(50, 500, (B, 3)) - o
+    o, d = (torch.from_numpy(x.astype(np.float32)).cuda() for x in (o, d))
+    ids = torch.arange(B, dtype=torch.int32, device="cuda")
+    ids[5::13] = -1
+    return Vec3(*o.unbind(1)), Vec3(*d.unbind(1)), ids
+
+
+def _volume_scene(big, texture=None):
+    from torch_parity import smoke_scene, volume_big_scene
+
+    if big:
+        return volume_big_scene(builder, texture=texture, device="cuda")
+    return smoke_scene(builder, device="cuda")
+
+
+def _agree(got, want, atol):
+    g, w = torch.stack(got[:3], 1), torch.stack(want[:3], 1)
+    ok = ((g - w).abs() <= atol + 1e-4 * w.abs()).all(dim=1)
+    return float(ok.double().mean())
+
+
+@pytest.mark.parametrize("big", [False, True], ids=["brute", "walk"])
+@pytest.mark.parametrize("integrator", ["pt", "bdpt", "bdpt-mis"])
+@pytest.mark.parametrize("injected", [True, False], ids=["buffer", "rng"])
+def test_volume_rays_mode_matches_plain(big, integrator, injected):
+    """The volume mode of both megakernels (the _vol kernels) in rays mode
+    against the plain versions: >= 99.9% of lanes within rtol 1e-4 / atol
+    1e-6 (PT) or 1e-5 (BDPT), every counter exact, one volume launch."""
+    scene = _volume_scene(big)
+    assert scene.num_volumes and pk.use_walk(scene) == big
+    B, depth = (2048, 6) if big else (8192, 8)
+    o, d, ids = _volume_lanes(big, B, 17)
+    V = scene.num_volumes
+    mod, kw = (pk, {}) if integrator == "pt" else (bk, dict(mis=integrator == "bdpt-mis"))
+    rows = depth * (NU + V) if integrator == "pt" else bk.n_uniform_slots(depth, V)
+    u = (torch.from_numpy(np.random.default_rng(18).uniform(size=(rows, B))
+                          .astype(np.float32)).cuda() if injected else None)
+    mk = getattr(mod, "pt_megakernel" if integrator == "pt" else "bdpt_megakernel")
+    plain = getattr(mod, mk.__name__ + "_plain")
+    n = mk.vol_launches
+    got = mk(scene, o, d, ids, rng.prng_key(4), depth, uniforms=u, **kw)
+    want = plain(scene, o, d, ids, rng.prng_key(4), depth, uniforms=u, **kw)
+    torch.cuda.synchronize()
+    assert mk.vol_launches == n + 1
+    assert _agree(got, want, 1e-6 if integrator == "pt" else 1e-5) >= 0.999
+    assert [int(x) for x in got[3:-1]] == [int(x) for x in want[3:-1]]
+    assert torch.equal(got[-1], want[-1])
+    assert float(torch.stack(got[:3]).sum()) > 0
+
+
+@pytest.mark.parametrize("big", [False, True], ids=["brute", "walk"])
+@pytest.mark.parametrize("integrator", ["pt", "bdpt", "bdpt-mis"])
+def test_volume_pixels_mode_matches_plain(big, integrator):
+    """The volume mode in pixels mode (raygen, the keys after NU + V or
+    NT + V slots a bounce) at 32x32 x 4 spp against the plain versions."""
+    scene = _volume_scene(big)
+    W, depth = 32, 6
+    if big:
+        from bpt_tpu_torch.scene.types import CameraConfig
+
+        cfg = CameraConfig(image_width=W, samples_per_pixel=4, vfov=40.0,
+                           lookfrom=(0.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0))
+    else:
+        cfg = dataclasses.replace(presets.cornell_box_camera(), image_width=W,
+                                  samples_per_pixel=4)
+    cam = pk.camera_table(camera_constants(cfg, torch.float32, "cuda"))
+    pix = torch.arange(W * W, dtype=torch.int64, device="cuda")
+    i, j = (pix % W).float(), (pix // W).float()
+    if integrator == "pt":
+        a, kw, mk = (scene, i, j, i * 0, j * 0, pix, cam, rng.prng_key(6), depth), dict(
+            spp_loop=4, sqrt_spp=2), pk.pt_megakernel_pixels
+    else:
+        a, kw, mk = ((scene, i, j, pix, cam, rng.prng_key(6), depth, 2),
+                     dict(mis=integrator == "bdpt-mis"), bk.bdpt_megakernel_pixels)
+    plain = getattr(pk if integrator == "pt" else bk, mk.__name__ + "_plain")
+    got = mk(*a, **kw)
+    want = plain(*a, **kw)
+    torch.cuda.synchronize()
+    assert _agree(got, want, 1e-6 if integrator == "pt" else 1e-5) >= 0.999
+    assert [int(x) for x in got[3:-1]] == [int(x) for x in want[3:-1]]
+    assert torch.equal(got[-1], want[-1])
+
+
+@pytest.mark.parametrize("textured", [False, True], ids=["untextured", "textured"])
+def test_volume_pt_wave_matches_plain(textured):
+    """pt_wave_bounce's volume mode (pt_wave_bounce_vol) on the large
+    volume scene, with a checker on the volume's phase function when
+    textured (the shade marks volume lanes for the texel stage)."""
+    from bpt_tpu_torch.scene.textures import TextureSpec
+
+    tex = TextureSpec.checker(0.35, (0.9, 0.3, 0.2), (0.2, 0.4, 0.9)) if textured else None
+    scene = _volume_scene(True, texture=tex)
+    o, d, ids = _volume_lanes(True, 4096, 21)
+    key = rng.prng_key(8)
+    n = pw.pt_wave_bounce.vol_launches
+    got = pw.pt_wave(scene, o, d, ids, key, 5)
+    want = pw.pt_wave_plain(scene, o, d, ids, key, 5)
+    torch.cuda.synchronize()
+    assert pw.pt_wave_bounce.vol_launches == n + 5
+    assert _agree(got, want, 1e-6) >= 0.999
+    assert int(got[3]) == int(want[3]) and torch.equal(got[4], want[4])
+
+
+def test_volume_free_kernels_unchanged_by_the_volume_tables():
+    """A scene without volumes launches the volume-free kernels: no volume
+    launch, and the brute PT kernel's output equal to the bit across two
+    calls."""
+    scene = presets.cornell_box(device="cuda")
+    o, d, ids = _volume_lanes(False, 4096, 23)
+    n = (pk.pt_megakernel.launches, pk.pt_megakernel.vol_launches)
+    a = pk.pt_megakernel(scene, o, d, ids, rng.prng_key(1), 6)
+    b = pk.pt_megakernel(scene, o, d, ids, rng.prng_key(1), 6)
+    assert (pk.pt_megakernel.launches, pk.pt_megakernel.vol_launches) == (n[0] + 2, n[1])
+    assert all(torch.equal(x, y) for x, y in zip(a[:3], b[:3]))

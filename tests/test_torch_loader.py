@@ -86,13 +86,21 @@ def test_loader_matches_bpt_tpu(name, capsys):
 
 @pytest.mark.parametrize("name", ["earth", "cornell_smoke"])
 def test_loader_refuses_unported_features(name, capsys):
-    """Volumes (cornell_smoke.yaml) refuse; the textured earth.yaml, refused
-    until textures were ported, loads equal to bpt_tpu's, its texture
-    table, tex_id and tri_uv included."""
+    """The textured earth.yaml and the volume scene cornell_smoke.yaml,
+    each refused until its feature was ported, load equal to bpt_tpu's:
+    the texture table, tex_id and tri_uv of the one, the volume arrays of
+    the other (two boxes, 24 boundary triangles out of the surface
+    arrays)."""
     path = os.path.join(SCENES, name + ".yaml")
     if name == "cornell_smoke":
-        with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 4\)"):
-            tloader.load_scene_from_yaml(path, device="cpu")
+        got = tloader.load_scene_from_yaml(path, device="cpu")
+        want = jloader.load_scene_from_yaml(path, dtype=jnp.float32)
+        assert got.scene.num_volumes == 2 and got.scene.num_tris == 12
+        assert tuple(got.scene.vol_v0.shape) == (24, 3)
+        assert dataclasses.asdict(got.camera) == {
+            k: getattr(want.camera, k) for k in dataclasses.asdict(got.camera)}
+        assert_scene_equal(got.scene, want.scene)
+        assert "Triangles: 12" in capsys.readouterr().out
         return
     got = tloader.load_scene_from_yaml(path, device="cpu")
     want = jloader.load_scene_from_yaml(path, dtype=jnp.float32)

@@ -163,14 +163,32 @@ def test_to_rgb8_matches_jax(spp):
 
 
 def test_render_rejects_unported_configurations():
-    """Volumes (the stratum loop takes every other small scene: defocus,
-    ref_vis, float64 and, since they were ported, textures), BDPT past the
-    kernel's depth bound and an unknown integrator."""
+    """BDPT past the kernel's depth bound and an unknown integrator refuse.
+    Volumes, refused until they were ported, render: the smoke cornell box
+    with defocus through the stratum loop (which takes every small scene
+    the fused loop does not: defocus, ref_vis, float64, textures) equal to
+    bpt_tpu's jnp estimators on the same rays and draws."""
+    from bpt_tpu.models import pt as jpt
+    from bpt_tpu.scene import builder as jbuilder
+    from bpt_tpu_torch.models import pt as tpt
+    from bpt_tpu_torch.models.render import _route
+    from bpt_tpu_torch.scene import builder as tbuilder
+    from torch_parity import box_rays, smoke_scene
+
     scene = tpresets.cornell_box(device="cpu")
+    smoke = smoke_scene(tbuilder, device="cpu", dtype=torch.float64)
     for integrator in ("pt", "bdpt", "bdpt-mis"):
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 4"):
-            render(dataclasses.replace(scene, num_volumes=1),
-                   _cfg(tpresets, integrator, defocus_angle=1.0))
+        cfg = _cfg(tpresets, integrator, defocus_angle=1.0)
+        assert _route(smoke, cfg, integrator, None) == "strata"
+        res = render(smoke, cfg, seed=SEED)
+        assert np.isfinite(res.framebuffer_sum).all() and res.framebuffer_sum.mean() > 0
+    o, d = box_rays(64, 3)
+    U = np.random.default_rng(4).uniform(size=(64, DEPTH, tpt.NU + 2))
+    want, _ = jpt.path_trace_radiance(smoke_scene(jbuilder, dtype=jnp.float64), jnp.asarray(o),
+                                      jnp.asarray(d), DEPTH, jpt.array_uniforms_fn(jnp.asarray(U)))
+    got, _ = tpt.path_trace_radiance(smoke, torch.from_numpy(o), torch.from_numpy(d), DEPTH,
+                                     tpt.array_uniforms_fn(torch.from_numpy(U)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-12)
     with pytest.raises(NotImplementedError, match="outside 1..80"):
         render(scene, _cfg(tpresets, "bdpt", max_depth=81))
     with pytest.raises(NotImplementedError, match="unknown integrator"):
@@ -275,19 +293,26 @@ def test_cli_default_renders_bdpt_without_jax(tmp_path):
     ["scenes/earth.yaml", "--f64", "--integrator", "pt"],
 ], ids=["bdpt", "bdpt-mis", "yaml", "f64"])
 def test_cli_not_ported_exits_nonzero(argv, capsys, tmp_path):
-    """Volumes (cornell_smoke.yaml), with and without --f64, exit non-zero;
-    the textured earth.yaml with --f64, refused until textures were
-    ported, renders on the CPU (the stratum loop at float64)."""
+    """Each feature exited non-zero until it was ported: volumes
+    (cornell_smoke.yaml, with and without --f64) and the textured
+    earth.yaml with --f64 render on the CPU, exit 0, and write the image
+    render() gives for the same scene and flags."""
     rc = cli.main(["--device", "cpu", "--size", "4x4", "--spp", "1", "--max-depth", "3",
                    "--no-progress", "--output-dir", str(tmp_path), *argv])
     err = capsys.readouterr().err
-    if "earth" not in argv[0]:
-        assert rc != 0
-        assert "not yet ported" in err
-        return
     assert rc == 0, err
-    img = read_png(str(tmp_path / "earth.png"))
+    name = os.path.splitext(os.path.basename(argv[0]))[0]
+    img = read_png(str(tmp_path / f"{name}.png"))
     assert img.shape == (4, 4, 3) and img.any()
+    if "earth" in argv[0]:
+        return
+    from bpt_tpu_torch.scene.loader import load_scene_from_yaml
+
+    loaded = load_scene_from_yaml(os.path.join(ROOT, argv[0]), device="cpu", verbose=False,
+                                  dtype=torch.float64 if "--f64" in argv else torch.float32)
+    cfg = dataclasses.replace(loaded.camera, image_width=4, aspect_ratio=1.0,
+                              samples_per_pixel=1, max_depth=3, integrator=argv[-1])
+    np.testing.assert_array_equal(img, render(loaded.scene, cfg, seed=0).rgb8())
 
 
 def test_cli_cuda_unavailable_says_device_cpu(capsys):

@@ -126,12 +126,27 @@ def _textured_spec(feature, builder_mod, tex_mod):
 
 @pytest.mark.parametrize("feature", ["texture", "light_texture", "iso_texture", "volume"])
 def test_unported_builder_features_raise(feature):
-    """Volumes raise; a textured lambertian, light or isotropic spec, which
-    raised until textures were ported, builds the texture table and tex_id
-    bpt_tpu's builder does."""
+    """Each feature raised until it was ported: a textured lambertian,
+    light or isotropic spec builds the texture table and tex_id bpt_tpu's
+    builder does; a volume box builds bpt_tpu's volume arrays (the
+    boundary soup outside the surface arrays, -1/density, the isotropic
+    phase material)."""
     if feature == "volume":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbuilder.SceneBuilder().add_volume_box((0, 0, 0), (1, 1, 1), 0.01)
+        scenes = []
+        for builder_mod, kw in ((tbuilder, dict(device="cpu")),
+                                (jbuilder, dict(dtype=jnp.float32))):
+            b = builder_mod.SceneBuilder()
+            b.add_quad((0, 0, 0), (1, 0, 0), (0, 0, 1),
+                       builder_mod.MaterialSpec.lambertian((0.7,) * 3))
+            assert b.add_volume_box((0, 0, 0), (1, 1, 1), 0.01, albedo=(0.5, 0.6, 0.7)) == 0
+            scenes.append(b.build(**kw))
+        got, want = scenes
+        assert got.num_volumes == 1 and got.num_tris == 2 and got.has_iso_mats
+        ref = to_port(want)
+        for name in ("vol_v0", "vol_e1", "vol_e2", "vol_tri_vol", "vol_neg_inv_density",
+                     "vol_mat"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+        assert torch.equal(got.materials.albedo, ref.materials.albedo)
         return
     scenes = []
     for builder_mod, tex_mod, kw in ((tbuilder, ttex, dict(device="cpu")),

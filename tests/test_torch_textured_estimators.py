@@ -21,14 +21,11 @@ import numpy as np
 import pytest
 import torch
 
-from bpt_tpu.core import vec3 as jv3
 from bpt_tpu.models import bdpt as jbdpt
 from bpt_tpu.models import pt as jpt
-from bpt_tpu.ops import soa as jsoa
 from bpt_tpu_torch.models import bdpt as tbdpt
 from bpt_tpu_torch.models import pt as tpt
-from bpt_tpu_torch.ops import soa as tsoa
-from torch_parity import rays, textured_cornell_pair
+from torch_parity import coplanar_shadow_gap, rays, recorded_any_hits, textured_cornell_pair
 
 B_EST, DEPTH_EST = 128, 4
 
@@ -36,48 +33,6 @@ B_EST, DEPTH_EST = 128, 4
 @pytest.fixture(scope="module")
 def cornell_pair(tmp_path_factory):
     return textured_cornell_pair(tmp_path_factory.mktemp("atlas"))
-
-
-def _recorded_any_hits(monkeypatch):
-    """Records every shadow wave of both packages' BDPT: (directions [N,
-    3], mask, answers)."""
-    waves = {"j": [], "t": []}
-    j_any, t_any = jsoa.any_hit, tsoa.any_hit
-
-    def j_rec(scene, o_, d_, tmin, tmax, mask=None):
-        r = j_any(scene, o_, d_, tmin, tmax, mask)
-        waves["j"].append((np.asarray(jv3.to_array(d_)).reshape(-1, 3),
-                           np.asarray(mask).reshape(-1), np.asarray(r).reshape(-1)))
-        return r
-
-    def t_rec(scene, o_, d_, tmin, tmax, mask=None, plain=False):
-        r = t_any(scene, o_, d_, tmin, tmax, mask, plain)
-        waves["t"].append((torch.stack(list(d_), -1).numpy().reshape(-1, 3),
-                           mask.numpy().reshape(-1), r.numpy().reshape(-1)))
-        return r
-
-    monkeypatch.setattr(jsoa, "any_hit", j_rec)
-    monkeypatch.setattr(tsoa, "any_hit", t_rec)
-    return waves
-
-
-def _coplanar_shadow_gap(waves) -> int:
-    """The shadow pairs that one side tests and the other does not, each a
-    connection that runs within 1e-12 of an axis-aligned plane on both
-    sides (ROADMAP §3: XLA's contracted hit point puts a floor vertex at
-    y = 0 or ~1e-19, and the pair passes the cosine test on one side only);
-    every pair both sides test gets the same answer."""
-    assert len(waves["j"]) == len(waves["t"]) > 0
-    n_diff = 0
-    for (jd, jm, jr), (td, tm, tr) in zip(waves["j"], waves["t"]):
-        differ = jm != tm
-        n_diff += int(differ.sum())
-        for dirs in (jd[differ], td[differ]):
-            flat = np.abs(dirs).min(axis=1) <= 1e-12 * np.linalg.norm(dirs, axis=1)
-            assert flat.all(), dirs[~flat]
-        both = jm & tm
-        np.testing.assert_array_equal(jr[both], tr[both])
-    return n_diff
 
 
 @pytest.mark.parametrize("integrator", ["bdpt", "bdpt-mis"])
@@ -90,7 +45,7 @@ def test_textured_estimators_match_bpt_tpu_f64(cornell_pair, integrator, monkeyp
     o, d = (x.astype(np.float64) for x in rays(B_EST, 21))
     g = np.random.default_rng(22)
     mis = integrator == "bdpt-mis"
-    waves = _recorded_any_hits(monkeypatch)
+    waves = recorded_any_hits(monkeypatch)
     cam_u = g.uniform(size=(B_EST, DEPTH_EST, jbdpt.NT))
     ls_u = g.uniform(size=(B_EST, jbdpt.NLS))
     light_u = g.uniform(size=(B_EST, DEPTH_EST - 1, jbdpt.NT))
@@ -103,7 +58,7 @@ def test_textured_estimators_match_bpt_tpu_f64(cornell_pair, integrator, monkeyp
         tpt.array_uniforms_fn(torch.from_numpy(cam_u)), torch.from_numpy(ls_u),
         tpt.array_uniforms_fn(torch.from_numpy(light_u)), mis=mis)
     assert int(st_t.shadow_rays) > 0
-    gap = _coplanar_shadow_gap(waves)
+    gap = coplanar_shadow_gap(waves)
     assert rad_t.dtype == torch.float64
     np.testing.assert_allclose(rad_t.numpy(), np.asarray(rad_j), rtol=1e-12, atol=1e-12)
     assert float(rad_t.sum()) > 0

@@ -117,10 +117,8 @@ class _FakeLibrary:
         self.blocks = blocks
         self.calls = []
 
-    def bpt_pt_brute_blocks(self):
-        return self.blocks
-
-    def bpt_pt_walk_blocks(self):
+    def bpt_pt_blocks(self, walk, vols):
+        assert (walk, vols) == (0, 0)  # the cornell box: brute mode, no volumes
         return self.blocks
 
     def bpt_pt_megakernel(self, *args):

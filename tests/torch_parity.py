@@ -195,3 +195,92 @@ def textured_wave_scene(mod, tex_mod, big: bool, light: bool, **build_kw):
     else:
         b.add_quad((-2, 6, -2), (4, 0, 0), (0, 0, 4), MS.diffuse_light((10, 10, 10)))
     return b.build(**build_kw)
+
+
+def smoke_scene(builder_mod, **build_kw):
+    """The cornell box of scenes/cornell_smoke.yaml with its dark smoke box
+    and light fog box (tests/test_pallas_kernels.py::_smoke_scene_f32),
+    built by either package's builder: 12 triangles, 2 volumes over 24
+    boundary triangles."""
+    MS = builder_mod.MaterialSpec
+    b = builder_mod.SceneBuilder()
+    b.add_quad((555, 0, 0), (0, 0, 555), (0, 555, 0), MS.lambertian((0.12, 0.45, 0.15)))
+    b.add_quad((0, 0, 555), (0, 0, -555), (0, 555, 0), MS.lambertian((0.65, 0.05, 0.05)))
+    b.add_quad((0, 555, 0), (555, 0, 0), (0, 0, 555), MS.lambertian((0.73, 0.73, 0.73)))
+    b.add_quad((0, 0, 555), (555, 0, 0), (0, 0, -555), MS.lambertian((0.73, 0.73, 0.73)))
+    b.add_quad((555, 0, 555), (-555, 0, 0), (0, 555, 0), MS.lambertian((0.73, 0.73, 0.73)))
+    b.add_quad((113, 554, 127), (330, 0, 0), (0, 0, 305), MS.diffuse_light((7.0, 7.0, 7.0)))
+    b.add_volume_box((120, 0.01, 65), (285, 165, 230), density=0.01, albedo=(0.0, 0.0, 0.0),
+                     rotate_y_degrees=-18.0)
+    b.add_volume_box((265, 0.01, 295), (430, 330, 460), density=0.005,
+                     albedo=(1.0, 1.0, 1.0), rotate_y_degrees=15.0)
+    return b.build(**build_kw)
+
+
+def volume_big_scene(builder_mod, texture=None, **build_kw):
+    """big_scene with a constant-density box around the sphere
+    (tests/test_pallas_kernels.py:1189-1231): 964 triangles, one volume;
+    ``texture``: its phase function's texture."""
+    MS = builder_mod.MaterialSpec
+    b = builder_mod.SceneBuilder()
+    b.add_uv_sphere((0, 1, 0), 1.0, MS.metal((0.8, 0.8, 0.8), 0.05))
+    b.add_quad((-10, 0, -10), (20, 0, 0), (0, 0, 20), MS.lambertian((0.6, 0.6, 0.6)))
+    b.add_quad((-2, 6, -2), (4, 0, 0), (0, 0, 4), MS.diffuse_light((10, 10, 10)))
+    b.add_volume_box((-1.5, 0.01, -1.5), (1.5, 2.5, 1.5), density=0.2,
+                     albedo=(0.9, 0.9, 0.9), texture=texture)
+    return b.build(**build_kw)
+
+
+def recorded_any_hits(monkeypatch):
+    """Records every shadow wave of both packages' BDPT: (directions [N,
+    3], mask, answers)."""
+    from bpt_tpu.core import vec3 as jv3
+    from bpt_tpu.ops import soa as jsoa
+    from bpt_tpu_torch.ops import soa as tsoa
+
+    waves = {"j": [], "t": []}
+    j_any, t_any = jsoa.any_hit, tsoa.any_hit
+
+    def j_rec(scene, o_, d_, tmin, tmax, mask=None):
+        r = j_any(scene, o_, d_, tmin, tmax, mask)
+        waves["j"].append((np.asarray(jv3.to_array(d_)).reshape(-1, 3),
+                           np.asarray(mask).reshape(-1), np.asarray(r).reshape(-1)))
+        return r
+
+    def t_rec(scene, o_, d_, tmin, tmax, mask=None, plain=False):
+        r = t_any(scene, o_, d_, tmin, tmax, mask, plain)
+        waves["t"].append((torch.stack(list(d_), -1).numpy().reshape(-1, 3),
+                           mask.numpy().reshape(-1), r.numpy().reshape(-1)))
+        return r
+
+    monkeypatch.setattr(jsoa, "any_hit", j_rec)
+    monkeypatch.setattr(tsoa, "any_hit", t_rec)
+    return waves
+
+
+def coplanar_shadow_gap(waves) -> int:
+    """The shadow pairs that one side tests and the other does not, each a
+    connection that runs within 1e-12 of an axis-aligned plane on both
+    sides (ROADMAP §3: XLA's contracted hit point puts a floor vertex at
+    y = 0 or ~1e-19, and the pair passes the cosine test on one side only);
+    every pair both sides test gets the same answer."""
+    assert len(waves["j"]) == len(waves["t"]) > 0
+    n_diff = 0
+    for (jd, jm, jr), (td, tm, tr) in zip(waves["j"], waves["t"]):
+        differ = jm != tm
+        n_diff += int(differ.sum())
+        for dirs in (jd[differ], td[differ]):
+            flat = np.abs(dirs).min(axis=1) <= 1e-12 * np.linalg.norm(dirs, axis=1)
+            assert flat.all(), dirs[~flat]
+        both = jm & tm
+        np.testing.assert_array_equal(jr[both], tr[both])
+    return n_diff
+
+
+def box_rays(B, seed, dtype=np.float64):
+    """Rays from the cornell camera's position to random points of the box
+    (bpt_tpu's tests/test_pallas_kernels.py::_box_rays)."""
+    g = np.random.default_rng(seed)
+    o = np.tile([[278.0, 278.0, -800.0]], (B, 1))
+    d = g.uniform(50, 500, (B, 3)) - o
+    return o.astype(dtype), d.astype(dtype)
