@@ -20,7 +20,10 @@ scene, as ``bpt_tpu``'s wave runs its jnp estimator.  Every
 draw is keyed by the absolute sample id pix*spp + s, so the image depends
 neither on the chunk size nor on the batch.  On a CUDA scene the loops run
 the CUDA kernels; on a CPU scene they run the kernels' plain versions or
-the jnp estimators.
+the jnp estimators.  ``render_part`` renders a pixel range of any route
+(the shards of ``bpt_tpu_torch.parallel``), equal to the same rows of
+``render()``; ``render_resilient`` resumes a failed render from its last
+checkpoint unit.
 """
 
 from __future__ import annotations
@@ -185,23 +188,25 @@ def _bdpt_wave_shape(npix: int, spp_eff: int, depth: int, mis: bool) -> tuple[in
 
 
 def _render_chunks(scene, cfg, cc, integrator, seed, fb, chunk_size,
-                   chunks_done, bar, stratum_callback):
-    """The fused loop: each chunk of pixels is one megakernel call that runs
-    all its strata.  Returns (rays, shadow rays, extra int64[4])."""
+                   chunks_done, bar, stratum_callback, p0=0, p1=None):
+    """The fused loop over pixels [p0, p1) (default the whole image):
+    each chunk of pixels is one megakernel call that runs all its strata;
+    ``fb`` holds the range's rows.  Returns (rays, shadow rays, extra
+    int64[4])."""
     dev = scene.device
     W, H = cc.width, cc.height
-    npix = W * H
+    p1 = W * H if p1 is None else p1
     S = cfg.sqrt_spp
-    n_chunks = int(np.ceil(npix / chunk_size))
+    n_chunks = int(np.ceil((p1 - p0) / chunk_size))
     key = rng.prng_key(seed)
     cam = camera_table(cc)
     rays_acc = torch.zeros((), dtype=torch.int64, device=dev)
     shadow_acc = torch.zeros((), dtype=torch.int64, device=dev)
     extra_acc = torch.zeros(4, dtype=torch.int64, device=dev)
     for c in range(chunks_done, n_chunks):
-        pix = c * chunk_size + torch.arange(chunk_size, dtype=torch.int64, device=dev)
-        in_range = pix < npix
-        pixc = torch.clamp_max(pix, npix - 1)
+        pix = p0 + c * chunk_size + torch.arange(chunk_size, dtype=torch.int64, device=dev)
+        in_range = pix < p1
+        pixc = torch.clamp_max(pix, p1 - 1)
         i = (pixc % W).to(scene.dtype)
         j = (pixc // W).to(scene.dtype)
         ids = torch.where(in_range, pixc, -1)
@@ -218,7 +223,7 @@ def _render_chunks(scene, cfg, cc, integrator, seed, fb, chunk_size,
             shadow_acc += shadow
         # the in-range lanes are the chunk's first n pixels, in order: a
         # slice add (deterministic, no index, no host sync)
-        n = min(chunk_size, npix - c * chunk_size)
+        n = min(chunk_size, p1 - p0 - c * chunk_size)
         fb[c * chunk_size:c * chunk_size + n] += torch.stack([rx, ry, rz], dim=-1)[:n]
         rays_acc += rays
         extra_acc += extra
@@ -233,21 +238,23 @@ def _render_chunks(scene, cfg, cc, integrator, seed, fb, chunk_size,
     return rays_acc, shadow_acc, extra_acc
 
 
-def _render_wave(scene, cfg, cc, seed, fb, strata_done, bar, stratum_callback):
+def _render_wave(scene, cfg, cc, seed, fb, strata_done, bar, stratum_callback,
+                 p0=0, p1=None):
     """bpt_tpu's pt_wave loop (render.py:665-712 over _make_step_pt_wave):
-    batches of strata over the whole image, each one pt_wave call, added
-    to the framebuffer in stratum order; the primary rays' jitter (and the
-    defocus disk's draws) on the megakernel's stream.  Returns (rays,
-    extra int64[4])."""
+    batches of strata over pixels [p0, p1) (default the whole image), each
+    one pt_wave call, added to the framebuffer in stratum order; the
+    primary rays' jitter (and the defocus disk's draws) on the megakernel's
+    stream.  Returns (rays, extra int64[4])."""
     dev, dtype = scene.device, scene.dtype
     W, H = cc.width, cc.height
-    npix = W * H
+    p1 = W * H if p1 is None else p1
+    npix = p1 - p0
     S = cfg.sqrt_spp
     spp_eff = S * S
     batch = _wave_spp_batch(npix, spp_eff)
     key = rng.prng_key(seed)
     key_pt = rng.fold_in(key, 1)
-    pix = torch.arange(npix, dtype=torch.int64, device=dev)
+    pix = p0 + torch.arange(npix, dtype=torch.int64, device=dev)
     rays = torch.zeros((), dtype=torch.int64, device=dev)
     extra = torch.zeros(4, dtype=torch.int64, device=dev)
     s_lin = strata_done
@@ -297,13 +304,16 @@ def jnp_raygen(cc, pix, s, key, dtype):
     return o, d, ray_ids
 
 
-def _render_strata(scene, cfg, cc, integrator, seed, fb, strata_done, bar,
-                   stratum_callback, plain: bool = False, bdpt_wave: bool = False):
+def _render_strata(scene, cfg, cc, integrator, seed, fb, strata, bar,
+                   stratum_callback, plain: bool = False, bdpt_wave: bool = False,
+                   p0=0, p1=None):
     """bpt_tpu's jnp stratum loop (render.py:819-867 over _make_step) and
     its large-scene BDPT wave loop (render.py:713-755 over
-    _make_step_bdpt_wave), one loop: waves of whole strata of the image,
-    or of pixel ranges of one stratum where a stratum is over the memory
-    budget.  A PT wave (at most 2^22 rays, ``_wave_spp_batch``) is one
+    _make_step_bdpt_wave), one loop over pixels [p0, p1) (default the
+    whole image) and the strata ``strata`` (ascending; None: every
+    stratum): waves of whole strata of the range, or of
+    pixel spans of one stratum where a stratum is over the memory budget.
+    A PT wave (at most 2^22 rays, ``_wave_spp_batch``) is one
     ``path_trace_pixels_fast`` call; a BDPT wave (``_bdpt_wave_shape``) is
     ``jnp_raygen`` and one ``bdpt_fast`` call, or with ``bdpt_wave`` one
     ``bdpt_jnp`` call (the BDPT wave loop never launches the megakernel).
@@ -314,9 +324,12 @@ def _render_strata(scene, cfg, cc, integrator, seed, fb, strata_done, bar,
     (rays, shadow rays, extra int64[4])."""
     dev, dtype = scene.device, scene.dtype
     W, H = cc.width, cc.height
-    npix = W * H
+    p1 = W * H if p1 is None else p1
+    npix = p1 - p0
     S = cfg.sqrt_spp
     spp_eff = S * S
+    if strata is None:
+        strata = range(spp_eff)
     if integrator == "pt":
         batch, span = _wave_spp_batch(npix, spp_eff), npix
     else:
@@ -326,13 +339,14 @@ def _render_strata(scene, cfg, cc, integrator, seed, fb, strata_done, bar,
     key = rng.prng_key(seed)
     acc = torch.zeros(6, dtype=torch.int64, device=dev)
     no_shadow = torch.zeros((), dtype=torch.int64, device=dev)
-    s_lin = strata_done
-    while s_lin < spp_eff:
-        b = min(batch, spp_eff - s_lin)
-        for p0 in range(0, npix, span):
-            n = min(span, npix - p0)
-            pix = (p0 + torch.arange(n, dtype=torch.int64, device=dev)).repeat(b)
-            s = s_lin + torch.arange(b, device=dev).repeat_interleave(n)
+    strata = torch.as_tensor(strata, dtype=torch.int64).to(dev)
+    for k0 in range(0, strata.numel(), batch):
+        s_b = strata[k0:k0 + batch]
+        b = s_b.numel()
+        for q0 in range(p0, p1, span):
+            n = min(span, p1 - q0)
+            pix = (q0 + torch.arange(n, dtype=torch.int64, device=dev)).repeat(b)
+            s = s_b.repeat_interleave(n)
             if integrator == "pt":
                 rad, st = path_trace_pixels_fast(
                     scene, (pix % W).to(dtype), (pix // W).to(dtype), (s % S).to(dtype),
@@ -346,18 +360,69 @@ def _render_strata(scene, cfg, cc, integrator, seed, fb, strata_done, bar,
                                    plain=plain)
             rad = rad.to(dtype).reshape(b, n, 3)
             for k in range(b):  # stratum-order left fold
-                fb[p0:p0 + n] += rad[k]
+                fb[q0 - p0:q0 - p0 + n] += rad[k]
             acc += torch.stack(list(st))
-        s_lin += b
         if bar:
             bar.update(b)
         if stratum_callback is not None:
+            done = int(s_b[-1]) + 1
             stratum_callback(dict(
                 framebuffer_sum=fb.cpu().numpy().reshape(H, W, 3).copy(),
-                strata_done=s_lin, units_done=s_lin, unit_kind="stratum",
+                strata_done=done, units_done=done, unit_kind="stratum",
                 seed=seed, stream="jnp",
             ))
     return acc[0], acc[1], acc[2:]
+
+
+def _run_route(route, scene, cfg, cc, integrator, seed, fb, p0, p1, strata=None,
+               chunk_size=None, units_done=0, bar=None, stratum_callback=None):
+    """Pixels [p0, p1) of the image through the loop of ``route``, added
+    into ``fb`` (their rows), after ``units_done`` chunks or strata of a
+    checkpoint; the stratum routes take the strata ``strata`` (default
+    those from ``units_done`` on).  Returns the int64[6] counters: rays,
+    shadow rays, node visits, box hits, triangle tests, triangle hits."""
+    if strata is not None and route not in ("strata", "bdpt_wave"):
+        raise ValueError(f"a set of strata needs the stratum loop, not route {route!r}")
+    if route == "wave":
+        rays, extra = _render_wave(scene, cfg, cc, seed, fb, units_done, bar,
+                                   stratum_callback, p0, p1)
+        shadow = torch.zeros((), dtype=torch.int64, device=scene.device)
+    elif route in ("strata", "bdpt_wave"):
+        if strata is None:
+            strata = range(units_done, cfg.sqrt_spp ** 2)
+        rays, shadow, extra = _render_strata(
+            scene, cfg, cc, integrator, seed, fb, strata, bar, stratum_callback,
+            bdpt_wave=route == "bdpt_wave", p0=p0, p1=p1)
+    else:
+        chunk_size = min(chunk_size or default_chunk_size(p1 - p0), p1 - p0)
+        rays, shadow, extra = _render_chunks(
+            scene, cfg, cc, integrator, seed, fb, chunk_size, units_done, bar,
+            stratum_callback, p0, p1)
+    return torch.cat([rays.reshape(1), shadow.reshape(1), extra])
+
+
+def counts_to_stats(counts, scene: SceneTensors, wall_seconds: float) -> RenderStats:
+    """The RenderStats of a render's int64[6] counters (``_run_route``)."""
+    return RenderStats(*(int(x) for x in counts.cpu()),
+                       bvh_nodes_built=int(scene.bvh_skip.shape[0]) if scene.use_bvh else 0,
+                       wall_seconds=wall_seconds)
+
+
+def render_part(scene: SceneTensors, cfg: CameraConfig, seed: int, integrator: str,
+                route: str, p0: int, p1: int, strata=None):
+    """Pixels [p0, p1) of the render of ``cfg`` through ``route`` (``_route``
+    of the whole image: a part never takes another route than the whole),
+    and on the stratum routes only the strata ``strata`` (ascending; default
+    all).  Every draw is keyed by the absolute id pix*spp + s and every
+    pixel adds its strata in stratum order, so a part equals the same rows
+    of ``render()`` to the bit.  Writes no checkpoint and copies nothing to
+    the host.  Returns (framebuffer rows [p1 - p0, 3] on the scene's device,
+    the int64[6] counters of ``_run_route``)."""
+    cc = camera_constants(cfg, scene.dtype, scene.device)
+    fb = torch.zeros((max(0, p1 - p0), 3), dtype=scene.dtype, device=scene.device)
+    if p1 <= p0:
+        return fb, torch.zeros(6, dtype=torch.int64, device=scene.device)
+    return fb, _run_route(route, scene, cfg, cc, integrator, seed, fb, p0, p1, strata=strata)
 
 
 def render(
@@ -437,29 +502,14 @@ def render(
         bar = ProgressBar(n_chunks - chunks_done if route == "fused"
                           else spp_eff - strata_done)
 
-    stats = RenderStats()
-    stats.bvh_nodes_built = int(scene.bvh_skip.shape[0]) if scene.use_bvh else 0
     t0 = time.monotonic()
-    shadow_acc = 0
-    if route == "wave":
-        rays_acc, extra_acc = _render_wave(scene, cfg, cc, seed, fb, strata_done,
-                                           bar, stratum_callback)
-    elif route in ("strata", "bdpt_wave"):
-        rays_acc, shadow_acc, extra_acc = _render_strata(
-            scene, cfg, cc, integrator, seed, fb, strata_done, bar, stratum_callback,
-            bdpt_wave=route == "bdpt_wave")
-    else:
-        rays_acc, shadow_acc, extra_acc = _render_chunks(
-            scene, cfg, cc, integrator, seed, fb, chunk_size, chunks_done, bar,
-            stratum_callback)
+    counts = _run_route(route, scene, cfg, cc, integrator, seed, fb, 0, npix,
+                        chunk_size=chunk_size,
+                        units_done=chunks_done if route == "fused" else strata_done,
+                        bar=bar, stratum_callback=stratum_callback)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    stats.wall_seconds = time.monotonic() - t0
-    stats.rays_traced = int(rays_acc)
-    stats.shadow_rays = int(shadow_acc)
-    nv, ah, tt, th = (int(x) for x in extra_acc.cpu())
-    stats.bvh_node_visits, stats.aabb_hits = nv, ah
-    stats.triangle_tests, stats.triangle_hits = tt, th
+    stats = counts_to_stats(counts, scene, time.monotonic() - t0)
     if bar:
         bar.finish()
     return RenderResult(
@@ -469,3 +519,53 @@ def render(
         width=W,
         height=H,
     )
+
+
+def render_resilient(
+    scene: SceneTensors,
+    cfg: CameraConfig,
+    seed: int = 0,
+    retries: int = 2,
+    stratum_callback=None,
+    **kw,
+) -> RenderResult:
+    """``bpt_tpu``'s elastic render (render.py:568-610): on a failure
+    mid-render, ``render`` again from the last completed checkpoint unit
+    (a chunk of the fused loop, a batch of strata of the others) instead
+    of from the start.  Completed work is never redone, and a resumed
+    render equals an uninterrupted one to the bit.  The count of attempts
+    resets whenever ``units_done`` has grown since the previous failure,
+    so a long render survives any number of widely spaced failures; it
+    re-raises when no checkpoint exists yet or ``retries`` failures in a
+    row made no progress.  ``stratum_callback`` still sees every unit.
+
+    This covers failures that leave the process able to launch again (an
+    exception in a call).  A CUDA fault that poisons the context, such as
+    an illegal address, cannot be retried in the process, as a poisoned
+    TPU client cannot in ``bpt_tpu``: it needs a process restart and the
+    on-disk checkpoint (``utils/checkpoint.py``, the CLI's
+    ``--checkpoint``)."""
+    last: dict = {}
+
+    def cb(snap):
+        last.clear()
+        last.update(snap)
+        if stratum_callback is not None:
+            stratum_callback(snap)
+
+    caller_resume = kw.pop("resume", None)
+    attempt = 0
+    done_at_last_failure = -1
+    while True:
+        try:
+            return render(scene, cfg, seed=seed,
+                          resume=dict(last) if last else caller_resume,
+                          stratum_callback=cb, **kw)
+        except Exception:
+            done = int(last.get("units_done", 0)) if last else 0
+            if done > done_at_last_failure:
+                attempt = 0  # progress since the previous failure
+            done_at_last_failure = done
+            attempt += 1
+            if attempt > retries or not last:
+                raise

@@ -82,7 +82,7 @@
    each of the 10 bounces of the warm-up render, on its own inputs, timed,
    and their sum.
 9. The large-scene BDPT wave route against its plain traversals: the coffee
-   stand-in's bdpt-mis render loop at 16x16, 4 spp, depth 6, once through
+   stand-in's bdpt-mis render loop at 16x16, 4 spp, depth 2, once through
    closest_bvh / any_bvh and once through ops.soa.bvh_closest / bvh_any
    on the card (plain=True): >= 99.9% of pixels within rtol 1e-4 / atol
    1e-5 (bitwise equality is expected and printed), all six counters
@@ -158,7 +158,7 @@
    stream) and pixels mode (256x256, 1 spp) on the 964-triangle scene of
    tests/torch_parity.py at B = 65,536, depth 10, each kernel timed there;
    then on the coffee stand-in, whose torch walks take 10-15 s a bounce:
-   the plain PT version at 8x8 pixels and depth 3, and at the real shapes (65,536 and 16,384 rays, 128x128 pixels, a
+   the plain PT version at 8x8 pixels and depth 2, and at the real shapes (65,536 and 16,384 rays, 128x128 pixels, a
    64x64 bdpt-mis case at depth 80) the plain estimators over the BVH
    kernels closest_bvh / any_bvh, which equal the torch walks on every
    lane (phases 5, 6, 10).  rtol 1e-4 / atol 1e-6 (PT)
@@ -256,7 +256,7 @@
    checker and solid lookups exact, noise within 1e-5; prints whether
    Pillow imports.  (b) pt_wave's textured mode (the shade with every
    textured albedo 1, the torch texel stage after each bounce) against
-   pt_wave_plain at B = 65,536, depth 4, on the coffee stand-in with
+   pt_wave_plain at B = 65,536, depth 3, on the coffee stand-in with
    bench.py's checker (closest_bvh's hits) and on a 40-triangle textured
    scene without a BVH (closest_tri's hits; a checker light at y = 6.03):
    phase 7's rule, rtol 1e-4 / atol 1e-6 on >= 99.9% of lanes, rays and
@@ -300,6 +300,27 @@
    rays mode), each route's rays on every 257th pixel against its plain
    route.  Writes output/chip_smoke_cornell_smoke_{pt,bdpt,bdpt-mis}.png
    and output/chip_smoke_volume_*.png.
+25. Multi-device rendering and render_resilient (distributed_phases).
+   (a) render_distributed on [cuda:0] x 4 and x 3 for the cornell box
+   with pt, bdpt and bdpt-mis at 512x512, 16 spp, depth 10 (the fused
+   loop), and on x 2 for coffee PT (512x512, 16 spp: pt_wave) and coffee
+   bdpt-mis (4 spp: the BDPT wave loop), depth 10: each image and all six
+   counters equal to phases 3, 8 and 10's render() to the bit, the route's
+   kernels launched and no plain version; walls of three renders after a
+   warm-up.  (b) render_spp_sharded over [cuda:0] x 4 (stratum s0 + d a
+   device, four batches) for cornell pt, pt with defocus and bdpt at the
+   same shape: within rtol 1e-5 / atol 1e-6 of the single-device stratum
+   loop, rays equal, pt_megakernel in pixels and rays mode and
+   bdpt_megakernel in rays mode launched once a stratum; a pixel-sharded
+   ref_vis bdpt render (64x64, 16 spp, depth 10) over x 2 equal to
+   render()'s through closest_tri / any_tri.  (c) Two processes on the
+   one card, launch_local(2, device="cuda", backend="gloo"), cornell bdpt
+   and coffee PT at 512x512, 16 spp, depth 10: the gathered image equal
+   to render()'s, each rank's printed launches > 0 and no plain call.  (d)
+   render_resilient with an injected failure: cornell bdpt in four fused
+   chunks failing at chunk 2, coffee PT in four pt_wave batches failing at
+   the second: each image equal to render()'s.  The kernels line gains
+   each kernel's launches under phase 25 (distributed_launches).
 
 Each phase prints its seconds, and the script its total.  The second-to-last line is a JSON object
 describing the kernels, each with its bound: the larger of the bytes it
@@ -1294,7 +1315,7 @@ def state_rows_agree(name, kout, pout, hit):
 # phase 23's shapes: kernel 9's textured mode against its plain version
 # (rays, depth); the textured coffee render (width, spp, depth); earth.yaml's
 # PT render at its own size and BDPT-MIS (width, spp, depth)
-TEX_WAVE = (65536, 4)
+TEX_WAVE = (65536, 3)
 TEX_COFFEE = (512, 4, 10)
 EARTH_RENDERS = {"pt": (512, 64, 8), "bdpt-mis": (256, 4, 8)}
 
@@ -2160,6 +2181,231 @@ def volume_entries(vol) -> list:
     ]
 
 
+# phase 25's shapes: the main path's (width, spp, depth) and the ref_vis
+# route's; the meshes of (a)
+DIST_MAIN = (512, 16, 10)
+DIST_REFVIS = (64, 16, 10)
+DIST_MESHES = {"cornell": (4, 3), "coffee": (2,)}
+
+
+def zero_launch_counts():
+    """Sets every kernel wrapper's launch count (and volume-mode count)
+    and every plain version's call count to 0."""
+    from bpt_tpu_torch.ops import soa
+    from bpt_tpu_torch.ops.kernels import (
+        bdpt_kernel,
+        cluster_wave,
+        intersect,
+        plucker,
+        pt_kernel,
+        pt_wave,
+    )
+
+    for mod in (pt_kernel, bdpt_kernel, pt_wave, intersect, cluster_wave, plucker, soa):
+        for fn in vars(mod).values():
+            for attr in ("launches", "vol_launches", "calls"):
+                if callable(fn) and hasattr(fn, attr):
+                    setattr(fn, attr, 0)
+
+
+def distributed_phases(dev, card, refs, coffee, lap) -> dict:
+    """Phase 25, multi-device rendering and render_resilient on the card.
+    ``refs``: render() of the cornell box with pt, bdpt and bdpt-mis
+    (phase 3) and of the coffee stand-in with pt (phase 8) and bdpt-mis
+    (phase 10), by (scene, integrator).  (a) render_distributed on
+    [cuda:0] x 4 and x 3 (cornell, 512x512, 16 spp, depth 10) and x 2
+    (coffee PT at 16 spp, bdpt-mis at 4): image and counters equal to
+    render()'s to the bit, the route's kernels launched and no plain
+    version; walls of one warm-up and three renders.  (b)
+    render_spp_sharded over [cuda:0] x 4, strata s0 + d summed in device
+    order, for cornell pt, pt with defocus and bdpt at 512x512, 16 spp,
+    depth 10: within rtol 1e-5 / atol 1e-6 of the single-device stratum
+    loop, rays equal, pt_megakernel (rows 1-2) and bdpt_megakernel (row
+    5) launched; one pixel-sharded ref_vis bdpt render (64x64, 16 spp,
+    depth 10) over x 2 equal to render()'s, closest_tri / any_tri
+    launched.  (c) launch_local(2, device="cuda", backend="gloo") for
+    cornell bdpt and coffee PT at the main path's shape: the gathered
+    .npy equal to render()'s, each rank's printed launches > 0 and no
+    plain call.  (d) render_resilient: cornell bdpt on the fused route in
+    4 chunks of 65,536 pixels failing once at chunk 2, and coffee PT on
+    pt_wave in batches of 4 strata failing once after the first: each
+    equal to the uninterrupted render to the bit.  Returns the kernels'
+    launches under (a)-(d)."""
+    import numpy as np
+    import torch
+
+    from bpt_tpu_torch.models import render as render_mod
+    from bpt_tpu_torch.models.camera import camera_constants
+    from bpt_tpu_torch.parallel import render_distributed, render_spp_sharded
+    from bpt_tpu_torch.parallel.multiprocess import launch_local
+    from bpt_tpu_torch.parallel.worker import launch_counts
+    from bpt_tpu_torch.scene.presets import cornell_box, cornell_box_camera
+
+    width, spp, depth = DIST_MAIN
+    scenes = {"cornell": cornell_box(device=dev), "coffee": coffee}
+    cams = {"cornell": lambda i, **kw: dataclasses.replace(
+                cornell_box_camera(), image_width=width, samples_per_pixel=spp,
+                max_depth=depth, integrator=i, **kw),
+            "coffee": lambda i: coffee_camera(width, spp if i == "pt" else 4, depth, i)}
+    totals = {}
+
+    def drive(fn):
+        """Runs one drive of phase 25's paths with every count at 0 before
+        it; adds its kernel launches to the phase's totals.  Returns (fn's
+        result, launches, plain calls)."""
+        zero_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launched, calls = launch_counts()
+        for k, n in launched.items():
+            totals[k] = totals.get(k, 0) + n
+        return out, launched, calls
+
+    def same_counts(a, b):
+        return dataclasses.replace(a, wall_seconds=0) == dataclasses.replace(b, wall_seconds=0)
+
+    # ---- (a) pixel sharding in one process
+    for (sname, integ), ref in refs.items():
+        scene, cfg = scenes[sname], cams[sname](integ)
+        route = render_mod._route(scene, cfg, integ, None)
+        check(route == {"cornell": "fused", "coffee": "wave" if integ == "pt" else "bdpt_wave"}
+              [sname], f"phase 25a: {sname} {integ} takes route {route}")
+        for n in DIST_MESHES[sname]:
+            mesh = [dev] * n
+            render_distributed(scene, cfg, mesh=mesh, seed=0)  # warm-up
+            runs, launched, calls = drive(lambda: [render_distributed(scene, cfg, mesh=mesh, seed=0)
+                                                   for _ in range(3)])
+            w = [st.wall_seconds for _, _, st in runs]
+            st = runs[0][2]
+            check(all(np.array_equal(f, ref.framebuffer_sum) for f, _, _ in runs),
+                  f"phase 25a: {sname} {integ} over {n} devices differs from render()")
+            check(same_counts(st, ref.stats),
+                  f"phase 25a: {sname} {integ} over {n} devices: counters {st} != {ref.stats}")
+            needed = {"fused": ("pt_megakernel_pixels",) if integ == "pt"
+                      else ("bdpt_megakernel_pixels",),
+                      "wave": ("closest_bvh", "pt_wave_bounce"),
+                      "bdpt_wave": ("closest_bvh", "any_bvh")}[route]
+            check(all(launched.get(k, 0) > 0 for k in needed) and not calls,
+                  f"phase 25a: {sname} {integ} x{n} ({route}): launches {launched}, plain {calls}")
+            print(f"phase 25a: render_distributed {sname} {integ} {width}x{width} "
+                  f"{cfg.samples_per_pixel} spp depth {depth} over [cuda:0] x {n} ({route}): "
+                  f"image and counters equal to render()'s (rays {st.rays_traced}, shadow "
+                  f"{st.shadow_rays}); walls {[round(x, 6) for x in w]} s, median "
+                  f"{statistics.median(w):.6f} s (render() {ref.stats.wall_seconds:.6f} s); "
+                  f"launches {launched} ({card})")
+    lap("phase 25a")
+
+    # ---- (b) sample sharding against the single-device stratum loop, and
+    # a pixel-sharded ref_vis render through the brute-force hit kernels
+    cornell = scenes["cornell"]
+    for name, integ, kw, kernel in (("pt", "pt", {}, "pt_megakernel_pixels"),
+                                    ("pt defocus", "pt", dict(defocus_angle=1.0,
+                                                              focus_dist=1078.0), "pt_megakernel"),
+                                    ("bdpt", "bdpt", {}, "bdpt_megakernel")):
+        cfg = cams["cornell"](integ, **kw)
+        cc = camera_constants(cfg, torch.float32, dev)
+        fb1 = torch.zeros((width * width, 3), device=dev)
+        rays1 = int(render_mod._render_strata(cornell, cfg, cc, integ, 0, fb1, None, None, None)[0])
+        want = fb1.cpu().numpy().reshape(width, width, 3)
+
+        def sharded():
+            fb, rays, wall = 0.0, 0, 0.0
+            for s0 in range(0, spp, 4):
+                part, st = render_spp_sharded(cornell, cfg, mesh=[dev] * 4, seed=0, s0=s0)
+                fb, rays, wall = fb + part, rays + st.rays_traced, wall + st.wall_seconds
+            return fb, rays, wall
+
+        (fb, rays, wall), launched, calls = drive(sharded)
+        err = float(np.abs(fb - want).max())
+        check(np.allclose(fb, want, rtol=1e-5, atol=1e-6) and rays == rays1,
+              f"phase 25b: spp-sharded {name}: max abs err {err}, rays {rays} vs {rays1}")
+        check(launched.get(kernel, 0) >= spp and not calls,
+              f"phase 25b: spp-sharded {name}: launches {launched}, plain {calls}")
+        print(f"phase 25b: render_spp_sharded cornell {name} {width}x{width} {spp} spp depth "
+              f"{depth} over [cuda:0] x 4, {spp // 4} batches: within rtol 1e-5 / atol 1e-6 of "
+              f"the stratum loop (max abs err {err:.3e}), rays {rays} equal; {wall:.6f} s; "
+              f"launches {launched} ({card})")
+    w_rv, spp_rv, d_rv = DIST_REFVIS
+    cfg = dataclasses.replace(cams["cornell"]("bdpt", ref_vis=True), image_width=w_rv,
+                              samples_per_pixel=spp_rv, max_depth=d_rv)
+    ref = render_mod.render(cornell, cfg, seed=0)
+    (fb, _, st), launched, calls = drive(
+        lambda: render_distributed(cornell, cfg, mesh=[dev] * 2, seed=0))
+    check(np.array_equal(fb, ref.framebuffer_sum) and same_counts(st, ref.stats),
+          "phase 25b: sharded ref_vis differs from render()")
+    check(launched.get("closest_tri", 0) > 0 and launched.get("any_tri", 0) > 0 and not calls,
+          f"phase 25b: sharded ref_vis: launches {launched}, plain {calls}")
+    print(f"phase 25b: render_distributed cornell ref_vis bdpt {w_rv}x{w_rv} {spp_rv} spp depth "
+          f"{d_rv} over [cuda:0] x 2: equal to render() with counters; {st.wall_seconds:.6f} s; "
+          f"launches {launched} ({card})")
+    lap("phase 25b")
+
+    # ---- (c) two processes on the card, their shards gathered over gloo
+    os.makedirs("output", exist_ok=True)
+    for sname, integ, scene_arg in (("cornell", "bdpt", "cornell"), ("coffee", "pt", COFFEE_YAML)):
+        ref = refs[(sname, integ)]
+        out = os.path.abspath(f"output/chip_smoke_2proc_{sname}_{integ}.npy")
+        t0 = time.monotonic()
+        outs = launch_local(2, ["--scene", scene_arg, "--size", f"{width}x{width}", "--spp",
+                                str(spp), "--max-depth", str(depth), "--integrator", integ,
+                                "--seed", "0", "--output", out],
+                            device="cuda", backend="gloo", timeout=300.0)
+        t_all = time.monotonic() - t0
+        fb = np.load(out)
+        check(np.array_equal(fb, ref.framebuffer_sum),
+              f"phase 25c: 2 processes, {sname} {integ}: the gathered image differs from render()")
+        lines = [ln for o in outs for ln in o.splitlines() if ln.startswith("[worker ")
+                 and "launches=" in ln]
+        check(len(lines) == 2, f"phase 25c: {len(lines)} rank lines:\n{''.join(outs)[-2000:]}")
+        for ln in lines:
+            launched = json.loads(ln.split("launches=")[1].split(" plain_calls=")[0])
+            calls = json.loads(ln.split("plain_calls=")[1])
+            check(sum(launched.values()) > 0 and not calls,
+                  f"phase 25c: a rank launched {launched}, plain {calls}")
+            for k, n in launched.items():
+                totals[k] = totals.get(k, 0) + n
+            print(f"phase 25c: {ln} ({card})")
+        print(f"phase 25c: launch_local(2, device='cuda', backend='gloo') {sname} {integ} "
+              f"{width}x{width} {spp} spp depth {depth}: the gathered image equal to render()'s; "
+              f"{t_all:.1f} s with the processes' start-up ({card})")
+    lap("phase 25c")
+
+    # ---- (d) render_resilient: one injected failure each, resumed
+    def flaky(name, fail_at):
+        orig = getattr(render_mod, name)
+        calls = [0]
+
+        def fn(*a, **k):
+            calls[0] += 1
+            if calls[0] == fail_at:
+                raise RuntimeError(f"injected failure at call {fail_at} of {name}")
+            return orig(*a, **k)
+        return orig, fn, calls
+
+    orig_batch = render_mod._wave_spp_batch
+    for sname, integ, name, fail_at, kw in (
+            ("cornell", "bdpt", "bdpt_megakernel_pixels", 3, dict(chunk_size=width * width // 4)),
+            ("coffee", "pt", "pt_wave", 2, {})):
+        orig, fn, calls = flaky(name, fail_at)
+        setattr(render_mod, name, fn)
+        if name == "pt_wave":
+            render_mod._wave_spp_batch = lambda npix, spp_eff: 4
+        try:
+            res, launched, _ = drive(lambda: render_mod.render_resilient(
+                scenes[sname], cams[sname](integ), seed=0, **kw))
+        finally:
+            setattr(render_mod, name, orig)
+            render_mod._wave_spp_batch = orig_batch
+        check(np.array_equal(res.framebuffer_sum, refs[(sname, integ)].framebuffer_sum),
+              f"phase 25d: render_resilient {sname} {integ} differs from render()")
+        check(calls[0] == 5, f"phase 25d: {name} called {calls[0]} times, not 4 units + 1")
+        print(f"phase 25d: render_resilient {sname} {integ} ({name} failing at its call "
+              f"{fail_at} of 4 units, {kw or 'batches of 4 strata'}): equal to render() to the "
+              f"bit; launches {launched} ({card})")
+    lap("phase 25d")
+    return totals
+
+
 class Laps:
     """Prints the seconds since the previous lap."""
 
@@ -2208,6 +2454,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
 
     lap = Laps()
+    refs = {}  # render() of phase 25's configurations, from phases 3, 8 and 10
     # ---- phase 1: build
     t0 = time.monotonic()
     lib_path = build.build()
@@ -2356,7 +2603,7 @@ def main() -> int:
     check(plain_calls == 0, f"main path called the plain version {plain_calls} times")
     walls = [r.stats.wall_seconds for r in results]
     wall = statistics.median(walls)
-    res = results[0]
+    res = refs[("cornell", "pt")] = results[0]  # phase 25's reference
     rays = res.stats.rays_traced
     fb = res.framebuffer_sum
     check(fb.shape == (512, 512, 3), f"framebuffer shape {fb.shape}")
@@ -2412,7 +2659,7 @@ def main() -> int:
         bdpt_launches += n_launch
         walls = [r.stats.wall_seconds for r in results]
         wall = statistics.median(walls)
-        res = results[0]
+        res = refs[("cornell", name)] = results[0]
         fb = res.framebuffer_sum
         check(fb.shape == (512, 512, 3), f"{name} framebuffer shape {fb.shape}")
         check(bool(np.isfinite(fb).all()), f"{name}: non-finite framebuffer")
@@ -2594,7 +2841,7 @@ def main() -> int:
           f"{wave_launches}, any_bvh {pw.any_bvh.launches}")
     walls = [r.stats.wall_seconds for r in results]
     wall = statistics.median(walls)
-    res = results[0]
+    res = refs[("coffee", "pt")] = results[0]
     st = res.stats
     fb = res.framebuffer_sum
     check(fb.shape == (512, 512, 3), f"coffee framebuffer shape {fb.shape}")
@@ -2686,10 +2933,10 @@ def main() -> int:
     # ---- phase 9: the large-scene BDPT route against its plain traversals
     from bpt_tpu_torch.models.render import _bdpt_wave_shape, _render_strata
 
-    # 16x16, depth 6: the torch walks' time goes with the longest walk of a
+    # 16x16, depth 2: the torch walks' time goes with the longest walk of a
     # traversal more than with its lanes, and a deeper route walks more
-    W9 = 16
-    cfg9 = coffee_camera(width=W9, spp=4, depth=6, integrator="bdpt-mis")
+    W9, D9 = 16, 2
+    cfg9 = coffee_camera(width=W9, spp=4, depth=D9, integrator="bdpt-mis")
     cc9 = camera_constants(cfg9, torch.float32, dev)
     runs = {}
     for plain in (False, True):
@@ -2698,7 +2945,7 @@ def main() -> int:
         pw.closest_bvh.launches = pw.any_bvh.launches = 0
         fb9 = torch.zeros((W9 * W9, 3), device=dev)
         (r9, sh9, ex9), ms9 = timed(lambda: _render_strata(
-            coffee, cfg9, cc9, "bdpt-mis", 0, fb9, 0, None, None, plain=plain,
+            coffee, cfg9, cc9, "bdpt-mis", 0, fb9, None, None, None, plain=plain,
             bdpt_wave=True))
         launched = pw.closest_bvh.launches + pw.any_bvh.launches
         walks = soa.bvh_closest.calls + soa.bvh_any.calls
@@ -2712,7 +2959,7 @@ def main() -> int:
         runs[plain] = (fb9, [int(r9), int(sh9), *ex9.tolist()], ms9, launched or walks)
     f9, e9, w9 = agreement(runs[False][0], runs[True][0], BDPT_ATOL)
     bitwise = torch.equal(runs[False][0], runs[True][0])
-    print(f"phase 9: coffee bdpt-mis {W9}x{W9} 4 spp depth 6, kernels vs plain traversals: "
+    print(f"phase 9: coffee bdpt-mis {W9}x{W9} 4 spp depth {D9}, kernels vs plain traversals: "
           f"{f9 * 100:.4f}% of pixels within rtol {RTOL} / atol {BDPT_ATOL} (bitwise "
           f"{'equal' if bitwise else 'different'}), max abs err {e9:.3e}; worst pixel {w9}: "
           f"kernels {runs[False][0][w9].tolist()} plain {runs[True][0][w9].tolist()}; counters "
@@ -2795,8 +3042,9 @@ def main() -> int:
               f"of {strata} strata x {span} pixels a render; peak device memory "
               f"{peak / 2**30:.2f} GiB; closest_bvh {n_closest} and any_bvh {n_any} "
               f"launches, plain calls {n_plain}; wrote {path} ({card})")
-        if mis:  # the default route's render, for phases 18 and 21
+        if mis:  # the default route's render, for phases 18, 21 and 25
             default_mis = (st.rays_traced, st.shadow_rays, fb.copy())
+            refs[("coffee", name)] = res
             wave_mis_wall = wall
         check(abs(gaps[0]) <= 0.1, f"coffee {name}: subset rays {sub[0]} not within 0.1% "
               f"of {ref[0]}")
@@ -3026,7 +3274,7 @@ def main() -> int:
         for fn in (*everything, *tri_kernels):
             fn.launches = 0
         fb64 = torch.zeros((64 * 64, 3), device=dev)
-        out = _render_strata(scene, cfg64, cc64, "bdpt", 0, fb64, 0, None, None, plain=plain)
+        out = _render_strata(scene, cfg64, cc64, "bdpt", 0, fb64, None, None, None, plain=plain)
         torch.cuda.synchronize()
         counts = [int(out[0]), int(out[1]), *out[2].tolist()]
         launched = sum(fn.launches for fn in (*everything, *tri_kernels))
@@ -3228,13 +3476,13 @@ def main() -> int:
 
     # the coffee stand-in: its torch walks take 10-15 s a bounce whatever
     # the lane count (the longest walk's steps), so the plain PT version
-    # runs at 8x8 pixels and depth 3 (bdpt-mis: 4 pixels of the main path,
+    # runs at 8x8 pixels and depth 2 (bdpt-mis: 4 pixels of the main path,
     # phase 16); at the real shapes, and at depth 80, the plain estimator
     # runs over closest_bvh / any_bvh (walks_on_kernels)
     kout, pout, p_ms, _ = walk_pixels("pt_megakernel_pixels_walk", coffee,
-                                      coffee_camera(width=8, spp=1, depth=3), key)
+                                      coffee_camera(width=8, spp=1, depth=2), key)
     walk_check("pt_megakernel_pixels_walk", f"pt_megakernel_pixels_walk coffee 8x8 1 spp "
-               f"depth=3 (plain {p_ms:.1f} ms)", kout, pout, ATOL)
+               f"depth=2 (plain {p_ms:.1f} ms)", kout, pout, ATOL)
     key_pt = rng.fold_in(key, 1)
     o_q, d_q, ids_q = wave_rays(ccc, torch.arange(B15, device=dev) * 4, 1, key, dev)
     lane_q = torch.arange(B15 // 4, device=dev)
@@ -3393,10 +3641,10 @@ def main() -> int:
     r17 = [render(coffee, cfg17, seed=0) for _ in range(2)]
     fused17 = r17[1]
     fb17 = torch.zeros((256 * 256, 3), device=dev)
-    _render_strata(coffee, cfg17, cc17, "bdpt", 0, fb17, 0, None, None, bdpt_wave=True)
+    _render_strata(coffee, cfg17, cc17, "bdpt", 0, fb17, None, None, None, bdpt_wave=True)
     torch.cuda.synchronize()
     (s17, _, _), loop_ms = timed(lambda: _render_strata(
-        coffee, cfg17, cc17, "bdpt", 0, fb17.zero_(), 0, None, None, bdpt_wave=True))
+        coffee, cfg17, cc17, "bdpt", 0, fb17.zero_(), None, None, None, bdpt_wave=True))
     a17 = fused17.framebuffer_sum.reshape(-1, 3).mean(1).astype(np.float64)
     b17 = fb17.mean(1).double().cpu().numpy()
     noise = 5.0 * math.sqrt(a17.var() / a17.size + b17.var() / b17.size)
@@ -3764,6 +4012,7 @@ def main() -> int:
     lap("phase 22")
     tex = texture_phases(dev, card, coffee, ccc, key, scene_bytes, lap)
     vol = volume_phases(dev, card, key, lap)
+    dist25 = distributed_phases(dev, card, refs, coffee, lap)
 
     # lanes in (pixels: i, j, sx, sy, id; rays: o, d, id), radiance out
     pt_tab = sum(t.numel() * t.element_size() for t in pk._pack_tables(scene))
@@ -3848,8 +4097,7 @@ def main() -> int:
                 "defocus_wave_plain_ms": r["plain_ms"],
                 "defocus_wave_plain_shape": f"every 16th lane of that wave, {r['lanes']} lanes"}
 
-    print(f"chip_smoke: all phases passed in {time.monotonic() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "pt_megakernel",
         "route": "cuda",
         "source": "bpt_tpu_torch/csrc/pt_megakernel.cu",
@@ -4051,7 +4299,15 @@ def main() -> int:
         "render_shape": "the 10 launches of one ref_vis render, 256x256, 64 spp, depth 10, "
                         "each on its own inputs",
         "persistent_blocks": tri_grids[1],
-    }, *walk_entries, *cl_entries, *volume_entries(vol)]}))
+    }, *walk_entries, *cl_entries, *volume_entries(vol)]
+    wrappers25 = {"pt_megakernel": ("pt_megakernel", "pt_megakernel_pixels"),
+                  "bdpt_megakernel": ("bdpt_megakernel", "bdpt_megakernel_pixels")}
+    for entry in kernels:
+        entry["distributed_launches"] = sum(dist25.get(k, 0) for k in
+                                            wrappers25.get(entry["name"], (entry["name"],)))
+        entry["distributed_launches_path"] = "phase 25: the sharded, two-process and resumed renders"
+    print(f"chip_smoke: all phases passed in {time.monotonic() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -283,12 +283,12 @@ def test_bdpt_wave_route_never_calls_the_megakernel(scenes, monkeypatch):
     for wave in (False, True):
         before = (tbk.bdpt_megakernel.launches, tbk.bdpt_megakernel_plain.calls)
         fbs[wave] = torch.zeros((16, 3))
-        trender._render_strata(ts, cfg, cc, "bdpt-mis", 1, fbs[wave], 0, None, None,
+        trender._render_strata(ts, cfg, cc, "bdpt-mis", 1, fbs[wave], None, None, None,
                                bdpt_wave=wave)
         counts[wave] = (tbk.bdpt_megakernel.launches - before[0],
                         tbk.bdpt_megakernel_plain.calls - before[1])
     assert counts == {False: (0, 1), True: (0, 0)}
     monkeypatch.setattr(tbdpt, "_megakernel_ok", lambda scene: False)
     jnp_fb = torch.zeros((16, 3))
-    trender._render_strata(ts, cfg, cc, "bdpt-mis", 1, jnp_fb, 0, None, None)
+    trender._render_strata(ts, cfg, cc, "bdpt-mis", 1, jnp_fb, None, None, None)
     assert torch.equal(fbs[True], jnp_fb) and not torch.equal(fbs[False], jnp_fb)

@@ -535,7 +535,7 @@ def test_defocus_render_launches_only_rays_mode(integrator):
     assert sum(f.calls for f in plains) == n_plain
     fb = torch.zeros((16 * 16, 3), device="cuda")
     _render_strata(scene, cfg, camera_constants(cfg, torch.float32, "cuda"), integrator, 2, fb,
-                   0, None, None, plain=True)
+                   None, None, None, plain=True)
     assert sum(f.calls for f in plains) == n_plain + 1
     ok = np.isclose(res.framebuffer_sum, fb.cpu().numpy().reshape(16, 16, 3), rtol=1e-4,
                     atol=1e-5)

@@ -345,7 +345,7 @@ def test_jnp_checkpoint_resumes_the_small_scene_loop(monkeypatch):
     assert trender._route(f32, cfg, "pt", None) == "fused"
     fb, snaps = torch.zeros((W * W, 3)), []
     monkeypatch.setattr(trender, "_wave_spp_batch", lambda npix, spp: 1)
-    trender._render_strata(f32, cfg, camera_constants(cfg), "pt", SEED, fb, 0, None,
+    trender._render_strata(f32, cfg, camera_constants(cfg), "pt", SEED, fb, None, None,
                            snaps.append)
     snap = snaps[-2]
     assert snap["strata_done"] == SPP - 1 and snap["stream"] == "jnp"
@@ -369,7 +369,7 @@ def test_cornell_golden_through_the_loop(integrator):
     scene = tpresets.cornell_box(device="cpu")
     cc = camera_constants(cfg, torch.float32)
     fb = torch.zeros((64 * 64, 3))
-    trender._render_strata(scene, cfg, cc, integrator, 1234, fb, 0, None, None)
+    trender._render_strata(scene, cfg, cc, integrator, 1234, fb, None, None, None)
     img = trender.RenderResult(fb.numpy().reshape(64, 64, 3), 16, None, 64, 64).rgb8()
     golden = read_png(os.path.join(ROOT, "tests", "golden", f"cornell_{integrator}.png"))
     assert img.shape == golden.shape and img.any()

@@ -110,7 +110,7 @@ def main(argv=None) -> int:
         t0 = time.monotonic()
         rays, shadow, _ = render_mod._render_strata(
             loaded.scene, rcfg, camera_constants(rcfg, torch.float32, dev), "bdpt-mis", 0, fb,
-            0, None, None, bdpt_wave=True)
+            None, None, None, bdpt_wave=True)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         peak = torch.cuda.max_memory_allocated(dev) - base
