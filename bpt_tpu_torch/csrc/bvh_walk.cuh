@@ -28,6 +28,18 @@ struct Bvh {
   int N;
 };
 
+// The float64 walk's tables (wave_walk.cuh::WaveWalk64, pt_wave.cu's
+// bvh64<ANY>), the same BVH in double: 48 B of box and 8 B of links a
+// node, 72 B a triangle.  The walk reads no normal: a float64 hit is
+// completed by the caller (ops/soa.py::complete_hit).  11.7 MB for the
+// coffee stand-in (7.3 MB in float32), still resident in the 50 MB L2.
+struct Bvh64 {
+  const double2* boxes;  // [3N]: (min x, max x), (min y, max y), (min z, max z)
+  const int2* links;     // [N]: (skip, first*4 + count)
+  const double* tris;    // [9T]: v0 xyz, e1 xyz, e2 xyz
+  int N;
+};
+
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
 // A lane's walk counters: node visits, box hits, triangle tests and
@@ -45,6 +57,16 @@ __device__ __forceinline__ void slab_axis(float lo_b, float hi_b, float o,
   const bool nan = isnan(t0) || isnan(t1);
   lo = nan ? -inf_f() : fminf(t0, t1);
   hi = nan ? inf_f() : fmaxf(t0, t1);
+}
+
+// The same in double.
+__device__ __forceinline__ void slab_axis(double lo_b, double hi_b, double o,
+                                          double inv, double& lo, double& hi) {
+  const double t0 = (lo_b - o) * inv;
+  const double t1 = (hi_b - o) * inv;
+  const bool nan = isnan(t0) || isnan(t1);
+  lo = nan ? -inf_of<double>() : fmin(t0, t1);
+  hi = nan ? inf_of<double>() : fmax(t0, t1);
 }
 
 // The clustered kernels' slab test of the box (lo3, hi3) at box[0..5]

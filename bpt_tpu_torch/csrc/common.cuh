@@ -93,6 +93,41 @@ __device__ __forceinline__ float moller_trumbore(
   return moller_trumbore_uv(ox, oy, oz, dx, dy, dz, tri, u, v, valid);
 }
 
+template <typename F>
+__device__ __forceinline__ F inf_of() {
+  return F(__int_as_float(0x7f800000));
+}
+
+// Moller-Trumbore of ray (o, d) against triangle tv = (v0, e1, e2) in the
+// operation order of bpt_tpu/ops/pallas/intersect.py:56-76; valid = the
+// reference's acceptance test minus the t interval.  Templated on the
+// scalar type: the brute-force hits (intersect.cu) in float32 and float64
+// and the float64 BVH walk (wave_walk.cuh) test with it.
+template <typename F>
+__device__ __forceinline__ F mt_test(const F* tv, F ox, F oy, F oz, F dx, F dy,
+                                     F dz, F& u, F& v, bool& valid) {
+  const F v0x = tv[0], v0y = tv[1], v0z = tv[2];
+  const F e1x = tv[3], e1y = tv[4], e1z = tv[5];
+  const F e2x = tv[6], e2y = tv[7], e2z = tv[8];
+  const F px = dy * e2z - dz * e2y;
+  const F py = dz * e2x - dx * e2z;
+  const F pz = dx * e2y - dy * e2x;
+  const F det = e1x * px + e1y * py + e1z * pz;
+  const F inv = F(1) / det;
+  const F tx = ox - v0x;
+  const F ty = oy - v0y;
+  const F tz = oz - v0z;
+  u = (tx * px + ty * py + tz * pz) * inv;
+  const F qx = ty * e1z - tz * e1y;
+  const F qy = tz * e1x - tx * e1z;
+  const F qz = tx * e1y - ty * e1x;
+  v = (dx * qx + dy * qy + dz * qz) * inv;
+  const F t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+  valid = (fabs(det) >= F(1e-8)) && (u >= F(0)) && (u <= F(1)) && (v >= F(0)) &&
+          (u + v <= F(1));
+  return t;
+}
+
 // What a closest-hit provider reports for one ray: the triangle (-1 on a
 // miss) and t.  The provider's surface(tri, ...) gives the triangle's
 // geometric normal and material.

@@ -63,6 +63,7 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "common.cuh"
 #include "walk_sched.cuh"
 
 namespace bpt {
@@ -78,39 +79,6 @@ constexpr int TRI_CHUNKS = 8;  // chunks a launch holds for each warp of its gri
 constexpr int ANY_REFILL = 4;
 constexpr int ANY_STEPS = 4;
 constexpr int CLOSEST_REFILL = 32;
-
-template <typename F>
-__device__ __forceinline__ F inf_of() {
-  return F(__int_as_float(0x7f800000));
-}
-
-// Moller-Trumbore of ray (o, d) against triangle tv = (v0, e1, e2) in the
-// operation order of bpt_tpu/ops/pallas/intersect.py:56-76; valid = the
-// reference's acceptance test minus the t interval.
-template <typename F>
-__device__ __forceinline__ F mt_test(const F* tv, F ox, F oy, F oz, F dx, F dy,
-                                     F dz, F& u, F& v, bool& valid) {
-  const F v0x = tv[0], v0y = tv[1], v0z = tv[2];
-  const F e1x = tv[3], e1y = tv[4], e1z = tv[5];
-  const F e2x = tv[6], e2y = tv[7], e2z = tv[8];
-  const F px = dy * e2z - dz * e2y;
-  const F py = dz * e2x - dx * e2z;
-  const F pz = dx * e2y - dy * e2x;
-  const F det = e1x * px + e1y * py + e1z * pz;
-  const F inv = F(1) / det;
-  const F tx = ox - v0x;
-  const F ty = oy - v0y;
-  const F tz = oz - v0z;
-  u = (tx * px + ty * py + tz * pz) * inv;
-  const F qx = ty * e1z - tz * e1y;
-  const F qy = tz * e1x - tx * e1z;
-  const F qz = tx * e1y - ty * e1x;
-  v = (dx * qx + dy * qy + dz * qz) * inv;
-  const F t = (e2x * qx + e2y * qy + e2z * qz) * inv;
-  valid = (fabs(det) >= F(1e-8)) && (u >= F(0)) && (u <= F(1)) && (v >= F(0)) &&
-          (u + v <= F(1));
-  return t;
-}
 
 template <typename F>
 struct TriParams {

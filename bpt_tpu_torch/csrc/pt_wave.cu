@@ -8,6 +8,11 @@
 // any_bvh replaces cluster_wave.py::clustered_any_ftb_pallas (the any hit
 // over [T_MIN, tmax] of BDPT's connection shadow rays, tmax <= 0 marking a
 // dead lane, early exit): out hit.
+// bvh64<false> and bvh64<true> are their float64 counterparts, over each
+// lane's own [tmin, tmax] and the Bvh64 tables (bvh_walk.cuh): bpt_tpu's
+// Pallas kernels take float32 only, and it computes every float64 hit of a
+// scene with a BVH with its jnp walks soa.bvh_closest / bvh_any, whose
+// answers and counts these give (--f64 renders through the stratum loop).
 // pt_wave_bounce replaces bpt_tpu/ops/pallas/pt_wave.py::_launch_bounce
 // (_bounce_kernel): make_bounce's shade of one PT bounce per ray over the
 // closest hits closest_bvh (or, on a scene without a BVH, closest_tri)
@@ -61,6 +66,10 @@
 // (PERF.md §6): while-while traversal, where a lane at a leaf waits for
 // the warp's other lanes to reach theirs; child-pair records, which test
 // the right child from its parent's load when the left one misses.
+//
+// In float64 a step's operands are doubles: the walk holds 79-85
+// registers against 56-58, and each kernel's grid comes from its own
+// occupancy query.
 //
 // any_bvh's walk is bvh_walk<true>'s: an any hit keeps its interval and
 // stops after the first leaf with a hit, which makes its answer
@@ -221,6 +230,97 @@ __global__ void __launch_bounds__(WAVE_BLOCK) any_bvh(const AnyParams p) {
   warp_add(c.hits, &p.counters[3]);
 }
 
+// The float64 closest hit (ANY = false: active, t, tri, u, v) or any hit
+// (ANY = true: hit) over each lane's own [tmin, tmax].
+struct Params64 {
+  int B;
+  Bvh64 g;
+  int bounds_ok;
+  const double* o[3];
+  const double* d[3];
+  const double* tmin;           // [B]
+  const double* tmax;           // [B]; any hit: <= 0 (or NaN) marks a dead lane
+  const unsigned char* active;  // [B] bool
+  double* t;
+  int* tri;
+  double* u;
+  double* v;
+  unsigned char* hit;            // [B] bool
+  unsigned long long* counters;  // [5] node visits, box hits, tri tests, tri hits; work
+};
+
+// closest_bvh's and any_bvh's refill loop over WaveWalk64.  As
+// ops/soa.py::bvh_closest counts a masked lane (its tmax collapsed to 0,
+// its root visit taken off again), an inactive closest lane whose tmin is
+// above 0 misses at the root and counts nothing; one whose tmin is not
+// walks [tmin, 0] less its root visit, which only a non-production
+// interval gives.  A dead any-hit lane never reaches the root.
+template <bool ANY>
+__global__ void __launch_bounds__(WAVE_BLOCK) bvh64(const Params64 p) {
+  TraceCounts c;
+  WaveWalk64<ANY> w;
+  int r = -1;
+  bool more = true;
+  while (true) {
+    __syncwarp();
+    const unsigned busy = __ballot_sync(0xffffffffu, r >= 0);
+    const int n_free = 32 - __popc(busy);
+    if (more && n_free >= REFILL) {
+      const long long base = warp_take_n(&p.counters[4], n_free);
+      more = base + n_free < p.B;
+      const long long k = base + rank_in(~busy);
+      if (r < 0 && k < p.B) {
+        if constexpr (ANY) {
+          const double tmax = p.tmax[k];
+          if (tmax > 0.0) {
+            r = (int)k;
+            w.start(p.o[0][k], p.o[1][k], p.o[2][k], p.d[0][k], p.d[1][k], p.d[2][k],
+                    p.tmin[k], tmax, p.bounds_ok);
+          } else {
+            p.hit[k] = 0;
+          }
+        } else {
+          const bool live = p.active[k];
+          const double tmin = p.tmin[k];
+          if (live || !(tmin > 0.0)) {
+            if (!live) c.nodes -= 1;
+            r = (int)k;
+            w.start(p.o[0][k], p.o[1][k], p.o[2][k], p.d[0][k], p.d[1][k], p.d[2][k], tmin,
+                    live ? p.tmax[k] : 0.0, p.bounds_ok);
+          } else {
+            p.t[k] = inf_of<double>();
+            p.tri[k] = -1;
+            p.u[k] = 0.0;
+            p.v[k] = 0.0;
+          }
+        }
+      }
+      continue;
+    }
+    if (!busy) break;
+    if (r >= 0) {
+      for (int s = 0; s < STEPS; ++s) {
+        if (w.step(p.g, c)) {
+          if constexpr (ANY) {
+            p.hit[r] = w.tri >= 0;
+          } else {
+            p.t[r] = w.t();
+            p.tri[r] = w.tri;
+            p.u[r] = w.u;
+            p.v[r] = w.v;
+          }
+          r = -1;
+          break;
+        }
+      }
+    }
+  }
+  warp_add(c.nodes, &p.counters[0]);
+  warp_add(c.boxes, &p.counters[1]);
+  warp_add(c.tests, &p.counters[2]);
+  warp_add(c.hits, &p.counters[3]);
+}
+
 struct WaveParams {
   int B, L, bounce;
   Bvh g;
@@ -340,6 +440,12 @@ inline int any_grid(int B) {
   return refill_grid(any_bvh, cache, B);
 }
 
+template <bool ANY>
+int bvh64_grid(int B) {
+  static int cache[64];
+  return refill_grid(bvh64<ANY>, cache, B);
+}
+
 }  // namespace bpt
 
 extern "C" {
@@ -444,9 +550,71 @@ int bpt_pt_wave_bounce(int B, int N, int L, int bounce, const float* nodes,
   return (int)cudaGetLastError();
 }
 
-// closest_bvh's and any_bvh's persistent grids (resident blocks), or a
-// negative CUDA error code.
+// bvh64<false> (closest) and bvh64<true> (any): boxes [3N] double2, links [N] int2, tris
+// [9T] double (Bvh64); every lane array double but active, tri and hit.
+static int launch_bvh64(bool any, bpt::Params64& p, int N, int bounds_ok, const double* boxes,
+                        const int* links, const double* tris, const double* ox,
+                        const double* oy, const double* oz, const double* dx,
+                        const double* dy, const double* dz, const double* tmin,
+                        const double* tmax, unsigned long long* counters, void* stream) {
+  p.g = bpt::Bvh64{(const double2*)boxes, (const int2*)links, tris, N};
+  p.bounds_ok = bounds_ok;
+  p.o[0] = ox;
+  p.o[1] = oy;
+  p.o[2] = oz;
+  p.d[0] = dx;
+  p.d[1] = dy;
+  p.d[2] = dz;
+  p.tmin = tmin;
+  p.tmax = tmax;
+  p.counters = counters;
+  if (p.B <= 0) return (int)cudaGetLastError();
+  const int grid = any ? bpt::bvh64_grid<true>(p.B) : bpt::bvh64_grid<false>(p.B);
+  if (grid < 0) return -grid;
+  if (any) {
+    bpt::bvh64<true><<<grid, bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
+  } else {
+    bpt::bvh64<false><<<grid, bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
+
+int bpt_closest_bvh_f64(int B, int N, int bounds_ok, const double* boxes,
+                        const int* links, const double* tris, const double* ox,
+                        const double* oy, const double* oz, const double* dx,
+                        const double* dy, const double* dz, const double* tmin,
+                        const double* tmax, const unsigned char* active, double* t,
+                        int* tri, double* u, double* v, unsigned long long* counters,
+                        void* stream) {
+  bpt::Params64 p{};
+  p.B = B;
+  p.active = active;
+  p.t = t;
+  p.tri = tri;
+  p.u = u;
+  p.v = v;
+  return launch_bvh64(false, p, N, bounds_ok, boxes, links, tris, ox, oy, oz, dx, dy, dz,
+                      tmin, tmax, counters, stream);
+}
+
+int bpt_any_bvh_f64(int B, int N, int bounds_ok, const double* boxes, const int* links,
+                    const double* tris, const double* ox, const double* oy,
+                    const double* oz, const double* dx, const double* dy,
+                    const double* dz, const double* tmin, const double* tmax,
+                    unsigned char* hit, unsigned long long* counters, void* stream) {
+  bpt::Params64 p{};
+  p.B = B;
+  p.hit = hit;
+  return launch_bvh64(true, p, N, bounds_ok, boxes, links, tris, ox, oy, oz, dx, dy, dz,
+                      tmin, tmax, counters, stream);
+}
+
+// closest_bvh's and any_bvh's persistent grids (resident blocks), float32
+// and (bpt_bvh_f64_blocks) float64, or a negative CUDA error code.
 int bpt_wave_blocks() { return bpt::closest_grid(1 << 30); }
 int bpt_any_blocks() { return bpt::any_grid(1 << 30); }
+int bpt_bvh_f64_blocks(int any) {
+  return any ? bpt::bvh64_grid<true>(1 << 30) : bpt::bvh64_grid<false>(1 << 30);
+}
 
 }  // extern "C"

@@ -48,7 +48,6 @@ from bpt_tpu_torch.ops.clusters import cluster_tables
 from bpt_tpu_torch.ops.intersect import T_MIN
 from bpt_tpu_torch.ops.kernels import build
 from bpt_tpu_torch.ops.kernels.pt_kernel import _checked, _device_of
-from bpt_tpu_torch.ops.kernels.pt_wave import walk_reject_reason
 from bpt_tpu_torch.scene.types import SceneTensors
 
 # ---------------------------------------------------------------- sorting
@@ -198,11 +197,22 @@ def clustered_closest_plain(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax):
 clustered_closest_plain.calls = 0
 
 
+def cluster_reject_reason(scene: SceneTensors) -> str:
+    """Why the clustered kernels (this module's and ``plucker.py``'s)
+    cannot take ``scene`` ('' if they can): they take float32, as
+    ``bpt_tpu``'s clustered route does (``_wave_cluster_ok``)."""
+    if scene.dtype != torch.float32:
+        return (f"dtype {scene.dtype} != float32 (the clustered kernels take float32; "
+                "a float64 hit of a scene with a BVH takes closest_bvh / any_bvh, and "
+                "render() takes float64 through the stratum loop)")
+    return ""
+
+
 def _lanes(what, scene, o: Vec3, d: Vec3, tmin, tmax):
     """Checks what a launch takes: (device, B, [ox, oy, oz, dx, dy, dz,
     tmin, tmax] as contiguous f32 [B] tensors on the scene's device)."""
     dev = _device_of(tmax)
-    reason = walk_reject_reason(scene)
+    reason = cluster_reject_reason(scene)
     if reason:
         raise ValueError(f"{what} cannot take this scene: {reason}")
     if scene.device != dev:

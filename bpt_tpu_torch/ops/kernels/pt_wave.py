@@ -40,6 +40,14 @@ torch, as ``bpt_tpu`` runs it in XLA between its launches, and serves the
 kernels and their plain versions alike; ``_pt_wave`` then computes each
 bounce's hits itself, to keep their (u, v).
 
+Float64: ``closest_bvh`` and ``any_bvh`` take a float64 scene, launching
+the float64 instantiations of the walk kernels over each lane's own [tmin,
+tmax] and the ``walk_tables64`` layout; they serve every float64 hit of a
+scene with a BVH on the card (``ops.soa.wave_impl``'s "bvh64"), where
+``bpt_tpu`` runs its jnp ``soa.bvh_closest`` / ``bvh_any``.  The shade
+(``pt_wave_bounce``, ``pt_wave``) takes float32 only, as ``bpt_tpu``'s wave
+does: ``render()`` renders float64 through the stratum loop.
+
 Dispatch is by device: a CPU tensor takes the plain PyTorch version
 (``ops.soa.bvh_closest``, ``ops.soa.bvh_any`` and ``models.pt.pt_bounce``);
 a CUDA tensor launches ``csrc/pt_wave.cu`` or raises.  The wrappers count their launches
@@ -69,6 +77,7 @@ from bpt_tpu_torch.models.pt import NU, kernel_stream_uniforms_fn, pt_bounce
 from bpt_tpu_torch.ops import soa
 from bpt_tpu_torch.ops.intersect import T_MIN
 from bpt_tpu_torch.ops.kernels import build
+from bpt_tpu_torch.ops.kernels.intersect import tri_table
 from bpt_tpu_torch.ops.kernels.pt_kernel import (
     _checked,
     _device_of,
@@ -115,11 +124,25 @@ def walk_tables(scene: SceneTensors) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 @per_scene
+def walk_tables64(scene: SceneTensors) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(boxes, links, tris): the BVH in the float64 walk's layout
+    (csrc/bvh_walk.cuh: Bvh64): boxes [N, 6] f64 (min x, max x, min y,
+    max y, min z, max z), three double2 loads a node; links [N, 2] int32
+    (skip, first*4 + count); the triangles' [T, 9] (v0, e1, e2) of
+    ``intersect.tri_table``.  Packed once a scene, as ``walk_tables``."""
+    boxes = torch.stack([scene.bvh_min, scene.bvh_max], dim=2).reshape(-1, 6)
+    links = torch.stack([scene.bvh_skip, scene.bvh_first * 4 + scene.bvh_count],
+                        dim=1).to(torch.int32)
+    return (boxes.to(torch.float64).contiguous(), links.contiguous(),
+            tri_table(scene).to(torch.float64))
+
+
+@per_scene
 def bounds_ok(scene: SceneTensors) -> bool:
     """No node bound of the scene's BVH is NaN: then the refilling walks' slab test
     of a ray with a finite origin and 1/d can leave out slab_axis's NaN
-    checks (csrc/wave_walk.cuh).  Read once a scene."""
-    return not bool(walk_tables(scene)[0][:, :6].isnan().any())
+    checks (csrc/wave_walk.cuh), in either type.  Read once a scene."""
+    return not bool(scene.bvh_min.isnan().any() or scene.bvh_max.isnan().any())
 
 
 def shade_scene(scene: SceneTensors) -> SceneTensors:
@@ -159,22 +182,63 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+WALK_DTYPES = (torch.float32, torch.float64)
+
+
 def walk_reject_reason(scene: SceneTensors) -> str:
-    """Why the BVH hit kernels cannot take ``scene`` ('' if they can):
-    they read only the walk's tables, in float32."""
-    if scene.dtype != torch.float32:
-        return (f"dtype {scene.dtype} != float32 (the BVH hit kernels take float32; "
-                "float64 on a scene with a BVH on the card: ROADMAP §1 item 8)")
+    """Why the BVH walk kernels ``closest_bvh`` / ``any_bvh`` cannot take
+    ``scene`` ('' if they can): they read only the walk's tables, in
+    float32 (``walk_tables``) or float64 (``walk_tables64``).  The kernels
+    that shade or walk clusters take float32 only (``shade_reject_reason``,
+    ``cluster_wave.cluster_reject_reason``)."""
+    if scene.dtype not in WALK_DTYPES:
+        return (f"dtype {scene.dtype} (the BVH walk kernels take float32 or float64)")
     return ""
+
+
+def _production(tmin, tmax) -> bool:
+    """The interval the float32 walks take: tmin = T_MIN and, where given,
+    tmax = inf, as Python numbers (``soa.wave_impl``'s "bvh")."""
+    return soa._is_static(tmin, T_MIN) and (tmax is None or soa._is_static(tmax, torch.inf))
+
+
+def _bound(x, B: int, dev, what: str):
+    """tmin or tmax of a float64 launch: a contiguous [B] f64 tensor on the
+    lanes' device (a Python number broadcast)."""
+    if isinstance(x, torch.Tensor):
+        return _checked(x, (B,), dev, what, torch.float64)
+    return torch.full((B,), float(x), dtype=torch.float64, device=dev)
+
+
+def _walk_args(what: str, scene: SceneTensors, o: Vec3, d: Vec3, lanes, tmin, tmax):
+    """Checks a walk launch: (device, B, the six ray components in the
+    scene's dtype, and in float64 tmin and, where given (the closest hit),
+    tmax as [B] tensors; in float32 the production interval, which the
+    kernels hold fixed, and None)."""
+    dev = _device_of(lanes)
+    reason = walk_reject_reason(scene)
+    if reason:
+        raise ValueError(f"{what} cannot take this scene: {reason}")
+    if scene.device != dev:
+        raise ValueError(f"scene on {scene.device} but lanes on {dev}")
+    B = int(lanes.shape[0]) if lanes.dim() == 1 else -1
+    ins = [_checked(x, (B,), dev, "ray component", scene.dtype) for x in (*o, *d)]
+    if scene.dtype == torch.float32:
+        if not _production(tmin, tmax):
+            raise ValueError(f"{what} takes the interval (T_MIN, inf) / [T_MIN, tmax] in "
+                             "float32; float64 takes any")
+        return dev, B, ins, None
+    return dev, B, ins, [_bound(x, B, dev, n) for x, n in ((tmin, "tmin"), (tmax, "tmax"))
+                         if x is not None]
 
 
 # ---------------------------------------------------------- closest hit
 
 
-def closest_bvh_plain(scene, o: Vec3, d: Vec3, active):
+def closest_bvh_plain(scene, o: Vec3, d: Vec3, active, tmin=T_MIN, tmax=torch.inf):
     """Plain version of ``closest_bvh``."""
     closest_bvh_plain.calls += 1
-    h = soa.bvh_closest(scene, o, d, T_MIN, torch.inf, active)
+    h = soa.bvh_closest(scene, o, d, tmin, tmax, active)
     tri = torch.where(h.hit, h.tri, -1).to(torch.int32)
     return h.t, tri, h.u, h.v, torch.stack(
         [h.node_visits, h.aabb_hits, h.tri_tests, h.tri_hits])
@@ -183,84 +247,95 @@ def closest_bvh_plain(scene, o: Vec3, d: Vec3, active):
 closest_bvh_plain.calls = 0
 
 
-def closest_bvh(scene: SceneTensors, o: Vec3, d: Vec3, active):
-    """Closest hit over (T_MIN, inf) of the lanes ``active`` ([B] bool) by
-    the threaded-DFS BVH walk.  Returns (t [B] f32, inf on a miss; tri [B]
-    int32, -1 on a miss; u, v [B] f32; counters int64[4] = (node visits,
-    AABB hits, triangle tests, triangle hits))."""
+def closest_bvh(scene: SceneTensors, o: Vec3, d: Vec3, active, tmin=T_MIN, tmax=torch.inf):
+    """Closest hit of the lanes ``active`` ([B] bool) by the threaded-DFS
+    BVH walk, over (T_MIN, inf) in float32 and over each lane's own [tmin,
+    tmax] (numbers or [B] f64 tensors) in float64, where an inactive lane
+    counts as ``soa.bvh_closest(mask=...)`` counts it.  Returns (t [B], inf
+    on a miss; tri [B] int32, -1 on a miss; u, v [B], in the scene's dtype;
+    counters int64[4] = (node visits, AABB hits, triangle tests, triangle
+    hits)).  The float64 launches count in ``.f64_launches`` too."""
     dev = _device_of(active)
     if dev.type == "cpu":
-        return closest_bvh_plain(scene, o, d, active)
-    reason = walk_reject_reason(scene)
-    if reason:
-        raise ValueError(f"closest_bvh cannot take this scene: {reason}")
-    if scene.device != dev:
-        raise ValueError(f"scene on {scene.device} but lanes on {dev}")
-    B = int(active.shape[0])
-    ins = [_checked(x, (B,), dev, "ray component") for x in (*o, *d)]
+        return closest_bvh_plain(scene, o, d, active, tmin, tmax)
+    dev, B, ins, bounds = _walk_args("closest_bvh", scene, o, d, active, tmin, tmax)
     act = _checked(active, (B,), dev, "active", torch.bool)
-    nodes, tris = walk_tables(scene)
-    kw = dict(dtype=torch.float32, device=dev)
+    kw = dict(dtype=scene.dtype, device=dev)
     t, u, v = (torch.empty(B, **kw) for _ in range(3))
     tri = torch.empty(B, dtype=torch.int32, device=dev)
     counters = torch.zeros(5, dtype=torch.int64, device=dev)  # + the launch's work counter
+    outs = (act, t, tri, u, v, counters)
+    lib = build.load_library()
     with torch.cuda.device(dev):
-        code = build.load_library().bpt_closest_bvh(
-            B, int(nodes.shape[0]), int(bounds_ok(scene)), nodes.data_ptr(),
-            tris.data_ptr(), *(x.data_ptr() for x in ins), act.data_ptr(),
-            t.data_ptr(), tri.data_ptr(), u.data_ptr(), v.data_ptr(),
-            counters.data_ptr(), _stream(dev))
-    build.check(code, "closest_bvh")
+        if bounds is None:
+            nodes, tris = walk_tables(scene)
+            code = lib.bpt_closest_bvh(
+                B, int(nodes.shape[0]), int(bounds_ok(scene)), nodes.data_ptr(),
+                tris.data_ptr(), *(x.data_ptr() for x in (*ins, *outs)), _stream(dev))
+        else:
+            boxes, links, tris = walk_tables64(scene)
+            code = lib.bpt_closest_bvh_f64(
+                B, int(boxes.shape[0]), int(bounds_ok(scene)), boxes.data_ptr(),
+                links.data_ptr(), tris.data_ptr(),
+                *(x.data_ptr() for x in (*ins, *bounds, *outs)), _stream(dev))
+    build.check(code, "closest_bvh" if bounds is None else "closest_bvh (float64)")
     closest_bvh.launches += 1
+    closest_bvh.f64_launches += bounds is not None
     return t, tri, u, v, counters[:4]
 
 
-closest_bvh.launches = 0
+closest_bvh.launches = closest_bvh.f64_launches = 0
 
 
 # -------------------------------------------------------------- any hit
 
 
-def any_bvh_plain(scene, o: Vec3, d: Vec3, tmax):
+def any_bvh_plain(scene, o: Vec3, d: Vec3, tmax, tmin=T_MIN):
     """Plain version of ``any_bvh``."""
     any_bvh_plain.calls += 1
-    return soa.bvh_any(scene, o, d, T_MIN, tmax)
+    return soa.bvh_any(scene, o, d, tmin, tmax)
 
 
 any_bvh_plain.calls = 0
 
 
-def any_bvh(scene: SceneTensors, o: Vec3, d: Vec3, tmax):
-    """Any hit over [T_MIN, tmax] by the threaded-DFS BVH walk, which ends
-    at the first leaf holding a hit; tmax [B] f32, a lane with tmax <= 0 is
-    dead and misses without a walk.  Returns (hit [B] bool, counters
-    int64[4] = (node visits, AABB hits, triangle tests, triangle hits)),
-    equal to ``ops.soa.bvh_any``'s on every lane."""
+def any_bvh(scene: SceneTensors, o: Vec3, d: Vec3, tmax, tmin=T_MIN):
+    """Any hit over [T_MIN, tmax] in float32 and over [tmin, tmax] (tmin a
+    number or a [B] f64 tensor) in float64, by the threaded-DFS BVH walk,
+    which ends at the first leaf holding a hit; tmax [B] in the scene's
+    dtype, a lane with tmax <= 0 is dead and misses without a walk.
+    Returns (hit [B] bool, counters int64[4] = (node visits, AABB hits,
+    triangle tests, triangle hits)), equal to ``ops.soa.bvh_any``'s on
+    every lane.  The float64 launches count in ``.f64_launches`` too."""
     dev = _device_of(tmax)
     if dev.type == "cpu":
-        return any_bvh_plain(scene, o, d, tmax)
-    reason = walk_reject_reason(scene)
-    if reason:
-        raise ValueError(f"any_bvh cannot take this scene: {reason}")
-    if scene.device != dev:
-        raise ValueError(f"scene on {scene.device} but lanes on {dev}")
-    B = int(tmax.shape[0]) if tmax.dim() == 1 else -1
-    ins = [_checked(x, (B,), dev, "ray component") for x in (*o, *d)]
-    tm = _checked(tmax, (B,), dev, "tmax")
-    nodes, tris = walk_tables(scene)
+        return any_bvh_plain(scene, o, d, tmax, tmin)
+    dev, B, ins, bounds = _walk_args("any_bvh", scene, o, d, tmax, tmin, None)
+    tm = _checked(tmax, (B,), dev, "tmax", scene.dtype)
     hit = torch.empty(B, dtype=torch.bool, device=dev)
     counters = torch.zeros(5, dtype=torch.int64, device=dev)  # + the launch's work counter
+    lib = build.load_library()
     with torch.cuda.device(dev):
-        code = build.load_library().bpt_any_bvh(
-            B, int(nodes.shape[0]), int(bounds_ok(scene)), nodes.data_ptr(),
-            tris.data_ptr(), *(x.data_ptr() for x in ins), tm.data_ptr(),
-            hit.data_ptr(), counters.data_ptr(), _stream(dev))
-    build.check(code, "any_bvh")
+        if bounds is None:
+            nodes, tris = walk_tables(scene)
+            code = lib.bpt_any_bvh(
+                B, int(nodes.shape[0]), int(bounds_ok(scene)), nodes.data_ptr(),
+                tris.data_ptr(), *(x.data_ptr() for x in ins), tm.data_ptr(),
+                hit.data_ptr(), counters.data_ptr(), _stream(dev))
+        else:
+            boxes, links, tris = walk_tables64(scene)
+            code = lib.bpt_any_bvh_f64(
+                B, int(boxes.shape[0]), int(bounds_ok(scene)), boxes.data_ptr(),
+                links.data_ptr(), tris.data_ptr(), *(x.data_ptr() for x in ins),
+                bounds[0].data_ptr(), tm.data_ptr(), hit.data_ptr(), counters.data_ptr(),
+                _stream(dev))
+    build.check(code, "any_bvh" if bounds is None else "any_bvh (float64)")
     any_bvh.launches += 1
+    any_bvh.f64_launches += bounds is not None
     return hit, counters[:4]
 
 
-any_bvh.launches = 0
+any_bvh.launches = any_bvh.f64_launches = 0
 
 
 # --------------------------------------------------------------- bounce

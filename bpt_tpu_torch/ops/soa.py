@@ -15,8 +15,10 @@ use_bvh``) on the card takes bpt_tpu's TPU route (``wave_impl``): the BVH
 walks ``closest_bvh`` / ``any_bvh`` over the production interval, the
 clustered kernels of ``ops/kernels/cluster_wave.py`` over any other or with
 ``BPT_TPU_NO_FTB``, those of ``ops/kernels/plucker.py`` with
-``BPT_TPU_WAVE_IMPL=plucker``; on a CPU it walks the BVH in torch, as
-bpt_tpu does there.  On a CUDA scene the calls launch the kernels (a
+``BPT_TPU_WAVE_IMPL=plucker``; in float64, where bpt_tpu walks the BVH in
+jnp for every interval, the float64 ``closest_bvh`` / ``any_bvh`` for
+every interval, whatever the switches; on a CPU it walks the BVH in torch,
+as bpt_tpu does there.  On a CUDA scene the calls launch the kernels (a
 failure raises; nothing falls back); ``plain`` runs their torch versions on
 the card, for comparisons.
 
@@ -292,10 +294,14 @@ def _is_static(x, val: float) -> bool:
     return isinstance(x, numbers.Real) and float(x) == val
 
 
-def wave_impl(tmin, tmax=None) -> str:
+def wave_impl(tmin, tmax=None, dtype=torch.float32) -> str:
     """The hit kernels ``bpt_tpu`` takes for a large scene on its TPU
     (soa.py:410-427, 472-475, 544-551, 599-601), by its own switches, read
     here at call time and nowhere else:
+    - ``"bvh64"``: float64, any interval, whatever the switches: ``bpt_tpu``'s
+      clustered route takes float32 only (``_wave_cluster_ok``), so a float64
+      hit walks the BVH (its jnp ``bvh_closest`` / ``bvh_any``), here the
+      float64 instantiations of ``closest_bvh`` / ``any_bvh``, unsorted;
     - ``"bvh"``: the production interval, (T_MIN, inf) for a closest hit
       (``tmax`` given) and tmin = T_MIN for an any hit (``tmax`` None),
       with neither switch set: the FTB kernels 7 and 8, ported as
@@ -304,6 +310,8 @@ def wave_impl(tmin, tmax=None) -> str:
       and 11, ``clustered_closest`` / ``clustered_any``;
     - ``"plucker"``: ``BPT_TPU_WAVE_IMPL=plucker``, any interval: kernels 12
       and 13, ``plucker_closest`` / ``plucker_any``."""
+    if dtype == torch.float64:
+        return "bvh64"
     impl = os.environ.get("BPT_TPU_WAVE_IMPL", "roll")
     if impl == "plucker":
         return "plucker"
@@ -367,26 +375,26 @@ def closest_hit(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax,
     """mask: optional [B] bool — lanes with mask=False are culled (tmax
     collapses to 0) and excluded from the stats counters.  A CUDA scene
     with a BVH takes the kernels ``wave_impl`` names: ``closest_bvh`` over
-    the production interval, ``clustered_closest`` / ``plucker_closest`` over
-    any [tmin, tmax]; one without launches ``closest_tri``; ``plain`` runs
-    their plain versions.  A CPU scene walks ``bvh_closest`` or sweeps in
-    torch.  Counters of a sweep and of the clustered route (bpt_tpu's,
-    soa.py:524-531): T triangle tests per live lane, one accepted test per
-    hit."""
+    the production interval and, in float64, over any; ``clustered_closest``
+    / ``plucker_closest`` over any [tmin, tmax] in float32; one without
+    launches ``closest_tri``; ``plain`` runs their plain versions.  A CPU
+    scene walks ``bvh_closest`` or sweeps in torch.  Counters of a sweep and
+    of the clustered route (bpt_tpu's, soa.py:524-531): T triangle tests per
+    live lane, one accepted test per hit."""
     zero = torch.zeros((), dtype=torch.int64, device=o.x.device)
     if _card_bvh(scene):
-        impl = wave_impl(tmin, tmax)
+        impl = wave_impl(tmin, tmax, scene.dtype)
         kernels = _kernel_route(scene, plain)
-        if impl == "bvh" and kernels:
+        if impl in ("bvh", "bvh64") and kernels:
             from bpt_tpu_torch.ops.kernels.pt_wave import closest_bvh  # imports soa
 
             active = (torch.ones(o.x.shape, dtype=torch.bool, device=o.x.device)
                       if mask is None else mask)
-            t, tri, u, v, c = closest_bvh(scene, o, d, active)
+            t, tri, u, v, c = closest_bvh(scene, o, d, active, tmin, tmax)
             hit = tri >= 0
             return HitSoA(hit=hit, t=t, tri=torch.clamp_min(tri, 0).long(), u=u, v=v,
                           node_visits=c[0], aabb_hits=c[1], tri_tests=c[2], tri_hits=c[3])
-        if impl != "bvh":
+        if impl in ("roll", "plucker"):
             t, tri, u, v = _clustered(scene, o, d, *_bounds(o, tmin, tmax, mask), mask,
                                       impl, kernels, any_hit=False)
             hit = tri >= 0
@@ -411,13 +419,13 @@ def _any_hit(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax, mask, plain: boo
     the clustered route)."""
     tmin_b, tmax_b = _bounds(o, tmin, tmax, mask)
     if _card_bvh(scene):
-        impl = wave_impl(tmin)
+        impl = wave_impl(tmin, dtype=scene.dtype)
         kernels = _kernel_route(scene, plain)
-        if impl == "bvh" and kernels:
+        if impl in ("bvh", "bvh64") and kernels:
             from bpt_tpu_torch.ops.kernels.pt_wave import any_bvh  # imports soa
 
-            return any_bvh(scene, o, d, tmax_b)
-        if impl != "bvh":
+            return any_bvh(scene, o, d, tmax_b, tmin)
+        if impl in ("roll", "plucker"):
             return _clustered(scene, o, d, tmin_b, tmax_b, mask, impl, kernels,
                               any_hit=True)[0], None
     if scene.use_bvh:
@@ -429,7 +437,8 @@ def any_hit(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax, mask=None,
             plain: bool = False):
     """bool [B]: a hit in [tmin, tmax]; lanes with mask=False miss.  A
     CUDA scene with a BVH takes the kernels ``wave_impl`` names: ``any_bvh``
-    for tmin = T_MIN, ``clustered_any`` / ``plucker_any`` for any tmin; one
+    for tmin = T_MIN and, in float64, for any tmin; ``clustered_any`` /
+    ``plucker_any`` for any tmin in float32; one
     without launches ``any_tri``; ``plain`` runs their plain versions.  A
     CPU scene walks ``bvh_any`` or sweeps every triangle in torch."""
     return _any_hit(scene, o, d, tmin, tmax, mask, plain)[0]

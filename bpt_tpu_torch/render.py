@@ -9,8 +9,10 @@ the coffee stand-in's YAML (91,540 triangles) with its own BDPT default,
 the textured ``scenes/earth.yaml`` and ``scenes/cornell_smoke.yaml`` with
 its two constant-density volumes.
 ``--f64`` renders the preset or YAML scene in float64, as ``bpt_tpu``'s
-CLI does, through the stratum loop (on the card, a scene without a BVH
-only: ROADMAP §1 item 8).
+CLI does, through the stratum loop, on the card as on the CPU: every scene,
+its hits from the float64 instantiations of the brute-force kernels
+(``closest_tri`` / ``any_tri``, up to 256 triangles) or of the BVH walks
+(``closest_bvh`` / ``any_bvh``, a scene with a BVH).
 
 Usage:
     python -m bpt_tpu_torch.render [scene.yaml] [--spp N] [--size WxH]
@@ -40,7 +42,9 @@ def main(argv=None):
     ap.add_argument("--chunk-size", type=int, default=None)
     ap.add_argument("--checkpoint", type=str, default=None,
                     help="npz path for save/resume")
-    ap.add_argument("--f64", action="store_true", help="double precision")
+    ap.add_argument("--f64", action="store_true",
+                    help="double precision: every scene, through the stratum loop "
+                         "(float64 hit kernels on the card)")
     ap.add_argument("--no-progress", action="store_true")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where to render: the CUDA kernel or its plain "

@@ -321,6 +321,27 @@
    chunks failing at chunk 2, coffee PT in four pt_wave batches failing at
    the second: each image equal to render()'s.  The kernels line gains
    each kernel's launches under phase 25 (distributed_launches).
+26. Float64 on scenes with a BVH (f64_phases): the stratum loop over the
+   float64 instantiations of closest_bvh / any_bvh.  (b) The main path:
+   render() of the coffee stand-in in float64, bdpt-mis and pt at 512x512,
+   4 spp, depth 10, one warm-up and three timed renders each: the float64
+   walk kernels launched and nothing else, no plain version, images
+   finite, not black and bitwise repeatable, rays_traced within 0.1% of
+   the float32 stratum loop on the same jnp stream; walls, Mrays/s and
+   peak memory printed.  (a) The float64 kernels against their plain walks
+   on 65,536 random coffee rays with per-lane intervals and inactive lanes,
+   on every 16th lane of the bdpt-mis render's camera bounce 1 and on
+   every 160th lane of its shadow wave of camera vertex 1: hit, tri and
+   the four counters exact, t, u, v within 1e-12 relative, the lanes that
+   differ in any bit printed; both kernels timed at the render's camera
+   bounce 1 and that shadow wave, with their bounds (FP64 operations over
+   34 TFLOP/s).  (c) The CLI's --f64 on scenes/glass/glass_standin.yaml
+   at 160x90, 4 spp, depth 80, PT, on the coffee stand-in at 64x64, 4 spp
+   (its BDPT default and PT) and on scenes/earth.yaml at 64x64, 4 spp:
+   exit 0 through the float64 walks, no plain call.  (d) render_distributed of the float64 coffee
+   PT render over [cuda:0] x 2, equal to render()'s to the bit.  The
+   kernels line lists closest_bvh_f64 and any_bvh_f64 as entries of their
+   own, their launches those of (b).
 
 Each phase prints its seconds, and the script its total.  The second-to-last line is a JSON object
 describing the kernels, each with its bound: the larger of the bytes it
@@ -2203,7 +2224,7 @@ def zero_launch_counts():
 
     for mod in (pt_kernel, bdpt_kernel, pt_wave, intersect, cluster_wave, plucker, soa):
         for fn in vars(mod).values():
-            for attr in ("launches", "vol_launches", "calls"):
+            for attr in ("launches", "vol_launches", "f64_launches", "calls"):
                 if callable(fn) and hasattr(fn, attr):
                     setattr(fn, attr, 0)
 
@@ -2404,6 +2425,350 @@ def distributed_phases(dev, card, refs, coffee, lap) -> dict:
               f"bit; launches {launched} ({card})")
     lap("phase 25d")
     return totals
+
+
+# phase 26's shapes: the float64 coffee renders of the main path (integrator,
+# width, spp; depth 10), the random rays of (a), the CLI's --f64 drives of
+# (c) on the glass stand-in (PT, depth 80), the coffee stand-in (its BDPT
+# default and PT, depth 24) and earth.yaml (BDPT, depth 8), and
+# render_distributed's devices in (d)
+F64_RENDERS = (("bdpt-mis", 512, 4), ("pt", 512, 4))
+F64_RAYS = 65536
+F64_CLI = (("scenes/glass/glass_standin.yaml", "--integrator", "pt", "--size", "160x90",
+            "--spp", "4"),
+           ("scenes/coffee/coffee_standin.yaml", "--size", "64x64", "--spp", "4"),
+           ("scenes/coffee/coffee_standin.yaml", "--integrator", "pt", "--size", "64x64",
+            "--spp", "4"),
+           ("scenes/earth.yaml", "--size", "64x64", "--spp", "4"))
+F64_MESH = 2
+# the H100 SXM's published FP64 operations/s outside the tensor cores: the
+# float64 walks' compares, min/max and divides do not run on them
+FP64_OPS = 34e12
+
+
+def bound64(nbytes: float, ops: float) -> tuple[float, str]:
+    """``bound`` with FP64 operations."""
+    b, o = nbytes / HBM_BPS * 1e3, ops / FP64_OPS * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def walk64_bytes(which, active_or_tmax) -> int:
+    """Bytes a float64 walk call must move besides the scene.  closest_bvh:
+    every lane reads its mask byte and tmin and writes t, tri, u, v; a live
+    lane also reads tmax, its origin and direction.  any_bvh: every lane
+    reads tmax and writes its answer byte; a live lane (tmax > 0) also
+    reads tmin, its origin and direction."""
+    if which == "closest":
+        B, live = int(active_or_tmax.shape[0]), int(active_or_tmax.sum())
+        return B * (1 + 8 + 3 * 8 + 4) + live * (8 + 6 * 8)
+    B, live = int(active_or_tmax.shape[0]), int((active_or_tmax > 0).sum())
+    return B * (8 + 1) + live * (8 + 6 * 8)
+
+
+def f64_lanes(scene, B, seed):
+    """B random rays in the scene's root box at f64 (a few with zero
+    direction components, origins on a box plane: the NaN slab terms),
+    per-lane tmin (half T_MIN, half in [-1, 1)) and tmax (half inf, half
+    within the box's extent), NaN bounds, tmax 0 and -1, one lane in eight
+    inactive: (o, d, tmin, tmax, active)."""
+    import numpy as np
+    import torch
+
+    from bpt_tpu_torch.core.vec3 import Vec3
+
+    g = np.random.default_rng(seed)
+    lo, hi = (x.cpu().numpy() for x in (scene.bvh_min[0], scene.bvh_max[0]))
+    o = g.uniform(lo, hi, (B, 3))
+    d = g.normal(size=(B, 3))
+    d[:8, 0] = 0.0
+    o[:4, 0] = lo[0]
+    tmin = np.where(g.uniform(size=B) < 0.5, 1e-3, g.uniform(-1.0, 1.0, B))
+    tmax = np.where(g.uniform(size=B) < 0.5, np.inf, g.uniform(0.0, (hi - lo).max(), B))
+    tmin[::89], tmax[::97], tmax[::53], tmax[::61] = np.nan, np.nan, 0.0, -1.0
+    dev = scene.device
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return (Vec3(*(cuda(o[:, k]) for k in range(3))), Vec3(*(cuda(d[:, k]) for k in range(3))),
+            cuda(tmin), cuda(tmax), cuda(g.uniform(size=B) > 0.125))
+
+
+def walk64_agree(kout, pout):
+    """(lanes that differ in any bit of any output, max abs and max
+    relative error of t, u, v over the lanes the plain version hits; inf
+    equal to inf) of a float64 walk kernel's outputs against its plain
+    version's."""
+    if len(kout) == 2:
+        return int((kout[0] != pout[0]).sum()), 0.0, 0.0
+    hit = pout[1] >= 0
+    same = kout[1] == pout[1]
+    err = rel = 0.0
+    for k, p in zip((kout[0], *kout[2:4]), (pout[0], *pout[2:4])):
+        same &= (k == p) | (k.isnan() & p.isnan())
+        if bool(hit.any()):
+            e = (k - p).abs()[hit]
+            err = max(err, float(e.max()))
+            rel = max(rel, float((e / p.abs()[hit].clamp_min(1e-300)).max()))
+    return int((~same).sum()), err, rel
+
+
+def f64_phases(dev, card, lap) -> dict:
+    """Phase 26, float64 on scenes with a BVH: the stratum loop over the
+    float64 instantiations of closest_bvh / any_bvh.  (b) The main path:
+    render() of the coffee stand-in in float64 with bdpt-mis and pt at
+    512x512, 4 spp, depth 10, one warm-up and three timed renders each:
+    the stratum route, the float64 walk kernels launched and nothing else,
+    no plain version, images finite, not black and bitwise repeatable,
+    rays_traced within 0.1% of the float32 stratum loop on the same jnp
+    stream (the megakernels refused, the float32 walks), peak device
+    memory.  (a) closest_bvh / any_bvh in float64 against their plain
+    versions on 65,536 random coffee rays with per-lane intervals (NaN, 0
+    and negative bounds) and inactive lanes, on every 16th lane of the
+    bdpt-mis render's camera bounce 1 and on every 160th lane of its
+    shadow wave of camera vertex 1 (each slice equal to the whole launch
+    on those lanes): hit, tri and all four counters exact, t, u, v within
+    1e-12 relative, the lanes that differ in any bit printed; the kernels
+    timed at camera bounce 1 and that shadow wave, the plain versions on
+    the random rays and the slices.  (c) The CLI's --f64 on the glass
+    stand-in (its BVH over 510 triangles) at 160x90, 4 spp, depth 80, PT,
+    on the coffee stand-in at 64x64, 4 spp, with its BDPT default and
+    with PT, and on earth.yaml at 64x64, 4 spp, BDPT: exit 0, the float64
+    walks launched and no other kernel, no plain call.
+    (d) render_distributed of the float64 coffee PT render over [cuda:0]
+    x 2: image and counters equal to render()'s to the bit.  Returns the
+    kernels line's float64 entries."""
+    import numpy as np
+    import torch
+
+    from bpt_tpu_torch import render as cli
+    from bpt_tpu_torch.core.vec3 import Vec3
+    from bpt_tpu_torch.models import render as render_mod
+    from bpt_tpu_torch.models.camera import camera_constants
+    from bpt_tpu_torch.models.render import render
+    from bpt_tpu_torch.ops.kernels import pt_kernel as pk
+    from bpt_tpu_torch.ops.kernels import pt_wave as pw
+    from bpt_tpu_torch.parallel import render_distributed
+    from bpt_tpu_torch.parallel.worker import launch_counts
+
+    def drive(fn):
+        """fn() with every count at 0 before it: (its result, launches,
+        plain calls, float64 launches of closest_bvh and any_bvh)."""
+        zero_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launched, calls = launch_counts()
+        return out, launched, calls, [pw.closest_bvh.f64_launches, pw.any_bvh.f64_launches]
+
+    coffee32 = coffee_builder().build(device=dev)
+    coffee = coffee_builder().build(device=dev, dtype=torch.float64)
+    table_bytes = sum(t.numel() * t.element_size() for t in pw.walk_tables64(coffee))
+    print(f"phase 26: the float64 coffee stand-in: walk tables {table_bytes} bytes "
+          f"(float32 {sum(t.numel() * t.element_size() for t in pw.walk_tables(coffee32))}); "
+          f"walk_reject_reason {pw.walk_reject_reason(coffee)!r}")
+
+    # ---- (b) the float64 main path through render()
+    out = {"renders": {}}
+    f64_launched = [0, 0]
+    for integ, width, spp in F64_RENDERS:
+        cfg = coffee_camera(width=width, spp=spp, integrator=integ)
+        route = render_mod._route(coffee, cfg, integ, None)
+        check(route == "strata", f"phase 26b: float64 coffee {integ} takes route {route}")
+        torch.cuda.reset_peak_memory_stats()
+        with capture(pw, "closest_bvh", keep={1}) as cam1, capture(pw, "any_bvh",
+                                                                   keep={1}) as shadow:
+            warm = render(coffee, cfg, seed=0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if integ == "bdpt-mis":
+            out["camera1"], out["shadow1"] = cam1[1], shadow[1]  # (args, kwargs)
+        runs, launched, calls, n64 = drive(lambda: [render(coffee, cfg, seed=0)
+                                                    for _ in range(3)])
+        f64_launched = [a + b for a, b in zip(f64_launched, n64)]
+        walls = [r.stats.wall_seconds for r in runs]
+        fb, st = warm.framebuffer_sum, warm.stats
+        check(all(np.array_equal(r.framebuffer_sum, fb) for r in runs)
+              and all(r.stats.rays_traced == st.rays_traced for r in runs),
+              f"phase 26b: float64 coffee {integ} renders differ")
+        check(bool(np.isfinite(fb).all()) and float(fb.mean()) > 0.0,
+              f"phase 26b: float64 coffee {integ} image not finite or black")
+        want = {"closest_bvh": n64[0]} | ({"any_bvh": n64[1]} if integ != "pt" else {})
+        check(launched == want and n64[0] > 0 and (n64[1] > 0) == (integ != "pt")
+              and not calls,
+              f"phase 26b: float64 coffee {integ}: launches {launched}, float64 {n64}, "
+              f"plain {calls}")
+        # the float32 stratum loop on the same jnp stream: the megakernels refused
+        cc = camera_constants(cfg, torch.float32, dev)
+        fb32 = torch.zeros((width * width, 3), device=dev)
+        refuse = pk.megakernel_reject_reason
+        pk.megakernel_reject_reason = lambda *a, **kw: "phase 26: the jnp stream in float32"
+        try:
+            rays32 = int(render_mod._render_strata(coffee32, cfg, cc, integ, 0, fb32, None,
+                                                   None, None)[0])
+        finally:
+            pk.megakernel_reject_reason = refuse
+        gap = (st.rays_traced - rays32) / rays32 * 100
+        out["renders"][integ] = dict(walls=walls, rays=st.rays_traced, shadow=st.shadow_rays,
+                                     rays32=rays32, peak_gib=peak, launches=launched)
+        if integ == "pt":
+            out["pt_ref"] = warm
+        print(f"phase 26b: render coffee float64 {integ} {width}x{width} {spp} spp depth 10 "
+              f"seed 0 (the stratum loop): walls {[round(w, 6) for w in walls]} s, median "
+              f"{statistics.median(walls):.6f} s, {st.rays_traced / statistics.median(walls) / 1e6:.2f} "
+              f"Mrays/s; rays {st.rays_traced}, shadow {st.shadow_rays}; float32 on the same "
+              f"stream {rays32} rays ({gap:+.4f}%); three renders' launches {launched}, float64 "
+              f"{n64}, plain calls {calls}; images bitwise repeatable; peak device memory "
+              f"{peak:.2f} GiB ({card})")
+        check(abs(gap) <= 0.1, f"phase 26b: float64 coffee {integ} rays {st.rays_traced} not "
+              f"within 0.1% of float32's {rays32}")
+        del runs, warm, fb32
+    lap("phase 26b")
+
+    # ---- (a) the float64 kernels against their plain versions
+    o, d, tmin, tmax, act = f64_lanes(coffee, F64_RAYS, 26)
+    kc = pw.closest_bvh(coffee, o, d, act, tmin, tmax)
+    pc, c_plain_ms = timed(lambda: pw.closest_bvh_plain(coffee, o, d, act, tmin, tmax))
+    c_diff, c_err, c_rel = walk64_agree(kc, pc)
+    tm = torch.where(act, tmax, 0.0)
+    ka = pw.any_bvh(coffee, o, d, tm, tmin)
+    pa, a_plain_ms = timed(lambda: pw.any_bvh_plain(coffee, o, d, tm, tmin))
+    a_diff = walk64_agree(ka, pa)[0]
+    print(f"phase 26a: float64 closest_bvh on {F64_RAYS} random coffee rays with per-lane "
+          f"[tmin, tmax], {int(act.sum())} active: {c_diff} lanes differ in any bit from the "
+          f"plain walk, t/u/v max abs error {c_err:.3e}, relative {c_rel:.3e}, "
+          f"{int((kc[1] >= 0).sum())} hits, "
+          f"counters kernel {kc[4].tolist()} plain {pc[4].tolist()}; plain {c_plain_ms:.3f} ms")
+    print(f"phase 26a: float64 any_bvh on the same rays: {a_diff} lanes differ, "
+          f"{int(ka[0].sum())} hits, counters kernel {ka[1].tolist()} plain {pa[1].tolist()}; "
+          f"plain {a_plain_ms:.3f} ms")
+    check(bool((kc[1] == pc[1]).all()) and c_rel <= 1e-12 and kc[4].tolist() == pc[4].tolist(),
+          "phase 26a: float64 closest_bvh differs from its plain version")
+    check(a_diff == 0 and ka[1].tolist() == pa[1].tolist(),
+          "phase 26a: float64 any_bvh differs from its plain version")
+    # the main path's own shapes: camera bounce 1 and the shadow wave
+    _, o1, d1, act1, tmin1, tmax1 = out["camera1"][0]
+    Bc = int(act1.shape[0])
+    k1 = pw.closest_bvh(coffee, o1, d1, act1, tmin1, tmax1)
+    c_ms = time_ms(lambda: pw.closest_bvh(coffee, o1, d1, act1, tmin1, tmax1), reps=5)
+    c_bound = bound64(walk64_bytes("closest", act1) + table_bytes,
+                      int(k1[4][0]) * SLAB_OPS + int(k1[4][2]) * MT_OPS)
+
+    def every(x, n):  # every n-th lane of a lane array; a number stays
+        return x[::n].contiguous() if isinstance(x, torch.Tensor) else x
+
+    args_c = (Vec3(*(every(c, 16) for c in o1)), Vec3(*(every(c, 16) for c in d1)),
+              every(act1, 16), every(tmin1, 16), every(tmax1, 16))
+    kcs = pw.closest_bvh(coffee, *args_c)
+    pcs, c1_plain_ms = timed(lambda: pw.closest_bvh_plain(coffee, *args_c))
+    c1_diff, c1_err, _ = walk64_agree(kcs, pcs)
+    print(f"phase 26a: float64 closest_bvh on every 16th lane of camera bounce 1 "
+          f"({int(args_c[2].numel())} lanes, {int(args_c[2].sum())} live): {c1_diff} lanes "
+          f"differ in any bit from the plain walk, t/u/v max abs error {c1_err:.3e}, counters "
+          f"kernel {kcs[4].tolist()} plain {pcs[4].tolist()}, plain {c1_plain_ms:.3f} ms")
+    check(c1_diff == 0 and kcs[4].tolist() == pcs[4].tolist()
+          and all(torch.equal(a, b[::16]) for a, b in zip(kcs[:4], k1[:4])),
+          "phase 26a: float64 closest_bvh at camera bounce 1 differs from its plain version")
+    _, os_, ds_, tms, tmins = out["shadow1"][0]
+    Bs = int(tms.shape[0])
+    ks = pw.any_bvh(coffee, os_, ds_, tms, tmins)
+    a_ms = time_ms(lambda: pw.any_bvh(coffee, os_, ds_, tms, tmins), reps=5)
+    a_bound = bound64(walk64_bytes("any", tms) + table_bytes,
+                      int(ks[1][0]) * SLAB_OPS + int(ks[1][2]) * MT_OPS)
+    sl = slice(None, None, 160)
+    args_s = (Vec3(*(every(c, 160) for c in os_)), Vec3(*(every(c, 160) for c in ds_)),
+              every(tms, 160), every(tmins, 160))
+    kss = pw.any_bvh(coffee, *args_s)
+    pss, s_plain_ms = timed(lambda: pw.any_bvh_plain(coffee, *args_s))
+    s_diff = walk64_agree(kss, pss)[0]
+    print(f"phase 26a: float64 closest_bvh at camera bounce 1 of the bdpt-mis render (B={Bc}, "
+          f"{int(act1.sum())} live): {c_ms:.3f} ms, bound {c_bound[0]:.4f} ms ({c_bound[1]}), "
+          f"counters {k1[4].tolist()}; any_bvh at its shadow wave of camera vertex 1 (B={Bs}, "
+          f"{int((tms > 0).sum())} live): {a_ms:.3f} ms, bound {a_bound[0]:.4f} ms "
+          f"({a_bound[1]}), counters {ks[1].tolist()}; on every 160th lane of that wave "
+          f"({int(tms[sl].numel())} lanes): {s_diff} lanes differ from the plain walk, counters "
+          f"kernel {kss[1].tolist()} plain {pss[1].tolist()}, plain {s_plain_ms:.3f} ms ({card})")
+    check(s_diff == 0 and kss[1].tolist() == pss[1].tolist()
+          and torch.equal(kss[0], ks[0][sl]),
+          "phase 26a: float64 any_bvh on the shadow wave differs from its plain version")
+    out["closest"] = dict(err=max(c_err, c1_err), diff=c_diff + c1_diff, ms=c_ms,
+                          plain_ms=c_plain_ms, bound=c_bound, B=Bc, live=int(act1.sum()),
+                          slice_plain_ms=c1_plain_ms)
+    out["any"] = dict(err=0.0, diff=a_diff + s_diff, ms=a_ms, plain_ms=a_plain_ms,
+                      bound=a_bound, B=Bs, live=int((tms > 0).sum()),
+                      slice_plain_ms=s_plain_ms)
+    out["f64_launches"] = f64_launched
+    del out["camera1"], out["shadow1"], kc, pc, ka, pa, k1, ks, kcs, pcs
+    lap("phase 26a")
+
+    # ---- (c) the CLI's --f64 on the glass, coffee and earth scenes
+    for k, drive_args in enumerate(F64_CLI):
+        argv = [*drive_args, "--f64", "--output", f"chip_smoke_f64_cli{k}.png", "--no-progress"]
+        t0 = time.monotonic()
+        rc, launched, calls, n64 = drive(lambda: cli.main(argv))
+        want = {"closest_bvh": n64[0]} | ({"any_bvh": n64[1]} if "pt" not in argv else {})
+        print(f"phase 26c: python -m bpt_tpu_torch.render {' '.join(argv)}: exit {rc} in "
+              f"{time.monotonic() - t0:.1f} s; launches {launched}, float64 {n64}, plain calls "
+              f"{calls} ({card})")
+        check(rc == 0 and launched == want and all(n > 0 for n in want.values())
+              and not calls,
+              f"phase 26c: --f64 on {drive_args[0]} did not render through the float64 walks")
+    lap("phase 26c")
+
+    # ---- (d) render_distributed in float64
+    ref = out.pop("pt_ref")
+    cfg = coffee_camera(width=F64_RENDERS[1][1], spp=F64_RENDERS[1][2], integrator="pt")
+    (fb, _, st), launched, calls, n64 = drive(
+        lambda: render_distributed(coffee, cfg, mesh=[dev] * F64_MESH, seed=0))
+    same = np.array_equal(fb, ref.framebuffer_sum) and dataclasses.replace(
+        st, wall_seconds=0) == dataclasses.replace(ref.stats, wall_seconds=0)
+    print(f"phase 26d: render_distributed of the float64 coffee PT render over [cuda:0] x "
+          f"{F64_MESH}: image and counters {'equal' if same else 'NOT equal'} to render()'s "
+          f"(rays {st.rays_traced}); wall {st.wall_seconds:.6f} s; launches {launched}, "
+          f"float64 {n64}, plain calls {calls} ({card})")
+    check(same and n64[0] > 0 and not calls,
+          "phase 26d: render_distributed in float64 differs from render()")
+    lap("phase 26d")
+    return out
+
+
+def f64_entries(f64) -> list:
+    """The kernels line's entries of the float64 walk kernels (phase 26)."""
+    main = "three coffee float64 renders each of " + " and ".join(
+        f"{i} {w}x{w} x {s} spp" for i, w, s in F64_RENDERS) + ", depth 10 (the stratum loop)"
+    rows = []
+    for k, (name, tpu, jnp_fn) in enumerate((
+            ("closest_bvh", "cluster_wave.py:340", "bpt_tpu/ops/soa.py:135 bvh_closest"),
+            ("any_bvh", "cluster_wave.py:397", "bpt_tpu/ops/soa.py:240 bvh_any"))):
+        r = f64[name.split("_")[0]]
+        rows.append({
+            "name": f"{name}_f64",
+            "route": "cuda",
+            "source": "bpt_tpu_torch/csrc/pt_wave.cu",
+            "replaces": f"bpt_tpu/ops/pallas/{tpu} (its float64 counterpart: bpt_tpu runs "
+                        f"{jnp_fn} for every float64 hit)",
+            "launches": f64["f64_launches"][k],
+            "launches_path": main,
+            "max_abs_err": r["err"],
+            "lanes_differing": r["diff"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "plain_shape": f"{F64_RAYS} random coffee rays, per-lane intervals",
+            "slice_plain_ms": r["slice_plain_ms"],
+            "slice_shape": ("every 16th lane of camera bounce 1" if name == "closest_bvh" else
+                            "every 160th lane of the shadow wave of camera vertex 1"),
+            "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1],
+            "library_ms": None,
+            "shape": (f"camera bounce 1 of the float64 bdpt-mis render, B={r['B']}"
+                      if name == "closest_bvh" else
+                      f"the float64 bdpt-mis render's shadow wave of camera vertex 1, "
+                      f"B={r['B']}"),
+            "live": r["live"],
+            "render_walls_s": {i: v["walls"] for i, v in f64["renders"].items()},
+            "render_rays": {i: v["rays"] for i, v in f64["renders"].items()},
+            "render_rays_float32": {i: v["rays32"] for i, v in f64["renders"].items()},
+            "render_peak_gib": {i: v["peak_gib"] for i, v in f64["renders"].items()},
+        })
+    return rows
 
 
 class Laps:
@@ -4013,6 +4378,7 @@ def main() -> int:
     tex = texture_phases(dev, card, coffee, ccc, key, scene_bytes, lap)
     vol = volume_phases(dev, card, key, lap)
     dist25 = distributed_phases(dev, card, refs, coffee, lap)
+    f64 = f64_phases(dev, card, lap)
 
     # lanes in (pixels: i, j, sx, sy, id; rays: o, d, id), radiance out
     pt_tab = sum(t.numel() * t.element_size() for t in pk._pack_tables(scene))
@@ -4299,7 +4665,7 @@ def main() -> int:
         "render_shape": "the 10 launches of one ref_vis render, 256x256, 64 spp, depth 10, "
                         "each on its own inputs",
         "persistent_blocks": tri_grids[1],
-    }, *walk_entries, *cl_entries, *volume_entries(vol)]
+    }, *walk_entries, *cl_entries, *volume_entries(vol), *f64_entries(f64)]
     wrappers25 = {"pt_megakernel": ("pt_megakernel", "pt_megakernel_pixels"),
                   "bdpt_megakernel": ("bdpt_megakernel", "bdpt_megakernel_pixels")}
     for entry in kernels:

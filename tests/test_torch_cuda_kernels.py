@@ -356,9 +356,14 @@ def test_wave_wrappers_reject_what_the_kernels_cannot_take():
         pw.any_bvh(scene, o, d, tmax[:32])
     with pytest.raises(ValueError, match="expected"):
         pw.any_bvh(scene, o, d, tmax.double())
-    with pytest.raises(ValueError, match="float32"):
-        pw.any_bvh(big_scene(builder, device="cuda", dtype=torch.float64), o, d, tmax)
+    with pytest.raises(ValueError, match="interval"):  # float32 takes T_MIN only
+        pw.any_bvh(scene, o, d, tmax, tmin=0.0)
+    scene64 = big_scene(builder, device="cuda", dtype=torch.float64)
+    with pytest.raises(ValueError, match="expected torch.float64"):  # f32 rays, f64 scene
+        pw.any_bvh(scene64, o, d, tmax.double())
     state = torch.zeros((pw.STATE_ROWS, 64), device="cuda")
+    with pytest.raises(ValueError, match="float32"):  # the shade takes float32 only
+        pw.pt_wave_bounce(scene64, state, ids, rng.prng_key(0), 0)
     with pytest.raises(ValueError, match="expected"):
         pw.pt_wave_bounce(scene, state, ids[:32], rng.prng_key(0), 0)
     with pytest.raises(ValueError, match="float32"):
@@ -1290,3 +1295,143 @@ def test_volume_free_kernels_unchanged_by_the_volume_tables():
     b = pk.pt_megakernel(scene, o, d, ids, rng.prng_key(1), 6)
     assert (pk.pt_megakernel.launches, pk.pt_megakernel.vol_launches) == (n[0] + 2, n[1])
     assert all(torch.equal(x, y) for x, y in zip(a[:3], b[:3]))
+
+
+# ------------------------------------------------ float64 on BVH scenes
+
+
+def _f64_lanes(scene, B, seed, production=False):
+    """B rays in the scene's root box at f64 (a few with zero direction
+    components and origins on a box plane: the NaN slab terms), per-lane
+    tmin (half T_MIN, half in [-1, 1)) and tmax (half inf, half within the
+    box's extent), some NaN bounds, tmax 0 and -1, one lane in eight
+    inactive; ``production``: (T_MIN, inf) for every lane."""
+    g = np.random.default_rng(seed)
+    lo, hi = (x.cpu().numpy() for x in (scene.bvh_min[0], scene.bvh_max[0]))
+    o = g.uniform(lo, hi, (B, 3))
+    d = g.normal(size=(B, 3))
+    d[:8, 0] = 0.0
+    o[:4, 0] = lo[0]
+    tmin = np.where(g.uniform(size=B) < 0.5, 1e-3, g.uniform(-1.0, 1.0, B))
+    tmax = np.where(g.uniform(size=B) < 0.5, np.inf, g.uniform(0.0, (hi - lo).max(), B))
+    tmin[::89], tmax[::97], tmax[::53], tmax[::61] = np.nan, np.nan, 0.0, -1.0
+    if production:
+        tmin, tmax = np.full(B, 1e-3), np.full(B, np.inf)
+    active = g.uniform(size=B) > 0.125
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    return (Vec3(*(T(o[:, k]) for k in range(3))), Vec3(*(T(d[:, k]) for k in range(3))),
+            T(tmin), T(tmax), T(active))
+
+
+def _f64_scene(which):
+    if which == "big":
+        return big_scene(builder, device="cuda", dtype=torch.float64)
+    from bpt_tpu_torch.scene.loader import load_scene_from_yaml
+
+    root = __file__.rsplit("/tests/", 1)[0]
+    return load_scene_from_yaml(f"{root}/scenes/coffee/coffee_standin.yaml",
+                                dtype=torch.float64, device="cuda", verbose=False).scene
+
+
+def _close64(got, want):
+    """t, u, v within 1e-12 relative (inf equal to inf), every other output
+    equal."""
+    for k, (a, b) in enumerate(zip(got, want)):
+        if a.dtype == torch.float64:
+            assert torch.allclose(a, b, rtol=1e-12, atol=1e-12, equal_nan=True), k
+        else:
+            assert torch.equal(a, b), k
+
+
+@pytest.mark.parametrize("interval", ["lanes", "production"])
+@pytest.mark.parametrize("which, B", [("big", 8192), ("coffee", 4096)])
+def test_f64_walk_kernels_match_plain(which, B, interval):
+    """closest_bvh and any_bvh in float64 against the plain walk on
+    the 964-triangle scene and the coffee stand-in: random rays, per-lane
+    intervals with NaN, 0 and negative bounds, inactive lanes; hit, tri
+    and the four counters exact, t, u, v within 1e-12."""
+    scene = _f64_scene(which)
+    o, d, tmin, tmax, active = _f64_lanes(scene, B, 31, interval == "production")
+    n, n64 = pw.closest_bvh.launches, pw.closest_bvh.f64_launches
+    got = pw.closest_bvh(scene, o, d, active, tmin, tmax)
+    want = pw.closest_bvh_plain(scene, o, d, active, tmin, tmax)
+    torch.cuda.synchronize()
+    assert (pw.closest_bvh.launches - n, pw.closest_bvh.f64_launches - n64) == (1, 1)
+    _close64(got[:4], want[:4])
+    assert got[4].tolist() == want[4].tolist()
+    assert bool((got[1] >= 0).any())
+    tm = torch.where(active, tmax, 0.0)
+    n64 = pw.any_bvh.f64_launches
+    hit, c = pw.any_bvh(scene, o, d, tm, tmin)
+    want_hit, want_c = pw.any_bvh_plain(scene, o, d, tm, tmin)
+    torch.cuda.synchronize()
+    assert pw.any_bvh.f64_launches == n64 + 1
+    assert torch.equal(hit, want_hit) and c.tolist() == want_c.tolist()
+    assert bool(hit.any()) and not bool(hit[~(tm > 0)].any())
+
+
+@pytest.mark.parametrize("case", REFILL_CASES)
+def test_f64_closest_bvh_refill_matches_plain(case):
+    """The float64 grid's edge cases (its own occupancy): B = 1, 31, 37,
+    four grids and 5 lanes more, every lane inactive, one live lane in ten
+    scattered; answers and counters the plain walk's."""
+    from bpt_tpu_torch.ops.kernels import build
+
+    scene = big_scene(builder, device="cuda", dtype=torch.float64)
+    grid = build.load_library().bpt_bvh_f64_blocks(0)
+    assert 0 < grid <= build.load_library().bpt_wave_blocks()
+    B = {"several refills": 4 * grid * 128 + 5, "scattered": 65536,
+         "all inactive": 4096}.get(case, int(case[2:]) if case.startswith("B=") else 0)
+    o, d, tmin, tmax, active = _f64_lanes(scene, B, 23)
+    if case == "scattered":
+        active = torch.from_numpy(np.random.default_rng(23).uniform(size=B) < 0.1).cuda()
+    elif case == "all inactive":
+        active[:] = False
+    got = pw.closest_bvh(scene, o, d, active, tmin, tmax)
+    want = pw.closest_bvh_plain(scene, o, d, active, tmin, tmax)
+    torch.cuda.synchronize()
+    _close64(got[:4], want[:4])
+    assert got[4].tolist() == want[4].tolist()
+
+
+@pytest.mark.parametrize("integrator", ["pt", "bdpt-mis"])
+def test_render_f64_bvh_scene_on_card_matches_cpu(integrator):
+    """A float64 render of the 964-triangle scene on the card: the stratum
+    loop over the float64 walk kernels, no plain walk, and the CPU's
+    image and rays."""
+    from bpt_tpu_torch.ops import soa
+
+    cfg = dataclasses.replace(presets.cornell_box_camera(), image_width=16,
+                              samples_per_pixel=4, max_depth=4, integrator=integrator,
+                              vfov=40.0, lookfrom=(0.0, 2.0, 6.0), lookat=(0.0, 1.0, 0.0))
+    nc, na = pw.closest_bvh.f64_launches, pw.any_bvh.f64_launches
+    walks = soa.bvh_closest.calls + soa.bvh_any.calls
+    gpu = render(big_scene(builder, device="cuda", dtype=torch.float64), cfg, seed=3)
+    assert pw.closest_bvh.f64_launches > nc
+    assert (pw.any_bvh.f64_launches > na) == (integrator != "pt")
+    assert soa.bvh_closest.calls + soa.bvh_any.calls == walks
+    cpu = render(big_scene(builder, device="cpu", dtype=torch.float64), cfg, seed=3)
+    ok = np.isclose(gpu.framebuffer_sum, cpu.framebuffer_sum, rtol=1e-9, atol=1e-9)
+    assert ok.all(axis=-1).mean() >= 0.99  # the card's libm may branch a path on an ulp
+    assert abs(gpu.stats.rays_traced - cpu.stats.rays_traced) <= 10
+    assert abs(gpu.stats.shadow_rays - cpu.stats.shadow_rays) <= 0.01 * cpu.stats.shadow_rays
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_glass_northstar_on_card(dtype, tmp_path):
+    """The glass stand-in at 640x360, 64 spp, depth 80, PT, seed 0 within
+    1.5% downsampled RMSE of the reference binary's render: float32 through
+    the brute-force megakernel, float64 through the stratum loop over the
+    float64 walk kernels (tools/torch_northstar_glass.py; ~1 s and ~20 s
+    on an H100)."""
+    import importlib.util
+
+    root = __file__.rsplit("/tests/", 1)[0]
+    spec = importlib.util.spec_from_file_location("torch_northstar_glass",
+                                                  f"{root}/tools/torch_northstar_glass.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    assert tool.main(["--dtype", dtype, "--out-dir", str(tmp_path)]) == 0

@@ -29,8 +29,10 @@ after a warm-up; 3 for the bounces), seed 0:
   are;
 
 and prints for each case its ms, live lanes and a sha256 of its outputs and
-counters, then ptxas's registers and spills of the three kernels and,
-where the copy has them, closest_bvh's and any_bvh's persistent grids.  Equal hashes
+counters, then ptxas's registers and spills of the three kernels (and of
+their float64 counterparts bvh64<false> / bvh64<true>, where the copy has
+them), a sha256 of each float32 kernel's SASS (cuobjdump) and, where the
+copy has them, closest_bvh's and any_bvh's persistent grids.  Equal hashes
 across copies mean bitwise equal outputs.  Give the copies as A B B A to
 see the spread:
 
@@ -48,7 +50,7 @@ import sys
 _BUILD = "from bpt_tpu_torch.ops.kernels import build; build.build()"
 
 _RUN = r"""
-import hashlib, os, statistics, sys
+import hashlib, os, statistics, subprocess, sys
 import numpy as np, torch
 
 DATA = sys.argv[1]
@@ -220,8 +222,34 @@ res, ms = timed(lambda: bk.bdpt_megakernel_pixels(coffee, i, j, pix, cam, key, 8
 out.append(f"bdpt_megakernel_pixels walk mode, coffee bdpt-mis 64x64x1spp d80: {ms:.3f} ms, "
            f"sha256 {digest(res)}")
 
+def sass_digests():  # sha256 of each float32 wave kernel's SASS
+    import re, shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "SASS: cuobjdump not found"
+    text = subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True,
+                          text=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+        elif cur is not None and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            cur.append(re.sub(r"^\s*/\*[0-9a-f]+\*/\s*", "", line).strip())
+    out = []
+    for label, tag in (("closest_bvh", "11closest_bvh"), ("any_bvh", "7any_bvh"),
+                       ("pt_wave_bounce", "14pt_wave_bounceE")):
+        for name, ins in funcs.items():
+            if tag in name:
+                out.append(f"{label} {hashlib.sha256(chr(10).join(ins).encode()).hexdigest()[:16]} "
+                           f"({len(ins)} instructions)")
+    return "SASS sha256 (float32): " + "; ".join(out)
+
+
 extra = ["ptxas: " + "; ".join(ptxas(e) for e in ("11closest_bvhE", "7any_bvhE",
-                                                 "14pt_wave_bounce"))]
+                                                 "14pt_wave_bounce", "5bvh64")),
+         sass_digests()]
 for name in ("closest_bvh", "any_bvh"):
     query = {"closest_bvh": "bpt_wave_blocks", "any_bvh": "bpt_any_blocks"}[name]
     if hasattr(lib, query):
