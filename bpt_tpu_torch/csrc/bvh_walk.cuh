@@ -29,14 +29,16 @@ struct Bvh {
 };
 
 // The float64 walk's tables (wave_walk.cuh::WaveWalk64, pt_wave.cu's
-// bvh64<ANY>), the same BVH in double: 48 B of box and 8 B of links a
-// node, 72 B a triangle.  The walk reads no normal: a float64 hit is
-// completed by the caller (ops/soa.py::complete_hit).  11.7 MB for the
-// coffee stand-in (7.3 MB in float32), still resident in the 50 MB L2.
+// bvh64): a node is one 64-byte record, 64-byte aligned, that four 16-byte
+// loads read from one half of a 128-byte line (the box and the links, 8 B
+// of padding); a triangle is one 80-byte row (v0, e1, e2 and a padding
+// double), five 16-byte loads.  The walk reads no normal: a float64 hit is
+// completed by the caller (ops/soa.py::complete_hit).
 struct Bvh64 {
-  const double2* boxes;  // [3N]: (min x, max x), (min y, max y), (min z, max z)
-  const int2* links;     // [N]: (skip, first*4 + count)
-  const double* tris;    // [9T]: v0 xyz, e1 xyz, e2 xyz
+  // [4N]: (min x, max x), (min y, max y), (min z, max z), (skip, first*4 +
+  // count as two int32; padding)
+  const double2* nodes;
+  const double2* tris;  // [5T]: (v0 x, v0 y), (v0 z, e1 x), (e1 y, e1 z), (e2 x, e2 y), (e2 z, 0)
   int N;
 };
 

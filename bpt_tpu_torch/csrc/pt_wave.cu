@@ -67,9 +67,16 @@
 // the warp's other lanes to reach theirs; child-pair records, which test
 // the right child from its parent's load when the left one misses.
 //
-// In float64 a step's operands are doubles: the walk holds 79-85
-// registers against 56-58, and each kernel's grid comes from its own
-// occupancy query.
+// The float64 kernels bvh64<false> / bvh64<true> are the same refill loop
+// over wave_walk.cuh::WaveWalk64, whose step is designed for the latency
+// of a double step (one 64-byte node record, the ordered slab, early-out
+// tests, no (u, v) in the loop, 32-bit lane counters flushed before they
+// could wrap); the any hit refills at 16 free lanes.  76 / 74 registers
+// without spills (float32: 58 / 56), each kernel's grid from its own
+// occupancy query.  Also measured and left out for them (PERF.md §6):
+// __launch_bounds__ minimum blocks (spills, no gain), an L1 prefetch of
+// the next nodes and the leaf's rows (15% slower), node i + 1's record
+// loaded ahead into registers (4% slower).
 //
 // any_bvh's walk is bvh_walk<true>'s: an any hit keeps its interval and
 // stops after the first leaf with a hit, which makes its answer
@@ -235,7 +242,7 @@ __global__ void __launch_bounds__(WAVE_BLOCK) any_bvh(const AnyParams p) {
 struct Params64 {
   int B;
   Bvh64 g;
-  int bounds_ok;
+  int bounds_ord;  // every node bound finite and min <= max (WaveWalk64::ord)
   const double* o[3];
   const double* d[3];
   const double* tmin;           // [B]
@@ -249,7 +256,18 @@ struct Params64 {
   unsigned long long* counters;  // [5] node visits, box hits, tri tests, tri hits; work
 };
 
-// closest_bvh's and any_bvh's refill loop over WaveWalk64.  As
+// Adds a lane's counts into the 64-bit device counters and zeroes them.
+__device__ __forceinline__ void flush_counts(TraceCounts32& c, unsigned long long* dst) {
+  atomicAdd(&dst[0], (unsigned long long)c.nodes);
+  atomicAdd(&dst[1], (unsigned long long)c.boxes);
+  atomicAdd(&dst[2], (unsigned long long)c.tests);
+  atomicAdd(&dst[3], (unsigned long long)c.hits);
+  c = TraceCounts32{};
+}
+
+// closest_bvh's and any_bvh's refill loop over WaveWalk64, every STEPS
+// steps.  The any hit's sparse shadow waves refill at 16 free lanes, the
+// closest hit at REFILL (measured on the card, PERF.md §6).  As
 // ops/soa.py::bvh_closest counts a masked lane (its tmax collapsed to 0,
 // its root visit taken off again), an inactive closest lane whose tmin is
 // above 0 misses at the root and counts nothing; one whose tmin is not
@@ -257,7 +275,8 @@ struct Params64 {
 // interval gives.  A dead any-hit lane never reaches the root.
 template <bool ANY>
 __global__ void __launch_bounds__(WAVE_BLOCK) bvh64(const Params64 p) {
-  TraceCounts c;
+  constexpr int R = ANY ? 16 : REFILL;
+  TraceCounts32 c;
   WaveWalk64<ANY> w;
   int r = -1;
   bool more = true;
@@ -265,7 +284,7 @@ __global__ void __launch_bounds__(WAVE_BLOCK) bvh64(const Params64 p) {
     __syncwarp();
     const unsigned busy = __ballot_sync(0xffffffffu, r >= 0);
     const int n_free = 32 - __popc(busy);
-    if (more && n_free >= REFILL) {
+    if (more && n_free >= R) {
       const long long base = warp_take_n(&p.counters[4], n_free);
       more = base + n_free < p.B;
       const long long k = base + rank_in(~busy);
@@ -275,7 +294,7 @@ __global__ void __launch_bounds__(WAVE_BLOCK) bvh64(const Params64 p) {
           if (tmax > 0.0) {
             r = (int)k;
             w.start(p.o[0][k], p.o[1][k], p.o[2][k], p.d[0][k], p.d[1][k], p.d[2][k],
-                    p.tmin[k], tmax, p.bounds_ok);
+                    p.tmin[k], tmax, p.bounds_ord);
           } else {
             p.hit[k] = 0;
           }
@@ -283,10 +302,10 @@ __global__ void __launch_bounds__(WAVE_BLOCK) bvh64(const Params64 p) {
           const bool live = p.active[k];
           const double tmin = p.tmin[k];
           if (live || !(tmin > 0.0)) {
-            if (!live) c.nodes -= 1;
+            if (!live) c.nodes -= 1;  // (32 bits: the walk's root visit adds it back)
             r = (int)k;
             w.start(p.o[0][k], p.o[1][k], p.o[2][k], p.d[0][k], p.d[1][k], p.d[2][k], tmin,
-                    live ? p.tmax[k] : 0.0, p.bounds_ok);
+                    live ? p.tmax[k] : 0.0, p.bounds_ord);
           } else {
             p.t[k] = inf_of<double>();
             p.tri[k] = -1;
@@ -304,12 +323,15 @@ __global__ void __launch_bounds__(WAVE_BLOCK) bvh64(const Params64 p) {
           if constexpr (ANY) {
             p.hit[r] = w.tri >= 0;
           } else {
+            double u, v;
+            w.uv(p.g, u, v);
             p.t[r] = w.t();
             p.tri[r] = w.tri;
-            p.u[r] = w.u;
-            p.v[r] = w.v;
+            p.u[r] = u;
+            p.v[r] = v;
           }
           r = -1;
+          if ((c.nodes | c.tests) >> 31) flush_counts(c, p.counters);
           break;
         }
       }
@@ -550,15 +572,15 @@ int bpt_pt_wave_bounce(int B, int N, int L, int bounce, const float* nodes,
   return (int)cudaGetLastError();
 }
 
-// bvh64<false> (closest) and bvh64<true> (any): boxes [3N] double2, links [N] int2, tris
-// [9T] double (Bvh64); every lane array double but active, tri and hit.
-static int launch_bvh64(bool any, bpt::Params64& p, int N, int bounds_ok, const double* boxes,
-                        const int* links, const double* tris, const double* ox,
-                        const double* oy, const double* oz, const double* dx,
-                        const double* dy, const double* dz, const double* tmin,
-                        const double* tmax, unsigned long long* counters, void* stream) {
-  p.g = bpt::Bvh64{(const double2*)boxes, (const int2*)links, tris, N};
-  p.bounds_ok = bounds_ok;
+// bvh64<false> (closest) and bvh64<true> (any): nodes [4N] double2, tris [5T]
+// double2 (Bvh64); every lane array double but active, tri and hit.
+static int launch_bvh64(bool any, bpt::Params64& p, int N, int bounds_ord, const double* nodes,
+                        const double* tris, const double* ox, const double* oy,
+                        const double* oz, const double* dx, const double* dy,
+                        const double* dz, const double* tmin, const double* tmax,
+                        unsigned long long* counters, void* stream) {
+  p.g = bpt::Bvh64{(const double2*)nodes, (const double2*)tris, N};
+  p.bounds_ord = bounds_ord;
   p.o[0] = ox;
   p.o[1] = oy;
   p.o[2] = oz;
@@ -571,16 +593,17 @@ static int launch_bvh64(bool any, bpt::Params64& p, int N, int bounds_ok, const 
   if (p.B <= 0) return (int)cudaGetLastError();
   const int grid = any ? bpt::bvh64_grid<true>(p.B) : bpt::bvh64_grid<false>(p.B);
   if (grid < 0) return -grid;
+  const cudaStream_t st = (cudaStream_t)stream;
   if (any) {
-    bpt::bvh64<true><<<grid, bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
+    bpt::bvh64<true><<<grid, bpt::WAVE_BLOCK, 0, st>>>(p);
   } else {
-    bpt::bvh64<false><<<grid, bpt::WAVE_BLOCK, 0, (cudaStream_t)stream>>>(p);
+    bpt::bvh64<false><<<grid, bpt::WAVE_BLOCK, 0, st>>>(p);
   }
   return (int)cudaGetLastError();
 }
 
-int bpt_closest_bvh_f64(int B, int N, int bounds_ok, const double* boxes,
-                        const int* links, const double* tris, const double* ox,
+int bpt_closest_bvh_f64(int B, int N, int bounds_ord, const double* nodes,
+                        const double* tris, const double* ox,
                         const double* oy, const double* oz, const double* dx,
                         const double* dy, const double* dz, const double* tmin,
                         const double* tmax, const unsigned char* active, double* t,
@@ -593,11 +616,11 @@ int bpt_closest_bvh_f64(int B, int N, int bounds_ok, const double* boxes,
   p.tri = tri;
   p.u = u;
   p.v = v;
-  return launch_bvh64(false, p, N, bounds_ok, boxes, links, tris, ox, oy, oz, dx, dy, dz,
-                      tmin, tmax, counters, stream);
+  return launch_bvh64(false, p, N, bounds_ord, nodes, tris, ox, oy, oz, dx, dy, dz, tmin, tmax,
+                      counters, stream);
 }
 
-int bpt_any_bvh_f64(int B, int N, int bounds_ok, const double* boxes, const int* links,
+int bpt_any_bvh_f64(int B, int N, int bounds_ord, const double* nodes,
                     const double* tris, const double* ox, const double* oy,
                     const double* oz, const double* dx, const double* dy,
                     const double* dz, const double* tmin, const double* tmax,
@@ -605,8 +628,8 @@ int bpt_any_bvh_f64(int B, int N, int bounds_ok, const double* boxes, const int*
   bpt::Params64 p{};
   p.B = B;
   p.hit = hit;
-  return launch_bvh64(true, p, N, bounds_ok, boxes, links, tris, ox, oy, oz, dx, dy, dz,
-                      tmin, tmax, counters, stream);
+  return launch_bvh64(true, p, N, bounds_ord, nodes, tris, ox, oy, oz, dx, dy, dz, tmin, tmax,
+                      counters, stream);
 }
 
 // closest_bvh's and any_bvh's persistent grids (resident blocks), float32

@@ -15,16 +15,37 @@
 // rays take slab_axis.
 //
 // WaveWalk64 is the same walk in double over each lane's own [tmin, tmax]
-// (pt_wave.cu's bvh64<ANY>): bpt_tpu computes every
-// float64 hit of a scene with a BVH with its jnp walks soa.bvh_closest /
-// bvh_any, whose answers and counts it gives.  It reads the Bvh64 tables
-// and tests with common.cuh's mt_test<double>; its slab entry is clamped
-// to tmin, its exit to t_best, and it accepts t >= tmin && t <= t_best.
-// fmin / fmax return the operand that is not NaN where torch.minimum /
-// maximum propagate it, so a lane whose interval holds a NaN starts from
-// the empty interval (inf, -inf): the plain walk's NaN bound fails the
-// root's test, and so does that.  The float32 walk is written apart so
-// that its kernels compile to the instructions they had before.
+// (pt_wave.cu's bvh64): bpt_tpu computes every float64 hit of a scene with
+// a BVH with its jnp walks soa.bvh_closest / bvh_any, whose answers and
+// counts it gives.  Its slab entry is clamped to tmin, its exit to t_best,
+// and it accepts t >= tmin && t <= t_best.  fmin / fmax return the operand
+// that is not NaN where torch.minimum / maximum propagate it, so a lane
+// whose interval holds a NaN starts from the empty interval (inf, -inf):
+// the plain walk's NaN bound fails the root's test, and so does that.
+//
+// What holds it on the H100 is the latency of a step, not warps in flight,
+// bytes or FP64 issue: a node's load depends on the previous step's test,
+// 15 of a float64 coffee bdpt-mis render's 19 closest launches keep under
+// a quarter of their lanes live and last as long as their longest walks
+// (~1,000 node visits a ray), and a walk alone takes 0.28-0.30 µs a node
+// visit (PERF.md §6).  So its design shortens the chain of a step
+// and keeps the registers at 6 blocks an SM without spills:
+// - one 64-byte node record (box and links, Bvh64) of four 16-byte loads
+//   and one 80-byte triangle row of five;
+// - for a ray with a finite origin and finite non-zero 1/d over finite
+//   boxes whose min <= max (most rays of every scene), slab_ord: the sign
+//   of 1/d picks each slab's pair (rounding is monotone), and the entry
+//   and exit take one compare and a select each (max_nn / min_nn), where
+//   fmin / fmax of double cost a compare, selects and a NaN fix-up; every
+//   other ray takes slab_axis;
+// - a triangle test that stops at |det| < 1e-8 or at u or v outside the
+//   triangle, where mt_test<double>'s valid is false;
+// - no (u, v) in the closest walk's loop: the winner's test again at the
+//   walk's end gives the bits its accepted test gave; lane counters in 32
+//   bits (TraceCounts32).
+// Each keeps every answer and count bitwise that of the plain walk.  The
+// float32 walk is written apart so that its kernels compile to the
+// instructions they had before.
 #pragma once
 
 #include "bvh_walk.cuh"
@@ -135,26 +156,45 @@ struct WaveWalk {
   }
 };
 
-__device__ __forceinline__ void slab_finite(double lo_b, double hi_b, double o,
-                                            double inv, double& lo, double& hi) {
+// slab_axis over a finite box whose lo_b <= hi_b, for finite o and a
+// finite inv that is not 0: rounding is monotone, so t0 <= t1 where inv > 0
+// and t0 >= t1 where inv < 0, neither NaN, and the ray's sign of inv (neg)
+// picks the pair.  lo and hi are slab_axis's but for the sign of a zero,
+// which no comparison of the walk sees.
+__device__ __forceinline__ void slab_ord(double lo_b, double hi_b, double o, double inv,
+                                         bool neg, double& lo, double& hi) {
   const double t0 = (lo_b - o) * inv;
   const double t1 = (hi_b - o) * inv;
-  lo = fmin(t0, t1);
-  hi = fmax(t0, t1);
+  lo = neg ? t1 : t0;
+  hi = neg ? t0 : t1;
 }
+
+// fmax / fmin of operands that are not NaN: one compare and a select.
+__device__ __forceinline__ double max_nn(double a, double b) { return a < b ? b : a; }
+__device__ __forceinline__ double min_nn(double a, double b) { return b < a ? b : a; }
+
+// A lane's walk counters in 32 bits (the float64 kernels).  A walk visits
+// each node at most once (i only grows) and tests each triangle at most
+// once, so it adds under 2^31 to every count (N, T < 2^31); the kernel
+// flushes a lane's counts into the 64-bit device counters whenever one has
+// reached 2^31 at the end of a walk, so none wraps, whatever B.
+struct TraceCounts32 {
+  unsigned nodes = 0, boxes = 0, tests = 0, hits = 0;
+};
 
 // WaveWalk's float64 counterpart, over the lane's own [tmin, tmax].
 template <bool ANY>
 struct WaveWalk64 {
   double ox, oy, oz, dx, dy, dz, ix, iy, iz;
-  double tmin, t_best, u, v;
+  double tmin, t_best;
   int tri;
-  int i;      // the next node; N when the walk has ended
-  bool fast;  // slab_finite: origin and 1/d finite, node bounds without NaN
+  int i;                  // the next node; N when the walk has ended
+  bool ord;               // slab_ord: origin and 1/d finite, 1/d not 0, bounds_ord
+  bool negx, negy, negz;  // 1/d < 0 (slab_ord)
 
   __device__ __forceinline__ void start(double ox_, double oy_, double oz_, double dx_,
                                         double dy_, double dz_, double tmin_, double tmax,
-                                        bool bounds_ok) {
+                                        bool bounds_ord) {
     ox = ox_;
     oy = oy_;
     oz = oz_;
@@ -170,35 +210,87 @@ struct WaveWalk64 {
       tmin = inf_of<double>();
       t_best = -inf_of<double>();
     }
-    u = 0.0;
-    v = 0.0;
     tri = -1;
     i = 0;
-    fast = bounds_ok && isfinite(ox) && isfinite(oy) && isfinite(oz) && isfinite(ix) &&
-           isfinite(iy) && isfinite(iz);
+    ord = bounds_ord && isfinite(ox) && isfinite(oy) && isfinite(oz) && isfinite(ix) &&
+          isfinite(iy) && isfinite(iz) && ix != 0.0 && iy != 0.0 && iz != 0.0;
+    negx = ix < 0.0;
+    negy = iy < 0.0;
+    negz = iz < 0.0;
   }
 
   __device__ __forceinline__ double t() const { return tri >= 0 ? t_best : inf_of<double>(); }
 
+  // The closest hit's barycentrics: 0 on a miss; the winner's test again
+  // (mt_test<double>, the operations of accepts in their order) on the
+  // same operands, which gives the bits its accepted test gave.
+  __device__ __forceinline__ void uv(const Bvh64& g, double& u, double& v) const {
+    u = 0.0;
+    v = 0.0;
+    if (tri >= 0) {
+      const double2* row = g.tris + 5 * (size_t)tri;
+      const double2 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2),
+                    e = __ldg(row + 3), f = __ldg(row + 4);
+      const double tv[9] = {a.x, a.y, b.x, b.y, c.x, c.y, e.x, e.y, f.x};
+      bool valid;
+      mt_test<double>(tv, ox, oy, oz, dx, dy, dz, u, v, valid);
+    }
+  }
+
+  // Whether triangle k's test is accepted ([tmin, t_best]), and its t:
+  // mt_test<double>'s operations in its order, stopping as soon as |det| <
+  // 1e-8 or u or v falls outside the triangle, where its valid is false.
+  __device__ __forceinline__ bool accepts(const double2* tris, int k, double& t) const {
+    const double2* row = tris + 5 * (size_t)k;
+    const double2 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2), e = __ldg(row + 3),
+                  f = __ldg(row + 4);
+    const double v0x = a.x, v0y = a.y, v0z = b.x;
+    const double e1x = b.y, e1y = c.x, e1z = c.y;
+    const double e2x = e.x, e2y = e.y, e2z = f.x;
+    const double px = dy * e2z - dz * e2y;
+    const double py = dz * e2x - dx * e2z;
+    const double pz = dx * e2y - dy * e2x;
+    const double det = e1x * px + e1y * py + e1z * pz;
+    if (!(fabs(det) >= 1e-8)) return false;
+    const double inv = 1.0 / det;
+    const double tx = ox - v0x;
+    const double ty = oy - v0y;
+    const double tz = oz - v0z;
+    const double u = (tx * px + ty * py + tz * pz) * inv;
+    if (!(u >= 0.0 && u <= 1.0)) return false;
+    const double qx = ty * e1z - tz * e1y;
+    const double qy = tz * e1x - tx * e1z;
+    const double qz = tx * e1y - ty * e1x;
+    const double v = (dx * qx + dy * qy + dz * qz) * inv;
+    if (!(v >= 0.0 && u + v <= 1.0)) return false;
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv;
+    return t >= tmin && t <= t_best;
+  }
+
   // One step of the walk.  Returns true when the walk has ended.
-  __device__ __forceinline__ bool step(const Bvh64& g, TraceCounts& c) {
+  __device__ __forceinline__ bool step(const Bvh64& g, TraceCounts32& c) {
     c.nodes += 1;
-    const double2 x = __ldg(&g.boxes[3 * i]);
-    const double2 y = __ldg(&g.boxes[3 * i + 1]);
-    const double2 z = __ldg(&g.boxes[3 * i + 2]);
-    const int2 link = __ldg(&g.links[i]);  // (skip, first*4 + count)
-    double lox, hix, loy, hiy, loz, hiz;
-    if (fast) {
-      slab_finite(x.x, x.y, ox, ix, lox, hix);
-      slab_finite(y.x, y.y, oy, iy, loy, hiy);
-      slab_finite(z.x, z.y, oz, iz, loz, hiz);
+    const double2* node = g.nodes + 4 * (size_t)i;
+    const double2 x = __ldg(node);
+    const double2 y = __ldg(node + 1);
+    const double2 z = __ldg(node + 2);
+    const int2 link = __ldg(reinterpret_cast<const int2*>(node + 3));  // (skip, first*4 + count)
+    double t_enter, t_exit;
+    if (ord) {
+      double lox, hix, loy, hiy, loz, hiz;
+      slab_ord(x.x, x.y, ox, ix, negx, lox, hix);
+      slab_ord(y.x, y.y, oy, iy, negy, loy, hiy);
+      slab_ord(z.x, z.y, oz, iz, negz, loz, hiz);
+      t_enter = max_nn(max_nn(lox, loy), max_nn(loz, tmin));
+      t_exit = min_nn(min_nn(hix, hiy), min_nn(hiz, t_best));
     } else {
+      double lox, hix, loy, hiy, loz, hiz;
       slab_axis(x.x, x.y, ox, ix, lox, hix);
       slab_axis(y.x, y.y, oy, iy, loy, hiy);
       slab_axis(z.x, z.y, oz, iz, loz, hiz);
+      t_enter = fmax(fmax(lox, loy), fmax(loz, tmin));
+      t_exit = fmin(fmin(hix, hiy), fmin(hiz, t_best));
     }
-    const double t_enter = fmax(fmax(lox, loy), fmax(loz, tmin));
-    const double t_exit = fmin(fmin(hix, hiy), fmin(hiz, t_best));
     if (!(t_exit > t_enter)) {
       i = link.x;
       return i >= g.N;
@@ -211,20 +303,11 @@ struct WaveWalk64 {
     }
     for (int k = link.y >> 2, end = (link.y >> 2) + cnt; k < end; ++k) {
       c.tests += 1;
-      const double* p = g.tris + 9 * (size_t)k;
-      const double tv[9] = {__ldg(p),     __ldg(p + 1), __ldg(p + 2), __ldg(p + 3), __ldg(p + 4),
-                            __ldg(p + 5), __ldg(p + 6), __ldg(p + 7), __ldg(p + 8)};
-      double tu, tw;
-      bool valid;
-      const double t = mt_test<double>(tv, ox, oy, oz, dx, dy, dz, tu, tw, valid);
-      if (valid && t >= tmin && t <= t_best) {
+      double t;
+      if (accepts(g.tris, k, t)) {
         c.hits += 1;
         tri = k;
-        if constexpr (!ANY) {
-          t_best = t;
-          u = tu;
-          v = tw;
-        }
+        if constexpr (!ANY) t_best = t;
       }
     }
     if (ANY && tri >= 0) return true;

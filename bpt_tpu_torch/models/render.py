@@ -88,18 +88,24 @@ def _wave_spp_batch(npix: int, spp_eff: int) -> int:
 
 
 # Peak device bytes of one bdpt_fast wave per ray, for a subpath depth S:
-# BYTES_PER_RAY[mis] = (per S^2, per S, constant).  The least-squares fit of
-# torch.cuda.max_memory_allocated over coffee waves of 65,536 rays at S = 2,
-# 5, 10, 20, 40 and 80 on an H100 (tools/probe_bdpt_wave_memory.py; PERF.md,
-# the coffee BDPT cells) was 409.3 S + 141.4 without MIS and 10.68 S^2 +
-# 380.4 S + 933.0 with it, within 4% of every point; these lie 8-32% above
-# every point, and 7% above the 512x512 / 4 spp / depth 10 bdpt-mis render's
-# one 2^20-ray wave (6.19 GiB).  A wave holds as many rays as keep
-# that peak under BDPT_WAVE_BYTES, under a third of the card's 80 GB, which
+# BYTES_PER_RAY[dtype][mis] = (per S^2, per S, constant).  Float32: the
+# least-squares fit of torch.cuda.max_memory_allocated over coffee waves of
+# 65,536 rays at S = 2, 5, 10, 20, 40 and 80 on an H100
+# (tools/probe_bdpt_wave_memory.py; PERF.md, the coffee BDPT cells) was
+# 409.3 S + 141.4 without MIS and 10.68 S^2 + 380.4 S + 933.0 with it,
+# within 4% of every point; these lie 8-32% above every point, and 7% above
+# the 512x512 / 4 spp / depth 10 bdpt-mis render's one 2^20-ray wave (6.19
+# GiB).  Float64, where every BDPT render takes the stratum loop: the same
+# fit over the same waves in float64 (``--f64``) was 813.7 S + 260.5 and
+# 20.32 S^2 + 817.5 S + 1,319.6, within 4.5%, 1.6-2.1x float32's; these lie
+# 8-29% above every point, and 9% above the float64 render's 2^20-ray wave
+# (11.53 GiB; PERF.md §6).  A wave holds as many rays as keep that
+# peak under BDPT_WAVE_BYTES, under a third of the card's 80 GB, which
 # leaves room for the allocator's slack and the caller's tensors; the
 # 512x512 / 4 spp / depth 80 bdpt-mis render, split into pixel ranges,
-# peaked at 18.2 GiB.
-BYTES_PER_RAY = {False: (0, 470, 160), True: (15, 440, 900)}
+# peaked at 18.2 GiB in float32.
+BYTES_PER_RAY = {torch.float32: {False: (0, 470, 160), True: (15, 440, 900)},
+                 torch.float64: {False: (0, 900, 400), True: (24, 880, 1700)}}
 BDPT_WAVE_BYTES = 24 << 30
 
 
@@ -174,12 +180,13 @@ def _reject_reason(scene: SceneTensors, cfg: CameraConfig, integrator: str,
     return ""
 
 
-def _bdpt_wave_shape(npix: int, spp_eff: int, depth: int, mis: bool) -> tuple[int, int]:
+def _bdpt_wave_shape(npix: int, spp_eff: int, depth: int, mis: bool,
+                     dtype=torch.float32) -> tuple[int, int]:
     """(strata per wave, pixels per wave): as many whole strata of the
     image as keep a wave's peak memory under BDPT_WAVE_BYTES (bpt_tpu's
-    _bdpt_wave_batch, on the port's own measured bytes), else one stratum
-    in ranges of as many pixels as do."""
-    a, b, c = BYTES_PER_RAY[mis]
+    _bdpt_wave_batch, on the port's own measured bytes of the scene's
+    dtype), else one stratum in ranges of as many pixels as do."""
+    a, b, c = BYTES_PER_RAY[dtype][mis]
     S = max(1, depth)
     cap = max(1, BDPT_WAVE_BYTES // (a * S * S + b * S + c))
     if cap >= npix:
@@ -334,7 +341,7 @@ def _render_strata(scene, cfg, cc, integrator, seed, fb, strata, bar,
         batch, span = _wave_spp_batch(npix, spp_eff), npix
     else:
         batch, span = _bdpt_wave_shape(npix, spp_eff, cfg.max_depth,
-                                       integrator == "bdpt-mis")
+                                       integrator == "bdpt-mis", dtype)
     estimate = bdpt_jnp if bdpt_wave else bdpt_fast
     key = rng.prng_key(seed)
     acc = torch.zeros(6, dtype=torch.int64, device=dev)

@@ -50,10 +50,10 @@ _I = ctypes.c_int
 # bpt_pt_wave_bounce(B, N, L, bounce, nodes, tris, mat_id, mat, lgt, keys,
 #                    state_in, rid, hit_t, hit_tri, state_out, counters, V, VT,
 #                    vol, volm, stream)
-# bpt_closest_bvh_f64(B, N, bounds_ok, boxes, links, tris, ox, oy, oz, dx, dy, dz,
-#                     tmin, tmax, active, t, tri, u, v, counters, stream)
-# bpt_any_bvh_f64(B, N, bounds_ok, boxes, links, tris, ox, oy, oz, dx, dy, dz,
-#                 tmin, tmax, hit, counters, stream)
+# bpt_closest_bvh_f64(B, N, bounds_ord, nodes, tris, ox, oy, oz, dx, dy, dz, tmin,
+#                     tmax, active, t, tri, u, v, counters, stream)
+# bpt_any_bvh_f64(B, N, bounds_ord, nodes, tris, ox, oy, oz, dx, dy, dz, tmin, tmax,
+#                 hit, counters, stream)
 # bpt_wave_blocks(), bpt_any_blocks(): closest_bvh's and any_bvh's persistent grids;
 # bpt_bvh_f64_blocks(any): those of their float64 instantiations
 # bpt_strata_sum(first, B, nk, rows, tot, stream)
@@ -76,9 +76,9 @@ _SIGNATURES = {
     "bpt_any_bvh": ([_I] * 3 + [_P] * 2 + [_P] * 7 + [_P] * 2 + [_P], _I),
     "bpt_pt_wave_bounce": ([_I] * 4 + [_P] * 6 + [_P] * 5 + [_P] + [_I] * 2 + [_P] * 3,
                            _I),
-    "bpt_closest_bvh_f64": ([_I] * 3 + [_P] * 3 + [_P] * 6 + [_P] * 3 + [_P] * 4
+    "bpt_closest_bvh_f64": ([_I] * 3 + [_P] * 2 + [_P] * 6 + [_P] * 3 + [_P] * 4
                             + [_P] * 2, _I),
-    "bpt_any_bvh_f64": ([_I] * 3 + [_P] * 3 + [_P] * 6 + [_P] * 2 + [_P] * 2 + [_P], _I),
+    "bpt_any_bvh_f64": ([_I] * 3 + [_P] * 2 + [_P] * 6 + [_P] * 2 + [_P] * 2 + [_P], _I),
     "bpt_wave_blocks": ([], _I),
     "bpt_bvh_f64_blocks": ([_I], _I),
     "bpt_any_blocks": ([], _I),

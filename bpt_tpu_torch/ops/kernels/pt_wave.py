@@ -77,7 +77,6 @@ from bpt_tpu_torch.models.pt import NU, kernel_stream_uniforms_fn, pt_bounce
 from bpt_tpu_torch.ops import soa
 from bpt_tpu_torch.ops.intersect import T_MIN
 from bpt_tpu_torch.ops.kernels import build
-from bpt_tpu_torch.ops.kernels.intersect import tri_table
 from bpt_tpu_torch.ops.kernels.pt_kernel import (
     _checked,
     _device_of,
@@ -124,25 +123,40 @@ def walk_tables(scene: SceneTensors) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 @per_scene
-def walk_tables64(scene: SceneTensors) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(boxes, links, tris): the BVH in the float64 walk's layout
-    (csrc/bvh_walk.cuh: Bvh64): boxes [N, 6] f64 (min x, max x, min y,
-    max y, min z, max z), three double2 loads a node; links [N, 2] int32
-    (skip, first*4 + count); the triangles' [T, 9] (v0, e1, e2) of
-    ``intersect.tri_table``.  Packed once a scene, as ``walk_tables``."""
-    boxes = torch.stack([scene.bvh_min, scene.bvh_max], dim=2).reshape(-1, 6)
-    links = torch.stack([scene.bvh_skip, scene.bvh_first * 4 + scene.bvh_count],
-                        dim=1).to(torch.int32)
-    return (boxes.to(torch.float64).contiguous(), links.contiguous(),
-            tri_table(scene).to(torch.float64))
+def walk_tables64(scene: SceneTensors) -> tuple[torch.Tensor, torch.Tensor]:
+    """(nodes, tris): the BVH in the float64 walk's layout (csrc/bvh_walk.cuh:
+    Bvh64).  nodes [N, 8] f64, a node one 64-byte record that four 16-byte
+    loads read: min x, max x, min y, max y, min z, max z, then skip and
+    first*4 + count as two int32 in the seventh double, the eighth 0; tris
+    [T, 10] f64, a triangle one 80-byte row of five 16-byte loads: v0, e1,
+    e2, 0.  Packed once a scene, as ``walk_tables``."""
+    f64 = torch.float64
+    nodes = torch.zeros((scene.bvh_min.shape[0], 8), dtype=f64, device=scene.device)
+    nodes[:, :6] = torch.stack([scene.bvh_min, scene.bvh_max], dim=2).reshape(-1, 6)
+    links = nodes.view(torch.int32)[:, 12:14]
+    links[:, 0] = scene.bvh_skip
+    links[:, 1] = scene.bvh_first * 4 + scene.bvh_count
+    tris = torch.cat([scene.v0, scene.e1, scene.e2, torch.zeros_like(scene.v0[:, :1])],
+                     dim=1).to(f64).contiguous()
+    return nodes, tris
 
 
 @per_scene
 def bounds_ok(scene: SceneTensors) -> bool:
     """No node bound of the scene's BVH is NaN: then the refilling walks' slab test
     of a ray with a finite origin and 1/d can leave out slab_axis's NaN
-    checks (csrc/wave_walk.cuh), in either type.  Read once a scene."""
+    checks (csrc/wave_walk.cuh), in float32.  Read once a scene."""
     return not bool(scene.bvh_min.isnan().any() or scene.bvh_max.isnan().any())
+
+
+@per_scene
+def bounds_ordered(scene: SceneTensors) -> bool:
+    """Every node bound of the scene's BVH is finite and every node's min
+    <= max (so none is NaN): then the float64 walks' slab test of a ray
+    whose origin and 1/d are finite and 1/d not 0 picks each slab's pair
+    by the sign of 1/d (csrc/wave_walk.cuh::slab_ord).  Read once a scene."""
+    return bool(scene.bvh_min.isfinite().all() and scene.bvh_max.isfinite().all()
+                and (scene.bvh_min <= scene.bvh_max).all())
 
 
 def shade_scene(scene: SceneTensors) -> SceneTensors:
@@ -273,11 +287,11 @@ def closest_bvh(scene: SceneTensors, o: Vec3, d: Vec3, active, tmin=T_MIN, tmax=
                 B, int(nodes.shape[0]), int(bounds_ok(scene)), nodes.data_ptr(),
                 tris.data_ptr(), *(x.data_ptr() for x in (*ins, *outs)), _stream(dev))
         else:
-            boxes, links, tris = walk_tables64(scene)
+            nodes, tris = walk_tables64(scene)
             code = lib.bpt_closest_bvh_f64(
-                B, int(boxes.shape[0]), int(bounds_ok(scene)), boxes.data_ptr(),
-                links.data_ptr(), tris.data_ptr(),
-                *(x.data_ptr() for x in (*ins, *bounds, *outs)), _stream(dev))
+                B, int(nodes.shape[0]), int(bounds_ordered(scene)), nodes.data_ptr(),
+                tris.data_ptr(), *(x.data_ptr() for x in (*ins, *bounds, *outs)),
+                _stream(dev))
     build.check(code, "closest_bvh" if bounds is None else "closest_bvh (float64)")
     closest_bvh.launches += 1
     closest_bvh.f64_launches += bounds is not None
@@ -323,10 +337,10 @@ def any_bvh(scene: SceneTensors, o: Vec3, d: Vec3, tmax, tmin=T_MIN):
                 tris.data_ptr(), *(x.data_ptr() for x in ins), tm.data_ptr(),
                 hit.data_ptr(), counters.data_ptr(), _stream(dev))
         else:
-            boxes, links, tris = walk_tables64(scene)
+            nodes, tris = walk_tables64(scene)
             code = lib.bpt_any_bvh_f64(
-                B, int(boxes.shape[0]), int(bounds_ok(scene)), boxes.data_ptr(),
-                links.data_ptr(), tris.data_ptr(), *(x.data_ptr() for x in ins),
+                B, int(nodes.shape[0]), int(bounds_ordered(scene)), nodes.data_ptr(),
+                tris.data_ptr(), *(x.data_ptr() for x in ins),
                 bounds[0].data_ptr(), tm.data_ptr(), hit.data_ptr(), counters.data_ptr(),
                 _stream(dev))
     build.check(code, "any_bvh" if bounds is None else "any_bvh (float64)")

@@ -322,13 +322,16 @@
    the second: each image equal to render()'s.  The kernels line gains
    each kernel's launches under phase 25 (distributed_launches).
 26. Float64 on scenes with a BVH (f64_phases): the stratum loop over the
-   float64 instantiations of closest_bvh / any_bvh.  (b) The main path:
+   float64 walk kernels bvh64<false> / bvh64<true> (closest_bvh / any_bvh
+   on a float64 scene), whose registers, spill bytes and persistent grids
+   it prints from the build's log.  (b) The main path:
    render() of the coffee stand-in in float64, bdpt-mis and pt at 512x512,
    4 spp, depth 10, one warm-up and three timed renders each: the float64
    walk kernels launched and nothing else, no plain version, images
    finite, not black and bitwise repeatable, rays_traced within 0.1% of
    the float32 stratum loop on the same jnp stream; walls, Mrays/s and
-   peak memory printed.  (a) The float64 kernels against their plain walks
+   peak memory printed, the BDPT render's beside its wave shape and
+   BDPT_WAVE_BYTES.  (a) The float64 kernels against their plain walks
    on 65,536 random coffee rays with per-lane intervals and inactive lanes,
    on every 16th lane of the bdpt-mis render's camera bounce 1 and on
    every 160th lane of its shadow wave of camera vertex 1: hit, tri and
@@ -2494,6 +2497,47 @@ def f64_lanes(scene, B, seed):
             cuda(tmin), cuda(tmax), cuda(g.uniform(size=B) > 0.125))
 
 
+def bvh64_ptxas(lines) -> dict:
+    """ptxas's registers and spill bytes of the float64 walk kernels
+    bvh64<false> / bvh64<true> in the lines of a build's log (``-Xptxas
+    -v``: the entry function's line, its function properties, its stack and
+    spill line, its register line): {"closest": {...}, "any": {...}}."""
+    import re
+
+    out = {}
+    for k, line in enumerate(lines):
+        m = re.search(r"entry function '(_ZN3bpt5bvh64ILb([01])\S*)'", line)
+        if not m:
+            continue
+        text = " ".join(lines[k + 1:k + 5])
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+        out["any" if m.group(2) == "1" else "closest"] = dict(
+            kernel=m.group(1), registers=int(regs.group(1)) if regs else None,
+            spill_stores=int(spill.group(1)) if spill else None,
+            spill_loads=int(spill.group(2)) if spill else None)
+    return out
+
+
+def bvh64_build_report() -> dict:
+    """``bvh64_ptxas`` of this build's log, with each kernel's persistent
+    grid (blocks of 128 threads)."""
+    from bpt_tpu_torch.ops.kernels import build
+
+    out = bvh64_ptxas(build.library_path().with_suffix(".log").read_text().splitlines())
+    for which, r in out.items():
+        r["grid"] = build.load_library().bpt_bvh_f64_blocks(int(which == "any"))
+    return out
+
+
+def walk64_table_bytes(scene) -> int:
+    """The bytes of the float64 BVH that a walk must read, each once: a
+    node's box and links (56 B) and a triangle's v0, e1, e2 (72 B).  The
+    padding of walk_tables64's 64-byte records and 80-byte rows is left
+    out of the bound."""
+    return 56 * int(scene.bvh_min.shape[0]) + 72 * int(scene.num_tris)
+
+
 def walk64_agree(kout, pout):
     """(lanes that differ in any bit of any output, max abs and max
     relative error of t, u, v over the lanes the plain version hits; inf
@@ -2562,10 +2606,21 @@ def f64_phases(dev, card, lap) -> dict:
 
     coffee32 = coffee_builder().build(device=dev)
     coffee = coffee_builder().build(device=dev, dtype=torch.float64)
-    table_bytes = sum(t.numel() * t.element_size() for t in pw.walk_tables64(coffee))
-    print(f"phase 26: the float64 coffee stand-in: walk tables {table_bytes} bytes "
+    table_bytes = walk64_table_bytes(coffee)
+    print(f"phase 26: the float64 coffee stand-in: walk tables {table_bytes} bytes of "
+          f"boxes, links and triangles "
+          f"({sum(t.numel() * t.element_size() for t in pw.walk_tables64(coffee))} allocated) "
           f"(float32 {sum(t.numel() * t.element_size() for t in pw.walk_tables(coffee32))}); "
           f"walk_reject_reason {pw.walk_reject_reason(coffee)!r}")
+    with torch.cuda.device(dev):
+        report = bvh64_build_report()
+    for which, r in report.items():
+        print(f"phase 26: bvh64 {which} ({r['kernel']}): {r['registers']} registers, spill "
+              f"stores {r['spill_stores']} B, loads {r['spill_loads']} B, persistent grid "
+              f"{r['grid']} blocks of 128 threads ({card})")
+    check(set(report) == {"closest", "any"}
+          and all(None not in r.values() and r["grid"] > 0 for r in report.values()),
+          f"phase 26: the float64 walks' build report is incomplete: {report}")
 
     # ---- (b) the float64 main path through render()
     out = {"renders": {}}
@@ -2609,6 +2664,15 @@ def f64_phases(dev, card, lap) -> dict:
         gap = (st.rays_traced - rays32) / rays32 * 100
         out["renders"][integ] = dict(walls=walls, rays=st.rays_traced, shadow=st.shadow_rays,
                                      rays32=rays32, peak_gib=peak, launches=launched)
+        budget = ""
+        if integ != "pt":
+            strata, span = render_mod._bdpt_wave_shape(width * width, spp, 10,
+                                                       integ == "bdpt-mis", torch.float64)
+            a, b, c = render_mod.BYTES_PER_RAY[torch.float64][integ == "bdpt-mis"]
+            budget = (f"; waves of {strata} strata x {span} pixels, budgeted "
+                      f"{strata * span * (a * 100 + b * 10 + c) / 2**30:.2f} GiB, peak "
+                      f"{peak * 2**30 / render_mod.BDPT_WAVE_BYTES * 100:.1f}% of "
+                      f"BDPT_WAVE_BYTES ({render_mod.BDPT_WAVE_BYTES / 2**30:.0f} GiB)")
         if integ == "pt":
             out["pt_ref"] = warm
         print(f"phase 26b: render coffee float64 {integ} {width}x{width} {spp} spp depth 10 "
@@ -2617,7 +2681,7 @@ def f64_phases(dev, card, lap) -> dict:
               f"Mrays/s; rays {st.rays_traced}, shadow {st.shadow_rays}; float32 on the same "
               f"stream {rays32} rays ({gap:+.4f}%); three renders' launches {launched}, float64 "
               f"{n64}, plain calls {calls}; images bitwise repeatable; peak device memory "
-              f"{peak:.2f} GiB ({card})")
+              f"{peak:.2f} GiB{budget} ({card})")
         check(abs(gap) <= 0.1, f"phase 26b: float64 coffee {integ} rays {st.rays_traced} not "
               f"within 0.1% of float32's {rays32}")
         del runs, warm, fb32
@@ -2696,6 +2760,7 @@ def f64_phases(dev, card, lap) -> dict:
                       bound=a_bound, B=Bs, live=int((tms > 0).sum()),
                       slice_plain_ms=s_plain_ms)
     out["f64_launches"] = f64_launched
+    out["build"] = report
     del out["camera1"], out["shadow1"], kc, pc, ka, pa, k1, ks, kcs, pcs
     lap("phase 26a")
 
@@ -2763,6 +2828,10 @@ def f64_entries(f64) -> list:
                       f"the float64 bdpt-mis render's shadow wave of camera vertex 1, "
                       f"B={r['B']}"),
             "live": r["live"],
+            "registers": f64["build"][name.split("_")[0]]["registers"],
+            "spill_bytes": [f64["build"][name.split("_")[0]][k]
+                            for k in ("spill_stores", "spill_loads")],
+            "grid_blocks": f64["build"][name.split("_")[0]]["grid"],
             "render_walls_s": {i: v["walls"] for i, v in f64["renders"].items()},
             "render_rays": {i: v["rays"] for i, v in f64["renders"].items()},
             "render_rays_float32": {i: v["rays32"] for i, v in f64["renders"].items()},

@@ -268,11 +268,12 @@ def test_bdpt_wave_splits_change_no_bit(port_scene, port_renders, monkeypatch):
     assert trender_mod._bdpt_wave_shape(512 * 512, 4, 10, True) == (4, 512 * 512)
     strata, span = trender_mod._bdpt_wave_shape(512 * 512, 4, 80, True)
     assert strata == 1 and span < 512 * 512
-    a, b, c = trender_mod.BYTES_PER_RAY[True]
+    a, b, c = trender_mod.BYTES_PER_RAY[torch.float64][True]  # the port's scene is float64
     per_ray = a * DEPTH_BIG ** 2 + b * DEPTH_BIG + c
     for budget, shape in ((npix * per_ray, (1, npix)), (10 * per_ray, (1, 10))):
         monkeypatch.setattr(trender_mod, "BDPT_WAVE_BYTES", budget)
-        assert trender_mod._bdpt_wave_shape(npix, SPP_BIG, DEPTH_BIG, True) == shape
+        assert trender_mod._bdpt_wave_shape(npix, SPP_BIG, DEPTH_BIG, True,
+                                            torch.float64) == shape
         snaps = []
         got = render(port_scene, _cfg(CameraConfig, "bdpt-mis"), seed=5,
                      stratum_callback=snaps.append)

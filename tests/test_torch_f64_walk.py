@@ -78,20 +78,25 @@ def _interval_lanes(B, seed):
 
 
 def test_float64_walk_tables_unpack_to_the_scene_and_are_packed_once(scene64):
-    """boxes [N, 6] (min x, max x, min y, max y, min z, max z), links [N, 2]
-    (skip, first*4 + count), tris [T, 9] (v0, e1, e2): equal to the scene's
-    arrays bit for bit, packed at the first call and kept with the scene."""
-    boxes, links, tris = tw.walk_tables64(scene64)
-    assert boxes.dtype == tris.dtype == torch.float64 and links.dtype == torch.int32
-    assert boxes.is_contiguous() and links.is_contiguous() and tris.is_contiguous()
-    assert torch.equal(boxes[:, 0::2], scene64.bvh_min)
-    assert torch.equal(boxes[:, 1::2], scene64.bvh_max)
-    assert torch.equal(links[:, 0].long(), scene64.bvh_skip.long())
-    assert torch.equal(links[:, 1].long() >> 2, scene64.bvh_first.long())
-    assert torch.equal(links[:, 1].long() & 3, scene64.bvh_count.long())
-    assert torch.equal(tris, torch.cat([scene64.v0, scene64.e1, scene64.e2], dim=1))
+    """nodes [N, 8] f64, one 64-byte record a node (min x, max x, min y,
+    max y, min z, max z, then skip and first*4 + count as two int32, and a
+    zero pad), tris [T, 10] f64, one 80-byte row a triangle (v0, e1, e2, a
+    zero pad): equal to the scene's arrays bit for bit, packed at the first
+    call and kept with the scene."""
+    nodes, tris = tw.walk_tables64(scene64)
+    assert nodes.dtype == tris.dtype == torch.float64
+    assert nodes.shape == (scene64.bvh_min.shape[0], 8) and tris.shape == (scene64.num_tris, 10)
+    assert nodes.is_contiguous() and tris.is_contiguous()
+    assert torch.equal(nodes[:, 0:6:2], scene64.bvh_min)
+    assert torch.equal(nodes[:, 1:6:2], scene64.bvh_max)
+    links = nodes.view(torch.int32)[:, 12:14].long()
+    assert torch.equal(links[:, 0], scene64.bvh_skip.long())
+    assert torch.equal(links[:, 1] >> 2, scene64.bvh_first.long())
+    assert torch.equal(links[:, 1] & 3, scene64.bvh_count.long())
+    assert not bool(nodes[:, 7].any()) and not bool(tris[:, 9].any())
+    assert torch.equal(tris[:, :9], torch.cat([scene64.v0, scene64.e1, scene64.e2], dim=1))
     again = tw.walk_tables64(scene64)
-    assert all(a is b for a, b in zip(again, (boxes, links, tris)))
+    assert all(a is b for a, b in zip(again, (nodes, tris)))
     assert id(scene64) in tw.walk_tables64.cache
     assert tw.bounds_ok(scene64)
 

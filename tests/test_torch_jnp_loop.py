@@ -310,9 +310,9 @@ def test_loop_waves_change_no_bit(monkeypatch):
         whole = trender.render(scene, cfg, seed=SEED)
         with monkeypatch.context() as m:
             m.setattr(trender, "_wave_spp_batch", lambda npix, spp: 1)
-            a, b, c = trender.BYTES_PER_RAY[False]
+            a, b, c = trender.BYTES_PER_RAY[torch.float64][False]
             m.setattr(trender, "BDPT_WAVE_BYTES", 10 * (a * DEPTH ** 2 + b * DEPTH + c))
-            assert trender._bdpt_wave_shape(W * W, SPP, DEPTH, False) == (1, 10)
+            assert trender._bdpt_wave_shape(W * W, SPP, DEPTH, False, torch.float64) == (1, 10)
             split = trender.render(scene, cfg, seed=SEED)
         runs[integrator] = whole
         np.testing.assert_array_equal(split.framebuffer_sum, whole.framebuffer_sum)
@@ -328,7 +328,7 @@ def test_jnp_checkpoint_resumes_the_small_scene_loop(monkeypatch):
     loop.  A chunk-kind checkpoint and one of the pt_wave stream raise,
     with bpt_tpu's words."""
     scene, cfg = _f64("bdpt", ref_vis=True)
-    a, b, c = trender.BYTES_PER_RAY[False]
+    a, b, c = trender.BYTES_PER_RAY[torch.float64][False]
     monkeypatch.setattr(trender, "BDPT_WAVE_BYTES", W * W * (a * DEPTH ** 2 + b * DEPTH + c))
     snaps = []
     whole = trender.render(scene, cfg, seed=SEED, stratum_callback=snaps.append)

@@ -27,18 +27,26 @@ after a warm-up; 3 for the bounces), seed 0:
 - the walk-mode megakernels on coffee (PT pixels 128x128 x 4 spp, depth 10;
   bdpt-mis pixels 64x64 x 1 spp, depth 80), which this A/B leaves as they
   are;
+- the float64 walks bvh64<false> / bvh64<true> (closest_bvh / any_bvh on
+  a float64 scene) on each of the 19 closest and 10 any launches of one
+  float64 coffee bdpt-mis 512x512 / 4 spp / depth 10 render through the
+  stratum loop (camera bounce 1 is closest launch 1, the shadow wave of
+  camera vertex 1 any launch 1), mean of 10 calls, their sums, the
+  render's wall and the float64 persistent grids; and lone walks, rays of
+  the last closest launch and of any launch 1 each walked alone (B = 1),
+  with the least-squares ms a node visit and a triangle test;
 
 and prints for each case its ms, live lanes and a sha256 of its outputs and
-counters, then ptxas's registers and spills of the three kernels (and of
-their float64 counterparts bvh64<false> / bvh64<true>, where the copy has
-them), a sha256 of each float32 kernel's SASS (cuobjdump) and, where the
-copy has them, closest_bvh's and any_bvh's persistent grids.  Equal hashes
-across copies mean bitwise equal outputs.  Give the copies as A B B A to
-see the spread:
+counters, then ptxas's registers and spills of the three kernels and of
+the float64 walks, a sha256 of each float32 kernel's SASS (cuobjdump), the
+float64 walks' SASS instructions by kind and, where the copy has them,
+closest_bvh's and any_bvh's persistent grids.  Equal hashes across
+copies mean bitwise equal outputs.  ``--f64-only``, as the first argument, runs the float64 cases
+alone.  Give the copies as A B B A to see the spread:
 
     mkdir -p build/ab/parent && git archive <commit> bpt_tpu_torch chip_smoke.py \\
         | tar -x -C build/ab/parent
-    python tools/ab_wave_kernels.py build/ab/parent . . build/ab/parent
+    python tools/ab_wave_kernels.py [--f64-only] build/ab/parent . . build/ab/parent
 """
 
 from __future__ import annotations
@@ -49,7 +57,7 @@ import sys
 
 _BUILD = "from bpt_tpu_torch.ops.kernels import build; build.build()"
 
-_RUN = r"""
+_HEAD = r"""
 import hashlib, os, statistics, subprocess, sys
 import numpy as np, torch
 
@@ -110,9 +118,9 @@ def recording(name, pick):
     return fn, calls
 
 
-def renders(cfg):
-    render(coffee, cfg, seed=0)  # warm-up
-    rs = [render(coffee, cfg, seed=0) for _ in range(3)]
+def renders(scene, cfg):
+    render(scene, cfg, seed=0)  # warm-up
+    rs = [render(scene, cfg, seed=0) for _ in range(3)]
     fb = hashlib.sha256(np.ascontiguousarray(rs[0].framebuffer_sum).tobytes()).hexdigest()[:16]
     same = all(np.array_equal(r.framebuffer_sum, rs[0].framebuffer_sum) for r in rs[1:])
     walls = [r.stats.wall_seconds for r in rs]
@@ -124,8 +132,12 @@ def renders(cfg):
 dev = torch.device("cuda", 0)
 key = rng.prng_key(0)
 os.chdir(DATA)
-coffee = coffee_builder().build(device=dev)
 out = []
+"""
+
+_F32 = r"""
+coffee = coffee_builder().build(device=dev)
+
 
 # ---- coffee bdpt-mis 512x512 / 4 spp / d10: its 19 closest_bvh launches
 cfg_b = coffee_camera(spp=4, integrator="bdpt-mis")
@@ -136,7 +148,7 @@ fc, closest_calls = recording("closest_bvh", lambda a, kw: (clone(a[1]), clone(a
 fa, any_calls = recording("any_bvh", lambda a, kw: (clone(a[1]), clone(a[2]), a[3].clone()))
 render(coffee, cfg_b, seed=0)
 pw.closest_bvh, pw.any_bvh = fc, fa
-out.append(f"coffee bdpt-mis 512x512x4spp d10 render: {renders(cfg_b)}")
+out.append(f"coffee bdpt-mis 512x512x4spp d10 render: {renders(coffee, cfg_b)}")
 total, lines = 0.0, []
 for n, (o, d, act) in enumerate(closest_calls):
     res, ms = timed(lambda: pw.closest_bvh(coffee, Vec3(*o), Vec3(*d), act), 5)
@@ -173,7 +185,7 @@ fb_, bounce_calls = recording("pt_wave_bounce", lambda a, kw: (a[1].clone(), a[2
                                                                a[3], a[4], kw.get("tables")))
 render(coffee, cfg_p, seed=0)
 pw.pt_wave_bounce = fb_
-out.append(f"coffee pt 512x512x16spp d10 render: {renders(cfg_p)}")
+out.append(f"coffee pt 512x512x16spp d10 render: {renders(coffee, cfg_p)}")
 total, lines = 0.0, []
 for n, (state, rid, k_, b_, tab) in enumerate(bounce_calls):
     res, ms = timed(lambda: pw.pt_wave_bounce(coffee, state, rid, k_, b_, tables=tab), 3)
@@ -221,13 +233,86 @@ res, ms = timed(lambda: bk.bdpt_megakernel_pixels(coffee, i, j, pix, cam, key, 8
                                                   mis=True), 3)
 out.append(f"bdpt_megakernel_pixels walk mode, coffee bdpt-mis 64x64x1spp d80: {ms:.3f} ms, "
            f"sha256 {digest(res)}")
+"""
 
-def sass_digests():  # sha256 of each float32 wave kernel's SASS
+_F64 = r"""
+# ---- float64 coffee bdpt-mis 512x512 / 4 spp / d10 (the stratum loop): its
+# 19 closest_bvh and 10 any_bvh float64 launches (bvh64<false> / <true>)
+coffee64 = coffee_builder().build(device=dev, dtype=torch.float64)
+copy = lambda vs: tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in vs)
+cfg_b = coffee_camera(spp=4, integrator="bdpt-mis")
+render(coffee64, cfg_b, seed=0)
+fc, closest_calls = recording("closest_bvh", lambda a, kw: (copy(a[1]), copy(a[2]), copy(a[3:])))
+fa, any_calls = recording("any_bvh", lambda a, kw: (copy(a[1]), copy(a[2]), copy(a[3:])))
+render(coffee64, cfg_b, seed=0)
+pw.closest_bvh, pw.any_bvh = fc, fa
+out.append(f"float64 coffee bdpt-mis 512x512x4spp d10 render: {renders(coffee64, cfg_b)}")
+# the bound of a launch: chip_smoke.py phase 26's (bytes of the lanes and
+# the walk tables over 3.35 TB/s, or the walk's FP64 operations from its
+# counters over 34 TFLOP/s, whichever is larger)
+from chip_smoke import MT_OPS, SLAB_OPS, bound64, walk64_bytes
+
+# the walk tables' bytes as a walk needs them (box and links 56 B a node,
+# 72 B a triangle: chip_smoke.walk64_table_bytes), whatever a copy's layout
+table_bytes = 56 * int(coffee64.bvh_min.shape[0]) + 72 * int(coffee64.num_tris)
+for name, calls in (("closest_bvh", closest_calls), ("any_bvh", any_calls)):
+    fn = getattr(pw, name)
+    total, bound_total, lines = 0.0, 0.0, []
+    for n, (o, d, rest) in enumerate(calls):
+        res, ms = timed(lambda: fn(coffee64, Vec3(*o), Vec3(*d), *rest), 10)
+        total += ms
+        live = int(rest[0].sum()) if name == "closest_bvh" else int((rest[0] > 0).sum())
+        c = res[-1].tolist()
+        bound = bound64(walk64_bytes(name.split("_")[0], rest[0]) + table_bytes,
+                        c[0] * SLAB_OPS + c[2] * MT_OPS)[0]
+        bound_total += bound
+        lines.append(f"  float64 {name} launch {n}: B={rest[0].numel()} live {live}: "
+                     f"{ms:.3f} ms, bound {bound:.4f} ms, counters {c}, sha256 {digest(res)}")
+    out.append(f"float64 {name}, the render's {len(calls)} launches: sum {total:.3f} ms, "
+               f"bound {bound_total:.4f} ms (walk tables {table_bytes} bytes)")
+    out += lines
+
+
+def lone_walks(name, call, pick=256, keep=24):
+    # rays of one launch walked alone (B = 1): the `keep` longest of the
+    # first `pick` live lanes, each timed; ms ~ a + b * nodes + c * tests
+    fn = getattr(pw, name)
+    o, d, rest = call
+    live = rest[0] if name == "closest_bvh" else rest[0] > 0
+    lanes = torch.nonzero(live).flatten()[:pick].tolist()
+
+    def one(k):
+        sl = lambda x: x[k:k + 1].contiguous() if isinstance(x, torch.Tensor) else x
+        args = (Vec3(*map(sl, o)), Vec3(*map(sl, d)), *map(sl, rest))
+        return lambda: fn(coffee64, *args)
+
+    counts = {k: one(k)()[-1].tolist() for k in lanes}
+    longest = sorted(lanes, key=lambda k: -counts[k][0])[:keep]
+    rows = [(timed(one(k), 5)[1], counts[k][0], counts[k][2]) for k in longest]
+    ms, nodes, tests = (np.asarray(x, np.float64) for x in zip(*rows))
+    a, b, c = np.linalg.lstsq(np.stack([np.ones_like(ms), nodes, tests], 1), ms, rcond=None)[0]
+    return (f"float64 {name} lone walks ({keep} longest of {len(lanes)} live lanes, B=1): "
+            f"{b * 1e3:.4f} us a node visit, {c * 1e3:.4f} us a test, {a:.4f} ms a launch; "
+            f"longest {ms.max():.3f} ms over {int(nodes[ms.argmax()])} nodes, "
+            f"{int(tests[ms.argmax()])} tests")
+
+
+out.append(lone_walks("closest_bvh", closest_calls[18]))
+out.append(lone_walks("any_bvh", any_calls[1]))
+del closest_calls, any_calls
+with torch.cuda.device(dev):
+    out.append("float64 persistent grids: bvh64<false> "
+               f"{lib.bpt_bvh_f64_blocks(0)}, bvh64<true> {lib.bpt_bvh_f64_blocks(1)} blocks "
+               "of 128 threads")
+"""
+
+_TAIL = r"""
+def sass_functions():  # {mangled name: its SASS instructions} of the library
     import re, shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        return "SASS: cuobjdump not found"
+        return None
     text = subprocess.run([tool, "-sass", str(build.library_path())], capture_output=True,
                           text=True).stdout
     funcs, cur = {}, None
@@ -237,6 +322,12 @@ def sass_digests():  # sha256 of each float32 wave kernel's SASS
             cur = funcs.setdefault(m.group(1), [])
         elif cur is not None and re.search(r"/\*[0-9a-f]{4,}\*/", line):
             cur.append(re.sub(r"^\s*/\*[0-9a-f]+\*/\s*", "", line).strip())
+    return funcs
+
+
+def sass_digests(funcs):  # sha256 of each float32 wave kernel's SASS
+    if funcs is None:
+        return "SASS: cuobjdump not found"
     out = []
     for label, tag in (("closest_bvh", "11closest_bvh"), ("any_bvh", "7any_bvh"),
                        ("pt_wave_bounce", "14pt_wave_bounceE")):
@@ -247,9 +338,26 @@ def sass_digests():  # sha256 of each float32 wave kernel's SASS
     return "SASS sha256 (float32): " + "; ".join(out)
 
 
+def sass_bvh64(funcs):  # the float64 walks' instructions by kind
+    if funcs is None:
+        return "SASS: cuobjdump not found"
+    out = []
+    for name, ins in sorted(funcs.items()):
+        if "5bvh64" not in name:
+            continue
+        ops = [(x.split()[1:] if x.startswith("@") else x.split()) or [""] for x in ins]
+        ops = [o[0].split(".")[0] for o in ops]
+        kinds = {k: sum(o == k for o in ops) for k in ("LDG", "STG", "DADD", "DMUL", "DFMA",
+                                                       "DSETP", "MUFU", "BRA", "ATOMG")}
+        out.append(f"{name}: {len(ins)} instructions, " + ", ".join(
+            f"{k} {v}" for k, v in kinds.items()))
+    return "SASS (float64): " + "; ".join(out)
+
+
+funcs = sass_functions()
 extra = ["ptxas: " + "; ".join(ptxas(e) for e in ("11closest_bvhE", "7any_bvhE",
                                                  "14pt_wave_bounce", "5bvh64")),
-         sass_digests()]
+         sass_digests(funcs), sass_bvh64(funcs)]
 for name in ("closest_bvh", "any_bvh"):
     query = {"closest_bvh": "bpt_wave_blocks", "any_bvh": "bpt_any_blocks"}[name]
     if hasattr(lib, query):
@@ -261,7 +369,10 @@ print("\n".join(out + extra))
 
 
 def main(argv=None) -> int:
-    dirs = sys.argv[1:] if argv is None else argv
+    dirs = list(sys.argv[1:] if argv is None else argv)
+    run = _HEAD + _F32 + _F64 + _TAIL
+    if dirs and dirs[0] == "--f64-only":
+        dirs, run = dirs[1:], _HEAD + _F64 + _TAIL
     data = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -278,7 +389,7 @@ def main(argv=None) -> int:
             return proc.returncode
     for d in dirs:
         path = os.path.abspath(d)
-        proc = subprocess.run([sys.executable, "-c", _RUN, data], cwd=path,
+        proc = subprocess.run([sys.executable, "-c", run, data], cwd=path,
                               env=dict(os.environ, PYTHONPATH=path),
                               capture_output=True, text=True)
         if proc.returncode:

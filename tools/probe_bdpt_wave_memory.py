@@ -12,10 +12,14 @@ renders the coffee stand-in at 512x512, 4 spp, depth N with bdpt-mis
 through the BDPT wave loop (``models.render._render_strata`` with
 ``bdpt_wave``, which ``render()`` takes to depth 32) and prints the wave
 shape the budget chose, the render's wall and its peak device memory against
-``BDPT_WAVE_BYTES``.
+``BDPT_WAVE_BYTES``.  ``--f64`` does the same in float64, where every
+BDPT render takes the stratum loop (``_render_strata`` without
+``bdpt_wave``, ``bdpt_fast`` falling through to ``bdpt_jnp``): the scene,
+the camera and the rays in float64, the fit that of
+``BYTES_PER_RAY[torch.float64]``, the render the float64 route's.
 
     python tools/probe_bdpt_wave_memory.py [--rays 65536] [--depths 2,5,10,20]
-        [--render-depth 80]
+        [--render-depth 80] [--f64]
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rays", type=int, default=65536)
     ap.add_argument("--depths", type=str, default="2,5,10,20")
     ap.add_argument("--render-depth", type=int, default=0)
+    ap.add_argument("--f64", action="store_true")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -57,17 +62,18 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
-    loaded = load_scene_from_yaml(YAML, device=dev, verbose=False)
+    dtype = torch.float64 if args.f64 else torch.float32
+    loaded = load_scene_from_yaml(YAML, device=dev, dtype=dtype, verbose=False)
     cfg = dataclasses.replace(loaded.camera, image_width=512, aspect_ratio=1.0,
                               samples_per_pixel=4)
-    cc = camera_constants(cfg, torch.float32, dev)
+    cc = camera_constants(cfg, dtype, dev)
     B = args.rays
     pix = torch.arange(B, dtype=torch.int64, device=dev) % (512 * 512)
     s = torch.arange(B, dtype=torch.int64, device=dev) // (512 * 512)
     key = rng.prng_key(0)
-    o, d, ids = jnp_raygen(cc, pix, s, key, torch.float32)
+    o, d, ids = jnp_raygen(cc, pix, s, key, dtype)
     depths = [int(x) for x in args.depths.split(",")]
-    print(f"{card}; coffee stand-in, {B} rays a wave")
+    print(f"{card}; coffee stand-in in {dtype}, {B} rays a wave")
     for mis in (False, True):
         per_ray = []
         for depth in depths:
@@ -100,22 +106,22 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         depth = args.render_depth
         rcfg = dataclasses.replace(cfg, max_depth=depth)
-        strata, span = render_mod._bdpt_wave_shape(512 * 512, 4, depth, True)
-        a, b, c = render_mod.BYTES_PER_RAY[True]
+        strata, span = render_mod._bdpt_wave_shape(512 * 512, 4, depth, True, dtype)
+        a, b, c = render_mod.BYTES_PER_RAY[dtype][True]
         budget = render_mod.BDPT_WAVE_BYTES
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        fb = torch.zeros((512 * 512, 3), device=dev)
+        fb = torch.zeros((512 * 512, 3), dtype=dtype, device=dev)
         t0 = time.monotonic()
         rays, shadow, _ = render_mod._render_strata(
-            loaded.scene, rcfg, camera_constants(rcfg, torch.float32, dev), "bdpt-mis", 0, fb,
-            None, None, None, bdpt_wave=True)
+            loaded.scene, rcfg, camera_constants(rcfg, dtype, dev), "bdpt-mis", 0, fb,
+            None, None, None, bdpt_wave=not args.f64)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         peak = torch.cuda.max_memory_allocated(dev) - base
         fb = fb.cpu().numpy()
-        print(f"render bdpt-mis 512x512, 4 spp, depth {depth}: waves of {strata} strata x "
+        print(f"render bdpt-mis 512x512, 4 spp, depth {depth} in {dtype}: waves of {strata} strata x "
               f"{span} pixels ({a * depth * depth + b * depth + c} budgeted bytes a ray); "
               f"wall {wall:.3f} s; peak {peak / 2**30:.3f} GiB above the "
               f"{base / 2**30:.3f} GiB held, {peak / (strata * span):.1f} B a ray, "

@@ -47,6 +47,7 @@ def main(argv=None) -> int:
     ap.add_argument("--renders", type=int, default=10)
     ap.add_argument("--ref-vis", action="store_true")
     ap.add_argument("--defocus", action="store_true")
+    ap.add_argument("--f64", action="store_true")
     args = ap.parse_args(argv)
 
     import torch
@@ -63,15 +64,16 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
+    dtype = torch.float64 if args.f64 else torch.float32
     if args.scene == "coffee":
         from bpt_tpu_torch.scene.loader import load_scene_from_yaml
 
         loaded = load_scene_from_yaml(os.path.join(
             os.path.dirname(os.path.abspath(__file__)), "..", "scenes", "coffee",
-            "coffee_standin.yaml"), device=dev)
+            "coffee_standin.yaml"), device=dev, dtype=dtype)
         scene, cam = loaded.scene, loaded.camera
     else:
-        scene, cam = cornell_box(device=dev), cornell_box_camera()
+        scene, cam = cornell_box(device=dev, dtype=dtype), cornell_box_camera()
     cfg = dataclasses.replace(cam, image_width=args.width, aspect_ratio=1.0,
                               samples_per_pixel=args.spp, max_depth=args.depth,
                               integrator=args.integrator, ref_vis=args.ref_vis)
@@ -83,7 +85,8 @@ def main(argv=None) -> int:
              for _ in range(args.renders)]
     switches = " ".join(f"{k}={os.environ[k]}" for k in ("BPT_TPU_NO_FTB", "BPT_TPU_WAVE_IMPL")
                         if k in os.environ)
-    print(f"{args.scene} {args.integrator} ref_vis={args.ref_vis} defocus={args.defocus} "
+    print(f"{args.scene} {dtype} {args.integrator} ref_vis={args.ref_vis} "
+          f"defocus={args.defocus} "
           f"{switches or 'no switch'} "
           f"{args.width}x{args.width} {args.spp} spp render walls {walls} s, median "
           f"{statistics.median(walls)} s ({card})")
@@ -101,18 +104,21 @@ def main(argv=None) -> int:
     busy = sum(e.self_device_time_total for e in events) / 1e3
     readback = sum(e.self_device_time_total for e in events
                    if e.key.startswith("Memcpy DtoH")) / 1e3
-    groups = {"kernel": ("megakernel", "pt_wave_bounce"), "closest_bvh": ("closest_bvh",),
-              "any_bvh": ("any_bvh",), "closest_tri": ("closest_tri",),
+    groups = {"kernel": ("megakernel", "pt_wave_bounce"),
+              "closest_bvh": ("closest_bvh", "bvh64<false"),
+              "any_bvh": ("any_bvh", "bvh64<true"), "closest_tri": ("closest_tri",),
               "any_tri": ("any_tri",), "clustered_hit": ("RolledMT",),
               "plucker_hit": ("PluckerChop",), "sort": ("Radix", "radix", "sort"),
               "gather": ("index", "gather")}
     dev_ms = {name: 0.0 for name in (*groups, "other")}
+    calls = {name: 0 for name in dev_ms}
     for e in events:
         if e.self_device_time_total <= 0 or e.key.startswith("Memcpy DtoH"):
             continue
         name = next((n for n, keys in groups.items() if any(k in e.key for k in keys)),
                     "other")
         dev_ms[name] += e.self_device_time_total / 1e3
+        calls[name] += e.count
     wall = res.stats.wall_seconds * 1e3
     inside = busy - readback
     shares = ", ".join(f"{n} {v:.3f} ms ({v / inside * 100:.1f}%)" for n, v in dev_ms.items())
@@ -120,6 +126,11 @@ def main(argv=None) -> int:
           f"{inside:.3f} ms: {shares}; {readback:.3f} ms read-back after the wall; "
           f"device busy {inside / wall * 100:.1f}% of the wall; rays_traced "
           f"{res.stats.rays_traced} ({card})")
+    walks = dev_ms["closest_bvh"] + dev_ms["any_bvh"]
+    print(f"the BVH walks: closest_bvh {calls['closest_bvh']} launches {dev_ms['closest_bvh']:.3f} "
+          f"ms, any_bvh {calls['any_bvh']} launches {dev_ms['any_bvh']:.3f} ms; together "
+          f"{walks:.3f} ms, {walks / wall * 100:.1f}% of the profiled wall, "
+          f"{walks / (statistics.median(walls) * 1e3) * 100:.1f}% of the median wall ({card})")
     return 0
 
 
