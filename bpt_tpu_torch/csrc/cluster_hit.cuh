@@ -1,26 +1,51 @@
-// The lane frame of the clustered hit kernels over per-lane intervals, one
-// thread per ray, shared by two traversals (providers):
+// The frame of the clustered hit kernels over per-lane intervals, shared by
+// two traversals (providers):
 // - cluster_wave.cu's RolledMT: superclusters, then their member clusters,
 //   then each cluster's triangles by Moller-Trumbore (kernels 10-11);
 // - plucker.cu's PluckerChop: the fixed-stride chop clusters, then each
 //   cluster's triangles by Plucker products (kernels 12-13).
-// The frame loads a lane's ray and [tmin, tmax] (tmax <= 0 marks a dead
-// lane: it misses and tests nothing), runs the provider, writes t (inf on
-// a miss), tri (-1 on a miss), u, v, or the any answer, and sums the
-// lane's counters into 64-bit counters (warp sums, one atomic per warp).
+// A lane has a ray and [tmin, tmax] (tmax <= 0 marks a dead lane: it
+// misses and tests nothing).  Out: t (inf on a miss), tri (-1 on a miss),
+// u, v, or the any answer, and the lanes' counters (slab tests, boxes
+// entered, triangle tests, accepted tests) summed into 64-bit counters,
+// one atomic a warp.  Both hits slab-test a box with ClusterLane::enters
+// (bound min(t_best, tmax), tmax for the any hit; entry clamped to T_MIN)
+// and accept a triangle by one rule: t in [tmin, tmax] and, for the
+// closest hit, t < t_best, a cluster's triangles in ascending order, so of
+// equal t the lowest id wins.  The any hit ends a lane at its first
+// accepted test.
 //
-// A provider calls ClusterLane::enters for each box it slab-tests and
-// ClusterLane::accepts / take for each triangle, so both count slab
-// tests, boxes entered, triangle tests (the provider's own += 1) and
-// accepted tests alike, and both accept by one rule: t in [tmin, tmax]
-// and, for the closest hit, t < t_best, the triangles of a cluster in
-// ascending order, so of equal t the lowest id wins.  The any hit ends
-// the lane at its first accepted test.
+// The any hit, cluster_any<Provider>: one thread a lane, running the
+// provider's any_hit.
+//
+// The closest hit (PERF.md §6, rows 10 and 12): cluster_live compacts the
+// live lanes, then cluster_closest<Provider> runs them warp-wide on a
+// persistent grid.
+// - What bounded the lane-serial closest hit on the H100: a warp stepped
+//   through an entered cluster's 32 slots for each lane that entered it,
+//   its other lanes waiting, and reloaded each triangle with scalar loads.
+//   On the coffee stand-in 4.0 of a warp's 32 lanes enter a cluster the
+//   warp tests at camera bounce 1, 7.3 at the render's last closest launch,
+//   so the warp took 4-8x the steps its tests need.  Besides, most of a
+//   render's launches hold under 250,000 live lanes of 1,048,576 (sorted
+//   first), and one thread a lane gave them too few warps to fill the card.
+// - Design: the box loops are warp-uniform: at each step every live lane
+//   slab-tests the same box on its own bound, and __ballot_sync marks the
+//   lanes that enter.  An entered cluster's slots are read once, one a
+//   thread, and tested against each entering lane's ray in turn (the ray
+//   staged in shared memory by its lane, three 16-byte loads), with the
+//   same expressions as the lane-serial loop, so to the same bits;
+//   warp_accept then takes the candidates as the slot-order loop with its
+//   strict < does.  A warp takes units of k compacted lanes from a
+//   counter, k a power of two chosen from the live lanes and the grid's
+//   warps, so that a launch with few live lanes still spreads them over
+//   the card.  A lane's answer and counters do not depend on its warp.
 #pragma once
 
 #include <cuda_runtime.h>
 
 #include "bvh_walk.cuh"
+#include "walk_sched.cuh"
 
 namespace bpt {
 
@@ -28,10 +53,13 @@ constexpr int CLUSTER_BLOCK = 128;
 constexpr int CLUSTER_TRIS = 32;
 
 struct ClusterHitParams {
-  int B, S, C, T;       // lanes, superclusters (rolled only), clusters, triangles
+  int B, S, C, T;       // lanes, superclusters (rolled) or chop groups (Plucker
+                        // closest), clusters, triangles
   const float* table;   // rolled: [S*6 super boxes | S*2 spans | C*7 cluster
-                        // records]; Plucker: [C*6] chop boxes (lo3, hi3)
+                        // records]; Plucker: [C*6] chop boxes (lo3, hi3), then
+                        // the closest hit's [S*6] group boxes
   const float* blocks;  // rolled: [C, 32, 9] v0, e1, e2; Plucker: [C, 128, 10]
+                        // (any), [C, 22, 32] (closest)
   const float* o[3];
   const float* d[3];
   const float* tmin;
@@ -51,10 +79,8 @@ struct ClusterLane {
   int tri;
   TraceCounts c;
 
-  template <bool ANY>
-  __device__ __forceinline__ bool done() const {
-    return ANY && tri >= 0;
-  }
+  // The any hit's lane has taken a hit and ends.
+  __device__ __forceinline__ bool done() const { return tri >= 0; }
   // One slab test of box (lo3, hi3), bounded by min(t_best, tmax) (tmax
   // for the any hit), the entry clamped to T_MIN.
   template <bool ANY>
@@ -64,30 +90,159 @@ struct ClusterLane {
     c.boxes += in;
     return in;
   }
-  template <bool ANY>
+  // The any hit's acceptance of a test at t_hit.
   __device__ __forceinline__ bool accepts(float t_hit) const {
-    return t_hit >= tmin && t_hit <= tmax && (ANY || t_hit < t);
+    return t_hit >= tmin && t_hit <= tmax;
   }
-  // Takes an accepted test; true when the lane ends (the any hit).
-  template <bool ANY>
-  __device__ __forceinline__ bool take(int id, float t_hit, float u_hit, float v_hit) {
+  // The any hit takes its first accepted test, triangle id; the lane ends.
+  __device__ __forceinline__ void take(int id) {
     c.hits += 1;
     tri = id;
-    if (ANY) return true;
-    t = t_hit;
-    u = u_hit;
-    v = v_hit;
-    return false;
   }
 };
 
-template <class Provider, bool ANY>
-__global__ void __launch_bounds__(CLUSTER_BLOCK) cluster_hit(const ClusterHitParams p) {
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+__device__ __forceinline__ float lane_of(float x, int r) {
+  return __shfl_sync(FULL_MASK, x, r);
+}
+
+// One cluster's candidates for the ray of lane r, one slot a thread (slot =
+// the thread's lane id): `cand` is the slot's test passed with t below the
+// ray's t_best t0.  Scans the candidates in slot order with a strict <, as
+// the lane-serial loop takes them, and hands lane r the last one taken (the
+// first of the smallest t), its (u, v) and triangle base + slot, and the
+// count taken as its accepted tests.  Every thread runs the same scan.
+__device__ __forceinline__ void warp_accept(ClusterLane& L, int r, int slot, bool cand,
+                                          float t, float u, float v, int base, float t0) {
+  const unsigned cm = __ballot_sync(FULL_MASK, cand);
+  if (!cm) return;
+  float run = t0;
+  int win = 0;
+  unsigned taken = 0;
+  for (unsigned m = cm; m; m &= m - 1) {
+    const int s = __ffs(m) - 1;
+    const float ts = lane_of(t, s);
+    if (ts < run) {
+      run = ts;
+      win = s;
+      taken += 1;
+    }
+  }
+  const float ub = lane_of(u, win);
+  const float vb = lane_of(v, win);
+  if (slot == r) {
+    L.t = run;
+    L.u = ub;
+    L.v = vb;
+    L.tri = base + win;
+    L.c.hits += taken;
+  }
+}
+
+// The closest hit's lanes, compacted (cluster_live, launched before
+// cluster_closest on the same stream; a template, so that each provider's
+// source has its own): each warp of 32 lanes with a live one takes an
+// aligned chunk of 32 slots of sched[2..] (its lanes, -1 for a dead one)
+// with one atomic on sched[0], and writes its dead lanes' misses.  sched[1]
+// is cluster_closest's work counter; the launch zeroes both.  Both are
+// int32, as the slots are: a launch's slots and units stay under 2^31.
+template <class Provider>
+__global__ void __launch_bounds__(CLUSTER_BLOCK) cluster_live(const ClusterHitParams p,
+                                                              int* sched) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool in = lane < p.B;
+  const bool live = in && p.tmax[lane] > 0.0f;
+  if (in && !live) {
+    p.t[lane] = inf_f();
+    p.tri[lane] = -1;
+    p.u[lane] = 0.0f;
+    p.v[lane] = 0.0f;
+  }
+  const unsigned m = __ballot_sync(FULL_MASK, live);
+  if (!m) return;
+  int base = 0;
+  if ((threadIdx.x & 31) == 0) base = atomicAdd(sched, 32);
+  base = __shfl_sync(FULL_MASK, base, 0);
+  sched[2 + base + (threadIdx.x & 31)] = live ? lane : -1;
+}
+
+// The closest hit, warp-wide, on a persistent grid (the header's design): a
+// warp takes units of k compacted slots, k the least power of two that
+// spreads the slots over the grid's warps (at most 32), and runs the
+// provider's closest over the unit's lanes (threads 0..k-1; the others
+// dead).  A live lane stages its ray in `stage`, a warp's 32 rows of three
+// float4, for the warp's threads to read.  The counters are each lane's,
+// summed once a warp at the end.
+template <class Provider>
+__global__ void __launch_bounds__(CLUSTER_BLOCK) cluster_closest(const ClusterHitParams p,
+                                                                 int* sched) {
+  const int slots = sched[0];
+  const int warps = gridDim.x * (CLUSTER_BLOCK / 32);
+  int k = 32;
+  while (k > 1 && (k / 2) * warps >= slots) k /= 2;
+  const int units = (slots + k - 1) / k;
+  const int l = threadIdx.x & 31;
+  __shared__ float4 stage[CLUSTER_BLOCK / 32][32][3];
+  float4(*mine)[3] = stage[threadIdx.x >> 5];
+  TraceCounts sum;
+  for (;;) {
+    int unit = 0;
+    if (l == 0) unit = atomicAdd(sched + 1, 1);
+    unit = __shfl_sync(FULL_MASK, unit, 0);
+    if (unit >= units) break;
+    const int j = unit * k + l;
+    const int lane = l < k && j < slots ? sched[2 + j] : -1;
+    const bool live = lane >= 0;
+    ClusterLane L;
+    L.t = inf_f();
+    L.u = 0.0f;
+    L.v = 0.0f;
+    L.tri = -1;
+    if (live) {
+      L.tmax = p.tmax[lane];
+      L.tmin = p.tmin[lane];
+      L.ox = p.o[0][lane];
+      L.oy = p.o[1][lane];
+      L.oz = p.o[2][lane];
+      L.dx = p.d[0][lane];
+      L.dy = p.d[1][lane];
+      L.dz = p.d[2][lane];
+      L.ix = 1.0f / L.dx;
+      L.iy = 1.0f / L.dy;
+      L.iz = 1.0f / L.dz;
+    }
+    if (__ballot_sync(FULL_MASK, live)) Provider::closest(p, L, live, mine);
+    if (live) {
+      p.t[lane] = L.t;
+      p.tri[lane] = L.tri;
+      p.u[lane] = L.u;
+      p.v[lane] = L.v;
+    }
+    sum.nodes += L.c.nodes;
+    sum.boxes += L.c.boxes;
+    sum.tests += L.c.tests;
+    sum.hits += L.c.hits;
+  }
+  warp_add(sum.nodes, &p.counters[0]);
+  warp_add(sum.boxes, &p.counters[1]);
+  warp_add(sum.tests, &p.counters[2]);
+  warp_add(sum.hits, &p.counters[3]);
+}
+
+// cluster_closest's persistent grid (resident blocks of CLUSTER_BLOCK), or
+// a negative CUDA error code.
+template <class Provider>
+int cluster_closest_blocks() {
+  static int cache[64] = {0};
+  return resident_blocks(cluster_closest<Provider>, CLUSTER_BLOCK, cache, 64);
+}
+
+// The any hit, one thread a lane.
+template <class Provider>
+__global__ void __launch_bounds__(CLUSTER_BLOCK) cluster_any(const ClusterHitParams p) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   ClusterLane L;
-  L.t = inf_f();
-  L.u = 0.0f;
-  L.v = 0.0f;
   L.tri = -1;
   if (lane < p.B) {
     L.tmax = p.tmax[lane];
@@ -102,16 +257,9 @@ __global__ void __launch_bounds__(CLUSTER_BLOCK) cluster_hit(const ClusterHitPar
       L.ix = 1.0f / L.dx;
       L.iy = 1.0f / L.dy;
       L.iz = 1.0f / L.dz;
-      Provider::template trace<ANY>(p, L);
+      Provider::any_hit(p, L);
     }
-    if constexpr (ANY) {
-      p.hit[lane] = L.tri >= 0;
-    } else {
-      p.t[lane] = L.t;
-      p.tri[lane] = L.tri;
-      p.u[lane] = L.u;
-      p.v[lane] = L.v;
-    }
+    p.hit[lane] = L.tri >= 0;
   }
   warp_add(L.c.nodes, &p.counters[0]);
   warp_add(L.c.boxes, &p.counters[1]);
@@ -120,14 +268,15 @@ __global__ void __launch_bounds__(CLUSTER_BLOCK) cluster_hit(const ClusterHitPar
 }
 
 // The C entry points' launch: the closest (any = 0) or any hit of
-// Provider on `stream`; returns cudaGetLastError() after the launch (0 =
-// launched).  The closest hit writes t, tri, u, v, the any hit `hit`.
+// Provider on `stream`; returns cudaGetLastError() after the launches (0 =
+// launched).  The closest hit writes t, tri, u, v and takes `sched`, int32
+// scratch of 2 + 32 ceil(B / 32) (cluster_live); the any hit writes `hit`.
 template <class Provider>
 int launch_cluster_hit(int any, int B, int S, int C, int T, const float* table,
                        const float* blocks, const float* const* rays,
                        const float* tmin, const float* tmax, float* t, int* tri,
                        float* u, float* v, unsigned char* hit,
-                       unsigned long long* counters, void* stream) {
+                       unsigned long long* counters, int* sched, void* stream) {
   ClusterHitParams p{};
   p.B = B;
   p.S = S;
@@ -148,11 +297,17 @@ int launch_cluster_hit(int any, int B, int S, int C, int T, const float* table,
   p.hit = hit;
   p.counters = counters;
   if (B > 0) {
+    const cudaStream_t s = (cudaStream_t)stream;
     const int grid = (B + CLUSTER_BLOCK - 1) / CLUSTER_BLOCK;
     if (any) {
-      cluster_hit<Provider, true><<<grid, CLUSTER_BLOCK, 0, (cudaStream_t)stream>>>(p);
+      cluster_any<Provider><<<grid, CLUSTER_BLOCK, 0, s>>>(p);
     } else {
-      cluster_hit<Provider, false><<<grid, CLUSTER_BLOCK, 0, (cudaStream_t)stream>>>(p);
+      const int blocks = cluster_closest_blocks<Provider>();
+      if (blocks < 0) return -blocks;
+      cudaError_t err = cudaMemsetAsync(sched, 0, 2 * sizeof(int), s);
+      if (err != cudaSuccess) return (int)err;
+      cluster_live<Provider><<<grid, CLUSTER_BLOCK, 0, s>>>(p, sched);
+      cluster_closest<Provider><<<blocks, CLUSTER_BLOCK, 0, s>>>(p, sched);
     }
   }
   return (int)cudaGetLastError();

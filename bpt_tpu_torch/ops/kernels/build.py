@@ -63,8 +63,9 @@ _I = ctypes.c_int
 #             next, stream)
 # bpt_tri_blocks(f64, any): closest_tri's or any_tri's persistent grid
 # bpt_clustered_hit(any, B, S, C, T, table, blocks, ox, oy, oz, dx, dy, dz,
-#                   tmin, tmax, t, tri, u, v, hit, counters, stream)
-# bpt_plucker_hit: the same arguments (S unused)
+#                   tmin, tmax, t, tri, u, v, hit, counters, sched, stream)
+# bpt_plucker_hit: the same arguments (S: the closest hit's chop groups)
+# bpt_clustered_blocks(), bpt_plucker_blocks(): the closest hits' persistent grids
 _SIGNATURES = {
     "bpt_pt_megakernel": ([_I] * 11 + [_P] * 8 + [_P] * 6 + [_P] * 2
                           + [_P] * 4 + [_P] + [_I] * 2 + [_P] * 2 + [_P], _I),
@@ -86,8 +87,10 @@ _SIGNATURES = {
     "bpt_closest_tri": ([_I] * 4 + [_P] + [_P] * 8 + [_P] * 4 + [_P] * 2, _I),
     "bpt_any_tri": ([_I] * 4 + [_P] + [_P] * 8 + [_P] + [_P] * 2, _I),
     "bpt_tri_blocks": ([_I] * 2, _I),
-    "bpt_clustered_hit": ([_I] * 5 + [_P] * 2 + [_P] * 8 + [_P] * 5 + [_P] * 2, _I),
-    "bpt_plucker_hit": ([_I] * 5 + [_P] * 2 + [_P] * 8 + [_P] * 5 + [_P] * 2, _I),
+    "bpt_clustered_hit": ([_I] * 5 + [_P] * 2 + [_P] * 8 + [_P] * 5 + [_P] * 3, _I),
+    "bpt_plucker_hit": ([_I] * 5 + [_P] * 2 + [_P] * 8 + [_P] * 5 + [_P] * 3, _I),
+    "bpt_clustered_blocks": ([], _I),
+    "bpt_plucker_blocks": ([], _I),
     "bpt_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -30,6 +30,12 @@ Where the port differs from the Pallas kernels, which run 128-lane rows:
   the lowest triangle id wins; the Pallas roll shows lane l the slots in
   the order (l + s) mod 32.
 
+On the card the closest hit runs warp-wide (``csrc/cluster_hit.cuh``): a
+first kernel compacts the live lanes, then the warps of a persistent grid
+slab-test the boxes in step and test an entered cluster's slots for one
+entering ray at a time, one slot a thread; ``Lanes.accept`` is the plain
+form of that take.  The any hit runs one thread a lane.
+
 Dispatch is by device: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel or raises.  The wrappers count their launches in
 ``<wrapper>.launches``, the plain versions their calls in
@@ -225,8 +231,9 @@ def launch(what: str, symbol: str, tables, scene: SceneTensors, o: Vec3, d: Vec3
            tmin, tmax, any_hit: bool):
     """One launch of a clustered hit kernel, ``bpt_clustered_hit`` or
     ``bpt_plucker_hit`` (``csrc/cluster_hit.cuh``'s frame), over
-    ``tables(scene)`` = (superclusters, clusters, table, blocks).  Returns
-    (t, tri, u, v, counters), or (hit, counters) for the any hit."""
+    ``tables(scene)`` = (superclusters or chop groups, clusters, table,
+    blocks).  Returns (t, tri, u, v, counters), or (hit, counters) for the
+    any hit."""
     dev, B, ins = _lanes(what, scene, o, d, tmin, tmax)
     n_super, n_clusters, table, blocks = tables(scene)
     if any_hit:
@@ -238,10 +245,13 @@ def launch(what: str, symbol: str, tables, scene: SceneTensors, o: Vec3, d: Vec3
                 torch.empty(B, **kw), torch.empty(B, **kw)]
         ptrs = [x.data_ptr() for x in outs] + [None]
     counters = torch.zeros(4, dtype=torch.int64, device=dev)
+    # the closest hit's compacted lanes: two counters, then 32 slots a warp
+    sched = None if any_hit else torch.empty(2 + 32 * -(-B // 32), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         code = getattr(build.load_library(), symbol)(
             int(any_hit), B, n_super, n_clusters, scene.num_tris, table.data_ptr(),
             blocks.data_ptr(), *(x.data_ptr() for x in ins), *ptrs, counters.data_ptr(),
+            None if sched is None else sched.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(code, what)
     return (*outs, counters)

@@ -107,6 +107,11 @@ def _chop_tables(scene: SceneTensors):
     return 0, tab.n_clusters, tab.aabb, tab.blocks
 
 
+def _closest_tables(scene: SceneTensors):
+    tab = plucker_tables(scene)
+    return tab.n_groups, tab.n_clusters, tab.table, tab.packed
+
+
 def plucker_closest(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax):
     """Closest hit of each ray within its own [tmin, tmax] ([B] f32 each;
     tmax <= 0 marks a dead lane) by Plücker products over the chop
@@ -114,7 +119,7 @@ def plucker_closest(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax):
     miss; u, v [B] f32; counters int64[4])."""
     if _device_of(tmax).type == "cpu":
         return plucker_closest_plain(scene, o, d, tmin, tmax)
-    out = launch("plucker_closest", "bpt_plucker_hit", _chop_tables, scene, o, d, tmin,
+    out = launch("plucker_closest", "bpt_plucker_hit", _closest_tables, scene, o, d, tmin,
                  tmax, any_hit=False)
     plucker_closest.launches += 1
     return out

@@ -16,11 +16,17 @@ plane.  Vertices are stored relative to their cluster's box centre, and
 the kernels translate the ray origin the same way, which keeps the
 moments a x b and o x d well conditioned at large coordinates.
 
-Two tables, as float32 tensors on the scene's device:
+The tables, as float32 tensors on the scene's device:
 - ``aabb`` [C*6]: each chop cluster's box (lo3, hi3);
 - ``blocks`` [C, 128, 10]: rows 0-31 w_ab, 32-63 w_bc, 64-95 w_ca, 96-127
   plane of the cluster's 32 triangles; the rows of unused slots are zero
-  (denominator 0: they never pass).
+  (denominator 0: they never pass).  The any hit reads these two;
+- ``table`` [C*6 + G*6]: ``aabb``, then the boxes of G groups of 16
+  consecutive chop clusters, each the min / max of its members' boxes;
+- ``packed`` [C, 22, 32]: the coefficients of ``blocks`` that are not
+  zero by construction (each edge row's first 6, the plane row's last 4),
+  slot-minor, so that thread s of a warp reads slot s's with coalesced
+  loads.  The closest hit reads these two (csrc/plucker.cu).
 
 ``bpt_tpu`` pads the feature dimension to 128 for the TPU's matrix unit;
 the port keeps the 10 features it uses.
@@ -36,12 +42,17 @@ from bpt_tpu_torch.ops.clusters import CLUSTER_TRIS, tri_bounds
 from bpt_tpu_torch.scene.types import SceneTensors, per_scene
 
 NFEAT = 10
+NCOEF = 22  # a triangle's coefficients not zero by construction
+GROUP = 16  # chop clusters a group: the closest hit's second level
 
 
 class PluckerTables(NamedTuple):
-    aabb: torch.Tensor  # [C*6] f32
+    aabb: torch.Tensor  # [C*6] f32, the first C*6 of ``table``
     blocks: torch.Tensor  # [C, 128, 10] f32
     n_clusters: int  # C
+    table: torch.Tensor  # [C*6 + G*6] f32: the chop boxes, then the group boxes
+    packed: torch.Tensor  # [C, 22, 32] f32: each slot's nonzero coefficients
+    n_groups: int  # G
 
 
 def _chop(x: torch.Tensor, C: int, fill: float) -> torch.Tensor:
@@ -88,7 +99,23 @@ def pack_plucker_clusters(scene: SceneTensors) -> PluckerTables:
             torch.cat([_cross(c, a), a - c, z3, z1], dim=1),
             torch.cat([z3, z3, n, n_v0], dim=1)]
     blocks = torch.cat([_chop(r, C, 0.0) for r in rows], dim=1).contiguous()
-    return PluckerTables(aabb.contiguous(), blocks, C)
+    G = -(-C // GROUP)
+    pad = torch.tensor([torch.inf] * 3 + [-torch.inf] * 3, device=scene.device)
+    groups = torch.cat([box, pad.expand(G * GROUP - C, 6)]).reshape(G, GROUP, 6)
+    table = torch.cat([aabb, torch.cat([groups[:, :, :3].amin(dim=1),
+                                        groups[:, :, 3:].amax(dim=1)], dim=1).reshape(-1)])
+    return PluckerTables(table[:C * 6], blocks, C, table, pack_nonzero(blocks), G)
+
+
+def pack_nonzero(blocks: torch.Tensor) -> torch.Tensor:
+    """[C, NCOEF, 32]: the coefficients of ``blocks`` [C, 128, 10] that are not
+    zero by construction, slot-minor: rows 0-17 the three edge rows' first
+    6 (w_ab, w_bc, w_ca), rows 18-21 the plane row's last 4."""
+    C = blocks.shape[0]
+    edge = blocks[:, :3 * CLUSTER_TRIS, :6].reshape(C, 3, CLUSTER_TRIS, 6)
+    edge = edge.permute(0, 1, 3, 2).reshape(C, 18, CLUSTER_TRIS)
+    plane = blocks[:, 3 * CLUSTER_TRIS:, 6:].permute(0, 2, 1)
+    return torch.cat([edge, plane], dim=1).contiguous()
 
 
 plucker_tables = per_scene(pack_plucker_clusters)

@@ -224,7 +224,16 @@
    differ from the default route's image and peak device memory; times
    each kernel at the main path's own shapes (camera bounce 1, B =
    1,048,576; the shadow wave of camera vertex 1, B = 10,485,760).
-22. The refilling wave kernels' edge cases on the 964-triangle scene of
+   21b. The warp-wide closest hits (clustered_closest, plucker_closest;
+   cluster_edge_phase) against their plain versions, t, tri, u, v to the
+   bit and the counters exact, on cluster_edge_lanes' cases: the coffee
+   stand-in at B = 1, 31 and 37; 2,048 lanes all dead, one live a warp,
+   origins on a chop or rolled cluster box's plane with that direction
+   component zero, tmin below T_MIN, tmax = inf; rays at a duplicated
+   sphere whose twin triangles tie at equal t (the ties counted).  Each
+   kernel's whole launch of the tmin-below-T_MIN case equals its launches
+   on every 3rd and every 7th lane.
+22.The refilling wave kernels' edge cases on the 964-triangle scene of
    tests/torch_parity.py (refill_cases): B = 1, 31 and 37, four times
    closest_bvh's persistent grid and 5 lanes more, every lane inactive,
    one live lane in ten scattered among 65,536.  closest_bvh equal to its
@@ -377,8 +386,8 @@ HBM_BPS, FP32_OPS = 3.35e12, 67e12
 MT_OPS, SLAB_OPS = 52, 25
 # FP32 operations one Plücker triangle test needs (plucker.cu): the three
 # edge rows' 6 nonzero terms each, 33; the plane row's 3 terms and its
-# constant, 6; the sign tests, reciprocal, t and the interval, 23.  The
-# kernel issues 99: it also multiplies the rows' 24 zero coefficients
+# constant, 6; the sign tests, reciprocal, t and the interval, 23.
+# plucker_any issues 99: it also multiplies the rows' 24 zero coefficients
 PLUCKER_OPS = 62
 COFFEE_YAML = "scenes/coffee/coffee_standin.yaml"
 TPU_BENCH_COFFEE_RAYS = 11_110_273  # BENCH_r03/r04.json; printed, not checked
@@ -657,6 +666,237 @@ def big_scene(dev):
     b.add_quad((-10, 0, -10), (20, 0, 0), (0, 0, 20), MS.lambertian((0.6, 0.6, 0.6)))
     b.add_quad((-2, 6, -2), (4, 0, 0), (0, 0, 4), MS.diffuse_light((10, 10, 10)))
     return b.build(device=dev)
+
+
+def cluster_bound(name, c, lanes_b, live, tab_bytes, slabs=None) -> tuple[float, str]:
+    """(bound ms, by) of a clustered hit launch with counters c (slab
+    tests, boxes entered, triangle tests, accepted tests): every lane reads
+    its tmax and writes its answer (1 B any, 16 B closest), a live lane
+    reads its ray and tmin; the tables (tab_bytes) once; 25 FP32 operations
+    a slab test, 52 a Möller–Trumbore test, 62 a Plücker test (what it
+    needs: PLUCKER_OPS) and 21 a Plücker cluster's features.  ``slabs``,
+    where given, replaces c[0] as the slab tests the launch needs
+    (plucker_closest: plucker_closest_needs)."""
+    out = 1 if name.endswith("any") else 16
+    n_slab = c[0] if slabs is None else slabs
+    ops = (n_slab * SLAB_OPS + c[1] * 21 + c[2] * PLUCKER_OPS
+           if name.startswith("plucker") else n_slab * SLAB_OPS + c[2] * MT_OPS)
+    return bound(lanes_b * (4 + out) + live * 7 * 4 + tab_bytes, ops)
+
+
+def plucker_closest_needs(aabb, o, d, tmax, t, group=16, chunk=1 << 16) -> tuple[int, int]:
+    """(slab tests, table bytes) that plucker_closest needs for one launch
+    over the chop boxes ``aabb`` [C*6]: a live lane (tmax > 0) slab-tests
+    the ceil(C / group) group boxes, each the min / max of ``group``
+    consecutive chop boxes, and the chop boxes of each group whose box it
+    enters with the bound min(t, tmax), t its closest hit (inf on a miss),
+    the entry clamped to T_MIN and NaN slab terms unconstrained: a search
+    that ends at t must open each such group to show that nothing in it is
+    closer.  The kernel counts C slab tests a lane, as the lane-serial loop
+    ran them, and skips only groups that no lane of a warp enters, so it
+    runs at least these.  The table bytes: the chop and group boxes and the
+    22 coefficients of each of a cluster's 32 slots (ops/plucker.py's
+    ``table`` and ``packed``), each read once.  The group boxes are built
+    here from ``aabb``, so that tools/ab_cluster_kernels.py counts the same
+    bound for a copy of the package whose tables have no groups."""
+    import torch
+
+    from bpt_tpu_torch.ops.intersect import T_MIN
+
+    box = aabb.reshape(-1, 6)
+    C = box.shape[0]
+    G = -(-C // group)
+    pad = torch.tensor([math.inf] * 3 + [-math.inf] * 3, device=box.device)
+    gb = torch.cat([box, pad.expand(G * group - C, 6)]).reshape(G, group, 6)
+    glo, ghi = gb[:, :, :3].amin(dim=1), gb[:, :, 3:].amax(dim=1)
+    members = torch.clamp(C - group * torch.arange(G, device=box.device), max=group)
+    live = tmax > 0
+    org = torch.stack(list(o), dim=1)[live]
+    inv = 1.0 / torch.stack(list(d), dim=1)[live]
+    lim = torch.minimum(t[live], tmax[live])
+    slabs = G * org.shape[0]
+    for s in range(0, org.shape[0], chunk):
+        og, iv = org[s:s + chunk, None], inv[s:s + chunk, None]
+        t0, t1 = (glo[None] - og) * iv, (ghi[None] - og) * iv
+        nan = torch.isnan(t0) | torch.isnan(t1)
+        lo = torch.where(nan, -math.inf, torch.minimum(t0, t1)).amax(dim=2)
+        hi = torch.where(nan, math.inf, torch.maximum(t0, t1)).amin(dim=2)
+        ok = torch.minimum(hi, lim[s:s + chunk, None]) > torch.clamp_min(lo, T_MIN)
+        slabs += int((ok.to(torch.int64) * members).sum())
+    return slabs, 4 * (6 * (C + G) + 22 * 32 * C)
+
+
+def cluster_ptxas(lines) -> dict:
+    """ptxas's registers and spill bytes of the four clustered hit kernels
+    (cluster_closest<RolledMT | PluckerChop>, cluster_any<...>; an earlier
+    build's cluster_hit<..., false> and cluster_hit<..., true> for the
+    closest and any hits) in the lines of a build's log:
+    {"clustered_closest": {...}, ..., "plucker_any": {...}}."""
+    import re
+
+    out = {}
+    for k, line in enumerate(lines):
+        m = re.search(r"entry function '(_ZN3bpt(11cluster_hit|11cluster_any|15cluster_closest)"
+                      r"INS_\d+(RolledMT|PluckerChop)E(Lb([01])E)?\S*)'", line)
+        if not m:
+            continue
+        text = " ".join(lines[k + 1:k + 5])
+        regs = re.search(r"Used (\d+) registers", text)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+        name = (("clustered" if m.group(3) == "RolledMT" else "plucker")
+                + ("_any" if m.group(2) == "11cluster_any" or m.group(5) == "1" else "_closest"))
+        out[name] = dict(kernel=m.group(1), registers=int(regs.group(1)) if regs else None,
+                         spill_bytes=[int(x) for x in spill.groups()] if spill else None)
+    return out
+
+
+def dup_scene(dev):
+    """big_scene with its UV sphere added twice: each sphere triangle has an
+    identical twin beside it in BVH leaf order, mostly in the same cluster,
+    so a ray through the sphere meets candidates of equal t (ties)."""
+    from bpt_tpu_torch.scene.builder import MaterialSpec as MS, SceneBuilder
+
+    b = SceneBuilder()
+    for _ in range(2):
+        b.add_uv_sphere((0, 1, 0), 1.0, MS.metal((0.8, 0.8, 0.8), 0.05))
+    b.add_quad((-10, 0, -10), (20, 0, 0), (0, 0, 20), MS.lambertian((0.6, 0.6, 0.6)))
+    b.add_quad((-2, 6, -2), (4, 0, 0), (0, 0, 4), MS.diffuse_light((10, 10, 10)))
+    return b.build(device=dev)
+
+
+def cluster_edge_lanes(coffee, dup, seed=5) -> dict:
+    """The clustered closest hits' edge cases, {name: (scene, o, d, tmin,
+    tmax)}, numpy-seeded: random rays in the coffee stand-in's bounds with
+    per-lane intervals at B = 1, 31 and 37; all lanes dead; one live lane a
+    warp; rays at the duplicated sphere of ``dup`` (equal-t ties); origins
+    on a plane of a chop cluster's and of a rolled cluster's box with that
+    axis' direction component zero (NaN slab terms); tmin below T_MIN (0 or
+    negative: Plücker's hits in [tmin, T_MIN)); tmax = inf on every lane."""
+    import numpy as np
+    import torch
+
+    from bpt_tpu_torch.core.vec3 import Vec3
+    from bpt_tpu_torch.ops.clusters import cluster_tables
+    from bpt_tpu_torch.ops.intersect import T_MIN
+    from bpt_tpu_torch.ops.plucker import plucker_tables
+
+    dev = coffee.device
+    g = np.random.default_rng(seed)
+    lo, hi = (x.cpu().numpy() for x in (coffee.bvh_min[0], coffee.bvh_max[0]))
+    diag = float(np.linalg.norm(hi - lo))
+
+    def rays(B):
+        return (g.uniform(lo, hi, (B, 3)).astype(np.float32),
+                g.normal(size=(B, 3)).astype(np.float32))
+
+    def intervals(B):
+        tmin = np.where(g.uniform(size=B) < 0.5, g.uniform(0.0, 0.1, B), T_MIN)
+        tmax = tmin + g.uniform(0.0, diag, B)
+        tmax[::5] = np.inf
+        return tmin.astype(np.float32), tmax.astype(np.float32)
+
+    def case(scene, o, d, tmin, tmax):
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+        return (scene, Vec3(*t(o).unbind(1)), Vec3(*t(d).unbind(1)), t(tmin), t(tmax))
+
+    out = {}
+    for B in (1, 31, 37):
+        out[f"B={B}"] = case(coffee, *rays(B), *intervals(B))
+    B = 2048
+    o, d = rays(B)
+    tmin, tmax = intervals(B)
+    out["all dead"] = case(coffee, o, d, tmin, np.where(np.arange(B) % 2, 0.0, -1.0))
+    one = np.where(np.arange(B) % 32 == (np.arange(B) // 32) % 32, tmax, 0.0)
+    out["one live lane a warp"] = case(coffee, o, d, tmin, one)
+    c = np.array([0.0, 1.0, 0.0])
+    u = g.normal(size=(B, 3))
+    od = (c + 3.0 * u / np.linalg.norm(u, axis=1, keepdims=True)).astype(np.float32)
+    dd = (c + g.uniform(-0.5, 0.5, (B, 3)) - od).astype(np.float32)
+    out["duplicated triangles"] = case(dup, od, dd, np.full(B, T_MIN, np.float32),
+                                       np.full(B, np.inf, np.float32))
+    o, d = rays(B)
+    chop = plucker_tables(coffee).aabb.reshape(-1, 6).cpu().numpy()
+    tab = cluster_tables(coffee)
+    recs = tab.table[8 * tab.n_super:].reshape(-1, 7)[:, :6].cpu().numpy()
+    boxes = np.concatenate([chop[g.integers(0, len(chop), B // 2)],
+                            recs[g.integers(0, len(recs), B - B // 2)]])
+    for k in range(B):
+        a = k % 3
+        o[k, a] = boxes[k, a + 3 * (k // 3 % 2)]  # the box's lo or hi plane
+        d[k, a] = 0.0
+    out["zero direction on a box plane"] = case(coffee, o, d, *intervals(B))
+    o, d = rays(B)
+    tmin = np.where(np.arange(B) % 3 == 0, 0.0, g.uniform(-0.05, T_MIN, B)).astype(np.float32)
+    out["tmin below T_MIN"] = case(coffee, o, d, tmin, intervals(B)[1])
+    o, d = rays(B)
+    out["tmax = inf"] = case(coffee, o, d, np.full(B, T_MIN, np.float32),
+                             np.full(B, np.inf, np.float32))
+    return out
+
+
+def bits_differ(kout, pout):
+    """[B] bool: the lanes where any of (t, tri, u, v) differs in any bit."""
+    import torch
+
+    diff = torch.zeros_like(kout[1], dtype=torch.bool)
+    for k, p in zip(kout, pout):
+        if k.dtype == torch.float32:
+            k, p = k.view(torch.int32), p.view(torch.int32)
+        diff |= k != p
+    return diff
+
+
+def cluster_edge_phase(dev, card, coffee) -> dict:
+    """Phase 21b: clustered_closest and plucker_closest, warp-wide, against
+    their plain versions on cluster_edge_lanes' cases, every output to the
+    bit and the counters exact; and each kernel's whole launch of the
+    "tmin below T_MIN" case against its launches on every 3rd and every 7th
+    lane.  Returns {kernel: {case: (B, live, hits, counters)}}."""
+    import torch
+
+    from bpt_tpu_torch.core.vec3 import Vec3
+    from bpt_tpu_torch.ops import soa
+    from bpt_tpu_torch.ops.intersect import T_MIN
+    from bpt_tpu_torch.ops.kernels import cluster_wave as cw
+    from bpt_tpu_torch.ops.kernels import plucker as kp
+
+    cases = cluster_edge_lanes(coffee, dup_scene(dev))
+    scene, o, d, tmin, tmax = cases["duplicated triangles"]
+    det, t, u, v = soa._mt_all(scene.v0, scene.e1, scene.e2, o, d)
+    tm = torch.where(soa._mt_valid(det, t, u, v, T_MIN, torch.inf), t, torch.inf)
+    best = tm.amin(dim=0)
+    ties = int(((tm == best[None]).sum(dim=0) >= 2)[torch.isfinite(best)].sum())
+    print(f"phase 21b: the duplicated sphere ({scene.num_tris} triangles): {ties} of "
+          f"{best.numel()} lanes meet two or more triangles at their closest t")
+    check(ties > 0, "phase 21b: no lane of the duplicated-triangle case meets a tie")
+    report = {}
+    for name, kern, plain in (("clustered_closest", cw.clustered_closest,
+                               cw.clustered_closest_plain),
+                              ("plucker_closest", kp.plucker_closest,
+                               kp.plucker_closest_plain)):
+        rep = report[name] = {}
+        for case, (scene, o, d, tmin, tmax) in cases.items():
+            kout = kern(scene, o, d, tmin, tmax)
+            pout = plain(scene, o, d, tmin, tmax)
+            diff = int(bits_differ(kout[:4], pout[:4]).sum())
+            kc, pc = kout[4].tolist(), pout[4].tolist()
+            B, live, hits = tmax.numel(), int((tmax > 0).sum()), int((pout[1] >= 0).sum())
+            print(f"phase 21b: {name} {case} (B={B}, {live} live, {hits} hits): {diff} lanes "
+                  f"differ in any bit from the plain version; counters kernel {kc} plain {pc}")
+            check(diff == 0 and kc == pc, f"{name} {case}: {diff} lanes differ, counters "
+                  f"kernel {kc} plain {pc}")
+            rep[case] = (B, live, hits, kc)
+        scene, o, d, tmin, tmax = cases["tmin below T_MIN"]
+        full = kern(scene, o, d, tmin, tmax)
+        for s in (3, 7):
+            sl = torch.arange(0, tmax.numel(), s, device=dev)
+            sub = kern(scene, Vec3(*(x[sl] for x in o)), Vec3(*(x[sl] for x in d)), tmin[sl],
+                       tmax[sl])
+            n = int(bits_differ([x[sl] for x in full[:4]], sub[:4]).sum())
+            print(f"phase 21b: {name}: its launch on one lane in {s} of the tmin-below-T_MIN "
+                  f"case differs from the whole launch on {n} lanes ({card})")
+            check(n == 0, f"{name}: a strided launch differs from the whole launch")
+    return report
 
 
 def walk_table_bytes(scene, bdpt=False) -> int:
@@ -4302,18 +4542,6 @@ def main() -> int:
 
     # ---- phase 21: the coffee bdpt-mis main path under BPT_TPU_NO_FTB and
     # BPT_TPU_WAVE_IMPL=plucker: kernels 10-11, then 12-13
-    def cl_bound(name, c, lanes_b, live):
-        """(bound ms, by) of a clustered launch: every lane reads its tmax
-        and writes its answer, a live lane reads its ray and tmin; the
-        tables once; 25 FP32 operations a slab test, 52 a Möller–Trumbore
-        test, 62 a Plücker test (what it needs: PLUCKER_OPS) and 21 a
-        Plücker cluster's features."""
-        out = 1 if name.endswith("any") else 16
-        tab = cl_tab["plucker" if name.startswith("plucker") else "clustered"]
-        ops = (c[0] * SLAB_OPS + c[1] * 21 + c[2] * PLUCKER_OPS
-               if name.startswith("plucker") else c[0] * SLAB_OPS + c[2] * MT_OPS)
-        return bound(lanes_b * (4 + out) + live * 7 * 4 + tab, ops)
-
     cfg21 = coffee_camera(spp=4, integrator="bdpt-mis")
     strata, span = _bdpt_wave_shape(512 * 512, 4, depth, True)
     waves = math.ceil(4 / strata) * math.ceil(512 * 512 / span)
@@ -4414,7 +4642,7 @@ def main() -> int:
             frac, err, hits = cl_agreement(kout, pout)
             n_sl, live_sl = int(sl.numel()), int((s_args[-1] > 0).sum())
             res = cl_res[name]
-            res.update(ms=ms21, launches=n_c if name == closest_name else n_a,
+            res.update(ms=ms21, launches=n_c if name == closest_name else n_a, B=Bm,
                        shape=f"{what} of the bdpt-mis wave, B={Bm} ({live} live)",
                        launches_path=f"three coffee bdpt-mis renders with {var}={val}, 512x512, "
                                      f"4 spp, depth {depth}",
@@ -4422,9 +4650,15 @@ def main() -> int:
                        plain_shape=f"every {stride}th lane of {what}, {n_sl} lanes "
                                    f"({live_sl} live)" if stride > 1 else
                                    f"{what}, all {n_sl} lanes ({live_sl} live)")
-            res["bound"] = cl_bound(name, c21, Bm, live)
+            slabs, tab = (plucker_closest_needs(plucker_tables(coffee).aabb, args[1], args[2],
+                                                args[-1], full[0])
+                          if name == "plucker_closest" else
+                          (None, cl_tab["plucker" if name.startswith("plucker") else "clustered"]))
+            res["bound"] = cluster_bound(name, c21, Bm, live, tab, slabs)
+            needs = "" if slabs is None else f", {slabs} slab tests needed"
             print(f"phase 21: {name}, {what} (B={Bm}, {live} live): kernel {ms21:.3f} ms, "
-                  f"bound {res['bound'][0]:.4f} ms ({res['bound'][1]}); counters {c21}; against "
+                  f"bound {res['bound'][0]:.4f} ms ({res['bound'][1]}); counters {c21}{needs}; "
+                  f"against "
                   f"its plain version on {res['plain_shape']}: equal on {frac * 100:.4f}% of "
                   f"lanes ({hits} hits), max abs err {err:.3e}, counters kernel {kc} plain "
                   f"{pc}; plain {p_ms:.3f} ms ({card})")
@@ -4434,6 +4668,10 @@ def main() -> int:
             del full, kout, pout, s_args, sl
         del cl21, an21, args, kw
         lap(f"phase 21 ({impl})")
+
+    # ---- phase 21b: the warp-wide closest hits' edge cases, to the bit
+    edge21 = cluster_edge_phase(dev, card, coffee)
+    lap("phase 21b")
 
     # ---- phase 22: the refilling wave kernels' edge cases, exact; the brute
     # BDPT kernel's persistent grid; any_bvh's refilling grid
@@ -4500,6 +4738,10 @@ def main() -> int:
     walk_entries[-1].update(depth80_64x64_ms=walk_d80_ms, persistent_blocks=grid16,
                             scratch_bytes=bk.walk_scratch_bytes(grid16 * pk.WALK_BLOCK, 80,
                                                                 True))
+    cl_ptx = cluster_ptxas(build.library_path().with_suffix(".log").read_text().splitlines())
+    with torch.cuda.device(dev):  # the closest hits' persistent grids
+        cl_grid = {"clustered_closest": build.load_library().bpt_clustered_blocks(),
+                   "plucker_closest": build.load_library().bpt_plucker_blocks()}
     cl_replaces = {"clustered_closest": "cluster_wave.py:212", "clustered_any": "cluster_wave.py:254",
                    "plucker_closest": "plucker.py:332", "plucker_any": "plucker.py:364"}
     cl_entries = [{
@@ -4522,6 +4764,10 @@ def main() -> int:
         "primaries_65536_plain_ms": r["primaries_plain_ms"],
         "general_interval_within_tol": r["general_frac"],
         "general_interval_max_abs_err": r["general_err"],
+        "registers": cl_ptx.get(k, {}).get("registers"),
+        "spill_bytes": cl_ptx.get(k, {}).get("spill_bytes"),
+        **({"grid_blocks": cl_grid[k]} if k in cl_grid else {}),
+        **({"edge_cases": edge21[k]} if k in edge21 else {}),
     } for k, r in cl_res.items()]
     def defocus_keys(name):
         r = res13[name]
