@@ -26,12 +26,10 @@
 // (PERF.md §6, row 10: 4.0 of 32 lanes enter a cluster the warp tests at
 // camera bounce 1 on coffee).
 //
-// Design.  The any hit (clustered_any) runs one thread a lane: each lane
-// walks the superclusters and member clusters on its own, reading the
-// tables through the read-only path.  The closest hit (clustered_closest)
-// runs warp-wide on cluster_hit.cuh's persistent grid of compacted lanes:
-// the warp steps through the superclusters, and an entered one's member
-// clusters, in lockstep, each live lane slab-testing on its own bound; an
+// Design.  Both hits run warp-wide on cluster_hit.cuh's persistent grid
+// of compacted lanes: the warp steps through the superclusters, and an
+// entered one's member clusters, in lockstep, each live lane (for the any
+// hit, each lane still without a hit) slab-testing on its own bound; an
 // entered cluster's triangles are read once, (v0, e1, e2) of slot s by
 // thread s, and tested by Moller-Trumbore against each entering lane's ray
 // in turn.  The TPU's layout does not carry over: its 128-lane tiles, the
@@ -56,35 +54,53 @@
 namespace bpt {
 
 struct RolledMT {
-  // The any hit, one lane (cluster_hit.cuh's cluster_any): the lane walks
-  // the superclusters and member clusters on its own and ends at its first
-  // accepted test.
-  __device__ static void any_hit(const ClusterHitParams& p, ClusterLane& L) {
+  // The any hit, warp-wide (cluster_hit.cuh's cluster_any): the
+  // superclusters and then an entered one's member clusters slab-tested by
+  // every open lane that reaches them (a member only while the lane is
+  // open, as _rolled drops closed lanes), each entered cluster's triangles
+  // held one a thread and tested against each entering ray in turn; the
+  // first valid slot ends the lane.
+  __device__ static void any(const ClusterHitParams& p, ClusterLane& L, bool live,
+                             float4 (*stage)[3]) {
+    const int slot = threadIdx.x & 31;
+    __syncwarp();
+    if (live) {
+      stage[slot][0] = make_float4(L.ox, L.oy, L.oz, L.dx);
+      stage[slot][1] = make_float4(L.dy, L.dz, L.tmin, L.tmax);
+    }
+    __syncwarp();
     const float* spans = p.table + 6 * p.S;
     const float* recs = p.table + 8 * p.S;
-    for (int s = 0; s < p.S && !L.done(); ++s) {
-      if (!L.enters<true>(p.table + 6 * s)) continue;
+    for (int s = 0; s < p.S; ++s) {
+      const bool open = live && !L.done();
+      if (!__ballot_sync(FULL_MASK, open)) break;
+      const bool in_s = open && L.enters<true>(p.table + 6 * s);
+      if (!__ballot_sync(FULL_MASK, in_s)) continue;
       const int first = (int)__ldg(spans + 2 * s);
       const int n_m = (int)__ldg(spans + 2 * s + 1);
-      for (int k = first; k < first + n_m && !L.done(); ++k) {
+      for (int k = first; k < first + n_m; ++k) {
+        const bool open_k = in_s && !L.done();
+        if (!__ballot_sync(FULL_MASK, open_k)) break;
         const float* rec = recs + 7 * k;
-        if (!L.enters<true>(rec)) continue;
+        const bool in_k = open_k && L.enters<true>(rec);
+        unsigned mk = __ballot_sync(FULL_MASK, in_k);
+        if (!mk) continue;
         const int base = (int)__ldg(rec + 6);
         const int n = (k + 1 < p.C ? (int)__ldg(rec + 13) : p.T) - base;
         const float* blk = p.blocks + (size_t)k * CLUSTER_TRIS * 9;
-        for (int slot = 0; slot < n; ++slot) {
-          L.c.tests += 1;
-          float tv[9];
+        float tv[9];
 #pragma unroll
-          for (int j = 0; j < 9; ++j) tv[j] = __ldg(blk + 9 * slot + j);
-          float u, v;
+        for (int j = 0; j < 9; ++j) tv[j] = __ldg(blk + 9 * slot + j);
+        while (mk) {
+          const int r = __ffs(mk) - 1;
+          mk &= mk - 1;
+          const float4 r0 = stage[r][0], r1 = stage[r][1];
+          const float ox = r0.x, oy = r0.y, oz = r0.z, dx = r0.w, dy = r1.x, dz = r1.y;
+          const float tmin = r1.z, tmax = r1.w;
           bool valid;
-          const float t =
-              moller_trumbore_uv(L.ox, L.oy, L.oz, L.dx, L.dy, L.dz, tv, u, v, valid);
-          if (valid && t >= T_MIN && L.accepts(t)) {
-            L.take(base + slot);
-            break;
-          }
+          const float t = moller_trumbore(ox, oy, oz, dx, dy, dz, tv, valid);
+          warp_take_first(L, r, slot,
+                          slot < n && valid && t >= T_MIN && t >= tmin && t <= tmax, n, base);
         }
       }
     }
@@ -159,8 +175,9 @@ int bpt_clustered_hit(int any, int B, int S, int C, int T, const float* table,
                                                 stream);
 }
 
-// The closest hit's persistent grid: resident blocks of 128 threads, or a
-// negative CUDA error code.
-int bpt_clustered_blocks() { return bpt::cluster_closest_blocks<bpt::RolledMT>(); }
+// The closest and the any hit's persistent grids: resident blocks of 128
+// threads, or a negative CUDA error code.
+int bpt_clustered_blocks() { return bpt::cluster_blocks<bpt::RolledMT, false>(); }
+int bpt_clustered_any_blocks() { return bpt::cluster_blocks<bpt::RolledMT, true>(); }
 
 }  // extern "C"

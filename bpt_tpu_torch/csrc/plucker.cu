@@ -16,9 +16,10 @@
 // denom = w_ab + w_bc + w_ca a triangle passes on |denom| >= MT_EPSILON and
 // the signs of w_ca, w_ab, w_bc and w_ab + w_bc agreeing with denom's
 // (:143-174); then t = pn / denom (as pn * (1 / denom)) in [tmin, tmax] (no
-// T_MIN test) and t < t_best.  u = w_ca / denom, v = w_ab / denom; the
-// triangle id is 32 c + row, and the lowest row wins a tie (:223-245).  The
-// any hit ends the lane at its first hit (:250-294).
+// T_MIN test) and t < t_best (inf at first; so the any hit takes t < inf
+// too).  u = w_ca / denom, v = w_ab / denom; the triangle id is 32 c +
+// row, and the lowest row wins a tie (:223-245).  The any hit ends the
+// lane at its first hit (:250-294).
 //
 // What bounds them on the H100: FP32 issue, and the latency of a warp's
 // steps where few warps have work.  A triangle test needs 62 operations:
@@ -29,16 +30,15 @@
 // level in bpt_tpu, so a lane slab-tests every cluster (2,861 on the
 // coffee stand-in: 58.6% of the FP32 operations at camera bounce 1; under
 // the groups below a lane needs a tenth of those tests there).  The
-// tables (aabb 69 KB, blocks 14.6 MB, the closest hit's 22-coefficient
-// table 8.1 MB there) stay in the 50 MB L2 cache.
+// tables (the chop and group boxes, the 22-coefficient table: 8.1 MB
+// there) stay in the 50 MB L2 cache.
 //
-// Design.  The any hit (plucker_any) runs one thread a lane, reading a
-// triangle's four rows of 10 coefficients through the read-only path and
-// summing all 10 products of each row.  The closest hit (plucker_closest)
-// runs warp-wide on cluster_hit.cuh's persistent grid of compacted lanes:
-// - groups of 16 chop clusters, whose boxes hold their members' boxes, so
-//   that a group no lane of the warp enters is skipped whole; a lane still
-//   counts C slab tests, as the lane-serial loop does;
+// Design.  Both hits run warp-wide on cluster_hit.cuh's persistent grid of
+// compacted lanes:
+// - groups of 16 chop clusters, whose boxes hold their members' boxes on
+//   any bound, so that a group no lane of the warp enters is skipped whole;
+//   a lane still counts the slab tests the lane-serial loop runs (C, or
+//   k + 1 for the any hit's hit in chop cluster k);
 // - an entered cluster's 22 nonzero coefficients a triangle ([C, 22, 32],
 //   ops/plucker.py), read once, slot s by thread s with coalesced loads,
 //   and tested against each entering lane's features in turn.  The zero
@@ -66,52 +66,88 @@ constexpr int NFEAT = 10;
 constexpr int NCOEF = 22;
 constexpr int GROUP = 16;
 
-// sum_k a[k] * f[k] in feature order, each product and sum rounded.
-__device__ __forceinline__ float dot10(const float* a, const float* f) {
-  float w = __ldg(a) * f[0];
-#pragma unroll
-  for (int k = 1; k < NFEAT; ++k) w = w + __ldg(a + k) * f[k];
-  return w;
-}
-
 // sign(x) agrees with sign(denom)
 __device__ __forceinline__ bool agrees(float x, bool pos) {
   return (x >= 0.0f && pos) || (x <= 0.0f && !pos);
 }
 
 struct PluckerChop {
-  // The any hit, one lane (cluster_hit.cuh's cluster_any): the chop
-  // clusters in index order, each cluster's 32 rows of 10 coefficients a
-  // product, ending at the lane's first accepted test.
-  __device__ static void any_hit(const ClusterHitParams& p, ClusterLane& L) {
-    for (int k = 0; k < p.C && !L.done(); ++k) {
-      const float* box = p.table + 6 * k;
-      if (!L.enters<true>(box)) continue;
-      const float px = L.ox - (__ldg(box) + __ldg(box + 3)) * 0.5f;
-      const float py = L.oy - (__ldg(box + 1) + __ldg(box + 4)) * 0.5f;
-      const float pz = L.oz - (__ldg(box + 2) + __ldg(box + 5)) * 0.5f;
-      const float f[NFEAT] = {L.dx, L.dy, L.dz, py * L.dz - pz * L.dy,
-                              pz * L.dx - px * L.dz, px * L.dy - py * L.dx,
-                              -px, -py, -pz, 1.0f};
-      const int n = min(CLUSTER_TRIS, p.T - k * CLUSTER_TRIS);
-      const float* blk = p.blocks + (size_t)k * 4 * CLUSTER_TRIS * NFEAT;
-      for (int row = 0; row < n; ++row) {
-        L.c.tests += 1;
-        const float w_ab = dot10(blk + NFEAT * row, f);
-        const float w_bc = dot10(blk + NFEAT * (CLUSTER_TRIS + row), f);
-        const float w_ca = dot10(blk + NFEAT * (2 * CLUSTER_TRIS + row), f);
-        const float pn = dot10(blk + NFEAT * (3 * CLUSTER_TRIS + row), f);
-        const float denom = w_ab + w_bc + w_ca;
-        const bool pos = denom > 0.0f;
-        const float rd = 1.0f / denom;
-        const float t = pn * rd;
-        if (fabsf(denom) >= MT_EPSILON && agrees(w_ca, pos) && agrees(w_ab, pos) &&
-            agrees(w_bc, pos) && agrees(w_ab + w_bc, pos) && L.accepts(t)) {
-          L.take(k * CLUSTER_TRIS + row);
-          break;
+  // The any hit, warp-wide (cluster_hit.cuh's cluster_any), on the closest
+  // hit's groups and [C, 22, 32] coefficients: a group no open lane enters
+  // on its bound tmax is skipped whole, an entered chop cluster's slots are
+  // tested one a thread against each entering lane's features in turn, with
+  // the closest hit's expressions (so to the bits of the [C, 128, 10] rows'
+  // sums), and the first valid slot ends the lane; besides, t < inf (the
+  // rule of the plain version and of the Pallas kernel's t < t_best = inf:
+  // a t that overflows is no hit).  A lane counts the slab tests the
+  // lane-serial loop ran, k + 1 for a hit in chop cluster k, else C.
+  __device__ static void any(const ClusterHitParams& p, ClusterLane& L, bool live,
+                             float4 (*stage)[3]) {
+    const int slot = threadIdx.x & 31;
+    const float* groups = p.table + 6 * p.C;
+    for (int g = 0; g < p.S; ++g) {
+      const bool open = live && !L.done();
+      if (!__ballot_sync(FULL_MASK, open)) break;
+      const bool in_g =
+          open && box_entered(groups + 6 * g, L.ox, L.oy, L.oz, L.ix, L.iy, L.iz, L.tmax);
+      if (!__ballot_sync(FULL_MASK, in_g)) continue;
+      const int k_end = min(p.C, (g + 1) * GROUP);
+      for (int k = g * GROUP; k < k_end; ++k) {
+        const bool open_k = in_g && !L.done();
+        if (!__ballot_sync(FULL_MASK, open_k)) break;
+        const float* box = p.table + 6 * k;
+        const bool in_k = open_k && L.enters<true>(box);
+        unsigned mk = __ballot_sync(FULL_MASK, in_k);
+        if (!mk) continue;
+        const float px = L.ox - (__ldg(box) + __ldg(box + 3)) * 0.5f;
+        const float py = L.oy - (__ldg(box + 1) + __ldg(box + 4)) * 0.5f;
+        const float pz = L.oz - (__ldg(box + 2) + __ldg(box + 5)) * 0.5f;
+        const float m0 = py * L.dz - pz * L.dy;
+        const float m1 = pz * L.dx - px * L.dz;
+        const float m2 = px * L.dy - py * L.dx;
+        const int n = min(CLUSTER_TRIS, p.T - k * CLUSTER_TRIS);
+        __syncwarp();
+        if (in_k) {
+          stage[slot][0] = make_float4(L.dx, L.dy, L.dz, m0);
+          stage[slot][1] = make_float4(m1, m2, -px, -py);
+          stage[slot][2] = make_float4(-pz, L.tmin, L.tmax, 0.0f);
+        }
+        __syncwarp();
+        const float* blk = p.blocks + (size_t)k * NCOEF * CLUSTER_TRIS + slot;
+        float a[NCOEF];
+#pragma unroll
+        for (int j = 0; j < NCOEF; ++j) a[j] = __ldg(blk + j * CLUSTER_TRIS);
+        while (mk) {
+          const int r = __ffs(mk) - 1;
+          mk &= mk - 1;
+          const float4 a0 = stage[r][0], a1 = stage[r][1], a2 = stage[r][2];
+          const float f[NFEAT] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, a2.x, 1.0f};
+          const float tmin = a2.y, tmax = a2.z;
+          const float ze = ((0.0f * f[6] + 0.0f * f[7]) + 0.0f * f[8]) + 0.0f;
+          const float zp = ((((0.0f * f[0] + 0.0f * f[1]) + 0.0f * f[2]) + 0.0f * f[3]) +
+                            0.0f * f[4]) + 0.0f * f[5];
+          float w[3];
+#pragma unroll
+          for (int e = 0; e < 3; ++e) {
+            const float* c = a + 6 * e;
+            w[e] = (((((c[0] * f[0] + c[1] * f[1]) + c[2] * f[2]) + c[3] * f[3]) +
+                     c[4] * f[4]) + c[5] * f[5]) + ze;
+          }
+          const float pn =
+              (((zp + a[18] * f[6]) + a[19] * f[7]) + a[20] * f[8]) + a[21] * f[9];
+          const float w_ab = w[0], w_bc = w[1], w_ca = w[2];
+          const float denom = w_ab + w_bc + w_ca;
+          const bool pos = denom > 0.0f;
+          const float t = pn * (1.0f / denom);
+          const bool valid = slot < n && fabsf(denom) >= MT_EPSILON && agrees(w_ca, pos) &&
+                             agrees(w_ab, pos) && agrees(w_bc, pos) &&
+                             agrees(w_ab + w_bc, pos) && t >= tmin && t <= tmax &&
+                             t < inf_f();
+          warp_take_first(L, r, slot, valid, n, k * CLUSTER_TRIS);
         }
       }
     }
+    if (live) L.c.nodes = L.done() ? L.tri / CLUSTER_TRIS + 1 : p.C;
   }
 
   // The closest hit, warp-wide (cluster_hit.cuh's cluster_closest).  S
@@ -197,10 +233,9 @@ struct PluckerChop {
 
 extern "C" {
 
-// The closest (any = 0: t, tri, u, v) or any hit (hit) on `stream`.  The
-// closest hit reads S groups of chop clusters (their boxes after the C
-// chop boxes in `aabb`) and the [C, 22, 32] coefficients as `blocks`; the
-// any hit the C boxes and the [C, 128, 10] rows.  Returns
+// The closest (any = 0: t, tri, u, v) or any hit (hit) on `stream`.  Both
+// read S groups of chop clusters (their boxes after the C chop boxes in
+// `aabb`) and the [C, 22, 32] coefficients as `blocks`.  Returns
 // cudaGetLastError() after the launches (0 = launched).  All pointers are
 // device pointers.
 int bpt_plucker_hit(int any, int B, int S, int C, int T, const float* aabb,
@@ -215,8 +250,9 @@ int bpt_plucker_hit(int any, int B, int S, int C, int T, const float* aabb,
                                                    stream);
 }
 
-// The closest hit's persistent grid: resident blocks of 128 threads, or a
-// negative CUDA error code.
-int bpt_plucker_blocks() { return bpt::cluster_closest_blocks<bpt::PluckerChop>(); }
+// The closest and the any hit's persistent grids: resident blocks of 128
+// threads, or a negative CUDA error code.
+int bpt_plucker_blocks() { return bpt::cluster_blocks<bpt::PluckerChop, false>(); }
+int bpt_plucker_any_blocks() { return bpt::cluster_blocks<bpt::PluckerChop, true>(); }
 
 }  // extern "C"

@@ -65,7 +65,8 @@ _I = ctypes.c_int
 # bpt_clustered_hit(any, B, S, C, T, table, blocks, ox, oy, oz, dx, dy, dz,
 #                   tmin, tmax, t, tri, u, v, hit, counters, sched, stream)
 # bpt_plucker_hit: the same arguments (S: the closest hit's chop groups)
-# bpt_clustered_blocks(), bpt_plucker_blocks(): the closest hits' persistent grids
+# bpt_clustered_blocks(), bpt_plucker_blocks(), bpt_clustered_any_blocks(),
+# bpt_plucker_any_blocks(): the clustered hits' persistent grids
 _SIGNATURES = {
     "bpt_pt_megakernel": ([_I] * 11 + [_P] * 8 + [_P] * 6 + [_P] * 2
                           + [_P] * 4 + [_P] + [_I] * 2 + [_P] * 2 + [_P], _I),
@@ -91,6 +92,8 @@ _SIGNATURES = {
     "bpt_plucker_hit": ([_I] * 5 + [_P] * 2 + [_P] * 8 + [_P] * 5 + [_P] * 3, _I),
     "bpt_clustered_blocks": ([], _I),
     "bpt_plucker_blocks": ([], _I),
+    "bpt_clustered_any_blocks": ([], _I),
+    "bpt_plucker_any_blocks": ([], _I),
     "bpt_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -30,11 +30,12 @@ Where the port differs from the Pallas kernels, which run 128-lane rows:
   the lowest triangle id wins; the Pallas roll shows lane l the slots in
   the order (l + s) mod 32.
 
-On the card the closest hit runs warp-wide (``csrc/cluster_hit.cuh``): a
-first kernel compacts the live lanes, then the warps of a persistent grid
+On the card both hits run warp-wide (``csrc/cluster_hit.cuh``): a first
+kernel compacts the live lanes, then the warps of a persistent grid
 slab-test the boxes in step and test an entered cluster's slots for one
 entering ray at a time, one slot a thread; ``Lanes.accept`` is the plain
-form of that take.  The any hit runs one thread a lane.
+form of that take (the closest hit's scan in slot order, the any hit's
+first valid slot).
 
 Dispatch is by device: a CPU tensor takes the plain version, a CUDA tensor
 launches the kernel or raises.  The wrappers count their launches in
@@ -245,14 +246,13 @@ def launch(what: str, symbol: str, tables, scene: SceneTensors, o: Vec3, d: Vec3
                 torch.empty(B, **kw), torch.empty(B, **kw)]
         ptrs = [x.data_ptr() for x in outs] + [None]
     counters = torch.zeros(4, dtype=torch.int64, device=dev)
-    # the closest hit's compacted lanes: two counters, then 32 slots a warp
-    sched = None if any_hit else torch.empty(2 + 32 * -(-B // 32), dtype=torch.int32, device=dev)
+    # the compacted lanes: two counters, then 32 slots a warp
+    sched = torch.empty(2 + 32 * -(-B // 32), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         code = getattr(build.load_library(), symbol)(
             int(any_hit), B, n_super, n_clusters, scene.num_tris, table.data_ptr(),
             blocks.data_ptr(), *(x.data_ptr() for x in ins), *ptrs, counters.data_ptr(),
-            None if sched is None else sched.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            sched.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check(code, what)
     return (*outs, counters)
 

@@ -16,7 +16,8 @@ order the four dot products ``w_ab``, ``w_bc``, ``w_ca``, ``pn``, each summed
 over the 10 features in order.  With ``denom = w_ab + w_bc + w_ca`` a
 triangle passes on ``|denom| >= MT_EPSILON``, the signs of ``w_ca``,
 ``w_ab``, ``w_bc`` and ``w_ab + w_bc`` agreeing with ``denom``'s, and
-``t = pn / denom`` in [tmin, tmax] (no T_MIN test) and below t_best; u =
+``t = pn / denom`` in [tmin, tmax] (no T_MIN test) and below t_best (inf
+at first: the any hit takes no t that overflows); u =
 w_ca / denom, v = w_ab / denom, the triangle id 32 c + row, the lowest row
 winning a tie.  The any hit ends the lane at its first hit.  A lane with
 tmax <= 0 is dead.
@@ -102,12 +103,7 @@ def plucker_closest_plain(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax):
 plucker_closest_plain.calls = 0
 
 
-def _chop_tables(scene: SceneTensors):
-    tab = plucker_tables(scene)
-    return 0, tab.n_clusters, tab.aabb, tab.blocks
-
-
-def _closest_tables(scene: SceneTensors):
+def _group_tables(scene: SceneTensors):
     tab = plucker_tables(scene)
     return tab.n_groups, tab.n_clusters, tab.table, tab.packed
 
@@ -119,7 +115,7 @@ def plucker_closest(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax):
     miss; u, v [B] f32; counters int64[4])."""
     if _device_of(tmax).type == "cpu":
         return plucker_closest_plain(scene, o, d, tmin, tmax)
-    out = launch("plucker_closest", "bpt_plucker_hit", _closest_tables, scene, o, d, tmin,
+    out = launch("plucker_closest", "bpt_plucker_hit", _group_tables, scene, o, d, tmin,
                  tmax, any_hit=False)
     plucker_closest.launches += 1
     return out
@@ -148,7 +144,7 @@ def plucker_any(scene: SceneTensors, o: Vec3, d: Vec3, tmin, tmax):
     bool, counters int64[4])."""
     if _device_of(tmax).type == "cpu":
         return plucker_any_plain(scene, o, d, tmin, tmax)
-    out = launch("plucker_any", "bpt_plucker_hit", _chop_tables, scene, o, d, tmin, tmax,
+    out = launch("plucker_any", "bpt_plucker_hit", _group_tables, scene, o, d, tmin, tmax,
                  any_hit=True)
     plucker_any.launches += 1
     return out

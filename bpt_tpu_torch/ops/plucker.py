@@ -20,13 +20,13 @@ The tables, as float32 tensors on the scene's device:
 - ``aabb`` [C*6]: each chop cluster's box (lo3, hi3);
 - ``blocks`` [C, 128, 10]: rows 0-31 w_ab, 32-63 w_bc, 64-95 w_ca, 96-127
   plane of the cluster's 32 triangles; the rows of unused slots are zero
-  (denominator 0: they never pass).  The any hit reads these two;
+  (denominator 0: they never pass).  The plain versions read these two;
 - ``table`` [C*6 + G*6]: ``aabb``, then the boxes of G groups of 16
   consecutive chop clusters, each the min / max of its members' boxes;
 - ``packed`` [C, 22, 32]: the coefficients of ``blocks`` that are not
   zero by construction (each edge row's first 6, the plane row's last 4),
   slot-minor, so that thread s of a warp reads slot s's with coalesced
-  loads.  The closest hit reads these two (csrc/plucker.cu).
+  loads.  The kernels read these two (csrc/plucker.cu).
 
 ``bpt_tpu`` pads the feature dimension to 128 for the TPU's matrix unit;
 the port keeps the 10 features it uses.

@@ -224,15 +224,17 @@
    differ from the default route's image and peak device memory; times
    each kernel at the main path's own shapes (camera bounce 1, B =
    1,048,576; the shadow wave of camera vertex 1, B = 10,485,760).
-   21b. The warp-wide closest hits (clustered_closest, plucker_closest;
-   cluster_edge_phase) against their plain versions, t, tri, u, v to the
-   bit and the counters exact, on cluster_edge_lanes' cases: the coffee
-   stand-in at B = 1, 31 and 37; 2,048 lanes all dead, one live a warp,
-   origins on a chop or rolled cluster box's plane with that direction
-   component zero, tmin below T_MIN, tmax = inf; rays at a duplicated
-   sphere whose twin triangles tie at equal t (the ties counted).  Each
-   kernel's whole launch of the tmin-below-T_MIN case equals its launches
-   on every 3rd and every 7th lane.
+   21b. The warp-wide clustered hits (clustered_closest, plucker_closest,
+   clustered_any, plucker_any; cluster_edge_phase) against their plain
+   versions, t, tri, u, v or the any answer to the bit and the counters
+   exact, on cluster_edge_lanes' cases: the coffee stand-in at B = 1, 31
+   and 37; 2,048 lanes all dead, one live a warp, origins on a chop or
+   rolled cluster box's plane with that direction component zero, tmin
+   below T_MIN, tmax = inf; rays at a duplicated sphere whose twin
+   triangles tie at equal t (the ties counted); a lane whose Plücker t
+   overflows to +inf with tmax = inf (no hit).  Each kernel's whole launch
+   of the tmin-below-T_MIN case equals its launches on every 3rd and every
+   7th lane.
 22.The refilling wave kernels' edge cases on the 964-triangle scene of
    tests/torch_parity.py (refill_cases): B = 1, 31 and 37, four times
    closest_bvh's persistent grid and 5 lanes more, every lane inactive,
@@ -386,8 +388,10 @@ HBM_BPS, FP32_OPS = 3.35e12, 67e12
 MT_OPS, SLAB_OPS = 52, 25
 # FP32 operations one Plücker triangle test needs (plucker.cu): the three
 # edge rows' 6 nonzero terms each, 33; the plane row's 3 terms and its
-# constant, 6; the sign tests, reciprocal, t and the interval, 23.
-# plucker_any issues 99: it also multiplies the rows' 24 zero coefficients
+# constant, 6; the sign tests, reciprocal, t and the interval, 23.  Both
+# Plücker kernels read a triangle's 22 nonzero coefficients and add each
+# row's zero products once (a lane-serial sum over the [C, 128, 10] rows,
+# as the plain version runs it, takes 99)
 PLUCKER_OPS = 62
 COFFEE_YAML = "scenes/coffee/coffee_standin.yaml"
 TPU_BENCH_COFFEE_RAYS = 11_110_273  # BENCH_r03/r04.json; printed, not checked
@@ -656,16 +660,24 @@ def walks_on_kernels():
         soa._kernel_route = route
 
 
-def big_scene(dev):
-    """tests/torch_parity.py::big_scene: a metal UV sphere on a floor under
-    a quad light, 964 triangles, over the brute-force mode's 512."""
+def big_builder(spheres=1):
+    """The SceneBuilder of tests/torch_parity.py::big_scene: a metal UV
+    sphere (``spheres`` times over, in one place) on a floor under a quad
+    light."""
     from bpt_tpu_torch.scene.builder import MaterialSpec as MS, SceneBuilder
 
     b = SceneBuilder()
-    b.add_uv_sphere((0, 1, 0), 1.0, MS.metal((0.8, 0.8, 0.8), 0.05))
+    for _ in range(spheres):
+        b.add_uv_sphere((0, 1, 0), 1.0, MS.metal((0.8, 0.8, 0.8), 0.05))
     b.add_quad((-10, 0, -10), (20, 0, 0), (0, 0, 20), MS.lambertian((0.6, 0.6, 0.6)))
     b.add_quad((-2, 6, -2), (4, 0, 0), (0, 0, 4), MS.diffuse_light((10, 10, 10)))
-    return b.build(device=dev)
+    return b
+
+
+def big_scene(dev):
+    """tests/torch_parity.py::big_scene: 964 triangles, over the
+    brute-force mode's 512."""
+    return big_builder().build(device=dev)
 
 
 def cluster_bound(name, c, lanes_b, live, tab_bytes, slabs=None) -> tuple[float, str]:
@@ -676,7 +688,7 @@ def cluster_bound(name, c, lanes_b, live, tab_bytes, slabs=None) -> tuple[float,
     a slab test, 52 a Möller–Trumbore test, 62 a Plücker test (what it
     needs: PLUCKER_OPS) and 21 a Plücker cluster's features.  ``slabs``,
     where given, replaces c[0] as the slab tests the launch needs
-    (plucker_closest: plucker_closest_needs)."""
+    (plucker_closest_needs, plucker_any_needs)."""
     out = 1 if name.endswith("any") else 16
     n_slab = c[0] if slabs is None else slabs
     ops = (n_slab * SLAB_OPS + c[1] * 21 + c[2] * PLUCKER_OPS
@@ -684,21 +696,14 @@ def cluster_bound(name, c, lanes_b, live, tab_bytes, slabs=None) -> tuple[float,
     return bound(lanes_b * (4 + out) + live * 7 * 4 + tab_bytes, ops)
 
 
-def plucker_closest_needs(aabb, o, d, tmax, t, group=16, chunk=1 << 16) -> tuple[int, int]:
-    """(slab tests, table bytes) that plucker_closest needs for one launch
-    over the chop boxes ``aabb`` [C*6]: a live lane (tmax > 0) slab-tests
-    the ceil(C / group) group boxes, each the min / max of ``group``
-    consecutive chop boxes, and the chop boxes of each group whose box it
-    enters with the bound min(t, tmax), t its closest hit (inf on a miss),
-    the entry clamped to T_MIN and NaN slab terms unconstrained: a search
-    that ends at t must open each such group to show that nothing in it is
-    closer.  The kernel counts C slab tests a lane, as the lane-serial loop
-    ran them, and skips only groups that no lane of a warp enters, so it
-    runs at least these.  The table bytes: the chop and group boxes and the
-    22 coefficients of each of a cluster's 32 slots (ops/plucker.py's
-    ``table`` and ``packed``), each read once.  The group boxes are built
-    here from ``aabb``, so that tools/ab_cluster_kernels.py counts the same
-    bound for a copy of the package whose tables have no groups."""
+def chop_groups_entered(aabb, o, d, tmax, lim, group=16, chunk=1 << 16):
+    """The groups of ``group`` consecutive chop boxes of ``aabb`` [C*6] (the
+    Plücker kernels' second level, built here from ``aabb``, so that a copy
+    of the package whose tables have no groups is counted alike) that each
+    live lane (tmax > 0) enters with the bound ``lim`` (one a live lane),
+    the entry clamped to T_MIN and NaN slab terms unconstrained.  Yields
+    (members of each group [G], first live lane of the chunk, entered [n,
+    G]) for each chunk of live lanes."""
     import torch
 
     from bpt_tpu_torch.ops.intersect import T_MIN
@@ -713,24 +718,77 @@ def plucker_closest_needs(aabb, o, d, tmax, t, group=16, chunk=1 << 16) -> tuple
     live = tmax > 0
     org = torch.stack(list(o), dim=1)[live]
     inv = 1.0 / torch.stack(list(d), dim=1)[live]
-    lim = torch.minimum(t[live], tmax[live])
-    slabs = G * org.shape[0]
     for s in range(0, org.shape[0], chunk):
         og, iv = org[s:s + chunk, None], inv[s:s + chunk, None]
         t0, t1 = (glo[None] - og) * iv, (ghi[None] - og) * iv
         nan = torch.isnan(t0) | torch.isnan(t1)
         lo = torch.where(nan, -math.inf, torch.minimum(t0, t1)).amax(dim=2)
         hi = torch.where(nan, math.inf, torch.maximum(t0, t1)).amin(dim=2)
-        ok = torch.minimum(hi, lim[s:s + chunk, None]) > torch.clamp_min(lo, T_MIN)
-        slabs += int((ok.to(torch.int64) * members).sum())
-    return slabs, 4 * (6 * (C + G) + 22 * 32 * C)
+        yield members, s, torch.minimum(hi, lim[s:s + chunk, None]) > torch.clamp_min(lo, T_MIN)
+
+
+def plucker_table_bytes(aabb, group=16) -> int:
+    """Bytes of the Plücker kernels' tables over the chop boxes ``aabb``
+    [C*6], each read once: the chop and group boxes and the 22
+    coefficients of each of a cluster's 32 slots (ops/plucker.py's
+    ``table`` and ``packed``)."""
+    C = aabb.numel() // 6
+    return 4 * (6 * (C + -(-C // group)) + 22 * 32 * C)
+
+
+def plucker_closest_needs(aabb, o, d, tmax, t, group=16, chunk=1 << 16) -> tuple[int, int]:
+    """(slab tests, table bytes) that plucker_closest needs for one launch
+    over the chop boxes ``aabb`` [C*6]: a live lane (tmax > 0) slab-tests
+    the ceil(C / group) group boxes, each the min / max of ``group``
+    consecutive chop boxes, and the chop boxes of each group whose box it
+    enters with the bound min(t, tmax), t its closest hit (inf on a miss):
+    a search that ends at t must open each such group to show that nothing
+    in it is closer.  The kernel counts C slab tests a lane, as the
+    lane-serial loop ran them, and skips only groups that no lane of a warp
+    enters, so it runs at least these.  The table bytes:
+    plucker_table_bytes."""
+    import torch
+
+    live = tmax > 0
+    lim = torch.minimum(t[live], tmax[live])
+    slabs = 0
+    for members, _, ok in chop_groups_entered(aabb, o, d, tmax, lim, group, chunk):
+        slabs += ok.numel() + int((ok.to(torch.int64) * members).sum())
+    return slabs, plucker_table_bytes(aabb, group)
+
+
+def plucker_any_needs(aabb, o, d, tmax, tri, group=16, chunk=1 << 16) -> tuple[int, int]:
+    """(slab tests, table bytes) that plucker_any needs for one launch over
+    the chop boxes ``aabb`` [C*6]: a live lane (tmax > 0) whose first hit in
+    chop-cluster order is triangle ``tri`` (-1 for none: the plain
+    traversal's ``Lanes.tri``), in chop cluster k = tri // 32 and so in
+    group k // group, slab-tests the group boxes up to k's group (all
+    ceil(C / group) without a hit) and, of each of them whose box it enters
+    with the bound tmax, the chop boxes: all of them before k's group, up to
+    k in it.  The kernel counts k + 1 (or C) slab tests a lane, as the
+    lane-serial loop ran them.  The table bytes: plucker_table_bytes."""
+    import torch
+
+    live = tmax > 0
+    k_hit = tri[live].to(torch.int64) // 32
+    slabs = 0
+    for members, s, ok in chop_groups_entered(aabb, o, d, tmax, tmax[live], group, chunk):
+        G = members.numel()
+        k = k_hit[s:s + ok.shape[0], None]
+        g = torch.arange(G, device=ok.device)[None]
+        hit_g = torch.where(k >= 0, k // group, G)  # G: no hit, every group
+        tested = torch.where(g < hit_g, members[None],
+                             torch.where(g == hit_g, k - group * g + 1, 0))
+        slabs += int(torch.clamp(hit_g + 1, max=G).sum()) + int((ok * tested).sum())
+    return slabs, plucker_table_bytes(aabb, group)
 
 
 def cluster_ptxas(lines) -> dict:
     """ptxas's registers and spill bytes of the four clustered hit kernels
-    (cluster_closest<RolledMT | PluckerChop>, cluster_any<...>; an earlier
-    build's cluster_hit<..., false> and cluster_hit<..., true> for the
-    closest and any hits) in the lines of a build's log:
+    (cluster_closest<RolledMT | PluckerChop>, cluster_any<...>, the any
+    hits' name whether they take the compacted lanes or a thread a lane; an
+    earlier build's cluster_hit<..., false> and cluster_hit<..., true> for
+    the closest and any hits) in the lines of a build's log:
     {"clustered_closest": {...}, ..., "plucker_any": {...}}."""
     import re
 
@@ -754,24 +812,48 @@ def dup_scene(dev):
     """big_scene with its UV sphere added twice: each sphere triangle has an
     identical twin beside it in BVH leaf order, mostly in the same cluster,
     so a ray through the sphere meets candidates of equal t (ties)."""
-    from bpt_tpu_torch.scene.builder import MaterialSpec as MS, SceneBuilder
+    return big_builder(spheres=2).build(device=dev)
 
-    b = SceneBuilder()
-    for _ in range(2):
-        b.add_uv_sphere((0, 1, 0), 1.0, MS.metal((0.8, 0.8, 0.8), 0.05))
-    b.add_quad((-10, 0, -10), (20, 0, 0), (0, 0, 20), MS.lambertian((0.6, 0.6, 0.6)))
-    b.add_quad((-2, 6, -2), (4, 0, 0), (0, 0, 4), MS.diffuse_light((10, 10, 10)))
+
+OVERFLOW_TRIANGLE = ((-1e12, -1e12, 3e11), (1e12, -2e11, -1e12), (-1e11, 1e12, 1e12))
+
+
+def overflow_scene(dev):
+    """big_scene with one more triangle, tilted, of edges ~2e12: a ray of
+    length 1e-31 aimed at it from 1e9 away (overflow_lane) meets it at t ~
+    1e40, which overflows to +inf in float32 while the Plücker test's
+    denominator (~5e-7) passes MT_EPSILON and its signs agree."""
+    from bpt_tpu_torch.scene.builder import MaterialSpec as MS
+
+    b = big_builder()
+    b.add_triangle(*OVERFLOW_TRIANGLE, MS.lambertian((0.5, 0.5, 0.5)))
     return b.build(device=dev)
 
 
+
+def overflow_lane():
+    """(origin, direction) [3] float32 of overflow_scene's lane: 1e9 off
+    the big triangle's centroid along its normal, aimed back at it with a
+    direction of length 1e-31 (each component a normal float)."""
+    import numpy as np
+
+    a, b, c = (np.array(v) for v in OVERFLOW_TRIANGLE)
+    n = np.cross(b - a, c - a)
+    n /= np.linalg.norm(n)
+    return ((a + b + c) / 3 + 1e9 * n).astype(np.float32), (-1e-31 * n).astype(np.float32)
+
+
 def cluster_edge_lanes(coffee, dup, seed=5) -> dict:
-    """The clustered closest hits' edge cases, {name: (scene, o, d, tmin,
-    tmax)}, numpy-seeded: random rays in the coffee stand-in's bounds with
-    per-lane intervals at B = 1, 31 and 37; all lanes dead; one live lane a
-    warp; rays at the duplicated sphere of ``dup`` (equal-t ties); origins
-    on a plane of a chop cluster's and of a rolled cluster's box with that
-    axis' direction component zero (NaN slab terms); tmin below T_MIN (0 or
-    negative: Plücker's hits in [tmin, T_MIN)); tmax = inf on every lane."""
+    """The clustered hits' edge cases, {name: (scene, o, d, tmin, tmax)},
+    numpy-seeded: random rays in the coffee stand-in's bounds with per-lane
+    intervals at B = 1, 31 and 37; all lanes dead; one live lane a warp;
+    rays at the duplicated sphere of ``dup`` (equal-t ties); origins on a
+    plane of a chop cluster's and of a rolled cluster's box with that axis'
+    direction component zero (NaN slab terms); tmin below T_MIN (0 or
+    negative: Plücker's hits in [tmin, T_MIN)); tmax = inf on every lane;
+    and on overflow_scene (on ``dup``'s device) a warp of random rays about
+    the sphere whose lane 0 is overflow_lane, tmax = inf: its Plücker t
+    overflows to +inf, which the plain version's t < inf refuses."""
     import numpy as np
     import torch
 
@@ -831,14 +913,21 @@ def cluster_edge_lanes(coffee, dup, seed=5) -> dict:
     o, d = rays(B)
     out["tmax = inf"] = case(coffee, o, d, np.full(B, T_MIN, np.float32),
                              np.full(B, np.inf, np.float32))
+    B = 32
+    o = g.uniform(-3.0, 3.0, (B, 3)).astype(np.float32)
+    d = g.normal(size=(B, 3)).astype(np.float32)
+    o[0], d[0] = overflow_lane()
+    out["t overflows"] = case(overflow_scene(dup.device), o, d, np.full(B, T_MIN, np.float32),
+                              np.full(B, np.inf, np.float32))
     return out
 
 
 def bits_differ(kout, pout):
-    """[B] bool: the lanes where any of (t, tri, u, v) differs in any bit."""
+    """[B] bool: the lanes where any of the outputs, (t, tri, u, v) or the
+    any answer, differs in any bit."""
     import torch
 
-    diff = torch.zeros_like(kout[1], dtype=torch.bool)
+    diff = torch.zeros_like(kout[0], dtype=torch.bool)
     for k, p in zip(kout, pout):
         if k.dtype == torch.float32:
             k, p = k.view(torch.int32), p.view(torch.int32)
@@ -847,11 +936,12 @@ def bits_differ(kout, pout):
 
 
 def cluster_edge_phase(dev, card, coffee) -> dict:
-    """Phase 21b: clustered_closest and plucker_closest, warp-wide, against
-    their plain versions on cluster_edge_lanes' cases, every output to the
-    bit and the counters exact; and each kernel's whole launch of the
-    "tmin below T_MIN" case against its launches on every 3rd and every 7th
-    lane.  Returns {kernel: {case: (B, live, hits, counters)}}."""
+    """Phase 21b: the four clustered hits, warp-wide, against their plain
+    versions on cluster_edge_lanes' cases, every output (t, tri, u, v or the
+    any answer) to the bit and the counters exact; and each kernel's whole
+    launch of the "tmin below T_MIN" case against its launches on every 3rd
+    and every 7th lane.  Returns {kernel: {case: (B, live, hits,
+    counters)}}."""
     import torch
 
     from bpt_tpu_torch.core.vec3 import Vec3
@@ -870,17 +960,19 @@ def cluster_edge_phase(dev, card, coffee) -> dict:
           f"{best.numel()} lanes meet two or more triangles at their closest t")
     check(ties > 0, "phase 21b: no lane of the duplicated-triangle case meets a tie")
     report = {}
-    for name, kern, plain in (("clustered_closest", cw.clustered_closest,
-                               cw.clustered_closest_plain),
-                              ("plucker_closest", kp.plucker_closest,
-                               kp.plucker_closest_plain)):
+    for name, kern, plain in (
+            ("clustered_closest", cw.clustered_closest, cw.clustered_closest_plain),
+            ("plucker_closest", kp.plucker_closest, kp.plucker_closest_plain),
+            ("clustered_any", cw.clustered_any, cw.clustered_any_plain),
+            ("plucker_any", kp.plucker_any, kp.plucker_any_plain)):
         rep = report[name] = {}
         for case, (scene, o, d, tmin, tmax) in cases.items():
             kout = kern(scene, o, d, tmin, tmax)
             pout = plain(scene, o, d, tmin, tmax)
-            diff = int(bits_differ(kout[:4], pout[:4]).sum())
-            kc, pc = kout[4].tolist(), pout[4].tolist()
-            B, live, hits = tmax.numel(), int((tmax > 0).sum()), int((pout[1] >= 0).sum())
+            diff = int(bits_differ(kout[:-1], pout[:-1]).sum())
+            kc, pc = kout[-1].tolist(), pout[-1].tolist()
+            B, live = tmax.numel(), int((tmax > 0).sum())
+            hits = int(pout[0].sum()) if len(pout) == 2 else int((pout[1] >= 0).sum())
             print(f"phase 21b: {name} {case} (B={B}, {live} live, {hits} hits): {diff} lanes "
                   f"differ in any bit from the plain version; counters kernel {kc} plain {pc}")
             check(diff == 0 and kc == pc, f"{name} {case}: {diff} lanes differ, counters "
@@ -892,7 +984,7 @@ def cluster_edge_phase(dev, card, coffee) -> dict:
             sl = torch.arange(0, tmax.numel(), s, device=dev)
             sub = kern(scene, Vec3(*(x[sl] for x in o)), Vec3(*(x[sl] for x in d)), tmin[sl],
                        tmax[sl])
-            n = int(bits_differ([x[sl] for x in full[:4]], sub[:4]).sum())
+            n = int(bits_differ([x[sl] for x in full[:-1]], sub[:-1]).sum())
             print(f"phase 21b: {name}: its launch on one lane in {s} of the tmin-below-T_MIN "
                   f"case differs from the whole launch on {n} lanes ({card})")
             check(n == 0, f"{name}: a strided launch differs from the whole launch")
@@ -4150,7 +4242,7 @@ def main() -> int:
 
     # the coffee stand-in: its torch walks take 10-15 s a bounce whatever
     # the lane count (the longest walk's steps), so the plain PT version
-    # runs at 8x8 pixels and depth 2 (bdpt-mis: 4 pixels of the main path,
+    # runs at 8x8 pixels and depth 2 (bdpt-mis: a pixel of the main path,
     # phase 16); at the real shapes, and at depth 80, the plain estimator
     # runs over closest_bvh / any_bvh (walks_on_kernels)
     kout, pout, p_ms, _ = walk_pixels("pt_megakernel_pixels_walk", coffee,
@@ -4500,8 +4592,8 @@ def main() -> int:
     }
     cl_kernels = tuple(v[1] for v in clustered.values())
     cl_plains = tuple(v[2] for v in clustered.values())
-    cl_tab = {"clustered": sum(t.numel() * t.element_size() for t in cluster_tables(coffee)[:2]),
-              "plucker": sum(t.numel() * t.element_size() for t in plucker_tables(coffee)[:2])}
+    # the rolled kernels' tables; the Plücker ones' come from plucker_*_needs
+    cl_tab = sum(t.numel() * t.element_size() for t in cluster_tables(coffee)[:2])
     B = 65536
     o_p, d_p, _ = wave_rays(ccc, torch.arange(B, device=dev) * 4, 1, key, dev)
     lo, hi = (x.cpu().numpy() for x in (coffee.bvh_min[0], coffee.bvh_max[0]))
@@ -4650,10 +4742,14 @@ def main() -> int:
                        plain_shape=f"every {stride}th lane of {what}, {n_sl} lanes "
                                    f"({live_sl} live)" if stride > 1 else
                                    f"{what}, all {n_sl} lanes ({live_sl} live)")
-            slabs, tab = (plucker_closest_needs(plucker_tables(coffee).aabb, args[1], args[2],
-                                                args[-1], full[0])
-                          if name == "plucker_closest" else
-                          (None, cl_tab["plucker" if name.startswith("plucker") else "clustered"]))
+            aabb = plucker_tables(coffee).aabb
+            if name == "plucker_closest":
+                slabs, tab = plucker_closest_needs(aabb, args[1], args[2], args[-1], full[0])
+            elif name == "plucker_any":  # the lanes' first hits from the plain traversal
+                slabs, tab = plucker_any_needs(aabb, args[1], args[2], args[-1],
+                                               kp._plucker(*args, any_hit=True).tri)
+            else:
+                slabs, tab = None, cl_tab
             res["bound"] = cluster_bound(name, c21, Bm, live, tab, slabs)
             needs = "" if slabs is None else f", {slabs} slab tests needed"
             print(f"phase 21: {name}, {what} (B={Bm}, {live} live): kernel {ms21:.3f} ms, "
@@ -4669,7 +4765,7 @@ def main() -> int:
         del cl21, an21, args, kw
         lap(f"phase 21 ({impl})")
 
-    # ---- phase 21b: the warp-wide closest hits' edge cases, to the bit
+    # ---- phase 21b: the warp-wide clustered hits' edge cases, to the bit
     edge21 = cluster_edge_phase(dev, card, coffee)
     lap("phase 21b")
 
@@ -4739,9 +4835,12 @@ def main() -> int:
                             scratch_bytes=bk.walk_scratch_bytes(grid16 * pk.WALK_BLOCK, 80,
                                                                 True))
     cl_ptx = cluster_ptxas(build.library_path().with_suffix(".log").read_text().splitlines())
-    with torch.cuda.device(dev):  # the closest hits' persistent grids
-        cl_grid = {"clustered_closest": build.load_library().bpt_clustered_blocks(),
-                   "plucker_closest": build.load_library().bpt_plucker_blocks()}
+    with torch.cuda.device(dev):  # the clustered hits' persistent grids
+        lib = build.load_library()
+        cl_grid = {"clustered_closest": lib.bpt_clustered_blocks(),
+                   "plucker_closest": lib.bpt_plucker_blocks(),
+                   "clustered_any": lib.bpt_clustered_any_blocks(),
+                   "plucker_any": lib.bpt_plucker_any_blocks()}
     cl_replaces = {"clustered_closest": "cluster_wave.py:212", "clustered_any": "cluster_wave.py:254",
                    "plucker_closest": "plucker.py:332", "plucker_any": "plucker.py:364"}
     cl_entries = [{
@@ -4766,8 +4865,8 @@ def main() -> int:
         "general_interval_max_abs_err": r["general_err"],
         "registers": cl_ptx.get(k, {}).get("registers"),
         "spill_bytes": cl_ptx.get(k, {}).get("spill_bytes"),
-        **({"grid_blocks": cl_grid[k]} if k in cl_grid else {}),
-        **({"edge_cases": edge21[k]} if k in edge21 else {}),
+        "grid_blocks": cl_grid[k],
+        "edge_cases": edge21[k],
     } for k, r in cl_res.items()]
     def defocus_keys(name):
         r = res13[name]

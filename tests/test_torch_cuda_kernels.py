@@ -794,16 +794,23 @@ def test_clustered_dispatch_on_card_matches_plain(switch, monkeypatch):
     assert torch.equal(hit, hit_p) and bool(got.hit.any()) and not bool(got.hit[~mask].any())
 
 
-# ---- the warp-wide clustered closest hits: edge cases, to the bit
+# ---- the warp-wide clustered hits: edge cases, to the bit
 
 EDGE_CASES = ["B=1", "B=31", "B=37", "all dead", "one live lane a warp", "duplicated triangles",
-              "zero direction on a box plane", "tmin below T_MIN", "tmax = inf"]
+              "zero direction on a box plane", "tmin below T_MIN", "tmax = inf", "t overflows"]
+# "roll" and "plucker": the closest hits; "roll any", "plucker any": the any hits
+EDGE_IMPLS = ["roll", "plucker", "roll any", "plucker any"]
+
+
+def _edge_fns(impl):
+    fns = _clustered_fns(impl.split()[0])
+    return fns[2:] if impl.endswith("any") else fns[:2]
 
 
 @pytest.fixture(scope="module")
 def edge_lanes():
-    """chip_smoke.py's edge cases of the clustered closest hits on
-    big_scene (the duplicated sphere for the ties), seed 19."""
+    """chip_smoke.py's edge cases of the clustered hits on big_scene (the
+    duplicated sphere for the ties), seed 19."""
     import chip_smoke
 
     if not torch.cuda.is_available():
@@ -813,41 +820,45 @@ def edge_lanes():
 
 
 @pytest.mark.parametrize("case", EDGE_CASES)
-@pytest.mark.parametrize("impl", ["roll", "plucker"])
+@pytest.mark.parametrize("impl", EDGE_IMPLS)
 def test_clustered_closest_edge_cases_bitwise(impl, case, edge_lanes):
-    """The warp-wide clustered_closest / plucker_closest against their plain
-    versions: t, tri, u, v to the bit, counters exact."""
+    """The warp-wide clustered_closest / plucker_closest (and
+    clustered_any / plucker_any) against their plain versions: t, tri, u, v
+    (the any answer) to the bit, counters exact."""
     from chip_smoke import bits_differ
 
-    closest, closest_plain = _clustered_fns(impl)[:2]
+    kern, plain = _edge_fns(impl)
     scene, o, d, tmin, tmax = edge_lanes[case]
-    n = closest.launches
-    got = closest(scene, o, d, tmin, tmax)
-    want = closest_plain(scene, o, d, tmin, tmax)
+    n = kern.launches
+    got = kern(scene, o, d, tmin, tmax)
+    want = plain(scene, o, d, tmin, tmax)
     torch.cuda.synchronize()
-    assert closest.launches == n + 1
-    assert not bool(bits_differ(got[:4], want[:4]).any())
-    assert got[4].tolist() == want[4].tolist()
+    assert kern.launches == n + 1
+    assert not bool(bits_differ(got[:-1], want[:-1]).any())
+    assert got[-1].tolist() == want[-1].tolist()
+    hits = got[0] if impl.endswith("any") else got[1] >= 0
     if case == "all dead":
-        assert got[4].tolist() == [0, 0, 0, 0] and not bool((got[1] >= 0).any())
+        assert got[-1].tolist() == [0, 0, 0, 0] and not bool(hits.any())
     elif case != "B=1":
-        assert bool((got[1] >= 0).any())
+        assert bool(hits.any())
+    if case == "t overflows" and impl == "plucker any":
+        assert not bool(hits[0])  # its t is +inf: no hit
 
 
-@pytest.mark.parametrize("impl", ["roll", "plucker"])
+@pytest.mark.parametrize("impl", EDGE_IMPLS)
 def test_clustered_closest_matches_its_strided_launches(impl, edge_lanes):
     """A whole launch equals, on every 3rd and every 7th lane, its launches
     on those lanes alone: a lane's answer does not depend on its warp."""
     from chip_smoke import bits_differ
 
-    closest = _clustered_fns(impl)[0]
+    kern = _edge_fns(impl)[0]
     scene, o, d, tmin, tmax = edge_lanes["tmin below T_MIN"]
-    full = closest(scene, o, d, tmin, tmax)
+    full = kern(scene, o, d, tmin, tmax)
     for s in (3, 7):
         sl = torch.arange(0, tmax.numel(), s, device="cuda")
-        sub = closest(scene, Vec3(*(x[sl] for x in o)), Vec3(*(x[sl] for x in d)), tmin[sl],
-                      tmax[sl])
-        assert not bool(bits_differ([x[sl] for x in full[:4]], sub[:4]).any())
+        sub = kern(scene, Vec3(*(x[sl] for x in o)), Vec3(*(x[sl] for x in d)), tmin[sl],
+                   tmax[sl])
+        assert not bool(bits_differ([x[sl] for x in full[:-1]], sub[:-1]).any())
 
 
 # ---- the refilling wave kernels: closest_bvh and pt_wave_bounce on a

@@ -15,16 +15,19 @@ calls after a warm-up):
   closest and 10 any launches of one coffee bdpt-mis 512x512 / 4 spp /
   depth 10 render (camera bounce 1 is closest launch 1, the shadow wave of
   camera vertex 1 any launch 1), on its own recorded inputs, with its live
-  lanes, bound (``chip_smoke.cluster_bound``; for ``plucker_closest`` the
-  slab tests and tables it needs, ``chip_smoke.plucker_closest_needs``,
-  in every copy), the share of the bound's FP32 operations in slab tests
-  and cluster features, counters and a sha256 of its outputs and
-  counters; their sums; the render's wall (median of 3 after a warm-up)
-  and framebuffer sha256;
+  lanes, bound (``chip_smoke.cluster_bound``; for ``plucker_closest`` and
+  ``plucker_any`` the slab tests and tables they need,
+  ``chip_smoke.plucker_closest_needs`` and ``plucker_any_needs``, the
+  latter over the plain traversal's first hits, in every copy), the share
+  of the bound's FP32 operations in slab tests and cluster features,
+  counters and a sha256 of its outputs and counters; their sums; the
+  render's wall (median of 3 after a warm-up), peak device memory over
+  those 3 and framebuffer sha256;
 - for the first copy only, the mean number of a warp's 32 lanes that enter
-  a cluster the warp tests, on camera bounce 1 and on the last closest
-  launch: the plain version run on 64 warps from the middle of the
-  launch's live lanes, its ``Lanes.accept`` calls read per warp;
+  a cluster the warp tests, on camera bounce 1 and the last closest
+  launch, and on any launch 1 and the last any launch: the plain version
+  run on 64 warps from the middle of the launch's live lanes, its
+  ``Lanes.accept`` calls read per warp;
 - 1,048,576 random rays in the scene's bounds with per-lane intervals (as
   chip_smoke.py phase 20: tmin from [0, 0.1] on half the lanes and T_MIN
   on the rest, tmax = inf on every 7th lane, every 8th lane dead) through
@@ -32,8 +35,9 @@ calls after a warm-up):
 - ``chip_smoke.cluster_edge_lanes``' edge cases through each kernel
   (sha256 only);
 - ptxas's registers and spills of the four clustered hit kernels, the
-  blocks of a closest launch (the copy's grid query; a copy without one
-  launches a thread a lane, and its line says so), and a sha256 of the
+  blocks of a closest and of an any launch (the copy's grid queries; a
+  copy without one launches a thread a lane, and its line says so), and a
+  sha256 of the
   SASS (cuobjdump) of the clustered hit kernels (``cluster_closest``,
   ``cluster_any``, or an earlier copy's ``cluster_hit``) and of
   ``closest_bvh``, ``any_bvh`` and ``pt_wave_bounce``.
@@ -113,13 +117,16 @@ def recording(mod, name):
 
 def renders(cfg):
     render(coffee, cfg, seed=0)  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
     rs = [render(coffee, cfg, seed=0) for _ in range(3)]
+    peak = torch.cuda.max_memory_allocated(dev)
     fb = hashlib.sha256(np.ascontiguousarray(rs[0].framebuffer_sum).tobytes()).hexdigest()[:16]
     same = all(np.array_equal(r.framebuffer_sum, rs[0].framebuffer_sum) for r in rs[1:])
     walls = [r.stats.wall_seconds for r in rs]
     st = rs[0].stats
     return (f"wall median {statistics.median(walls):.6f} s {[round(w, 6) for w in walls]}, "
-            f"rays {st.rays_traced}, shadow {st.shadow_rays}, framebuffer sha256 {fb}"
+            f"rays {st.rays_traced}, shadow {st.shadow_rays}, peak device memory "
+            f"{peak / 2**30:.3f} GiB, framebuffer sha256 {fb}"
             + ("" if same else " (renders differ)"))
 
 
@@ -185,9 +192,14 @@ for impl, var, val, mod, names in (
             res, ms = timed(lambda: fn(*args))
             c = res[-1].tolist()
             live = int((args[4] > 0).sum())
-            slabs, tb = (here.plucker_closest_needs(plucker_tables(coffee).aabb, args[1], args[2],
-                                                    args[4], res[0])
-                         if name == "plucker_closest" else (c[0], tab))
+            aabb = plucker_tables(coffee).aabb
+            if name == "plucker_closest":
+                slabs, tb = here.plucker_closest_needs(aabb, args[1], args[2], args[4], res[0])
+            elif name == "plucker_any":  # the lanes' first hits from the plain traversal
+                slabs, tb = here.plucker_any_needs(aabb, args[1], args[2], args[4],
+                                                   kp._plucker(*args, any_hit=True).tri)
+            else:
+                slabs, tb = c[0], tab
             b = here.cluster_bound(name, c, args[4].numel(), live, tb, slabs)[0]
             total += ms
             bound_total += b
@@ -198,16 +210,19 @@ for impl, var, val, mod, names in (
                    f"{bound_total:.4f} ms")
         out += lines
     if FIRST:
-        plain = getattr(mod, names[0] + "_plain")
-        for n in (1, len(closest_calls) - 1):
-            out.append(f"{names[0]} launch {n}, lanes entering a cluster a warp tests: "
-                       f"{entering(names[0], plain, closest_calls[n])}")
-    query = {"clustered_closest": "bpt_clustered_blocks", "plucker_closest": "bpt_plucker_blocks"}
+        for name, calls in ((names[0], closest_calls), (names[1], any_calls)):
+            plain = getattr(mod, name + "_plain")
+            for n in (1, len(calls) - 1):
+                out.append(f"{name} launch {n}, lanes entering a cluster a warp tests: "
+                           f"{entering(name, plain, calls[n])}")
+    query = {"clustered_closest": "bpt_clustered_blocks", "plucker_closest": "bpt_plucker_blocks",
+             "clustered_any": "bpt_clustered_any_blocks", "plucker_any": "bpt_plucker_any_blocks"}
     lib = build.load_library()
-    blocks = (f"{getattr(lib, query[names[0]])()} blocks of 128 threads (its grid query)"
-              if hasattr(lib, query[names[0]]) else
-              "no grid query: a thread a lane, ceil(B / 128) blocks")
-    out.append(f"{names[0]}'s launch: {blocks}")
+    for name in names:
+        blocks = (f"{getattr(lib, query[name])()} blocks of 128 threads (its grid query)"
+                  if hasattr(lib, query[name]) else
+                  "no grid query: a thread a lane, ceil(B / 128) blocks")
+        out.append(f"{name}'s launch: {blocks}")
     del closest_calls, any_calls
 
 # random rays in the scene's bounds, per-lane intervals (chip_smoke.py phase 20's)
