@@ -138,18 +138,20 @@ bdpt_megakernel_plain.calls = 0
 
 
 def stratum_plain(scene, i, j, pix_ids, cam13, key, depth: int, sqrt_spp: int,
-                  k: int, mis: bool = False):
+                  k, mis: bool = False):
     """Stratum k of ``bdpt_megakernel_pixels_plain`` on the active lanes
     (pix_ids >= 0): (radiance [n_active, 3], rays, shadow rays, extra) of
-    the samples pix*spp + k, on the kernel's jitter and stream."""
+    the samples pix*spp + k, on the kernel's jitter and stream.  ``k``: one
+    stratum for every lane, or a [B] int tensor, each lane's own."""
     idx = torch.nonzero(pix_ids >= 0).squeeze(1)
     iv, jv = i[idx], j[idx]
-    rid = pix_ids[idx].to(torch.int64) * (sqrt_spp * sqrt_spp) + k
+    kv = k[idx].to(torch.int64) if torch.is_tensor(k) else torch.full_like(idx, k)
+    rid = pix_ids[idx].to(torch.int64) * (sqrt_spp * sqrt_spp) + kv
     u0, u1 = rng.bdpt_raygen_jitter(key, rid)
     zero = torch.zeros_like(u0)
     origins, dirs = generate_rays(
-        _camera_from_table(cam13), iv, jv, torch.full_like(iv, float(k % sqrt_spp)),
-        torch.full_like(iv, float(k // sqrt_spp)), torch.stack([u0, u1, zero, zero], -1))
+        _camera_from_table(cam13), iv, jv, (kv % sqrt_spp).to(iv.dtype),
+        (kv // sqrt_spp).to(iv.dtype), torch.stack([u0, u1, zero, zero], -1))
     sources = rng.bdpt_kernel_stream_uniforms_fn(key, rid, depth, origins.dtype,
                                                  scene.num_volumes)
     return _radiance(scene, origins, dirs, depth, sources, mis)

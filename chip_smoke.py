@@ -356,6 +356,18 @@
    PT render over [cuda:0] x 2, equal to render()'s to the bit.  The
    kernels line lists closest_bvh_f64 and any_bvh_f64 as entries of their
    own, their launches those of (b).
+27. The north-star's shapes (northstar_phase; tools/torch_northstar.py
+   renders it at 1024 spp).  (a) The glass stand-in (510 triangles) at
+   1920x1080, 1 spp, depth 80 with pt, bdpt and bdpt-mis through render():
+   route "fused", 8 pixels-mode launches each (the last chunk 238,592
+   pixels), nothing else and no plain version, images finite and not
+   black, rays > 0; walls printed.  (b) The image's last 32 pixels at
+   strata [1020, 1024) of 1024 spp, depth 80 (sample ids up to
+   2,123,366,399), each pixels-mode kernel launched on that stratum range
+   alone and held against its plain version over the same samples, rtol
+   1e-4 / atol 1e-6 (PT) or 1e-5 (BDPT) on >= 99.9% of lanes, counters
+   exact.  The pt_megakernel and bdpt_megakernel entries of the kernels
+   line gain the launches of (a) and the error of (b).
 
 Each phase prints its seconds, and the script its total.  The second-to-last line is a JSON object
 describing the kernels, each with its bound: the larger of the bytes it
@@ -3172,6 +3184,174 @@ def f64_entries(f64) -> list:
     return rows
 
 
+# phase 27's shapes: the north-star's image, strata and depth
+# (tools/torch_northstar.py renders it at 1024 spp); its renders here take
+# 1 spp; the lanes held against the plain versions are the image's last
+# NS_PIXELS pixels at strata NS_STRATA, the last stratum range a 2^18-pixel
+# chunk of it launches (pt_kernel.stratum_ranges)
+NS_SIZE, NS_SQRT_SPP, NS_DEPTH = (1920, 1080), 32, 80
+NS_PIXELS, NS_STRATA = 32, (1020, 1024)
+
+
+@contextlib.contextmanager
+def strata_only(k0: int, k1: int):
+    """The pixels-mode wrappers' launch plan (``walk_launches``) cut to the
+    strata [k0, k1): one kernel launch over them, then one ``strata_sum``
+    from zeros, as a call's first range is summed."""
+    import torch
+
+    from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
+    from bpt_tpu_torch.ops.kernels import pt_kernel as pk
+
+    def plan(B, pixels, spp, launch, dev):
+        rows = torch.empty((3, k1 - k0, B), dtype=torch.float32, device=dev)
+        launch(k0, k1 - k0, rows)
+        return pk.strata_sum(rows, torch.empty((3, B), dtype=torch.float32, device=dev),
+                             first=True)
+
+    saved = pk.walk_launches, bk.walk_launches
+    pk.walk_launches = bk.walk_launches = plan
+    try:
+        yield
+    finally:
+        pk.walk_launches, bk.walk_launches = saved
+
+
+def northstar_phase(dev, card, lap) -> dict:
+    """Phase 27, the north-star on the card (tools/torch_northstar.py runs
+    it at 1024 spp).  (a) The glass stand-in (510 triangles) at 1920x1080,
+    1 spp, depth 80, seed 0, with pt, bdpt and bdpt-mis through render(),
+    every count 0 before each: route "fused", megakernel_reject_reason
+    empty, 8 pixels-mode launches (default_chunk_size's 2^18-pixel chunks,
+    the last one 238,592 pixels), no other kernel and no plain version, the
+    image finite and not black, rays > 0; walls printed.  (b) The image's
+    last 32 pixels at strata [1020, 1024) of 1024 spp, depth 80 (sample ids
+    up to 2,123,366,399): pt_megakernel_pixels and bdpt_megakernel_pixels
+    (bdpt, bdpt-mis) launched on that range alone (strata_only), against
+    their plain versions over the same four samples, one call with a sample
+    a lane (PT: the plain pixels mode; BDPT: bdpt_kernel.stratum_plain),
+    summed in stratum order, which sweep the scene's triangles as the
+    brute-force kernels do (the scene's BVH dropped), so that every counter
+    counts the same: radiance within rtol 1e-4 / atol 1e-6 (PT) or 1e-5
+    (BDPT) on >= 99.9% of lanes, counters exact.  Returns the launches of
+    (a) and the worst error of (b) by kernel."""
+    import numpy as np
+    import torch
+
+    from bpt_tpu_torch.core import rng
+    from bpt_tpu_torch.models import render as render_mod
+    from bpt_tpu_torch.models.camera import camera_constants
+    from bpt_tpu_torch.ops.kernels import bdpt_kernel as bk
+    from bpt_tpu_torch.ops.kernels import pt_kernel as pk
+    from bpt_tpu_torch.parallel.worker import launch_counts
+    from bpt_tpu_torch.scene.loader import load_scene_from_yaml
+
+    loaded = load_scene_from_yaml("scenes/glass/glass_standin.yaml", device=dev, verbose=False)
+    scene = loaded.scene
+    W, H = NS_SIZE
+    npix = W * H
+    chunk = render_mod.default_chunk_size(npix)
+    n_chunks = -(-npix // chunk)
+    check((chunk, n_chunks, npix - (n_chunks - 1) * chunk) == (1 << 18, 8, 238_592),
+          f"phase 27: the north-star's chunks are {chunk} x {n_chunks}")
+    out = {"launches": {}, "err": {}, "walls": {}}
+    for integ in ("pt", "bdpt", "bdpt-mis"):
+        cfg = dataclasses.replace(loaded.camera, image_width=W, aspect_ratio=W / H,
+                                  samples_per_pixel=1, max_depth=NS_DEPTH, integrator=integ)
+        reason = pk.megakernel_reject_reason(scene, integ)
+        route = render_mod._route(scene, cfg, integ, None)
+        check(reason == "" and route == "fused" and cfg.image_height == H,
+              f"phase 27a: glass {integ}: reason {reason!r}, route {route}")
+        zero_launch_counts()
+        res = render_mod.render(scene, cfg, seed=0)
+        launched, calls = launch_counts()
+        name = "pt_megakernel_pixels" if integ == "pt" else "bdpt_megakernel_pixels"
+        fb, st = res.framebuffer_sum, res.stats
+        check(launched == {name: n_chunks} and not calls,
+              f"phase 27a: glass {integ}: launches {launched}, plain calls {calls}")
+        check(bool(np.isfinite(fb).all()) and float(fb.mean()) > 0.0 and st.rays_traced > 0
+              and (st.shadow_rays > 0) == (integ != "pt"),
+              f"phase 27a: glass {integ} image not finite, black or without rays")
+        out["launches"][integ] = launched[name]
+        out["walls"][integ] = st.wall_seconds
+        print(f"phase 27a: render glass {integ} {W}x{H} 1 spp depth {NS_DEPTH} seed 0 (route "
+              f"{route}, {n_chunks} chunks of {chunk} pixels, the last {npix - 7 * chunk}): wall "
+              f"{st.wall_seconds:.6f} s, rays {st.rays_traced}, shadow {st.shadow_rays}, "
+              f"{st.rays_traced / st.wall_seconds / 1e6:.2f} Mrays/s; launches {launched}, "
+              f"plain calls {calls} ({card})")
+    lap("phase 27a")
+
+    # ---- (b) the largest sample ids against the plain versions
+    spp = NS_SQRT_SPP ** 2
+    cfg = dataclasses.replace(loaded.camera, image_width=W, aspect_ratio=W / H,
+                              samples_per_pixel=spp, max_depth=NS_DEPTH)
+    cam = pk.camera_table(camera_constants(cfg, torch.float32, dev))
+    plain_scene = dataclasses.replace(scene, use_bvh=False)
+    key = rng.prng_key(0)
+    pix = torch.arange(npix - NS_PIXELS, npix, dtype=torch.int32, device=dev)
+    i, j = (pix % W).float(), (pix // W).float()
+    strata = range(*NS_STRATA)
+    check(int(pix[-1]) * spp + strata[-1] == 2_123_366_399 < 2**31,
+          "phase 27b: the north-star's last sample id")
+    for integ in ("pt", "bdpt", "bdpt-mis"):
+        t0 = time.monotonic()
+        mis = integ == "bdpt-mis"
+        if integ == "pt":
+            mk = pk.pt_megakernel_pixels
+            args = (scene, i, j, i * 0, j * 0, pix, cam, key, NS_DEPTH)
+            kw = dict(spp_loop=spp, sqrt_spp=NS_SQRT_SPP)
+        else:
+            mk = bk.bdpt_megakernel_pixels
+            args = (scene, i, j, pix, cam, key, NS_DEPTH, NS_SQRT_SPP)
+            kw = dict(mis=mis)
+        n = mk.launches, pk.strata_sum.launches
+        with strata_only(*NS_STRATA):
+            kout = mk(*args, **kw)
+        torch.cuda.synchronize()
+        launched = (mk.launches - n[0], pk.strata_sum.launches - n[1])
+        # the plain versions take the four strata as lanes, stratum-major
+        k = torch.arange(*NS_STRATA, device=dev).repeat_interleave(NS_PIXELS)
+        p4, i4, j4 = pix.repeat(len(strata)), i.repeat(len(strata)), j.repeat(len(strata))
+        if integ == "pt":
+            r = pk.pt_megakernel_pixels_plain(
+                plain_scene, i4, j4, (k % NS_SQRT_SPP).float(), (k // NS_SQRT_SPP).float(),
+                p4.long() * spp + k, cam, key, NS_DEPTH)
+            rad, counts = torch.stack(r[:3], 1), [r[3], *r[4]]
+        else:
+            rad, rays, shadow, extra = bk.stratum_plain(plain_scene, i4, j4, p4, cam, key,
+                                                        NS_DEPTH, NS_SQRT_SPP, k, mis)
+            counts = [rays, shadow, *extra]
+        rad = rad.reshape(len(strata), NS_PIXELS, 3)
+        total = rad[0]
+        for r_s in rad[1:]:  # stratum order, as strata_sum adds them
+            total = total + r_s
+        pout = (*total.unbind(1), *counts[:-4], torch.stack(counts[-4:]))
+        atol = ATOL if integ == "pt" else BDPT_ATOL
+        f, e = compare(f"phase 27b: {mk.__name__} {integ}, the last {NS_PIXELS} pixels at "
+                       f"strata [{NS_STRATA[0]}, {NS_STRATA[1]}) of {spp}, depth {NS_DEPTH}",
+                       kout, pout, exact_counts=True, atol=atol)
+        check(launched == (1, 1), f"phase 27b: {integ} launched {launched}, not (1, 1)")
+        out["err"][integ] = e
+        print(f"phase 27b: {integ}: one launch of strata [{NS_STRATA[0]}, {NS_STRATA[1]}) and "
+              f"one strata_sum; {time.monotonic() - t0:.1f} s ({card})")
+    lap("phase 27b")
+    return out
+
+
+def northstar_keys(ns27, *integrators) -> dict:
+    """A pixels-mode kernel's entries of phase 27 in the kernels line."""
+    return {
+        "northstar_launches": sum(ns27["launches"][i] for i in integrators),
+        "northstar_launches_path": f"{' and '.join(integrators)} renders of the glass stand-in, "
+                                   f"{NS_SIZE[0]}x{NS_SIZE[1]}, 1 spp, depth {NS_DEPTH} "
+                                   "(phase 27a)",
+        "northstar_max_abs_err": max(ns27["err"][i] for i in integrators),
+        "northstar_shape": f"the last {NS_PIXELS} pixels of the {NS_SIZE[0]}x{NS_SIZE[1]} "
+                           f"image at strata [{NS_STRATA[0]}, {NS_STRATA[1]}) of "
+                           f"{NS_SQRT_SPP ** 2}, depth {NS_DEPTH} (phase 27b)",
+    }
+
+
 class Laps:
     """Prints the seconds since the previous lap."""
 
@@ -4782,6 +4962,7 @@ def main() -> int:
     vol = volume_phases(dev, card, key, lap)
     dist25 = distributed_phases(dev, card, refs, coffee, lap)
     f64 = f64_phases(dev, card, lap)
+    ns27 = northstar_phase(dev, card, lap)
 
     # lanes in (pixels: i, j, sx, sy, id; rays: o, d, id), radiance out
     pt_tab = sum(t.numel() * t.element_size() for t in pk._pack_tables(scene))
@@ -4899,6 +5080,7 @@ def main() -> int:
         **defocus_keys("pt"),
         "persistent_blocks": brute_pt["blocks"],
         "edge_cases": brute_pt["cases"],
+        **northstar_keys(ns27, "pt"),
     }, {
         "name": "strata_sum",
         "route": "cuda",
@@ -4944,6 +5126,7 @@ def main() -> int:
         **defocus_keys("bdpt"),
         "persistent_blocks": brute22["blocks"],
         "edge_cases": brute22["cases"],
+        **northstar_keys(ns27, "bdpt", "bdpt-mis"),
     }, {
         "name": "closest_bvh",
         "route": "cuda",
