@@ -62,6 +62,7 @@ MAX_VOLS = 4
 MAX_VOL_TRIS = 64
 VOL_STRIDE = 10  # v0(3) e1(3) e2(3) owning-volume id
 VOLM_STRIDE = 2  # neg_inv_density, phase material id
+VOL_KEEP = 4  # the valid t's the override's one sweep keeps (csrc/volume.cuh)
 
 
 INTEGRATORS = ("pt", "bdpt", "bdpt-mis")

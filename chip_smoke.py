@@ -1998,19 +1998,24 @@ def vol_table_bytes(scene) -> int:
 def vol_test_count():
     """The boundary tests that the kernels' free-flight override
     (csrc/volume.cuh) issues on the rays of the plain run inside the
-    block.  Each override of a live lane sweeps every volume's own
-    triangles once (VT tests), and a volume's again where that first
-    probe, over the whole line, hit it.  Every plain version overrides
-    through ops.soa.volume_interaction, so this hooks it and the first
-    probe's _vol_closest, counting on the device without a sync.  Yields
-    a dict that holds, once the block ends, 'lanes' (the overrides) and
-    'tests'."""
+    block, counted two ways.  'tests', as the first version issued them:
+    each override of a live lane sweeps every volume's own triangles once
+    (VT tests), and a volume's again where that first probe, over the
+    whole line, hit it.  'issued', as the one-sweep probes (vol_probes)
+    issue them: each volume's triangles once, and once more where the
+    sweep dropped a valid t and kept none past t1 + 1e-4.  Every plain
+    version overrides through
+    ops.soa.volume_interaction, so this hooks it and the first probe's
+    _vol_closest, counting on the device without a sync.  Yields a dict
+    that holds, once the block ends, 'lanes' (the overrides), 'tests' and
+    'issued'."""
     import torch
 
     from bpt_tpu_torch.ops import soa
+    from bpt_tpu_torch.ops.kernels import pt_kernel as pk
 
     interaction, closest = soa.volume_interaction, soa._vol_closest
-    live, lanes, tests = [], [], []
+    live, lanes, tests, issued = [], [], [], []
 
     def hooked_interaction(scene, o, d, tmin, t_surf, u_rows, active):
         live[:] = [active]
@@ -2021,7 +2026,16 @@ def vol_test_count():
     def hooked_closest(scene, vid, o, d, tmin, tmax):
         t = closest(scene, vid, o, d, tmin, tmax)
         if not torch.is_tensor(tmin) and tmin == -torch.inf:  # the first probe
-            tests.append((live[0] & torch.isfinite(t)).sum() * (scene.vol_tri_vol == vid).sum())
+            rows = scene.vol_tri_vol == vid
+            n_v = rows.sum()
+            tests.append((live[0] & torch.isfinite(t)).sum() * n_v)
+            det, tt, u, v = soa._mt_all(scene.vol_v0[rows], scene.vol_e1[rows],
+                                        scene.vol_e2[rows], o, d)
+            ok = soa._mt_valid(det, tt, u, v, -torch.inf, torch.inf) & torch.isfinite(tt)
+            ts = torch.where(ok, tt, torch.inf).sort(dim=0).values
+            kept = ts[:pk.VOL_KEEP]
+            again = (ok.sum(0) > pk.VOL_KEEP) & ~(kept[1:] > kept[0] + 1e-4).any(0)
+            issued.append((live[0].sum() + (live[0] & again).sum()) * n_v)
         return t
 
     out = {}
@@ -2030,15 +2044,71 @@ def vol_test_count():
         yield out
     finally:
         soa.volume_interaction, soa._vol_closest = interaction, closest
-    out.update(lanes=int(sum(lanes)) if lanes else 0, tests=int(sum(tests)) if tests else 0)
+    out.update(lanes=int(sum(lanes)) if lanes else 0, tests=int(sum(tests)) if tests else 0,
+               issued=int(sum(issued)) if issued else 0)
 
 
 def vol_note(vt, rays: int) -> str:
     """What a bound counted of the override: its boundary tests and its
     lanes, beside the kernel's rays counter (a closest hit each; PT's also
     counts each path that reaches the depth limit)."""
-    return (f"{vt['tests']} boundary tests on {vt['lanes']} overrides of the plain run, "
+    return (f"{vt['issued']} boundary tests issued with the one-sweep probes, "
+            f"{vt['tests']} before them, on {vt['lanes']} overrides of the plain run, "
             f"the kernel's rays counter {rays}")
+
+
+VOL_EDGE_RAYS = (4096, 3)  # phase 24b's lines at the volumes' boundaries: B, depth
+
+
+def vol_edge_rays(scene, g, n):
+    """Lines at the volumes' boundaries, where the override's one-sweep
+    probes meet equal t's (tests/test_torch_volume_cull.py holds them on
+    such lines on the CPU): from far away at a boundary triangle's corner,
+    at a point of its edge, grazing its face at 1e-7 to 1e-2 radians, and
+    from an origin on the plane of a volume's bounding box with that
+    direction component zero.  (o, d) Vec3 of [n] on the scene's device."""
+    import numpy as np
+    import torch
+
+    from bpt_tpu_torch.core.vec3 import Vec3
+    from bpt_tpu_torch.ops.kernels import pt_kernel as pk
+
+    vol = pk.pack_vol_tables(scene)[0].reshape(pk.MAX_VOL_TRIS, pk.VOL_STRIDE)
+    vol = vol.cpu().double().numpy()
+    o, d = np.empty((n, 3)), np.empty((n, 3))
+    for i in range(n):
+        v = i % scene.num_volumes
+        rows = vol[vol[:, 9] == v]
+        v0, e1, e2 = np.split(rows[g.integers(len(rows)), :9], 3)
+        pts = np.concatenate([rows[:, 0:3], rows[:, 0:3] + rows[:, 3:6],
+                              rows[:, 0:3] + rows[:, 6:9]])
+        lo, hi = pts.min(0), pts.max(0)
+        size = float((hi - lo).max())
+        far = g.normal(size=3)
+        far = (lo + hi) / 2 + far / np.linalg.norm(far) * 3 * size
+        kind = (i // scene.num_volumes) % 4
+        if kind < 2:
+            tgt = v0 + (e1, e2, 0 * e1)[g.integers(3)] if kind == 0 else v0 + g.uniform() * e1
+            o[i], d[i] = far, (tgt - far) * 10.0 ** g.uniform(-2, 2)
+        elif kind == 2:
+            nrm = np.cross(e1, e2)
+            nrm /= np.linalg.norm(nrm)
+            along = g.normal(size=3)
+            along -= along.dot(nrm) * nrm
+            along /= np.linalg.norm(along)
+            ang = 10.0 ** g.uniform(-7, -2) * g.choice([-1.0, 1.0])
+            d[i] = along * np.cos(ang) + nrm * np.sin(ang)
+            a, b = g.uniform(size=2) * 0.5
+            o[i] = v0 + a * e1 + b * e2 - d[i] * g.uniform(0.5, 3) * size
+        else:
+            ax = g.integers(3)
+            o[i] = lo + g.uniform(-0.1, 1.1, 3) * (hi - lo)
+            o[i, ax] = (lo, hi)[g.integers(2)][ax]
+            d[i] = g.normal(size=3)
+            d[i, ax] = 0.0
+    ot = torch.from_numpy(o.astype(np.float32)).to(scene.device)
+    dt = torch.from_numpy(d.astype(np.float32)).to(scene.device)
+    return Vec3(*ot.unbind(1)), Vec3(*dt.unbind(1))
 
 
 def sliced_vs_plain(what, mk, plain, args, kw, stride, atol):
@@ -2153,7 +2223,7 @@ def volume_phases(dev, card, key, lap) -> dict:
         frac_pt, err_pt = min(frac_pt, f), max(err_pt, e)
     rays_ms = time_ms(lambda: pk.pt_megakernel(*a), reps=10)
     c = counters(kout)
-    rays_bound = bound(B * 40 + vol_table_bytes(scene), (c[3] + vt["tests"]) * MT_OPS)
+    rays_bound = bound(B * 40 + vol_table_bytes(scene), (c[3] + vt["issued"]) * MT_OPS)
     print(f"phase 24b: pt_megakernel volume mode, stream, B={B} depth={depth}: kernel "
           f"{rays_ms:.3f} ms, plain {p_ms:.3f} ms (one call), bound {rays_bound[0]:.4f} ms "
           f"({rays_bound[1]}; {c[3]} triangle tests, "
@@ -2174,7 +2244,7 @@ def volume_phases(dev, card, key, lap) -> dict:
     frac_pt, err_pt = min(frac_pt, f), max(err_pt, e)
     px_ms = time_ms(lambda: pk.pt_megakernel_pixels(*a, **kw), reps=10)
     c = counters(kout)
-    px_bound = bound(W * W * 32 + vol_table_bytes(scene), (c[3] + vt["tests"]) * MT_OPS)
+    px_bound = bound(W * W * 32 + vol_table_bytes(scene), (c[3] + vt["issued"]) * MT_OPS)
     print(f"phase 24b: pt_megakernel_pixels volume mode {W}x{W} x {S * S} spp depth "
           f"{pdepth}: kernel {px_ms:.3f} ms, plain {px_plain_ms:.3f} ms, bound "
           f"{px_bound[0]:.4f} ms ({px_bound[1]}; {c[3]} triangle tests, "
@@ -2212,11 +2282,11 @@ def volume_phases(dev, card, key, lap) -> dict:
                 bk.bdpt_megakernel_plain(scene, ov, dv, ids, key, depth)
             c = counters(full)
             b_rays_bound = bound(B * 40 + vol_table_bytes(scene),
-                                 (c[4] + vt["tests"]) * MT_OPS)
+                                 (c[4] + vt["issued"]) * MT_OPS)
             bpx_ms = time_ms(lambda: bk.bdpt_megakernel_pixels(*a), reps=5)
             cp = counters(kout)
             bpx_bound = bound(W * W * 24 + vol_table_bytes(scene),
-                              (cp[4] + vt_px["tests"]) * MT_OPS)
+                              (cp[4] + vt_px["issued"]) * MT_OPS)
             print(f"phase 24b: bdpt_megakernel volume mode bdpt: rays B={B} depth={depth} "
                   f"kernel {b_rays_ms:.3f} ms, plain on every {VOL_SLICE}th lane "
                   f"{b_plain_ms:.3f} ms, bound {b_rays_bound[0]:.4f} ms ({b_rays_bound[1]}; "
@@ -2228,6 +2298,25 @@ def volume_phases(dev, card, key, lap) -> dict:
                                  rays_bound=b_rays_bound, px_ms=bpx_ms,
                                  px_plain_ms=bpx_plain_ms, px_bound=bpx_bound)
     entry["bdpt"].update(frac=frac_b, err=err_b)
+    # the override's edge lanes: every lane of a launch against the plain
+    # version, counters exact
+    Be, de = VOL_EDGE_RAYS
+    oe, dee = vol_edge_rays(scene, g, Be)
+    ide = torch.arange(Be, dtype=torch.int32, device=dev)
+    ue = torch.from_numpy(g.uniform(size=(de * nu, Be)).astype(np.float32)).to(dev)
+    ue5 = torch.from_numpy(g.uniform(size=(bk.n_uniform_slots(de, scene.num_volumes), Be))
+                           .astype(np.float32)).to(dev)
+    for name, mk, plain, u, atol, mis in (
+            ("pt", pk.pt_megakernel, pk.pt_megakernel_plain, ue, ATOL, False),
+            ("bdpt", bk.bdpt_megakernel, bk.bdpt_megakernel_plain, ue5, BDPT_ATOL, False),
+            ("bdpt-mis", bk.bdpt_megakernel, bk.bdpt_megakernel_plain, None, BDPT_ATOL, True)):
+        kw_ = dict(uniforms=u, **({"mis": True} if mis else {}))
+        a = (scene, oe, dee, ide, key, de)
+        f, e = compare(f"phase 24b: {mk.__name__} volume mode {name} on {Be} lines at the "
+                       f"volumes' boundaries (corners, edges, grazing, box planes), depth {de}",
+                       mk(*a, **kw_), plain(*a, **kw_), exact_counts=True, atol=atol)
+        k = "pt" if name == "pt" else "bdpt"
+        entry[k]["frac"], entry[k]["err"] = min(entry[k]["frac"], f), max(entry[k]["err"], e)
     lap("phase 24b (BDPT)")
 
     # the walk mode and the wave on the 964-triangle scene with a volume box
@@ -2269,7 +2358,7 @@ def volume_phases(dev, card, key, lap) -> dict:
         w_ms = time_ms(lambda: mk(*a, uniforms=uu, **extra), reps=5)
         c = counters(kout)
         nodes, tests = (c[1], c[3]) if name == "pt" else (c[2], c[4])
-        wb = bound(Bw * 40 + tab, nodes * SLAB_OPS + (tests + vt["tests"]) * MT_OPS)
+        wb = bound(Bw * 40 + tab, nodes * SLAB_OPS + (tests + vt["issued"]) * MT_OPS)
         walk[name] = dict(frac=fr, err=er, ms=w_ms, plain_ms=w_plain_ms, bound=wb)
         print(f"phase 24b: {mk.__name__} walk volume mode {name} B={Bw} depth={dw} ({mode} "
               f"draws): kernel {w_ms:.3f} ms, plain {w_plain_ms:.3f} ms, bound {wb[0]:.4f} ms "
@@ -2325,7 +2414,7 @@ def volume_phases(dev, card, key, lap) -> dict:
         wk_ms = time_ms(lambda: pw.pt_wave(sc, owv, dwv, idw, key_pt, dv_), reps=5)
         c = counters(kout)
         wb = bound(Bv * 40 * dv_ + dv_ * (walk_table_bytes(sc) + vol_table_bytes(sc)),
-                   c[1] * SLAB_OPS + (c[3] + vt["tests"]) * MT_OPS)
+                   c[1] * SLAB_OPS + (c[3] + vt["issued"]) * MT_OPS)
         print(f"phase 24b: pt_wave volume mode, {tex_name}: kernels {wk_ms:.3f} ms (the "
               f"{dv_} bounces' walks and shades), plain {wp_ms:.3f} ms, bound {wb[0]:.4f} ms "
               f"({wb[1]}; {vol_note(vt, c[0])}) ({card})")
@@ -2391,7 +2480,7 @@ def volume_phases(dev, card, key, lap) -> dict:
     # subpaths, so they share one count
     vt_main = {}
     for name, bdpt in (("pt", False), ("bdpt", True)):
-        lanes = tests = rays = 0
+        lanes = tests = issued = rays = 0
         for k0 in range(0, S * S, STRATA_CHUNK):
             o_, d_, id_ = wave_rays(ccs, pixs, min(STRATA_CHUNK, S * S - k0), key, dev,
                                     first=k0, bdpt=bdpt)
@@ -2402,7 +2491,8 @@ def volume_phases(dev, card, key, lap) -> dict:
                     pr = pk.pt_megakernel_plain(scene, o_, d_, id_, rng.fold_in(key, 1),
                                                 cam_cfg.max_depth)
             lanes, tests, rays = lanes + vt["lanes"], tests + vt["tests"], rays + int(pr[3])
-        vt_main[name] = dict(lanes=lanes, tests=tests, rays=rays)
+            issued += vt["issued"]
+        vt_main[name] = dict(lanes=lanes, tests=tests, issued=issued, rays=rays)
     vt_main["bdpt-mis"] = vt_main["bdpt"]
     for integrator, (mk, a, kw_) in main_args.items():
         ms = time_ms(lambda: mk(*a, **kw_), reps=3)
@@ -2412,13 +2502,15 @@ def volume_phases(dev, card, key, lap) -> dict:
               f"cornell_smoke {integrator}: the plain run's rays {vt['rays']} against the "
               f"launch's {c[0]}")
         r = renders[integrator]
-        r["ms"], r["bound"] = ms, bound(npx * 32 + vol_table_bytes(scene),
-                                        (tests + vt["tests"]) * MT_OPS)
-        r["tests_main"], r["vol_tests_main"] = tests, vt["tests"]
+        nbytes = npx * 32 + vol_table_bytes(scene)
+        r["ms"], r["bound"] = ms, bound(nbytes, (tests + vt["issued"]) * MT_OPS)
+        r["bound_before"] = bound(nbytes, (tests + vt["tests"]) * MT_OPS)
+        r["tests_main"], r["vol_tests_main"] = tests, vt["issued"]
         print(f"phase 24c: {mk.__name__} {integrator} at the main path's shape ({npx} pixels x "
               f"{S * S} spp, depth {cam_cfg.max_depth}): {ms:.3f} ms, bound {r['bound'][0]:.4f} "
-              f"ms ({r['bound'][1]}; {tests} triangle tests, {vol_note(vt, c[0])}, the plain "
-              f"run's {vt['rays']}) ({card})")
+              f"ms ({r['bound'][1]}; {r['bound_before'][0]:.4f} ms charged as before the "
+              f"one-sweep probes; {tests} triangle tests, {vol_note(vt, c[0])}, the plain run's "
+              f"{vt['rays']}) ({card})")
     cli = subprocess.run([sys.executable, "-m", "bpt_tpu_torch.render",
                           "scenes/cornell_smoke.yaml", "--no-progress", "--output-dir", "output"],
                          capture_output=True, text=True, timeout=300)
@@ -2500,7 +2592,7 @@ def volume_entries(vol) -> list:
             launches=sum(r[i]["launches"] for i in integrators),
             launches_path=f"three renders of {smoke} with each of {', '.join(integrators)}",
             max_abs_err=k["err"], within_tol=k["frac"], ms=main["ms"], bound_ms=main["bound"][0],
-            bound_by=main["bound"][1],
+            bound_by=main["bound"][1], bound_charged_before_ms=main["bound_before"][0],
             shape=f"the one launch of a {integrators[0]} render of {smoke}",
             plain_ms=k["px_plain_ms"], plain_shape="cornell_smoke 64x64 x 4 spp, depth 16",
             small_ms=k["px_ms"], small_bound_ms=k["px_bound"][0],
